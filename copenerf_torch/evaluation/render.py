@@ -1,0 +1,124 @@
+"""Chunked full-image rendering (port of ``copenerf_tpu/evaluation/render.py``).
+
+The serving path: visualization, stage-1 depth extraction and the NVS/depth
+evaluation all render through ``ImageRenderer.render_image``. Pixel
+coordinates are generated on the device from ``(start, h, w)``; the padded
+tail of the last chunk clamps to the last pixel and is cut off on the host.
+Multi-process and mesh sharding wait for the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops.rays import rays_from_pixels
+from ..ops.renderer import RendererConfig, render
+
+
+class ImageRenderer:
+    """Chunked renderer for one renderer config on one device.
+
+    ``chunk`` is the MAX rays per chunk (default 32768). Per image the
+    effective chunk is the next power of two >= the pixel count (at least
+    ``min(1024, chunk)``), capped at ``chunk`` rounded down to a power-of-two
+    multiple of that minimum.
+    """
+
+    def __init__(self, rcfg: RendererConfig, chunk: int = 32768,
+                 device="cuda"):
+        self.rcfg = rcfg
+        self.device = resolve_device(device)
+        self.min_chunk = min(1024, max(chunk, 1))
+        self.chunk = self.min_chunk
+        while self.chunk * 2 <= chunk:
+            self.chunk *= 2
+
+    def _chunk(self, fields, chunk, start, h, w, camera_mat, world_mat,
+               scale_mat, time_step, near, far, cos_anneal_ratio):
+        dev = self.device
+        idx = torch.clamp(start + torch.arange(chunk, device=dev),
+                          max=h * w - 1)
+        row = torch.div(idx, w, rounding_mode="floor").float()
+        col = (idx % w).float()
+        pixels = torch.stack([2.0 * col / (w - 1.0) - 1.0,
+                              2.0 * row / (h - 1.0) - 1.0], dim=-1)
+        rays_o, rays_d, rays_d_norm = rays_from_pixels(
+            pixels, camera_mat, world_mat, scale_mat)
+        n = rays_o.shape[0]
+        near_v = torch.full((n, 1), float(near), device=dev)
+        far_v = torch.full((n, 1), float(far), device=dev)
+        out = render(fields, rays_o, rays_d, rays_d_norm, time_step, near_v,
+                     far_v, rcfg=self.rcfg,
+                     cos_anneal_ratio=cos_anneal_ratio,
+                     use_importance=True, train=False)
+        weights = out["weights"]                           # (N, S)
+        normals = out["normals"]                           # (N, S, 3)
+        normal_w = torch.sum(normals * weights[..., None], dim=1)
+        # Rotate into the anchor frame (world_mat == I is a no-op).
+        normal_w = normal_w @ world_mat[:3, :3].T
+        pts = out["sampled_points"]                        # (N, S, 3)
+        pts_t = pts @ world_mat[:3, :3].T + world_mat[:3, 3]
+        max_idx = torch.argmax(weights, dim=1)
+        pts_max = torch.gather(
+            pts_t, 1, max_idx[:, None, None].expand(n, 1, 3))[:, 0]
+        return {
+            "color": out["color_fine"],
+            "depth": out["depth_pred"][:, 0],
+            "weighted_z": out["weighted_z_vals"][:, 0],
+            "normal": normal_w,
+            "depth_highest": -pts_max[:, 2],
+            "weights": weights,
+            "pts": pts,
+        }
+
+    @torch.no_grad()
+    def render_image(self, fields, camera_mat, world_mat, scale_mat,
+                     time_step, resolution, depth_range, cos_anneal_ratio,
+                     want_pts: bool = False):
+        """Render a full (h, w) view. Returns a dict of numpy arrays:
+        color (h, w, 3), depth (h, w), weighted_z (h, w), normal (h, w, 3),
+        depth_highest (h, w) [, weights_flat/pts_flat when ``want_pts``]."""
+        param_dev = next(fields.parameters()).device
+        if param_dev.type != self.device.type:
+            raise ValueError(f"fields live on {param_dev}, renderer on "
+                             f"{self.device}")
+        h, w = int(resolution[0]), int(resolution[1])
+        n = h * w
+        chunk = self.min_chunk
+        while chunk < n and chunk < self.chunk:
+            chunk *= 2
+        n_total = n + ((-n) % chunk)
+
+        def mat(m):
+            return torch.as_tensor(np.asarray(m, np.float32),
+                                   device=self.device)
+
+        camera_mat, world_mat, scale_mat = (mat(camera_mat), mat(world_mat),
+                                            mat(scale_mat))
+        time_step = torch.tensor(float(time_step), device=self.device)
+        keys = ("color", "depth", "weighted_z", "normal", "depth_highest")
+        outs = {k: [] for k in keys}
+        extra = {"weights": [], "pts": []}
+        # Results stay on the device until the end: a host fetch per chunk
+        # would serialize against the next chunk's launches.
+        for i in range(0, n_total, chunk):
+            res = self._chunk(fields, chunk, i, h, w, camera_mat, world_mat,
+                              scale_mat, time_step, depth_range[0],
+                              depth_range[1], float(cos_anneal_ratio))
+            for k in keys:
+                outs[k].append(res[k])
+            if want_pts:
+                extra["weights"].append(res["weights"])
+                extra["pts"].append(res["pts"])
+
+        result = {}
+        for k, chunks in outs.items():
+            arr = torch.cat(chunks, 0)[:n].cpu().numpy()
+            result[k] = (arr.reshape(h, w, -1) if k in ("color", "normal")
+                         else arr.reshape(h, w))
+        if want_pts:
+            result["weights_flat"] = torch.cat(extra["weights"], 0)[:n].cpu().numpy()
+            result["pts_flat"] = torch.cat(extra["pts"], 0)[:n].cpu().numpy()
+        return result

@@ -1,0 +1,55 @@
+"""K2 — the no-grad SDF value sweep (``csrc/sdf_value.cu``).
+
+Replaces ``copenerf_tpu/ops/pallas/sdf_kernels.py`` ``value_kernel``
+(``FusedOps.value``). ``sdf_value(net, x)`` routes on the tensor's device:
+a CUDA tensor launches the kernel (or raises), a CPU tensor takes
+``sdf_value_plain``. There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .pack import check_sdf_geometry, pack_sdf_value, sdf_skip
+
+COUNTER = build.KernelCounter("sdf_value")
+
+
+def sdf_value_plain(net, x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (...,): ``sdf_apply(...)[..., 0]`` with the threshold
+    softplus, no autograd."""
+    with torch.no_grad():
+        return net(x)[..., 0]
+
+
+def sdf_value_cuda(net, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on (n, 4) contiguous f32 CUDA rows -> (n,)."""
+    cfg = net.cfg
+    check_sdf_geometry(cfg)
+    build.check_input(x, "x", cfg.d_in)
+    build.check_no_grad([x, *net.parameters()], "sdf_value")
+    params, offs = pack_sdf_value(net)
+    if params.device != x.device:
+        raise ValueError(f"weights on {params.device}, x on {x.device}")
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    lib = build.load_library()
+    code = lib.copenerf_sdf_value(
+        x.data_ptr(), out.data_ptr(), params.data_ptr(),
+        build.offsets(offs["w"]), build.offsets(offs["b"]), offs["w_last0"],
+        offs["b_last0"], x.shape[0],
+        len(cfg.dims) - 1, cfg.d_in, cfg.multires, cfg.d_hidden,
+        sdf_skip(cfg), float(cfg.scale),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(code, "sdf_value")
+    COUNTER.launches += 1
+    return out
+
+
+def sdf_value(net, x: torch.Tensor) -> torch.Tensor:
+    """SDF value of (..., 4) points -> (...,), no autograd."""
+    if x.device.type == "cpu":
+        return sdf_value_plain(net, x)
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, x.shape[-1])
+    return sdf_value_cuda(net, flat).reshape(lead)

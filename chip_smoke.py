@@ -8,23 +8,40 @@ Phases, each printed on its own line, any failure exits non-zero:
 1. device   card name, count, ``nvidia-smi`` name and power limit; TF32 off.
 2. build    nvcc builds every kernel in ``copenerf_torch/csrc`` (one process
             per source, in parallel); prints the build time and ptxas usage.
-3. kernels  each kernel against its plain PyTorch version on the card at the
-            main path's widths (the full-width SDF + color net of
+3. kernels  each forward kernel against its plain PyTorch version on the card
+            at the main path's widths (the full-width SDF + color net of
             configs/default.yaml, geometric init perturbed by ``perturb_`` so
             that the PE columns are not zero and the head's columns differ)
             and at a ragged row count; then CUDA-event times at the render
             chunk's shapes beside the plain version and the bound from FLOP
             and bytes counted from the shapes.
-4. main     ``ImageRenderer.render_image`` renders 3 views (the requests) of
+4. train_kernels  K1-bwd and K3 (fwd, bwd) through their autograd.Functions
+            against autograd of the plain versions on the same perturbed nets,
+            at 262,144 and 1,000 rows: K1 for sbar, gbar, cbar alone and all
+            three (no color cotangent on rows with a color ReLU within
+            KINK_MARGIN of its kink), every input and parameter gradient;
+            then CUDA-event times at the train step's shapes (131,072 rows;
+            the forward kernels too, for the step's kernels / glue split).
+5. main     ``ImageRenderer.render_image`` renders 3 views (the requests) of
             the full-width model (plain geometric init: the centre ray must
             meet the init sphere) at 180x320, chunk 32768, with poses from
             the motion chain and the pose retriever; launch counters are
             zeroed just before and read just after (4 value sweeps + 1
             render-core launch per chunk).
-5. card-cpu the same 1024 rays through ``render()`` on the card (kernels)
-            and on the CPU (plain versions), with the main path's nets and
-            with the perturbed ones, compared with stated tolerances.
-6. the ``{"kernels": [...]}`` line, then the contract line
+6. card-cpu the same 1024 rays through ``render()`` on the card (kernels) and
+            on the CPU (plain versions), with the main path's nets and with
+            the perturbed ones, compared with stated tolerances.
+7. train    30 stage-1 steps (``training/step.py``) of the full-width model on
+            a synthetic 31-frame 540x960 video, 1024 rays as 64 4x4 patches,
+            64 + 64 samples, flow-rgb and sdf-consistency on, motion trained;
+            one fixed batch (patches drawn once on the card); loss and ms per
+            step; launch counters zeroed just before and read just after (4
+            K2, 1 K1-fwd, 1 K1-bwd, 1 K3-fwd, 1 K3-bwd per step); the mean
+            step split into the kernels' times alone and the rest (glue).
+8. train_card_vs_cpu  one step with injected ray_idx (64 rays) and t_rand on
+            the card and on the CPU, main-path and perturbed nets: every
+            metric and both optimizer groups' gradients.
+9. the ``{"kernels": [...]}`` line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
@@ -46,6 +63,11 @@ VIEWS = 3
 RES = (180, 320)
 N_FRAMES = 31           # frames of the motion chain; views are 14, 15, 16
 DEVICE = "cuda"
+TRAIN_RES = (540, 960)  # the Tanks resolution of the reference protocol
+TRAIN_STEPS = 30
+STEP_ROWS = 1024 * 128  # rows of the field queries in one train step
+CAM_DIST = 1.0          # train camera to the init sphere (radius 0.5): it fills the view
+CHECK_ROWS = (262144, 1000)
 
 
 def fail(msg):
@@ -89,6 +111,40 @@ def k1_work(scfg, ccfg, n, sdf_net, color_net):
     color = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
     macs = fwd + sweep + color
     return 2 * macs * n, 60 * n + weight_bytes(sdf_net, color_net)
+
+
+def color_macs(ccfg):
+    dims = ccfg.dims
+    return sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+
+
+def k3_bwd_work(scfg, n, sdf_net):
+    """(FLOP, bytes) of K3-bwd on n rows: the forward recomputed, the
+    down-sweep and the weight reduction, each over the hidden layers and the
+    head's column 0; x and obar in (20 B), x_bar out (16 B) per row, the
+    weights read and their gradients written once."""
+    macs = 3 * (sdf_hidden_macs(scfg) + scfg.d_hidden)
+    return 2 * macs * n, 36 * n + 2 * weight_bytes(sdf_net)
+
+
+def k1_bwd_work(scfg, ccfg, n, sdf_net, color_net):
+    """(FLOP, bytes) of K1-bwd on n rows: the SDF forward and feature
+    recomputed, the gradient sweep, the color MLP forward and backward, the
+    channel-B up-sweep, the down-sweep (head, channel A over every layer,
+    channel B down to layer 1) and the weight reductions (two products per
+    SDF hidden layer, the head, its row-0 extra, the color layers); x, dirs,
+    sbar, gbar, cbar in (60 B), x_bar, dirs_bar out (28 B) per row, the
+    weights read and their gradients written once."""
+    from copenerf_torch.models.fields import idr_layer_dims
+
+    H = sdf_hidden_macs(scfg)
+    L0 = scfg.dims[0] * idr_layer_dims(scfg, 0)[1]
+    F = scfg.d_hidden * (scfg.d_out - 1)
+    C = color_macs(ccfg)
+    hd = scfg.d_hidden
+    macs = ((H + F) + (H + C) + (C + H) + (F + hd + H + (H - L0))
+            + (2 * H + hd * scfg.d_out + hd + C))
+    return 2 * macs * n, 88 * n + 2 * weight_bytes(sdf_net, color_net)
 
 
 def bound_ms(flop, nbytes):
@@ -270,6 +326,243 @@ def phase_kernels(fields):
     return results
 
 
+def rel_norm(a, b):
+    """||a - b|| / ||b|| (0 when both are 0)."""
+    nb = b.norm().item()
+    nd = (a - b).norm().item()
+    return nd / nb if nb > 0 else (0.0 if nd == 0 else float("inf"))
+
+
+GRAD_TOL = {"factor_of_plain": 2.0, "floor": 1e-5}
+# Rows where a color ReLU's f64 pre-activation lies within this of 0 get no
+# color cotangent in the K1-bwd checks: f32 rounding moves those
+# pre-activations by up to ~2e-6, and a ReLU that flips in one f32 version
+# and not in the other moves its row's gradients by far more than rounding.
+KINK_MARGIN = 2e-5
+
+
+def check_grads(what, names, got, plain, ref64, scales=None):
+    """Every gradient tensor of the kernel is held against an f64
+    evaluation of the plain version: its error norm must be at most 2x that
+    of the plain f32 version, or 1e-5 of the tensor's scale. The scale is
+    the f64 tensor's norm, or ``scales`` (for all cotangents at once, the
+    sum of the norms of each channel's gradient alone: an f32 sum is exact
+    to the rounding of its terms, not of its result, and in the SDF head's
+    g the channels' contributions cancel to a thirtieth of themselves).
+    Returns the largest |kernel - plain f32|."""
+    errs = []
+    for i, (nm, a, b, c) in enumerate(zip(names, got, plain, ref64)):
+        c = c.float()
+        nc = c.norm().item()
+        dk, dp = (a - c).norm().item(), (b - c).norm().item()
+        scale = scales[i] if scales else nc
+        errs.append((nm, rel_norm(a, c), rel_norm(b, c),
+                     dk <= max(GRAD_TOL["factor_of_plain"] * dp,
+                               GRAD_TOL["floor"] * scale)))
+    bad = [e[:3] for e in errs if not e[3]]
+    max_abs = max((a - b).abs().max().item() for a, b in zip(got, plain))
+    log("check", **what, tensors=len(errs),
+        worst_kernel_vs_f64=max(e[1] for e in errs),
+        worst_plain_vs_f64=max(e[2] for e in errs), max_abs_err=max_abs,
+        tolerances=GRAD_TOL)
+    if bad:
+        fail(f"{what}: {bad[:4]}")
+    return max_abs
+
+
+def _vjp(fn, inputs, params, cots):
+    """Gradients of every input and parameter of ``fn(*inputs)`` for
+    ``cots``; unreached ones as zeros."""
+    import torch
+
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    grads = torch.autograd.grad(fn(*ins), ins + params, cots, allow_unused=True)
+    return [g if g is not None else torch.zeros_like(t)
+            for g, t in zip(grads, ins + params)]
+
+
+def _vjp_slices(fn, inputs, params, cots, sl):
+    """``_vjp`` over row slices of ``sl`` rows: input gradients
+    concatenated, parameter gradients summed (the plain version's
+    double-backward graph of 262,144 full-width rows does not fit the
+    card)."""
+    import torch
+
+    n = inputs[0].shape[0]
+    acc = None
+    for i in range(0, n, sl):
+        g = _vjp(fn, [t[i:i + sl] for t in inputs], params,
+                 [c[i:i + sl] for c in cots])
+        if acc is None:
+            acc = [[x] for x in g[:len(inputs)]] + list(g[len(inputs):])
+        else:
+            for k in range(len(inputs)):
+                acc[k].append(g[k])
+            for k in range(len(inputs), len(g)):
+                acc[k] = acc[k] + g[k]
+    return [torch.cat(a) for a in acc[:len(inputs)]] + acc[len(inputs):]
+
+
+def phase_train_kernels(fields):
+    """K1-bwd and K3 through their autograd.Functions against autograd of
+    the plain versions (perturbed full-width nets), then times at the train
+    step's shapes."""
+    import torch
+    from copenerf_torch.ops.kernels import pack
+    from copenerf_torch.ops.kernels import rendercore as RC
+    from copenerf_torch.ops.kernels import sdf_value as SV
+    from copenerf_torch.ops.kernels import sdf_value_diff as SVD
+
+    sdf_net, color_net = fields["sdf"], fields["color"]
+    sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
+    scfg, ccfg = sdf_net.cfg, color_net.cfg
+    params = [*sdf_net.parameters(), *color_net.parameters()]
+    params64 = [*sdf64.parameters(), *color64.parameters()]
+    names = (["x", "dirs"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
+             + [f"color.{k}" for k, _ in color_net.named_parameters()])
+    sdf_params = list(sdf_net.parameters())
+    errs = {"rendercore_bwd": 0.0, "sdf_value_diff_fwd": 0.0,
+            "sdf_value_bwd": 0.0}
+    for n in CHECK_ROWS:
+        x, d = sample_rows(n, seed=n + 11)
+        g = torch.Generator(device=DEVICE).manual_seed(n)
+        full = [torch.randn((n, w), generator=g, device=DEVICE)
+                for w in (1, 4, 3)]
+        margin = RC.color_relu_margin(sdf64, color64, x.double(), d.double())
+        smooth = margin >= KINK_MARGIN
+        log("kinks", rows=n, margin=KINK_MARGIN,
+            cbar_zeroed_share=1.0 - smooth.float().mean().item())
+        full[2] = full[2] * smooth.float()[:, None]
+        del margin
+        chan_norms = []
+        for chan, on in (("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)),
+                         ("cbar", (0, 0, 1)), ("all", (1, 1, 1))):
+            cots = [c * m for c, m in zip(full, on)]
+            got = _vjp(lambda a, b: RC.rendercore_fwd(sdf_net, color_net, a, b),
+                       [x, d], params, cots)
+            ref = _vjp_slices(
+                lambda a, b: RC.rendercore_fwd_plain(sdf_net, color_net, a, b),
+                [x, d], params, cots, 32768)
+            ref64 = _vjp_slices(
+                lambda a, b: RC.rendercore_fwd_plain(sdf64, color64, a, b),
+                [x.double(), d.double()], params64, [c.double() for c in cots],
+                16384)
+            torch.cuda.synchronize()
+            scales = None
+            if chan == "all":
+                scales = [sum(t) for t in zip(*chan_norms)]
+            else:
+                chan_norms.append([c.norm().item() for c in ref64])
+            e = check_grads(dict(kernel="rendercore_bwd", rows=n, channel=chan),
+                            names, got, ref, ref64, scales)
+            errs["rendercore_bwd"] = max(errs["rendercore_bwd"], e)
+            del got, ref, ref64
+        xk = x.clone().requires_grad_(True)
+        v = SVD.sdf_value_diff(sdf_net, xk)
+        with torch.no_grad():
+            v_ref = SVD.sdf_value_diff_plain(sdf_net, x)
+        e_v = (v.detach() - v_ref).abs().max().item()
+        log("check", kernel="sdf_value_diff_fwd", rows=n, max_abs_err=e_v,
+            tol=1e-4)
+        if not e_v <= 1e-4:
+            fail(f"sdf_value_diff_fwd at {n} rows: {e_v} > 1e-4")
+        errs["sdf_value_diff_fwd"] = max(errs["sdf_value_diff_fwd"], e_v)
+        obar = full[0][:, 0].contiguous()
+        got = _vjp(lambda a: SVD.sdf_value_diff(sdf_net, a), [x], sdf_params,
+                   [obar])
+        ref = _vjp_slices(lambda a: SVD.sdf_value_diff_plain(sdf_net, a), [x],
+                          sdf_params, [obar], 65536)
+        ref64 = _vjp_slices(lambda a: SVD.sdf_value_diff_plain(sdf64, a),
+                            [x.double()], list(sdf64.parameters()),
+                            [obar.double()], 32768)
+        e = check_grads(dict(kernel="sdf_value_bwd", rows=n),
+                        ["x"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()],
+                        got, ref, ref64)
+        errs["sdf_value_bwd"] = max(errs["sdf_value_bwd"], e)
+        del x, d, got, ref, ref64, full
+        torch.cuda.empty_cache()
+
+    # Times at the train step's shapes: 1024 rays x 128 samples.
+    n = STEP_ROWS
+    x, d = sample_rows(n, seed=9)
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    cots = [torch.randn((n, w), generator=g, device=DEVICE) for w in (1, 4, 3)]
+    results = {}
+    with torch.no_grad():
+        rc_pack = pack.pack_rendercore(sdf_net, color_net)
+        v_pack = pack.pack_sdf_value_layers(pack.effective_layers(sdf_net),
+                                            with_wt=True)
+    k_ms = cuda_ms(lambda: RC.rendercore_bwd_cuda(scfg, ccfg, rc_pack, x, d,
+                                                  *cots), reps=3)
+    # The plain backward: autograd.grad over a prebuilt double-backward
+    # graph, in 4 slices of 32,768 rows (the whole graph does not fit).
+    p_ms = 0.0
+    for i in range(0, n, 32768):
+        xs = x[i:i + 32768].clone().requires_grad_(True)
+        ds = d[i:i + 32768].clone().requires_grad_(True)
+        out = RC.rendercore_fwd_plain(sdf_net, color_net, xs, ds)
+        cs = [c[i:i + 32768] for c in cots]
+        p_ms += cuda_ms(lambda: torch.autograd.grad(out, [xs, ds] + params, cs,
+                                                    retain_graph=True), reps=2)
+        del out
+    b, by = bound_ms(*k1_bwd_work(scfg, ccfg, n, sdf_net, color_net))
+    load = smi_under_load(lambda: RC.rendercore_bwd_cuda(
+        scfg, ccfg, rc_pack, x, d, *cots), k_ms)
+    log("time", kernel="rendercore_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
+        plain_note="autograd.grad of the plain version, 4 slices of 32768 rows",
+        bound_ms=b, bound_by=by, sm_clock_power_under_kernel=load)
+    results["rendercore_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
+                                      bound_ms=b, bound_by=by)]
+    torch.cuda.empty_cache()
+
+    k_ms = cuda_ms(lambda: SVD.launch_value(scfg, v_pack, x, SVD.FWD_COUNTER),
+                   reps=5)
+    p_ms = cuda_ms(lambda: SVD.sdf_value_diff_plain(sdf_net, x), reps=3)
+    b, by = bound_ms(*k2_work(scfg, n, sdf_net))
+    log("time", kernel="sdf_value_diff_fwd", rows=n, kernel_ms=k_ms,
+        plain_ms=p_ms, plain_note="the plain forward under autograd",
+        bound_ms=b, bound_by=by)
+    results["sdf_value_diff_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
+                                          bound_ms=b, bound_by=by)]
+    obar = cots[0][:, 0].contiguous()
+    k_ms = cuda_ms(lambda: SVD.sdf_value_bwd_cuda(scfg, v_pack, x, obar), reps=5)
+    xs = x.clone().requires_grad_(True)
+    out = SVD.sdf_value_diff_plain(sdf_net, xs)
+    p_ms = cuda_ms(lambda: torch.autograd.grad(out, [xs] + sdf_params, obar,
+                                               retain_graph=True), reps=3)
+    del out
+    b, by = bound_ms(*k3_bwd_work(scfg, n, sdf_net))
+    load = smi_under_load(lambda: SVD.sdf_value_bwd_cuda(scfg, v_pack, x, obar),
+                          k_ms)
+    log("time", kernel="sdf_value_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
+        plain_note="autograd.grad of the plain version", bound_ms=b,
+        bound_by=by, sm_clock_power_under_kernel=load)
+    results["sdf_value_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
+                                     bound_ms=b, bound_by=by)]
+
+    # The forward kernels at the step's shapes too (K2 at 1024 x 64 and
+    # 1024 x 16 rows, K1-fwd at 1024 x 128), for the step's breakdown.
+    step_ms = {k: v[0]["ms"] for k, v in results.items()}
+    step_bound = {k: v[0]["bound_ms"] for k, v in results.items()}
+    with torch.no_grad():
+        for rows in (n // 2, n // 8):
+            xk, _ = sample_rows(rows, seed=10)
+            step_ms[f"sdf_value_{rows}"] = cuda_ms(
+                lambda: SV.sdf_value_cuda(sdf_net, xk), reps=5)
+            step_bound[f"sdf_value_{rows}"] = bound_ms(
+                *k2_work(scfg, rows, sdf_net))[0]
+        step_ms["rendercore_fwd"] = cuda_ms(
+            lambda: RC.rendercore_fwd_cuda(sdf_net, color_net, x, d), reps=5)
+        step_bound["rendercore_fwd"] = bound_ms(
+            *k1_work(scfg, ccfg, n, sdf_net, color_net))[0]
+    log("step_shapes", rows=n, kernel_ms=step_ms, bound_ms=step_bound)
+    del x, d, cots, xs, xk
+    torch.cuda.empty_cache()
+    for k in results:
+        results[k] = {"max_abs_err": errs[k], "times": results[k]}
+    return results, step_ms
+
+
 def camera(h, w):
     """The reference's NDC-style K for a 60-degree horizontal field of view."""
     import numpy as np
@@ -351,7 +644,8 @@ def phase_main(cfg, fields, counters):
         # The centre ray meets the init sphere (radius 0.5, 2.5 away).
         if not 1.5 < center < 2.5:
             fail(f"view {i}: centre depth {center} misses the init sphere")
-    want = {"sdf_value": 4 * n_chunks, "rendercore_fwd": n_chunks}
+    want = {"sdf_value": 4 * n_chunks, "rendercore_fwd": n_chunks,
+            "rendercore_bwd": 0, "sdf_value_diff_fwd": 0, "sdf_value_bwd": 0}
     log("main", views=VIEWS, resolution=list(RES), chunk=CHUNK,
         chunks=n_chunks, launches=launches, expected=want,
         mean_view_ms=sum(view_ms) / VIEWS)
@@ -424,12 +718,233 @@ def phase_card_vs_cpu(cfg, fields, checked, view):
                          f"{e[stat]} > {lim}")
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def synthetic_video(seed):
+    """(31, 3, 540, 960) uint8 on the card: per channel a smooth sinusoid
+    whose phase moves from frame to frame, frequencies and phases from
+    ``seed``."""
+    import torch
+
+    h, w = TRAIN_RES
+    g = torch.Generator().manual_seed(seed)
+    freq = (torch.rand((3, 2), generator=g) * 0.02 + 0.005).to(DEVICE)
+    phase = (torch.rand((3,), generator=g) * 6.283).to(DEVICE)
+    yy, xx = torch.meshgrid(torch.arange(h, device=DEVICE, dtype=torch.float32),
+                            torch.arange(w, device=DEVICE, dtype=torch.float32),
+                            indexing="ij")
+    frames = []
+    for t in range(N_FRAMES):
+        ch = [0.5 + 0.4 * torch.sin(freq[c, 0] * xx + freq[c, 1] * yy
+                                    + phase[c] + 0.15 * t) for c in range(3)]
+        frames.append((torch.stack(ch) * 255.0).round().to(torch.uint8))
+    return torch.stack(frames)
+
+
+def train_setup(cfg, seed):
+    """(StepStatic, RendererConfig, batch) of the stage-1 step at the
+    reference protocol: image 16 of the video, the world camera 15 (the
+    middle frame), references 17-19 (``random_ref_interval`` 1, 2, 3), the
+    camera CAM_DIST from the init sphere's centre, one fixed set of 64 4x4 patches
+    and jitter drawn on the card (``inject_sampling``)."""
+    import torch
+    from copenerf_torch.ops.renderer import RendererConfig
+    from copenerf_torch.training import step as TS
+
+    tc = cfg["training"]
+    h, w = TRAIN_RES
+    n_rays = tc["n_training_points"]
+    rcfg = RendererConfig.from_cfg(cfg)
+    s = TS.StepStatic(
+        h=h, w=w, patch_size=tc["patch_size"], n_points=n_rays, stage1=True,
+        n_images=N_FRAMES, nb_sample_timestep=tc["nb_sample_timestep"],
+        n_ref=len(cfg["dataloading"]["random_ref_interval"]), train_motion=True,
+        sdf_cons_pose_grad=tc["sdf_consistency_enable_pose_grad"],
+        use_flow_rgb=True, use_sdf_consistency=True, inject_sampling=True)
+    world = torch.eye(4, device=DEVICE)
+    world[2, 3] = -CAM_DIST
+    K = torch.as_tensor(camera(h, w), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    image, world_cam = 16, N_FRAMES // 2
+    depth_range = cfg["rendering"]["depth_range"]
+    stage = 0
+    batch = {
+        "images_all": synthetic_video(seed),
+        "K_all": K.expand(N_FRAMES, 4, 4).contiguous(),
+        "ref_idxs": torch.tensor([image + i for i in
+                                  cfg["dataloading"]["random_ref_interval"]],
+                                 device=DEVICE),
+        "ref_in_list": torch.ones(3, device=DEVICE),
+        "ref_valid_flow": torch.ones(3, device=DEVICE),
+        "scale_mat": torch.eye(4, device=DEVICE), "world_mat": world,
+        "image_idx": torch.tensor(image, device=DEVICE),
+        "world_cam_idx": torch.tensor(world_cam, device=DEVICE),
+        "query_time_step": torch.tensor(time_of(image), device=DEVICE),
+        "world_time_step": torch.tensor(time_of(world_cam), device=DEVICE),
+        "near": float(depth_range[0]), "far": float(depth_range[1]),
+        "cos_anneal_ratio": 0.5,
+        # Stage-1 weights of configs/default.yaml; the sdf-consistency
+        # weight is annealed from 0 to 1, here half way.
+        "loss_weights": TS.make_loss_weights(
+            tc["rgb_weight"][stage], tc["eikonal_weight"][stage],
+            tc["sdf_weight"][stage], tc["flow_rgb_weight"][stage], 0.5,
+            tc["edge_aware_smoothness_weight"][stage],
+            tc["smoothness_weight"][stage]),
+        "lr": tc["learning_rate"], "motion_lr": tc["pose_learning_rate"],
+        "ray_idx": TS.sample_patch_indices(gen, h, w, s.patch_size, n_rays,
+                                           device=DEVICE),
+        "t_rand": torch.rand((n_rays, rcfg.n_samples), generator=gen,
+                             device=DEVICE),
+    }
+    return s, rcfg, batch
+
+
+def phase_train(cfg, fields, counters, step_ms):
+    """TRAIN_STEPS stage-1 steps on a copy of the main path's nets, one
+    fixed batch; launch counters zeroed just before and read just after.
+    ``step_ms``: each kernel's time alone at the step's shapes, for the
+    kernels / glue split of the mean step."""
+    import numpy as np
+    import torch
+    from copenerf_torch.training import step as TS
+
+    s, rcfg, batch = train_setup(cfg, seed=5)
+    state = TS.init_train_state(copy.deepcopy(fields))
+    step = TS.build_train_step(rcfg, s)
+    tc = cfg["training"]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        # The first iterations of a run: the field lr warms up linearly over
+        # nb_warm_up_it iterations, the motion lr does not (the trainer's
+        # schedule).
+        batch["lr"] = tc["learning_rate"] * min(i / tc["nb_warm_up_it"], 1.0)
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        loss = float(m["loss"])          # a host copy: the step has ended
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        log("step", step=i, loss=loss, ms=times[-1],
+            loss_rgb=float(m["loss_rgb"]), loss_flow_rgb=float(m["loss_flow_rgb"]),
+            sdf_consistency_loss=float(m["sdf_consistency_loss"]),
+            psnr=float(m["psnr"]))
+    launches = {c.name: c.launches for c in counters}
+    want = {"sdf_value": 4 * TRAIN_STEPS, "rendercore_fwd": TRAIN_STEPS,
+            "rendercore_bwd": TRAIN_STEPS, "sdf_value_diff_fwd": TRAIN_STEPS,
+            "sdf_value_bwd": TRAIN_STEPS}
+    mean_ms = float(np.mean(times[1:]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    kernel_ms = (step_ms[f"sdf_value_{STEP_ROWS // 2}"]
+                 + 3 * step_ms[f"sdf_value_{STEP_ROWS // 8}"]
+                 + sum(step_ms[k] for k in ("rendercore_fwd", "rendercore_bwd",
+                                            "sdf_value_diff_fwd", "sdf_value_bwd")))
+    log("train", steps=TRAIN_STEPS, rays=s.n_points, resolution=list(TRAIN_RES),
+        launches=launches, expected=want, mean_step_ms=mean_ms,
+        mean_step_ms_note="steps 1..29 (step 0 allocates)",
+        kernel_ms_per_step=kernel_ms, glue_ms_per_step=mean_ms - kernel_ms,
+        rays_per_s=s.n_points / (mean_ms / 1e3), first5_mean_loss=first,
+        last5_mean_loss=last, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not np.all(np.isfinite(losses)):
+        fail(f"non-finite train loss: {losses}")
+    if not last < first:
+        fail(f"loss did not descend: first 5 {first}, last 5 {last}")
+    if launches != want:
+        fail(f"train launch counts {launches} != {want}")
+    return launches, (s, rcfg, batch)
+
+
+def step_grads(fields, rcfg, s, batch, ray_idx, t_rand):
+    """(metrics, gradients of the fields group then the motion group) of
+    one compute_losses + backward."""
+    from copenerf_torch.training import step as TS
+
+    for p in fields.parameters():
+        p.grad = None
+    total, metrics = TS.compute_losses(fields, rcfg, s, batch, ray_idx,
+                                       t_rand=t_rand)
+    total.backward()
+    names, grads = [], []
+    for k in (*TS.FIELD_NETS, "motion"):
+        for nm, p in fields[k].named_parameters():
+            names.append(f"{k}.{nm}")
+            grads.append(p.grad.detach().cpu() if p.grad is not None
+                         else p.detach().cpu() * 0)
+    return {k: v.item() for k, v in metrics.items()}, names, grads
+
+
+CONS_RTOL = 2e-3
+
+
+def phase_train_card_vs_cpu(fields, checked, train):
+    """One step, 64 rays (4 patches of the train batch) and their jitter,
+    on the card (kernels) and on the CPU (plain versions). Main-path nets:
+    every metric within 1e-4 relative + 1e-6, every gradient tensor within
+    ||d|| / ||ref|| <= 1e-3. Perturbed nets: as in the render check, the
+    importance chain moves a sample on a few rays of that rough field for
+    last-bit SDF differences, so the metrics get 1e-3 relative + 1e-5 and
+    the gradient tensors ||d|| / ||ref|| <= 1e-2 (a gradient sums every ray,
+    so the moved samples shift every entry of the global tensors, such as
+    the variance and the motion net; a faulty kernel channel moves the
+    tensors it reaches by O(1)). On both nets
+    ``sdf_consistency_loss`` gets CONS_RTOL relative: it is the mean
+    |sdf_w - sdf| (~5e-3) of SDF values near 1 at two poses of the motion
+    chain (31 frames x 10 Euler substeps of 4x4 products), whose last bits
+    differ between the card and the CPU, with the plain versions on the card
+    as with the kernels."""
+    import torch
+    from copenerf_torch.training import step as TS
+
+    s, rcfg, batch = train
+    s64 = TS.StepStatic(**{**s.__dict__, "n_points": 64})
+    idx, t_rand = batch["ray_idx"][:64], batch["t_rand"][:64]
+    cpu_batch = {k: (v.cpu() if torch.is_tensor(v) else v)
+                 for k, v in batch.items()}
+    for nets, f in (("main", fields), ("perturbed", checked)):
+        f_card = copy.deepcopy(f)
+        t0 = time.perf_counter()
+        m_card, names, g_card = step_grads(f_card, rcfg, s64, batch, idx, t_rand)
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        f_cpu = copy.deepcopy(f).cpu()
+        t0 = time.perf_counter()
+        m_cpu, _, g_cpu = step_grads(f_cpu, rcfg, s64, cpu_batch, idx.cpu(),
+                                     t_rand.cpu())
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        g_err = [rel_norm(a, b) for a, b in zip(g_card, g_cpu)]
+        worst = max(range(len(g_err)), key=g_err.__getitem__)
+        log("train_card_vs_cpu", nets=nets, rays=64, metrics_card=m_card,
+            metrics_cpu=m_cpu,
+            grad_worst_rel_norm=g_err[worst], grad_worst=names[worst],
+            card_ms=card_ms, cpu_ms=cpu_ms)
+        rtol, atol = (1e-4, 1e-6) if nets == "main" else (1e-3, 1e-5)
+        bad_m = [k for k, v in m_cpu.items()
+                 if not abs(m_card[k] - v) <= (CONS_RTOL if k == "sdf_consistency_loss"
+                                               else rtol) * abs(v) + atol]
+        g_tol = 1e-3 if nets == "main" else 1e-2
+        bad_g = [nm for nm, e in zip(names, g_err) if not e <= g_tol]
+        if bad_m or bad_g:
+            fail(f"train card vs cpu ({nets} nets): metrics {bad_m}, "
+                 f"gradients {bad_g[:6]}")
+
+
 KERNELS = {
     "sdf_value": dict(source="copenerf_torch/csrc/sdf_value.cu",
                       replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:450"),
     "rendercore_fwd": dict(
         source="copenerf_torch/csrc/rendercore_fwd.cu",
         replaces="copenerf_tpu/ops/pallas/rendercore_kernels.py:326"),
+    "rendercore_bwd": dict(
+        source="copenerf_torch/csrc/rendercore_bwd.cu",
+        replaces="copenerf_tpu/ops/pallas/rendercore_kernels.py:364"),
+    "sdf_value_diff_fwd": dict(
+        source="copenerf_torch/csrc/sdf_value.cu",
+        replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:472"),
+    "sdf_value_bwd": dict(
+        source="copenerf_torch/csrc/sdf_value_bwd.cu",
+        replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:515"),
 }
 
 
@@ -448,22 +963,31 @@ def main():
     sys.path.insert(0, REPO)
     from copenerf_torch.ops.kernels import rendercore as RC
     from copenerf_torch.ops.kernels import sdf_value as SV
+    from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 
     phase_device()
     phase_build()
     cfg, _, fields, checked = full_width_nets(seed=0)
     with torch.no_grad():
         kres = phase_kernels(checked)
-    counters = [SV.COUNTER, RC.COUNTER]
-    launches, view = phase_main(cfg, fields, counters)
+    tres, step_ms = phase_train_kernels(checked)
+    kres.update(tres)
+    counters = [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER,
+                SVD.BWD_COUNTER]
+    render_launches, view = phase_main(cfg, fields, counters)
     phase_card_vs_cpu(cfg, fields, checked, view)
+    train_launches, train = phase_train(cfg, fields, counters, step_ms)
+    phase_train_card_vs_cpu(fields, checked, train)
 
     rows = []
     for name, meta in KERNELS.items():
         # The time line is the main path's largest shape for each kernel.
         t = kres[name]["times"][0]
+        by_path = {"render": render_launches[name], "train": train_launches[name]}
         rows.append({"name": name, "route": "cuda", "source": meta["source"],
-                     "replaces": meta["replaces"], "launches": launches[name],
+                     "replaces": meta["replaces"],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
                      "max_abs_err": kres[name]["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None,

@@ -1,7 +1,8 @@
 // Shared device helpers of the port's field kernels (sdf_value.cu,
-// rendercore_fwd.cu): the row-tile layout, the f32 FFMA tile GEMM, the
-// per-row dot for narrow heads, the positional encoding and the shared-exp
-// softplus-100.
+// rendercore_fwd.cu, sdf_value_bwd.cu, rendercore_bwd.cu): the row-tile
+// layout, the f32 FFMA tile GEMM, the per-row dot for narrow heads, the
+// positional encoding and its Jacobian products, the shared-exp softplus-100
+// and the per-row staging of the backward kernels.
 //
 // Layout: a block of 256 threads (8 warps) owns a tile of kRows = 64 rows.
 // Activations live in shared memory, one 256-float line per row; warp w owns
@@ -39,6 +40,8 @@ struct Offsets {
   long long w_feat, b_feat;        // columns 1..: (hidden, d_feat), (d_feat,)
   long long wc[kMaxColorLayers];   // color layer l: W (in, out)
   long long bc[kMaxColorLayers];   // (out,)
+  long long wct[kMaxColorLayers];  // W^T (out, in), for the color backward
+  long long w_feat_t;              // feature columns as (d_feat, hidden)
 };
 
 // Host: fill `off` from the entry point's named offsets of n_hidden SDF
@@ -78,11 +81,41 @@ struct SdfGeom {
   float scale;
 };
 
-__device__ __forceinline__ int sdf_in_dim(const SdfGeom& g, int l) {
+// Static geometry of the IDR color MLP (models/fields.ColorConfig).
+struct ColorGeom {
+  int n_lin;     // 5 at the default config
+  int hidden;    // 256
+  int multires;  // view-dir PE frequencies
+  int d_feat;    // 256
+  int k0;        // padded input width (292): the color-input row stride
+  int squeeze;   // sigmoid head
+};
+
+// Per-row matrices the backward kernels stage in device memory for the
+// weight-gradient reduction (wgrad.cuh): entry l holds row gr of its matrix
+// at p[l] + gr * ld[l]. Only rows < n are written.
+constexpr int kMaxStages = kMaxSdfHidden + 1;
+struct StageSet {
+  float* p[kMaxStages];
+  int ld[kMaxStages];
+};
+
+__device__ __forceinline__ void stage_put(const StageSet& s, int l, long long gr,
+                                          long long n, int c, float v) {
+  if (gr < n) s.p[l][gr * s.ld[l] + c] = v;
+}
+
+// Value of row gr, column c of staged matrix l; 0 past the last row.
+__device__ __forceinline__ float stage_get(const StageSet& s, int l, long long gr,
+                                           long long n, int c) {
+  return gr < n ? s.p[l][gr * s.ld[l] + c] : 0.0f;
+}
+
+__host__ __device__ __forceinline__ int sdf_in_dim(const SdfGeom& g, int l) {
   return l == 0 ? g.d0 : g.hidden;
 }
 // Output width of hidden layer l (the layer feeding the skip is narrower).
-__device__ __forceinline__ int sdf_out_dim(const SdfGeom& g, int l) {
+__host__ __device__ __forceinline__ int sdf_out_dim(const SdfGeom& g, int l) {
   return (l + 1 == g.skip) ? g.hidden - g.d0 : g.hidden;
 }
 
@@ -296,12 +329,14 @@ __device__ __forceinline__ void load_and_encode(const float* __restrict__ x, lon
 // The SDF hidden layers 0 .. n_lin-2 into the kRows x 256 buffer h, starting
 // from the PE in e; every layer after the first runs in place (a warp's
 // output rows are the rows it read, written after its last read).
-// `keep(l, r, c, sig)` sees every sigmoid(100 z).
-template <int KS, class Keep>
+// `keep(l, r, c, sig)` sees every sigmoid(100 z); `put(l, r, c, v)` sees
+// every value v written as column c of layer l's input (l >= 1: the
+// previous layer's output and the skip layer's scaled PE part).
+template <int KS, class Keep, class Put>
 __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
                                                    const Offsets& off, const SdfGeom& g,
                                                    const float* e, float* h, float* w_s,
-                                                   Keep keep) {
+                                                   Keep keep, Put put) {
   for (int l = 0; l < g.n_lin - 1; ++l) {
     if (l == g.skip) {
       // Input of the skip layer: [h, e] / sqrt(2); h was scaled in the
@@ -309,7 +344,9 @@ __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
       const int split = g.hidden - g.d0;
       for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
         const int r = i / g.d0;
-        h[r * kSliceCols + split + (i - r * g.d0)] = e[i] * kInvSqrt2;
+        const float v = e[i] * kInvSqrt2;
+        h[r * kSliceCols + split + (i - r * g.d0)] = v;
+        put(l, r, split + (i - r * g.d0), v);
       }
     }
     const float* bias = P + off.b[l];
@@ -320,9 +357,39 @@ __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
                float sig, sp;
                sig_softplus100(z + bias[c], sig, sp);
                keep(l, r, c, sig);
-               h[r * kSliceCols + c] = pre_skip ? sp * kInvSqrt2 : sp;
+               const float v = pre_skip ? sp * kInvSqrt2 : sp;
+               h[r * kSliceCols + c] = v;
+               put(l + 1, r, c, v);
              });
   }
+}
+
+// d(sdf)/dx of one row from ee = d(sdf)/d(PE) (J_pe^T ee, d_in = 4): the
+// PE of xs = x * scale is [xs, sin(2^0 xs), cos(2^0 xs), ...], 4 wide each.
+__device__ __forceinline__ float pe4_jac_t(const float* ee, const float* xs, int multires,
+                                           int j) {
+  float acc = ee[j];
+  for (int k = 0; k < multires; ++k) {
+    const float f = (float)(1 << k);
+    const float a = xs[j] * f;
+    const int cs = 4 + k * 8 + j;
+    acc += ee[cs] * (cosf(a) * f);
+    acc += ee[cs + 4] * (-sinf(a) * f);
+  }
+  return acc;
+}
+
+// Column c of J_pe gb for one row (d_in = 4): the PE-wide image of a
+// cotangent gb (4) of xs.
+__device__ __forceinline__ float pe4_jac(const float* gb, const float* xs, int c) {
+  if (c < 4) return gb[c];
+  const int t = c - 4;
+  const int k = t >> 3;
+  const int rem = t - (k << 3);
+  const int j = rem & 3;
+  const float f = (float)(1 << k);
+  const float a = xs[j] * f;
+  return rem < 4 ? gb[j] * f * cosf(a) : -gb[j] * f * sinf(a);
 }
 
 }  // namespace copenerf

@@ -46,15 +46,6 @@ namespace {
 
 constexpr int kSliceK = 32;
 
-struct ColorGeom {
-  int n_lin;     // 5 at the default config
-  int hidden;    // 256
-  int multires;  // view-dir PE frequencies
-  int d_feat;    // 256
-  int k0;        // padded input width (292): the color-input row stride
-  int squeeze;   // sigmoid head
-};
-
 __global__ void __launch_bounds__(kThreads, 1)
 rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                       float* __restrict__ sdf_out, float* __restrict__ grad_out,
@@ -88,9 +79,12 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     load_and_encode(x, n, row0, g, xs, e);
 
     // ---- SDF forward; sigmoids to the block's scratch ----
-    sdf_hidden_forward<kSliceK>(P, off, g, e, h, w_s, [&](int l, int r, int c, float sig) {
-      sig_s[((long long)l * kRows + r) * 256 + c] = sig;
-    });
+    sdf_hidden_forward<kSliceK>(
+        P, off, g, e, h, w_s,
+        [&](int l, int r, int c, float sig) {
+          sig_s[((long long)l * kRows + r) * 256 + c] = sig;
+        },
+        [](int, int, int, float) {});
     __syncthreads();
     const float b0 = P[off.b_last0];
     rowdot(h, 256, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {

@@ -42,7 +42,8 @@ sdf_value_kernel(const float* __restrict__ x, float* __restrict__ out,
   const long long row0 = (long long)blockIdx.x * kRows;
 
   load_and_encode(x, n, row0, g, xs, e);
-  sdf_hidden_forward<kSliceK>(P, off, g, e, h, w_s, [](int, int, int, float) {});
+  sdf_hidden_forward<kSliceK>(P, off, g, e, h, w_s, [](int, int, int, float) {},
+                              [](int, int, int, float) {});
   __syncthreads();
   const float b0 = P[off.b_last0];
   rowdot(h, 256, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {

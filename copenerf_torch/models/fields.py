@@ -218,14 +218,23 @@ def sdf_value_nograd(net: SDFNetwork, x: torch.Tensor) -> torch.Tensor:
     return _value(net, x)
 
 
+def sdf_scalar(net: SDFNetwork, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable SDF value only: (..., 4) -> (...,), for losses that
+    never touch the feature head (sdf-consistency). CUDA tensors run K3
+    (the value kernel forward, its first-order backward kernel)."""
+    from ..ops.kernels.sdf_value_diff import sdf_value_diff
+    return sdf_value_diff(net, x)
+
+
 def sdf_grad_color(sdf_net: SDFNetwork, color_net: "ColorNetwork",
                    x: torch.Tensor, dirs: torch.Tensor):
     """The render-core field query: (sdf (...,1), grad (...,4), color (...,3)).
 
     With the reference's color config (idr, positive ray vector) this is the
-    render-core op (one CUDA kernel for CUDA tensors); otherwise it composes
-    ``sdf_output_and_gradient`` + ``color_apply``, which on the TPU is the
-    fused outgrad kernel and has no CUDA kernel yet, so CUDA tensors raise."""
+    render-core op (for CUDA tensors K1-fwd, and K1-bwd when a gradient is
+    asked for); otherwise it composes ``sdf_output_and_gradient`` +
+    ``color_apply``, which on the TPU is the fused outgrad kernel and has no
+    CUDA kernel yet, so CUDA tensors raise."""
     ccfg = color_net.cfg
     if ccfg.mode == "idr" and not ccfg.use_negative_ray_vector:
         from ..ops.kernels.rendercore import rendercore_fwd
@@ -238,6 +247,17 @@ def sdf_grad_color(sdf_net: SDFNetwork, color_net: "ColorNetwork",
     out, grad = sdf_output_and_gradient(sdf_net, x)
     color = color_apply(color_net, x, grad, dirs, out[..., 1:])
     return out[..., :1], grad, color
+
+
+def sdf_grad_color_cons(sdf_net: SDFNetwork, color_net: "ColorNetwork",
+                        x: torch.Tensor, dirs: torch.Tensor, y: torch.Tensor):
+    """``sdf_grad_color`` plus the sdf-consistency re-query: the
+    differentiable SDF value at the world-transformed batch ``y`` as a
+    fourth output ``sdf_w (...,)``. Composed as the render-core op and
+    ``sdf_scalar`` (K1 + K3), the JAX package's default; its folded
+    single-launch variant (``COPENERF_FOLD_CONS``) is not ported."""
+    sdf, grad, color = sdf_grad_color(sdf_net, color_net, x, dirs)
+    return sdf, grad, color, sdf_scalar(sdf_net, y)
 
 
 # ---------------------------------------------------------------------------

@@ -126,13 +126,46 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     lib.copenerf_sdf_value.argtypes = [
         _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P]
-    lib.copenerf_sdf_value.restype = _I
     lib.copenerf_rendercore_fwd.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _L,
         _I, _I, _I, _I, _I, _F,
         _I, _I, _I, _I, _I, _I, _I, _P]
-    lib.copenerf_rendercore_fwd.restype = _I
+    lib.copenerf_sdf_value_bwd_workspace.argtypes = [
+        _L, _I, _I, _I, _I, _I, _I, _P]
+    lib.copenerf_sdf_value_bwd.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L,
+        _I, _I, _I, _I, _I, _F, _I, _P]
+    lib.copenerf_rendercore_bwd_workspace.argtypes = [
+        _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.copenerf_rendercore_bwd.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
+        _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L,
+        _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P]
+    for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,
+               lib.copenerf_sdf_value_bwd_workspace, lib.copenerf_sdf_value_bwd,
+               lib.copenerf_rendercore_bwd_workspace,
+               lib.copenerf_rendercore_bwd):
+        fn.restype = _I
     return lib
+
+
+def workspace(fn, *args) -> list:
+    """The three float counts a backward's ``*_workspace`` entry reports:
+    staged rows, partial sums, per-block scratch."""
+    out = (_L * 3)()
+    check(fn(*args, out), fn.__name__)
+    return list(out)
+
+
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the C entry points
+    take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def n_blocks(device) -> int:
+    """Blocks of a persistent grid: one per SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def offsets(offs: list):
@@ -159,12 +192,14 @@ def check_input(t, name: str, width: int) -> None:
 
 
 def check_no_grad(tensors, what: str) -> None:
-    """The forward-only kernels refuse work that autograd would need."""
+    """The raw forward launchers refuse work that autograd would need: a
+    differentiable call goes through the autograd.Functions
+    (``sdf_value_diff``, ``rendercore``), whose backward is a kernel too."""
     if not torch.is_grad_enabled():
         return
     for t in tensors:
         if t.requires_grad:
             raise RuntimeError(
                 f"{what}: a CUDA input or weight requires grad while grad "
-                "mode is on; the kernel is forward-only and its backward "
-                "lands with the training slice (run under torch.no_grad())")
+                "mode is on; this launcher is forward-only (run under "
+                "torch.no_grad(), or call the differentiable entry point)")

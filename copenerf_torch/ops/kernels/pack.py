@@ -3,17 +3,25 @@
 The kernels take every weight as one flat f32 buffer plus named float
 offsets into it (the ``off_*`` arguments of the C entry points, which fill
 ``csrc/mlp_tile.cuh``'s ``Offsets``). This module alone decides the layout.
-Weight norm is materialized here (``effective_weight``), as the JAX package
+Weight norm is materialized here (``effective_layers``), as the JAX package
 does outside its kernels (``sdf_kernels.py`` ``_prep``):
 
   * ``w[l]``, ``b[l]``: SDF hidden layer l, W_l (in, out) and b_l;
-    ``wt[l]``: W_l^T (out, in) for the gradient sweep;
+    ``wt[l]``: W_l^T (out, in) for the gradient and backward sweeps;
   * ``w_last0``, ``b_last0``: the last SDF layer's column 0 (hidden,) and
     its bias; ``w_feat``, ``b_feat``: its feature columns (hidden, d_feat)
-    and their bias;
+    and their bias; ``w_feat_t``: the feature columns as (d_feat, hidden),
+    for the backward;
   * ``wc[l]``, ``bc[l]``: color layer l (in, out); layer 0 has its input
     rows permuted to [feature, x, PE(dirs), grad] and zero-padded to k0 (a
-    multiple of 4).
+    multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
+    backward.
+
+The backward kernels write their weight gradients into one flat buffer too
+(``rendercore_grad_layout``, ``sdf_value_grad_layout``): per layer the
+gradient of the effective W in the kernel's (out, in) layout (the color
+layer 0 with the permuted, padded inputs of ``wct[0]``) and of b.
+``unpack_*_grads`` map it back to each layer's effective (W (out, in), b).
 
 A pack is cached on the SDF network, keyed by the storage and version of
 every parameter it reads, so a render call packs once and an in-place
@@ -112,25 +120,29 @@ class _Packer:
         return torch.cat(self.parts).contiguous(), self.offs
 
 
-_PER_LAYER = ("w", "b", "wt", "wc", "bc")
+_PER_LAYER = ("w", "b", "wt", "wc", "wct", "bc")
 
 
-def _add_sdf(pk: _Packer, sdf_net, with_feature: bool) -> None:
-    n_lin = len(sdf_net.cfg.dims) - 1
-    for l in range(n_lin - 1):
-        layer = sdf_net.layers[f"lin{l}"]
-        w = layer.effective_weight()                   # (out, in)
+def effective_layers(net) -> list:
+    """[(W (out, in), b (out,))] of every linear layer of ``net``, in order."""
+    return [(layer.effective_weight(), layer.b)
+            for layer in (net.layers[f"lin{l}"]
+                          for l in range(len(net.cfg.dims) - 1))]
+
+
+def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wt: bool) -> None:
+    for w, b in layers[:-1]:                           # w (out, in)
         pk.add("w", w.t().contiguous())
-        pk.add("b", layer.b)
-        if with_feature:
+        pk.add("b", b)
+        if with_wt:
             pk.add("wt", w)
-    last = sdf_net.layers[f"lin{n_lin - 1}"]
-    w = last.effective_weight()                        # (d_out, hidden)
+    w, b = layers[-1]                                  # (d_out, hidden)
     pk.add("w_last0", w[0])
-    pk.add("b_last0", last.b[:1])
+    pk.add("b_last0", b[:1])
     if with_feature:
         pk.add("w_feat", w[1:].t().contiguous())
-        pk.add("b_feat", last.b[1:])
+        pk.add("b_feat", b[1:])
+        pk.add("w_feat_t", w[1:])
 
 
 def _cached(sdf_net, name: str, nets, make):
@@ -147,16 +159,18 @@ def _cached(sdf_net, name: str, nets, make):
     return packed
 
 
-def _pack_sdf_value(sdf_net):
+def pack_sdf_value_layers(layers, with_wt: bool = False):
+    """(params (P,), offsets by name) for the value kernels, from the SDF
+    net's effective layers; ``with_wt`` adds the W^T the backward needs."""
     pk = _Packer()
-    _add_sdf(pk, sdf_net, with_feature=False)
+    _add_sdf(pk, layers, with_feature=False, with_wt=with_wt)
     return pk.done()
 
 
 def pack_sdf_value(sdf_net):
-    """(params (P,), offsets by name) for the value-sweep kernel."""
+    """``pack_sdf_value_layers`` of ``sdf_net``, cached on the net."""
     return _cached(sdf_net, "_pack_sdf_value", (sdf_net,),
-                   lambda: _pack_sdf_value(sdf_net))
+                   lambda: pack_sdf_value_layers(effective_layers(sdf_net)))
 
 
 def color_input_permutation(ccfg) -> list:
@@ -170,25 +184,146 @@ def color_input_permutation(ccfg) -> list:
             + list(range(o_dirs, o_grad)) + list(range(o_grad, o_feat)))
 
 
-def _pack_rendercore(sdf_net, color_net):
+def color_kernel_inputs(w: torch.Tensor, ccfg) -> torch.Tensor:
+    """Color layer 0's (out, in) matrix with its input columns in the
+    kernel's order and zero-padded to k0: (out, k0)."""
+    w = w[:, color_input_permutation(ccfg)]
+    pad = color_k0(ccfg) - w.shape[1]
+    return torch.cat([w, w.new_zeros((w.shape[0], pad))], 1) if pad else w
+
+
+def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
+    """(params (P,), offsets by name) for the render-core kernels, from the
+    effective layers of both nets."""
     pk = _Packer()
-    _add_sdf(pk, sdf_net, with_feature=True)
-    ccfg = color_net.cfg
-    n_c = len(ccfg.dims) - 1
-    for l in range(n_c):
-        layer = color_net.layers[f"lin{l}"]
-        w = layer.effective_weight().t()               # (in, out)
+    _add_sdf(pk, sdf_layers, with_feature=True, with_wt=True)
+    for l, (w, b) in enumerate(color_layers):          # w (out, in)
         if l == 0:
-            w = w[color_input_permutation(ccfg)]
-            pad = color_k0(ccfg) - w.shape[0]
-            if pad:
-                w = torch.cat([w, w.new_zeros((pad, w.shape[1]))])
-        pk.add("wc", w.contiguous())
-        pk.add("bc", layer.b)
+            w = color_kernel_inputs(w, ccfg)
+        pk.add("wc", w.t().contiguous())
+        pk.add("wct", w)
+        pk.add("bc", b)
     return pk.done()
 
 
 def pack_rendercore(sdf_net, color_net):
-    """(params (P,), offsets by name) for the render-core forward kernel."""
+    """``pack_rendercore_layers`` of both nets, cached on the SDF net."""
     return _cached(sdf_net, "_pack_rendercore", (sdf_net, color_net),
-                   lambda: _pack_rendercore(sdf_net, color_net))
+                   lambda: pack_rendercore_layers(
+                       effective_layers(sdf_net), effective_layers(color_net),
+                       color_net.cfg))
+
+
+# ---------------------------------------------------------------------------
+# Weight-gradient buffers of the backward kernels
+# ---------------------------------------------------------------------------
+
+def _layer_shapes(cfg) -> list:
+    """(out, in) of every linear layer of an IDR MLP config."""
+    from ...models.fields import idr_layer_dims
+
+    if not hasattr(cfg, "skip_in"):                    # the color MLP
+        return [(cfg.dims[l + 1], cfg.dims[l]) for l in range(len(cfg.dims) - 1)]
+    return [tuple(reversed(idr_layer_dims(cfg, l)))
+            for l in range(len(cfg.dims) - 1)]
+
+
+class _GradLayout:
+    def __init__(self):
+        self.offs = {}
+        self.size = 0
+
+    def put(self, name: str, numel: int, per_layer: bool = True) -> None:
+        if per_layer:
+            self.offs.setdefault(name, []).append(self.size)
+        else:
+            self.offs[name] = self.size
+        self.size += numel + (-numel) % 4
+
+
+def sdf_value_grad_layout(scfg):
+    """(offsets by name, size) of K3-bwd's gradient buffer: ``gw[l]``,
+    ``gb[l]`` per SDF layer; the last layer holds its row 0 only."""
+    lay = _GradLayout()
+    shapes = _layer_shapes(scfg)
+    shapes[-1] = (1, shapes[-1][1])
+    for o, i in shapes:
+        lay.put("gw", o * i)
+        lay.put("gb", o)
+    return lay.offs, lay.size
+
+
+def rendercore_grad_layout(scfg, ccfg):
+    """(offsets by name, size) of K1-bwd's gradient buffer: ``gw[l]``,
+    ``gb[l]`` per SDF layer, ``gw_last0`` (hidden,) added to the last SDF
+    layer's row 0, ``gwc[l]``, ``gbc[l]`` per color layer (layer 0 as
+    (out, k0) in the kernel's input order)."""
+    lay = _GradLayout()
+    for o, i in _layer_shapes(scfg):
+        lay.put("gw", o * i)
+        lay.put("gb", o)
+    lay.put("gw_last0", scfg.d_hidden, per_layer=False)
+    for l, (o, i) in enumerate(_layer_shapes(ccfg)):
+        lay.put("gwc", o * (color_k0(ccfg) if l == 0 else i))
+        lay.put("gbc", o)
+    return lay.offs, lay.size
+
+
+def _take(buf, off, shape):
+    n = 1
+    for s in shape:
+        n *= s
+    return buf[off:off + n].view(shape)
+
+
+def unpack_sdf_value_grads(buf, offs, scfg) -> list:
+    """K3-bwd's buffer -> [(W_bar (out, in), b_bar (out,))] per SDF layer;
+    the last layer's rows past 0 are zero."""
+    shapes = _layer_shapes(scfg)
+    out = []
+    for l, (o, i) in enumerate(shapes):
+        rows = 1 if l == len(shapes) - 1 else o
+        w = _take(buf, offs["gw"][l], (rows, i))
+        b = _take(buf, offs["gb"][l], (rows,))
+        if rows != o:
+            w = torch.cat([w, w.new_zeros((o - rows, i))])
+            b = torch.cat([b, b.new_zeros(o - rows)])
+        out.append((w, b))
+    return out
+
+
+def unpack_rendercore_grads(buf, offs, scfg, ccfg):
+    """K1-bwd's buffer -> ([(W_bar, b_bar)] per SDF layer, [(W_bar, b_bar)]
+    per color layer), each W_bar (out, in) in the layer's own input order."""
+    sdf = [(_take(buf, offs["gw"][l], (o, i)), _take(buf, offs["gb"][l], (o,)))
+           for l, (o, i) in enumerate(_layer_shapes(scfg))]
+    w_last = sdf[-1][0].clone()
+    w_last[0] += _take(buf, offs["gw_last0"], (scfg.d_hidden,))
+    sdf[-1] = (w_last, sdf[-1][1])
+    color = []
+    for l, (o, i) in enumerate(_layer_shapes(ccfg)):
+        b = _take(buf, offs["gbc"][l], (o,))
+        if l == 0:
+            g = _take(buf, offs["gwc"][l], (o, color_k0(ccfg)))
+            w = g.new_empty((o, i))
+            w[:, color_input_permutation(ccfg)] = g[:, :i]
+        else:
+            w = _take(buf, offs["gwc"][l], (o, i))
+        color.append((w, b))
+    return sdf, color
+
+
+def pack_rendercore_grads(sdf_bars, color_bars, scfg, ccfg) -> torch.Tensor:
+    """The inverse of ``unpack_rendercore_grads`` with ``gw_last0`` zero:
+    per-layer (W_bar, b_bar) lists -> the kernel's gradient buffer."""
+    offs, size = rendercore_grad_layout(scfg, ccfg)
+    buf = sdf_bars[0][0].new_zeros(size)
+    for l, (w, b) in enumerate(sdf_bars):
+        buf[offs["gw"][l]:offs["gw"][l] + w.numel()] = w.reshape(-1)
+        buf[offs["gb"][l]:offs["gb"][l] + b.numel()] = b
+    for l, (w, b) in enumerate(color_bars):
+        if l == 0:
+            w = color_kernel_inputs(w, ccfg)
+        buf[offs["gwc"][l]:offs["gwc"][l] + w.numel()] = w.reshape(-1)
+        buf[offs["gbc"][l]:offs["gbc"][l] + b.numel()] = b
+    return buf

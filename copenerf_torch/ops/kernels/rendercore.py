@@ -1,90 +1,215 @@
-"""K1-fwd — the render-core field query, forward only
-(``csrc/rendercore_fwd.cu``).
+"""K1 — the render-core field query: K1-fwd (``csrc/rendercore_fwd.cu``) and
+its second-order backward K1-bwd (``csrc/rendercore_bwd.cu``).
 
-Replaces ``copenerf_tpu/ops/pallas/rendercore_kernels.py`` ``fwd_kernel``
-(``get_fused_rendercore``): SDF value, its input gradient and the IDR color
-in one launch, the 256-wide feature kept on chip. ``rendercore_fwd`` routes
-on the tensor's device: CUDA launches the kernel (or raises), CPU takes
-``rendercore_fwd_plain``. The backward kernel (and the autograd.Function
-around both) lands with the training slice.
+Replaces ``copenerf_tpu/ops/pallas/rendercore_kernels.py`` ``fwd_kernel`` and
+``bwd_kernel`` (``get_fused_rendercore``): SDF value, its input gradient and
+the IDR color in one launch, the 256-wide feature kept on chip; the backward
+carries the eikonal / sdf-flow / color-through-normal double backprop.
+``rendercore_fwd`` routes on the tensor's device: a CUDA tensor launches the
+forward kernel alone when nothing needs a gradient, and otherwise goes
+through ``RenderCore`` (an ``autograd.Function`` whose forward launches
+K1-fwd and whose backward launches K1-bwd); a CPU tensor takes
+``rendercore_fwd_plain``, under autograd when grad mode is on. The
+Function's inputs are x, dirs and both nets' effective weights and biases,
+so autograd carries the kernel's W-bars through weight norm.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...models.fields import color_apply, sdf_output_and_gradient
 from . import build
 from .pack import (check_color_geometry, check_sdf_geometry, color_k0,
-                   pack_rendercore, sdf_skip)
+                   effective_layers, pack_rendercore, pack_rendercore_layers,
+                   rendercore_grad_layout, sdf_skip, unpack_rendercore_grads)
 
 COUNTER = build.KernelCounter("rendercore_fwd")
+BWD_COUNTER = build.KernelCounter("rendercore_bwd")
 
 
 def rendercore_fwd_plain(sdf_net, color_net, x: torch.Tensor,
                          dirs: torch.Tensor):
     """The composed path: SDF forward, ``autograd.grad`` with the input
-    detached, color MLP. Returns (sdf (...,1), grad (...,4), color (...,3))."""
+    detached (``create_graph`` under grad mode, so the second-order terms
+    reach the weights), color MLP. Returns (sdf (...,1), grad (...,4),
+    color (...,3))."""
     out, grad = sdf_output_and_gradient(sdf_net, x)
     color = color_apply(color_net, x, grad, dirs, out[..., 1:])
     return out[..., :1], grad, color
 
 
-def scratch_blocks(device) -> int:
-    """Blocks of the kernel's persistent grid: one per SM."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def color_relu_margin(sdf_net, color_net, x: torch.Tensor,
+                      dirs: torch.Tensor) -> torch.Tensor:
+    """(n,) the smallest |pre-activation| of the color MLP's ReLUs in each
+    row, from the plain version. Where it lies within rounding of 0 the
+    ReLU's derivative flips under any change of summation order, so the
+    checks of K1-bwd zero those rows' color cotangent."""
+    pre = []
+    hooks = [color_net.layers[f"lin{l}"].register_forward_hook(
+        lambda m, i, o: pre.append(o.detach().abs().amin(-1)))
+        for l in range(len(color_net.cfg.dims) - 2)]
+    try:
+        with torch.no_grad():
+            rendercore_fwd_plain(sdf_net, color_net, x, dirs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.stack(pre).amin(0)
 
 
-def rendercore_fwd_cuda(sdf_net, color_net, x: torch.Tensor,
-                        dirs: torch.Tensor):
-    """Launch the kernel on (n, 4) points and (n, 3) dirs, contiguous f32
-    CUDA -> (sdf (n, 1), grad (n, 4), color (n, 3))."""
-    scfg, ccfg = sdf_net.cfg, color_net.cfg
+def _geometry(scfg, ccfg) -> tuple:
+    """The C entry points' SDF and color geometry arguments."""
+    return ((len(scfg.dims) - 1, scfg.d_in, scfg.multires, scfg.d_hidden,
+             sdf_skip(scfg)),
+            (ccfg.d_feature, len(ccfg.dims) - 1, ccfg.d_hidden,
+             ccfg.multires_view, color_k0(ccfg)))
+
+
+def _check_rows(scfg, ccfg, x, dirs) -> None:
     check_sdf_geometry(scfg)
     check_color_geometry(scfg, ccfg)
     build.check_input(x, "x", 4)
     build.check_input(dirs, "dirs", 3)
     if dirs.shape[0] != x.shape[0] or dirs.device != x.device:
         raise ValueError("x and dirs must have the same rows and device")
-    build.check_no_grad([x, dirs, *sdf_net.parameters(),
-                         *color_net.parameters()], "rendercore_fwd")
-    params, offs = pack_rendercore(sdf_net, color_net)
+
+
+def launch_fwd(scfg, ccfg, packed, x: torch.Tensor, dirs: torch.Tensor):
+    """K1-fwd on (n, 4) points and (n, 3) dirs, contiguous f32 CUDA, with a
+    render-core pack -> (sdf (n, 1), grad (n, 4), color (n, 3))."""
+    _check_rows(scfg, ccfg, x, dirs)
+    params, offs = packed
     if params.device != x.device:
         raise ValueError(f"weights on {params.device}, x on {x.device}")
-    n = x.shape[0]
-    dev = x.device
-    sdf = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    grad = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    color = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    n_blocks = scratch_blocks(dev)
-    n_lin = len(scfg.dims) - 1
-    scratch = torch.empty(n_blocks * (n_lin - 1) * 64 * 256,
-                          dtype=torch.float32, device=dev)
-    lib = build.load_library()
-    code = lib.copenerf_rendercore_fwd(
+    n, dev = x.shape[0], x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    sdf = torch.empty((n, 1), **f32)
+    grad = torch.empty((n, 4), **f32)
+    color = torch.empty((n, 3), **f32)
+    blocks = build.n_blocks(dev)
+    sgeom, (d_feat, c_n_lin, c_hidden, c_multires, k0) = _geometry(scfg, ccfg)
+    scratch = torch.empty(blocks * (sgeom[0] - 1) * 64 * 256, **f32)
+    code = build.load_library().copenerf_rendercore_fwd(
         x.data_ptr(), dirs.data_ptr(), sdf.data_ptr(), grad.data_ptr(),
         color.data_ptr(), params.data_ptr(), build.offsets(offs["w"]),
         build.offsets(offs["b"]), build.offsets(offs["wt"]), offs["w_last0"],
         offs["b_last0"], offs["w_feat"], offs["b_feat"],
         build.offsets(offs["wc"]), build.offsets(offs["bc"]),
-        scratch.data_ptr(), n,
-        n_lin, scfg.d_in, scfg.multires, scfg.d_hidden, sdf_skip(scfg),
-        float(scfg.scale), ccfg.d_feature, len(ccfg.dims) - 1,
-        ccfg.d_hidden, ccfg.multires_view, color_k0(ccfg),
-        int(ccfg.squeeze_out), n_blocks,
-        torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), n, *sgeom, float(scfg.scale), d_feat, c_n_lin,
+        c_hidden, c_multires, k0, int(ccfg.squeeze_out), blocks,
+        build.stream(x))
     build.check(code, "rendercore_fwd")
     COUNTER.launches += 1
     return sdf, grad, color
 
 
+def rendercore_fwd_cuda(sdf_net, color_net, x: torch.Tensor,
+                        dirs: torch.Tensor):
+    """Launch K1-fwd alone (no autograd) on (n, 4) points and (n, 3) dirs,
+    contiguous f32 CUDA -> (sdf (n, 1), grad (n, 4), color (n, 3))."""
+    _check_rows(sdf_net.cfg, color_net.cfg, x, dirs)
+    build.check_no_grad([x, dirs, *sdf_net.parameters(),
+                         *color_net.parameters()], "rendercore_fwd")
+    return launch_fwd(sdf_net.cfg, color_net.cfg,
+                      pack_rendercore(sdf_net, color_net), x, dirs)
+
+
+def rendercore_bwd_cuda(scfg, ccfg, packed, x, dirs, sbar, gbar, cbar):
+    """K1-bwd for the cotangents sbar (n, 1), gbar (n, 4), cbar (n, 3) ->
+    (x_bar (n, 4), dirs_bar (n, 3), [(W_bar, b_bar)] per SDF layer,
+    [(W_bar, b_bar)] per color layer), W_bar (out, in)."""
+    _check_rows(scfg, ccfg, x, dirs)
+    for t, name, w in ((sbar, "sbar", 1), (gbar, "gbar", 4), (cbar, "cbar", 3)):
+        build.check_input(t, name, w)
+        if t.shape[0] != x.shape[0]:
+            raise ValueError(f"{name}: {t.shape[0]} rows, x has {x.shape[0]}")
+    params, offs = packed
+    goffs, gsize = rendercore_grad_layout(scfg, ccfg)
+    n, dev = x.shape[0], x.device
+    blocks = build.n_blocks(dev)
+    sgeom, cgeom = _geometry(scfg, ccfg)
+    lib = build.load_library()
+    n_stage, n_part, n_scratch = build.workspace(
+        lib.copenerf_rendercore_bwd_workspace, n, *sgeom, *cgeom, blocks)
+    f32 = dict(dtype=torch.float32, device=dev)
+    stage = torch.empty(n_stage, **f32)
+    partial = torch.empty(n_part, **f32)
+    scratch = torch.empty(n_scratch, **f32)
+    grads = torch.zeros(gsize, **f32)
+    x_bar = torch.empty((n, 4), **f32)
+    d_bar = torch.empty((n, 3), **f32)
+    O = build.offsets
+    code = lib.copenerf_rendercore_bwd(
+        x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(), gbar.data_ptr(),
+        cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(), params.data_ptr(),
+        O(offs["w"]), O(offs["b"]), O(offs["wt"]), offs["w_last0"],
+        offs["b_last0"], offs["w_feat"], offs["b_feat"], offs["w_feat_t"],
+        O(offs["wc"]), O(offs["bc"]), O(offs["wct"]), grads.data_ptr(),
+        O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], O(goffs["gwc"]),
+        O(goffs["gbc"]), stage.data_ptr(), partial.data_ptr(),
+        scratch.data_ptr(), n, *sgeom, float(scfg.scale), *cgeom,
+        int(ccfg.squeeze_out), blocks, build.stream(x))
+    build.check(code, "rendercore_bwd")
+    BWD_COUNTER.launches += 1
+    sdf_bars, color_bars = unpack_rendercore_grads(grads, goffs, scfg, ccfg)
+    return x_bar, d_bar, sdf_bars, color_bars
+
+
+class RenderCore(torch.autograd.Function):
+    """(sdf (n, 1), grad (n, 4), color (n, 3)) of x (n, 4), dirs (n, 3);
+    inputs after dirs: the effective W (out, in) of every SDF layer, every
+    SDF b, every color W, every color b. Cotangents that arrive as None
+    count as zeros."""
+
+    @staticmethod
+    def forward(ctx, scfg, ccfg, x, dirs, *wb):
+        ns, nc = len(scfg.dims) - 1, len(ccfg.dims) - 1
+        sdf_layers = list(zip(wb[:ns], wb[ns:2 * ns]))
+        color_layers = list(zip(wb[2 * ns:2 * ns + nc], wb[2 * ns + nc:]))
+        packed = pack_rendercore_layers(sdf_layers, color_layers, ccfg)
+        ctx.cfgs, ctx.packed = (scfg, ccfg), packed
+        ctx.save_for_backward(x, dirs)
+        return launch_fwd(scfg, ccfg, packed, x, dirs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, sbar, gbar, cbar):
+        x, dirs = ctx.saved_tensors
+        n = x.shape[0]
+        cots = [torch.zeros((n, w), dtype=x.dtype, device=x.device)
+                if c is None else c.contiguous()
+                for c, w in ((sbar, 1), (gbar, 4), (cbar, 3))]
+        x_bar, d_bar, sdf_bars, color_bars = rendercore_bwd_cuda(
+            *ctx.cfgs, ctx.packed, x, dirs, *cots)
+        return (None, None, x_bar, d_bar,
+                *[w for w, _ in sdf_bars], *[b for _, b in sdf_bars],
+                *[w for w, _ in color_bars], *[b for _, b in color_bars])
+
+
+def _needs_grad(sdf_net, color_net, x, dirs) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    return (x.requires_grad or dirs.requires_grad
+            or any(p.requires_grad for p in sdf_net.parameters())
+            or any(p.requires_grad for p in color_net.parameters()))
+
+
 def rendercore_fwd(sdf_net, color_net, x: torch.Tensor, dirs: torch.Tensor):
     """(sdf (...,1), grad (...,4), color (...,3)) of (..., 4) points and
-    (..., 3) view dirs."""
+    (..., 3) view dirs, differentiable wherever grad mode asks for it."""
     if x.device.type == "cpu":
         return rendercore_fwd_plain(sdf_net, color_net, x, dirs)
     lead = x.shape[:-1]
-    sdf, grad, color = rendercore_fwd_cuda(
-        sdf_net, color_net, x.reshape(-1, 4), dirs.reshape(-1, 3))
+    xf = x.reshape(-1, 4).contiguous()
+    df = dirs.reshape(-1, 3).contiguous()
+    if _needs_grad(sdf_net, color_net, x, dirs):
+        ws_s, bs_s = zip(*effective_layers(sdf_net))
+        ws_c, bs_c = zip(*effective_layers(color_net))
+        sdf, grad, color = RenderCore.apply(sdf_net.cfg, color_net.cfg, xf, df,
+                                            *ws_s, *bs_s, *ws_c, *bs_c)
+    else:
+        sdf, grad, color = rendercore_fwd_cuda(sdf_net, color_net, xf, df)
     return (sdf.reshape(lead + (1,)), grad.reshape(lead + (4,)),
             color.reshape(lead + (3,)))

@@ -23,27 +23,33 @@ def sdf_value_plain(net, x: torch.Tensor) -> torch.Tensor:
         return net(x)[..., 0]
 
 
-def sdf_value_cuda(net, x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on (n, 4) contiguous f32 CUDA rows -> (n,)."""
-    cfg = net.cfg
+def launch_value(cfg, packed, x: torch.Tensor,
+                 counter: build.KernelCounter) -> torch.Tensor:
+    """Launch the value kernel on (n, 4) contiguous f32 CUDA rows with a
+    value pack (``pack.pack_sdf_value_layers``) -> (n,); counted on
+    ``counter``."""
     check_sdf_geometry(cfg)
     build.check_input(x, "x", cfg.d_in)
-    build.check_no_grad([x, *net.parameters()], "sdf_value")
-    params, offs = pack_sdf_value(net)
+    params, offs = packed
     if params.device != x.device:
         raise ValueError(f"weights on {params.device}, x on {x.device}")
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    lib = build.load_library()
-    code = lib.copenerf_sdf_value(
+    code = build.load_library().copenerf_sdf_value(
         x.data_ptr(), out.data_ptr(), params.data_ptr(),
         build.offsets(offs["w"]), build.offsets(offs["b"]), offs["w_last0"],
         offs["b_last0"], x.shape[0],
         len(cfg.dims) - 1, cfg.d_in, cfg.multires, cfg.d_hidden,
-        sdf_skip(cfg), float(cfg.scale),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        sdf_skip(cfg), float(cfg.scale), build.stream(x))
     build.check(code, "sdf_value")
-    COUNTER.launches += 1
+    counter.launches += 1
     return out
+
+
+def sdf_value_cuda(net, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on (n, 4) contiguous f32 CUDA rows -> (n,)."""
+    build.check_input(x, "x", net.cfg.d_in)
+    build.check_no_grad([x, *net.parameters()], "sdf_value")
+    return launch_value(net.cfg, pack_sdf_value(net), x, COUNTER)
 
 
 def sdf_value(net, x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,97 @@
+"""K3 — the differentiable SDF value: K3-fwd is the value kernel
+(``csrc/sdf_value.cu``), K3-bwd its first-order backward
+(``csrc/sdf_value_bwd.cu``).
+
+Replaces ``copenerf_tpu/ops/pallas/sdf_kernels.py`` ``make_fwd_kernel`` /
+``make_bwd_kernel`` with ``value_only=True`` (``FusedOps.value_diff``), the
+sdf-consistency re-query. ``sdf_value_diff(net, x)`` routes on the tensor's
+device: a CUDA tensor goes through ``SdfValueDiff`` (an
+``autograd.Function`` whose forward launches K3-fwd and whose backward
+launches K3-bwd, or raises), a CPU tensor takes ``sdf_value_diff_plain``.
+The Function's inputs are x and the SDF net's effective weights and
+biases, so autograd carries the kernel's W-bars through weight norm.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import build
+from .pack import (check_sdf_geometry, effective_layers, pack_sdf_value_layers,
+                   sdf_skip, sdf_value_grad_layout, unpack_sdf_value_grads)
+from .sdf_value import launch_value
+
+FWD_COUNTER = build.KernelCounter("sdf_value_diff_fwd")
+BWD_COUNTER = build.KernelCounter("sdf_value_bwd")
+
+
+def sdf_value_diff_plain(net, x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (...,): ``net(x)[..., 0]`` under autograd."""
+    return net(x)[..., 0]
+
+
+def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
+    """Launch K3-bwd on (n, 4) rows and the value cotangent (n,) ->
+    (x_bar (n, 4), [(W_bar (out, in), b_bar)] per SDF layer)."""
+    check_sdf_geometry(cfg)
+    build.check_input(x, "x", 4)
+    build.check_input(obar.reshape(-1, 1), "obar", 1)
+    params, offs = packed
+    goffs, gsize = sdf_value_grad_layout(cfg)
+    n, dev = x.shape[0], x.device
+    n_lin = len(cfg.dims) - 1
+    geom = (n_lin, cfg.d_in, cfg.multires, cfg.d_hidden, sdf_skip(cfg))
+    blocks = build.n_blocks(dev)
+    lib = build.load_library()
+    n_stage, n_part, n_scratch = build.workspace(
+        lib.copenerf_sdf_value_bwd_workspace, n, *geom, blocks)
+    f32 = dict(dtype=torch.float32, device=dev)
+    stage = torch.empty(n_stage, **f32)
+    partial = torch.empty(n_part, **f32)
+    scratch = torch.empty(n_scratch, **f32)
+    grads = torch.zeros(gsize, **f32)
+    x_bar = torch.empty((n, 4), **f32)
+    code = lib.copenerf_sdf_value_bwd(
+        x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
+        build.offsets(offs["w"]), build.offsets(offs["b"]),
+        build.offsets(offs["wt"]), offs["w_last0"], offs["b_last0"],
+        grads.data_ptr(), build.offsets(goffs["gw"]),
+        build.offsets(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
+        scratch.data_ptr(), n, *geom, float(cfg.scale), blocks,
+        build.stream(x))
+    build.check(code, "sdf_value_bwd")
+    BWD_COUNTER.launches += 1
+    return x_bar, unpack_sdf_value_grads(grads, goffs, cfg)
+
+
+class SdfValueDiff(torch.autograd.Function):
+    """sdf (n,) of x (n, 4); inputs after x: the effective W (out, in) of
+    every SDF layer, then every b."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *wb):
+        n_lin = len(wb) // 2
+        packed = pack_sdf_value_layers(list(zip(wb[:n_lin], wb[n_lin:])),
+                                       with_wt=True)
+        ctx.cfg, ctx.packed = cfg, packed
+        ctx.save_for_backward(x)
+        return launch_value(cfg, packed, x, FWD_COUNTER)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, obar):
+        x, = ctx.saved_tensors
+        x_bar, bars = sdf_value_bwd_cuda(ctx.cfg, ctx.packed, x,
+                                         obar.contiguous())
+        return (None, x_bar, *[w for w, _ in bars], *[b for _, b in bars])
+
+
+def sdf_value_diff(net, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable SDF value of (..., 4) points -> (...,)."""
+    if x.device.type == "cpu":
+        return sdf_value_diff_plain(net, x)
+    lead = x.shape[:-1]
+    ws, bs = zip(*effective_layers(net))
+    out = SdfValueDiff.apply(net.cfg, x.reshape(-1, 4).contiguous(), *ws, *bs)
+    return out.reshape(lead)

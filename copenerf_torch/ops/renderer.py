@@ -1,5 +1,5 @@
-"""NeuS-style volume renderer, forward form (port of
-``copenerf_tpu/ops/renderer.py``).
+"""NeuS-style volume renderer (port of ``copenerf_tpu/ops/renderer.py``),
+differentiable where grad mode is on.
 
 Plain functions on tensors. ``fields`` is the ``ModuleDict`` of networks
 (``models.fields.init_all_fields``); every network carries its own config.
@@ -9,6 +9,8 @@ Plain functions on tensors. ``fields`` is the ``ModuleDict`` of networks
     kernel for CUDA tensors;
   * the field query at the 128 final samples is ONE render-core op
     (``sdf_grad_color``): SDF value, its input gradient and the IDR color;
+    with ``cons`` it also queries the differentiable SDF value at the
+    sdf-consistency world transform of the samples (``sdf_grad_color_cons``);
   * stratified jitter comes from an explicit ``torch.Generator`` or is
     injected as ``t_rand``.
 
@@ -25,7 +27,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..models.fields import sdf_grad_color, sdf_value_nograd, variance_inv_s
+from ..models.fields import (sdf_grad_color, sdf_grad_color_cons,
+                             sdf_value_nograd, variance_inv_s)
 from .sampling import (_exclusive_transmittance, cat_z_vals, up_sample,
                        up_sample_naive)
 
@@ -89,9 +92,13 @@ def render_core_outside(nerf_net, rays_o, rays_d, z_vals, sample_dist,
 
 
 def render_core(fields, rays_o, rays_d, rays_d_norm, time_step, z_vals,
-                sample_dist, cos_anneal_ratio, *, eval_depth: bool):
+                sample_dist, cos_anneal_ratio, *, eval_depth: bool, cons=None):
     """SDF -> alpha (NeuS eq. 13) -> transmittance-weighted compositing of
-    color/depth/normals."""
+    color/depth/normals.
+
+    ``cons``: optional ``(cw2 (4, 4), world_time)``, the sdf-consistency
+    world transform; the SDF value at the transformed samples comes back as
+    ``sdf_world`` (B, S)."""
     batch_size, n_samples = z_vals.shape
 
     dists = z_vals[..., 1:] - z_vals[..., :-1]
@@ -102,8 +109,16 @@ def render_core(fields, rays_o, rays_d, rays_d_norm, time_step, z_vals,
     dirs = rays_d[:, None, :].expand(pts.shape).contiguous()
     pts_time = _with_time(pts, time_step)                      # (B, S, 4)
 
-    sdf, gradients, sampled_color = sdf_grad_color(
-        fields["sdf"], fields["color"], pts_time, dirs)
+    sdf_world = None
+    if cons is not None:
+        cw2, world_time = cons
+        pts_world = pts @ cw2[:3, :3].T + cw2[:3, 3]
+        sdf, gradients, sampled_color, sdf_world = sdf_grad_color_cons(
+            fields["sdf"], fields["color"], pts_time, dirs,
+            _with_time(pts_world, world_time))
+    else:
+        sdf, gradients, sampled_color = sdf_grad_color(
+            fields["sdf"], fields["color"], pts_time, dirs)
     normals = gradients[..., :3]
     sdf_flows = gradients[..., 3:]
 
@@ -145,17 +160,20 @@ def render_core(fields, rays_o, rays_d, rays_d_norm, time_step, z_vals,
         "weights": weights,
         "cdf": prev_cdf[..., 0],
         "weight_sum": weights_sum,
+        **({"sdf_world": sdf_world.reshape(batch_size, n_samples)}
+           if sdf_world is not None else {}),
     }
 
 
 def render(fields, rays_o, rays_d, rays_d_norm, time_step, near, far, *,
            rcfg: RendererConfig, cos_anneal_ratio,
            use_importance: bool = True, train: bool = True,
-           generator=None, t_rand=None, background_rgb=None):
+           generator=None, t_rand=None, background_rgb=None, cons=None):
     """Full render pass (reference ``NeuSRenderer.forward``).
 
     ``train`` turns stratified jitter on and keeps depth as distance along
     the ray; the jitter comes from ``generator`` unless ``t_rand`` injects it.
+    ``cons`` (see ``render_core``) adds ``sdf_world`` to the outputs.
     """
     batch_size = rays_o.shape[0]
     if use_importance:
@@ -210,7 +228,8 @@ def render(fields, rays_o, rays_d, rays_d_norm, time_step, near, far, *,
                             sample_dist, background_rgb)
 
     ret = render_core(fields, rays_o, rays_d, rays_d_norm, time_step, z_vals,
-                      sample_dist, cos_anneal_ratio, eval_depth=not train)
+                      sample_dist, cos_anneal_ratio, eval_depth=not train,
+                      cons=cons)
 
     weights = ret["weights"]
     if background_rgb is not None:
@@ -229,4 +248,5 @@ def render(fields, rays_o, rays_d, rays_d_norm, time_step, near, far, *,
         "sampled_points": ret["sampled_points"],
         "weights": weights,
         "mid_z_vals": ret["mid_z_vals"],
+        **({"sdf_world": ret["sdf_world"]} if "sdf_world" in ret else {}),
     }

@@ -6,9 +6,19 @@ runs without the suite's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances: f32 in both versions, summed in another order; sdf and color
-1e-4 absolute, grad 1e-4 x max(1, max|grad|). The nets are the geometric
-init perturbed by ``perturb_``, so the PE columns are not zero and the SDF
-head's columns differ: a fault in the PE or in the column order shows."""
+1e-4 absolute, grad 1e-4 x max(1, max|grad|). Backward kernels (gradients
+of x, dirs and every parameter) are held against an f64 evaluation of the
+plain version: per tensor the kernel's error norm is at most twice the plain
+f32 version's, or 1e-5 of the tensor's scale (its norm; with every cotangent
+on, the sum of its norms for each one alone). The color cotangent is zeroed
+on rows where a color ReLU's pre-activation lies within KINK_MARGIN of 0 in
+f64 (f32 rounding moves those pre-activations by up to ~2e-6 at full width,
+and a ReLU that flips in one f32 version and not the other moves its row's
+gradients by far more than rounding). The nets are the geometric init
+perturbed by ``perturb_``, so the PE columns are not zero and the SDF head's
+columns differ: a fault in the PE or in the column order shows."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -19,7 +29,9 @@ from copenerf_torch.models import fields as TF
 from copenerf_torch.models.mlp import perturb_
 from copenerf_torch.ops.kernels import rendercore as RC
 from copenerf_torch.ops.kernels import sdf_value as SV
+from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 from copenerf_torch.ops.renderer import RendererConfig
+from copenerf_torch.training import step as TS
 
 WIDTHS = {
     "full": (TF.SDFConfig(), TF.ColorConfig()),
@@ -28,6 +40,7 @@ WIDTHS = {
               TF.ColorConfig(d_feature=32, d_hidden=64, n_layers=3,
                              multires_view=2)),
 }
+KINK_MARGIN = 2e-5
 
 
 def _require_cuda():
@@ -71,13 +84,148 @@ def test_kernels_match_plain_on_card(width, n):
 
 @pytest.mark.gpu
 def test_kernels_refuse_grad_mode_on_card():
+    """The raw forward launchers refuse weights that require grad under
+    grad mode; ``sdf_grad_color`` and ``sdf_scalar`` under grad reach the
+    autograd.Functions, whose backward is a kernel."""
     _require_cuda()
     sdf_net, color_net = _nets("small", "cuda")
     x, d = _rows(8, seed=0)
-    with pytest.raises(RuntimeError, match="training slice"):
+    with pytest.raises(RuntimeError, match="forward-only"):
         SV.sdf_value_cuda(sdf_net, x)
-    with pytest.raises(RuntimeError, match="training slice"):
+    with pytest.raises(RuntimeError, match="forward-only"):
         RC.rendercore_fwd_cuda(sdf_net, color_net, x, d)
+    counters = (RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER, SVD.BWD_COUNTER)
+    before = [c.launches for c in counters]
+    sdf, grad, color = TF.sdf_grad_color(sdf_net, color_net, x, d)
+    value = TF.sdf_scalar(sdf_net, x)
+    (sdf.sum() + grad.square().sum() + color.sum() + value.sum()).backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    assert all(p.grad is not None for p in sdf_net.parameters())
+
+
+def _check_vs_f64(got, plain, ref64, what, scales=None):
+    """Per tensor ||kernel - f64|| <= max(2 ||plain - f64||, 1e-5 scale);
+    the scale is the f64 tensor's norm, or ``scales[i]``."""
+    for i, (a, b, c) in enumerate(zip(got, plain, ref64)):
+        c = c.float()
+        scale = scales[i] if scales else c.norm().item()
+        e_k = (a - c).norm().item()
+        e_p = (b - c).norm().item()
+        assert e_k <= max(2 * e_p, 1e-5 * scale), (what, i, e_k, e_p, scale)
+
+
+def _grads(fn, inputs, params, cots):
+    for p in params:
+        p.grad = None
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    torch.autograd.backward(out, cots)
+    return [t.grad for t in ins] + [p.grad.clone() for p in params]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_backward_kernels_match_plain_on_card(width, n):
+    """K1-bwd and K3-bwd (through their autograd.Functions) against
+    autograd of the plain versions on the same card: x_bar, dirs_bar and
+    the gradients of every parameter of both nets, for each cotangent alone
+    and all together. With all on, a tensor's scale is the sum of its norms
+    for each cotangent alone: an f32 sum is exact to the rounding of its
+    terms, and in the SDF head's g the channels cancel to a thirtieth."""
+    _require_cuda()
+    sdf_net, color_net = _nets(width, "cuda")
+    params = [*sdf_net.parameters(), *color_net.parameters()]
+    x, d = _rows(n, seed=n + 7)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    full = [torch.randn((n, w), generator=g, device="cuda") for w in (1, 4, 3)]
+    sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
+    margin = RC.color_relu_margin(sdf64, color64, x.double(), d.double())
+    full[2] = full[2] * (margin >= KINK_MARGIN).float()[:, None]
+    norms = []
+    for on in ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 1)):
+        cots = [c * m for c, m in zip(full, on)]
+        got = _grads(lambda a, b: RC.rendercore_fwd(sdf_net, color_net, a, b),
+                     (x, d), params, cots)
+        ref = _grads(lambda a, b: RC.rendercore_fwd_plain(sdf_net, color_net, a, b),
+                     (x, d), params, cots)
+        ref64 = _grads(lambda a, b: RC.rendercore_fwd_plain(sdf64, color64, a, b),
+                       (x.double(), d.double()),
+                       [*sdf64.parameters(), *color64.parameters()],
+                       [c.double() for c in cots])
+        scales = [sum(t) for t in zip(*norms)] if sum(on) == 3 else None
+        norms.append([c.norm().item() for c in ref64])
+        _check_vs_f64(got, ref, ref64, f"K1 {on}", scales)
+    obar = torch.randn((n,), generator=g, device="cuda")
+    sp = list(sdf_net.parameters())
+    got = _grads(lambda a: SVD.sdf_value_diff(sdf_net, a), (x,), sp, [obar])
+    ref = _grads(lambda a: SVD.sdf_value_diff_plain(sdf_net, a), (x,), sp,
+                 [obar])
+    ref64 = _grads(lambda a: SVD.sdf_value_diff_plain(sdf64, a), (x.double(),),
+                   list(sdf64.parameters()), [obar.double()])
+    _check_vs_f64(got, ref, ref64, "K3")
+
+
+@pytest.mark.gpu
+def test_train_step_card_matches_cpu():
+    """One stage-1 step at a small width, 64 rays, injected ray_idx and
+    t_rand, on the card (kernels) and on the CPU (plain versions): every
+    metric within 1e-4 relative + 1e-5, every parameter gradient within
+    1e-3 of its tensor's largest entry."""
+    _require_cuda()
+    h = w = 24
+    f = 60.0
+    K = torch.tensor([[2 * f / w, 0, 0, 0], [0, -2 * f / h, 0, 0],
+                      [0, 0, -1, 0], [0, 0, 0, 1]])
+    world = torch.eye(4)
+    world[2, 3] = -2.5
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    imgs = torch.stack([torch.stack([0.5 + 0.4 * torch.sin(0.25 * xx + 0.2 * (c + 1) * yy
+                                                           + 0.3 * t + c)
+                                     for c in range(3)]) for t in range(7)])
+    g = torch.Generator().manual_seed(0)
+    idx = TS.sample_patch_indices(g, h, w, 4, 64, device="cpu")
+    t_rand = torch.rand((64, 16), generator=g)
+    scfg, ccfg = WIDTHS["small"]
+    s = TS.StepStatic(h=h, w=w, patch_size=4, n_points=64, stage1=True,
+                      n_images=7, nb_sample_timestep=4, n_ref=3,
+                      train_motion=True, sdf_cons_pose_grad=True,
+                      use_flow_rgb=True, use_sdf_consistency=True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sdf_net, color_net = _nets("small", dev)
+        fields = torch.nn.ModuleDict({
+            "sdf": sdf_net, "color": color_net,
+            "variance": TF.VarianceNetwork(TF.VarianceConfig()).to(dev),
+            "motion": TF.MotionNetwork(TF.MotionConfig(d_hidden=32, n_layers=2,
+                                                       skip_in=(1,)),
+                                       torch.Generator().manual_seed(3)).to(dev)})
+        batch = {
+            "images_all": imgs.to(dev), "K_all": K.expand(7, 4, 4).to(dev),
+            "ref_idxs": torch.tensor([3, 4, 5], device=dev),
+            "ref_in_list": torch.ones(3, device=dev),
+            "ref_valid_flow": torch.tensor([1.0, 1.0, 0.0], device=dev),
+            "scale_mat": torch.eye(4, device=dev), "world_mat": world.to(dev),
+            "query_time_step": torch.tensor(-0.2, device=dev),
+            "world_time_step": torch.tensor(0.0, device=dev),
+            "image_idx": torch.tensor(2, device=dev),
+            "world_cam_idx": torch.tensor(3, device=dev),
+            "near": 1.0, "far": 4.0, "cos_anneal_ratio": 0.5,
+            "loss_weights": TS.make_loss_weights(1.0, 0.1, 0.1, 7.5, 0.1, 1.0,
+                                                 1e-4)}
+        total, metrics = TS.compute_losses(
+            fields, RendererConfig(n_samples=16, n_importance=16,
+                                   up_sample_steps=2), s, batch,
+            idx.to(dev), t_rand=t_rand.to(dev))
+        total.backward()
+        res[dev] = ({k: v.item() for k, v in metrics.items()},
+                    [p.grad.cpu() for k in ("sdf", "color", "variance", "motion")
+                     for p in fields[k].parameters()])
+    for k, v in res["cpu"][0].items():
+        assert abs(res["cuda"][0][k] - v) <= 1e-4 * abs(v) + 1e-5, (k, v)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item() + 1e-6
 
 
 @pytest.mark.gpu

@@ -47,8 +47,10 @@ def test_import_leaves_jax_unloaded():
             "copenerf_torch.ops.renderer, copenerf_torch.evaluation.render, "
             "copenerf_torch.ops.kernels.sdf_value, "
             "copenerf_torch.ops.kernels.rendercore, "
+            "copenerf_torch.ops.kernels.sdf_value_diff, "
             "copenerf_torch.poses.motion, copenerf_torch.poses.retriever, "
-            "copenerf_torch.training.checkpoints; "
+            "copenerf_torch.training.checkpoints, "
+            "copenerf_torch.training.step; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -22,26 +22,43 @@ Phases, each printed on its own line, any failure exits non-zero:
             KINK_MARGIN of its kink), every input and parameter gradient;
             then CUDA-event times at the train step's shapes (131,072 rows;
             the forward kernels too, for the step's kernels / glue split).
-5. main     ``ImageRenderer.render_image`` renders 3 views (the requests) of
+5. composed_kernels  K4 (SDF outgrad) and K5 (color MLP), the kernels of
+            the composed field path (``use_negative_ray_vector: true``), on
+            the perturbed full-width nets of that config: the forward
+            kernels against their plain versions (K5 on dirs and grad
+            negated, the feature a slice of the head), the backward kernels
+            against autograd of the plain versions and an f64 evaluation,
+            at 262,144 and 1,000 rows (K4 for the head's column 0, its
+            feature columns, gbar alone and all; K5 with the KINK_MARGIN
+            rule); then CUDA-event times at the render chunk's shapes
+            (4,194,304 rows) and the train step's (131,072 rows).
+6. main     ``ImageRenderer.render_image`` renders 3 views (the requests) of
             the full-width model (plain geometric init: the centre ray must
             meet the init sphere) at 180x320, chunk 32768, with poses from
             the motion chain and the pose retriever; launch counters are
             zeroed just before and read just after (4 value sweeps + 1
-            render-core launch per chunk).
-6. card-cpu the same 1024 rays through ``render()`` on the card (kernels) and
+            render-core launch per chunk, no K4 or K5).
+7. card-cpu the same 1024 rays through ``render()`` on the card (kernels) and
             on the CPU (plain versions), with the main path's nets and with
             the perturbed ones, compared with stated tolerances.
-7. train    30 stage-1 steps (``training/step.py``) of the full-width model on
+8. train    30 stage-1 steps (``training/step.py``) of the full-width model on
             a synthetic 31-frame 540x960 video, 1024 rays as 64 4x4 patches,
             64 + 64 samples, flow-rgb and sdf-consistency on, motion trained;
             one fixed batch (patches drawn once on the card); loss and ms per
             step; launch counters zeroed just before and read just after (4
             K2, 1 K1-fwd, 1 K1-bwd, 1 K3-fwd, 1 K3-bwd per step); the mean
             step split into the kernels' times alone and the rest (glue).
-8. train_card_vs_cpu  one step with injected ray_idx (64 rays) and t_rand on
+9. train_card_vs_cpu  one step with injected ray_idx (64 rays) and t_rand on
             the card and on the CPU, main-path and perturbed nets: every
             metric and both optimizer groups' gradients.
-9. the ``{"kernels": [...]}`` line, then the contract line
+10. composed_main  one view as in ``main`` under the negative-ray config:
+            4 K2 + 1 K4-fwd + 1 K5-fwd per chunk, no K1.
+11. composed_train  10 steps as in ``train`` under that config: 4 K2, 1
+            K4-fwd, 1 K4-bwd, 1 K5-fwd, 1 K5-bwd, 1 K3-fwd, 1 K3-bwd per
+            step, no K1; the loss finite, its last-3 mean below its first-3.
+12. composed_card_vs_cpu  ``train_card_vs_cpu`` under that config.
+13. the ``{"kernels": [...]}`` line (launches per path: render, train,
+   render_composed, train_composed), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
@@ -147,6 +164,71 @@ def k1_bwd_work(scfg, ccfg, n, sdf_net, color_net):
     return 2 * macs * n, 88 * n + 2 * weight_bytes(sdf_net, color_net)
 
 
+def k4_fwd_work(scfg, n, sdf_net):
+    """(FLOP, bytes) of the outgrad forward on n rows: the SDF forward with
+    the full head and the reverse sweep (hidden layers + J_pe^T); x in
+    (16 B), the d_out-wide head and grad out per row."""
+    macs = (2 * sdf_hidden_macs(scfg) + scfg.d_hidden * scfg.d_out
+            + scfg.dims[0] * scfg.d_in)
+    return 2 * macs * n, (32 + 4 * scfg.d_out) * n + weight_bytes(sdf_net)
+
+
+def k4_bwd_work(scfg, n, sdf_net):
+    """(FLOP, bytes) of the outgrad backward on n rows: the forward
+    recomputed, the sweep down to u_0, the channel-B up-sweep, the head, the
+    down-sweep (channel A over every layer, channel B down to layer 1) and
+    the weight reductions (two products per hidden layer, the head, its
+    row-0 extra); x, obar, gbar in, x_bar out per row, the weights read and
+    their gradients written once."""
+    from copenerf_torch.models.fields import idr_layer_dims
+
+    H = sdf_hidden_macs(scfg)
+    L0 = scfg.dims[0] * idr_layer_dims(scfg, 0)[1]
+    hd = scfg.d_hidden
+    macs = (H + (H - L0) + H + (hd * (scfg.d_out - 1) + hd) + H + (H - L0)
+            + (2 * H + hd * scfg.d_out + hd))
+    return 2 * macs * n, (48 + 4 * scfg.d_out) * n + 2 * weight_bytes(sdf_net)
+
+
+def k5_fwd_work(ccfg, n, color_net):
+    """(FLOP, bytes) of the color forward on n rows: the MLP; x, dirs, grad
+    and the feature in, color out per row."""
+    return (2 * color_macs(ccfg) * n,
+            (56 + 4 * ccfg.d_feature) * n + weight_bytes(color_net))
+
+
+def k5_bwd_work(ccfg, n, color_net):
+    """(FLOP, bytes) of the color backward on n rows: the forward
+    recomputed, the backward to every input and the weight reductions, each
+    the MLP's size; the forward's inputs and cbar in, the cotangents of x,
+    dirs, grad and the feature out per row, the weights read and their
+    gradients written once."""
+    return (6 * color_macs(ccfg) * n,
+            (112 + 8 * ccfg.d_feature) * n + 2 * weight_bytes(color_net))
+
+
+def unported_bounds(scfg, ccfg, n, sdf_net, color_net):
+    """Bound ms of the kernels still to port at n rows: K6, K1 with the K3
+    query at y folded into its launches (their work summed), forward and
+    backward; K7, the full head (sdf, feature) with a first-order backward
+    (forward recomputed, the down-sweep to x, the weight reductions: three
+    times the forward's products)."""
+    def plus(a, b):
+        return a[0] + b[0], a[1] + b[1]
+
+    head = sdf_hidden_macs(scfg) + scfg.d_hidden * scfg.d_out
+    wb = weight_bytes(sdf_net)
+    work = {
+        "K6_fwd": plus(k1_work(scfg, ccfg, n, sdf_net, color_net),
+                       k2_work(scfg, n, sdf_net)),
+        "K6_bwd": plus(k1_bwd_work(scfg, ccfg, n, sdf_net, color_net),
+                       k3_bwd_work(scfg, n, sdf_net)),
+        "K7_fwd": (2 * head * n, (16 + 4 * scfg.d_out) * n + wb),
+        "K7_bwd": (6 * head * n, (32 + 4 * scfg.d_out) * n + 2 * wb),
+    }
+    return {k: bound_ms(*w) for k, w in work.items()}
+
+
 def bound_ms(flop, nbytes):
     t_ops, t_bytes = flop / F32_PEAK, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -218,15 +300,17 @@ def phase_build():
         cached=build.BUILD_STATS["cached"], ptxas=usage)
 
 
-def full_width_nets(seed):
+def full_width_nets(seed, negative_ray=False):
     """(cfg, field configs, geometric-init fields, the same fields perturbed
-    for the checks)."""
+    for the checks); ``negative_ray`` sets the color net's
+    ``use_negative_ray_vector`` (the composed path), with the same weights."""
     import torch
     from copenerf_torch.config import load_config
     from copenerf_torch.models import configs_from_cfg, init_all_fields
     from copenerf_torch.models.mlp import perturb_
 
     cfg = load_config(os.path.join(REPO, "configs", "default.yaml"))
+    cfg["neus_rendering_network"]["use_negative_ray_vector"] = negative_ray
     fcfg = configs_from_cfg(cfg)
     fields = init_all_fields(fcfg, torch.Generator().manual_seed(seed),
                              device=DEVICE)
@@ -563,6 +647,191 @@ def phase_train_kernels(fields):
     return results, step_ms
 
 
+def phase_composed_kernels(fields):
+    """K4 (outgrad) and K5 (color) on the perturbed full-width nets of the
+    negative-ray config: the forward kernels against their plain versions
+    (K5 on the composed path's inputs: dirs and grad negated, the feature a
+    slice of the plain head), the backward kernels through their
+    autograd.Functions against autograd of the plain versions and an f64
+    evaluation, at 262,144 and 1,000 rows (K4 for the head's column 0, its
+    feature columns and gbar alone, then all; K5 with no color cotangent on
+    rows with a color ReLU within KINK_MARGIN of its kink); then CUDA-event
+    times at the render chunk's and the train step's shapes."""
+    import torch
+    from copenerf_torch.ops.kernels import color as CK
+    from copenerf_torch.ops.kernels import outgrad as OG
+    from copenerf_torch.ops.kernels import pack
+
+    sdf_net, color_net = fields["sdf"], fields["color"]
+    scfg, ccfg = sdf_net.cfg, color_net.cfg
+    sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
+    sdf_params, color_params = list(sdf_net.parameters()), list(color_net.parameters())
+    sdf_names = ["x"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
+    color_names = (["x", "dirs", "grad", "feat"]
+                   + [f"color.{k}" for k, _ in color_net.named_parameters()])
+    errs = dict.fromkeys(("sdf_outgrad_fwd", "sdf_outgrad_bwd", "color_fwd",
+                          "color_bwd"), 0.0)
+    col0 = torch.zeros(scfg.d_out, device=DEVICE)
+    col0[0] = 1.0
+    for n in CHECK_ROWS:
+        x, d = sample_rows(n, seed=n + 21)
+        with torch.no_grad():
+            got = OG.sdf_outgrad_cuda(sdf_net, x)
+            ref_out, ref_grad = OG.sdf_outgrad_plain(sdf_net, x)
+        torch.cuda.synchronize()
+        for name, g_, r_ in zip(("out", "grad"), got, (ref_out, ref_grad)):
+            scale = max(1.0, r_.abs().max().item()) if name == "grad" else 1.0
+            e = (g_ - r_).abs().max().item()
+            tol = 1e-4 * scale
+            log("check", kernel="sdf_outgrad_fwd", output=name, rows=n,
+                max_abs_err=e, tol=tol)
+            if not e <= tol:
+                fail(f"sdf_outgrad_fwd {name} at {n} rows: err {e} > {tol}")
+            errs["sdf_outgrad_fwd"] = max(errs["sdf_outgrad_fwd"], e)
+        del got
+        ins = [x, -d, -ref_grad, ref_out[:, 1:]]
+        with torch.no_grad():
+            e = (CK.color_fwd_cuda(color_net, *ins)
+                 - CK.color_plain(color_net, *ins)).abs().max().item()
+        log("check", kernel="color_fwd", rows=n, max_abs_err=e, tol=1e-4)
+        if not e <= 1e-4:
+            fail(f"color_fwd at {n} rows: err {e} > 1e-4")
+        errs["color_fwd"] = max(errs["color_fwd"], e)
+
+        g = torch.Generator(device=DEVICE).manual_seed(n + 1)
+        obar = torch.randn((n, scfg.d_out), generator=g, device=DEVICE)
+        gbar = torch.randn((n, 4), generator=g, device=DEVICE)
+        chan_norms = []
+        for chan, (mo, mg) in (("sbar", (col0, 0.0)), ("feat", (1.0 - col0, 0.0)),
+                               ("gbar", (0.0 * col0, 1.0)),
+                               ("all", (torch.ones_like(col0), 1.0))):
+            cots = [obar * mo, gbar * mg]
+            got = _vjp(lambda a: OG.sdf_outgrad(sdf_net, a), [x], sdf_params, cots)
+            ref = _vjp_slices(lambda a: OG.sdf_outgrad_plain(sdf_net, a), [x],
+                              sdf_params, cots, 32768)
+            ref64 = _vjp_slices(lambda a: OG.sdf_outgrad_plain(sdf64, a),
+                                [x.double()], list(sdf64.parameters()),
+                                [c.double() for c in cots], 16384)
+            torch.cuda.synchronize()
+            scales = None
+            if chan == "all":
+                scales = [sum(t) for t in zip(*chan_norms)]
+            else:
+                chan_norms.append([c.norm().item() for c in ref64])
+            e = check_grads(dict(kernel="sdf_outgrad_bwd", rows=n, channel=chan),
+                            sdf_names, got, ref, ref64, scales)
+            errs["sdf_outgrad_bwd"] = max(errs["sdf_outgrad_bwd"], e)
+            del got, ref, ref64
+
+        ins = [t.contiguous() for t in ins]
+        margin = CK.color_relu_margin(color64, *[t.double() for t in ins])
+        smooth = (margin >= KINK_MARGIN).float()
+        log("kinks", kernel="color_bwd", rows=n, margin=KINK_MARGIN,
+            cbar_zeroed_share=1.0 - smooth.mean().item())
+        cbar = torch.randn((n, 3), generator=g, device=DEVICE) * smooth[:, None]
+        got = _vjp(lambda *a: CK.color_mlp(color_net, *a), ins, color_params, [cbar])
+        ref = _vjp(lambda *a: CK.color_plain(color_net, *a), ins, color_params,
+                   [cbar])
+        ref64 = _vjp(lambda *a: CK.color_plain(color64, *a),
+                     [t.double() for t in ins], list(color64.parameters()),
+                     [cbar.double()])
+        e = check_grads(dict(kernel="color_bwd", rows=n), color_names, got, ref,
+                        ref64)
+        errs["color_bwd"] = max(errs["color_bwd"], e)
+        del x, d, ins, got, ref, ref64, ref_out, ref_grad, margin
+        torch.cuda.empty_cache()
+
+    # Times at the render chunk's shapes: 32768 rays x 128 samples. The
+    # plain versions in 8 slices, as for K1-fwd.
+    results, step_ms = {}, {}
+    n = CHUNK * 128
+    sl = n // 8
+    x, d = sample_rows(n, seed=12)
+    with torch.no_grad():
+        k_ms = cuda_ms(lambda: OG.sdf_outgrad_cuda(sdf_net, x), reps=3)
+        p_ms = cuda_ms(lambda: [OG.sdf_outgrad_plain(sdf_net, x[i:i + sl])
+                                for i in range(0, n, sl)], reps=1)
+        b, by = bound_ms(*k4_fwd_work(scfg, n, sdf_net))
+        load = smi_under_load(lambda: OG.sdf_outgrad_cuda(sdf_net, x), k_ms)
+        log("time", kernel="sdf_outgrad_fwd", rows=n, kernel_ms=k_ms,
+            plain_ms=p_ms, plain_note="8 slices of 524288 rows", bound_ms=b,
+            bound_by=by, sm_clock_power_under_kernel=load)
+        results["sdf_outgrad_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
+                                           bound_ms=b, bound_by=by)]
+        out, grad = OG.sdf_outgrad_cuda(sdf_net, x)
+        ins = [x, -d, -grad, out[:, 1:]]
+        k_ms = cuda_ms(lambda: CK.color_fwd_cuda(color_net, *ins), reps=3)
+        p_ms = cuda_ms(lambda: [CK.color_plain(color_net, *[t[i:i + sl] for t in ins])
+                                for i in range(0, n, sl)], reps=1)
+        b, by = bound_ms(*k5_fwd_work(ccfg, n, color_net))
+        load = smi_under_load(lambda: CK.color_fwd_cuda(color_net, *ins), k_ms)
+        log("time", kernel="color_fwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
+            plain_note="8 slices of 524288 rows", bound_ms=b, bound_by=by,
+            sm_clock_power_under_kernel=load)
+        results["color_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b,
+                                     bound_by=by)]
+        del x, d, out, grad, ins
+    torch.cuda.empty_cache()
+
+    # Times at the train step's shapes: 1024 rays x 128 samples.
+    n = STEP_ROWS
+    x, d = sample_rows(n, seed=13)
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    obar = torch.randn((n, scfg.d_out), generator=g, device=DEVICE)
+    gbar = torch.randn((n, 4), generator=g, device=DEVICE)
+    cbar = torch.randn((n, 3), generator=g, device=DEVICE)
+    with torch.no_grad():
+        og_pack, cl_pack = pack.pack_outgrad(sdf_net), pack.pack_color(color_net)
+        step_ms["sdf_outgrad_fwd"] = cuda_ms(lambda: OG.sdf_outgrad_cuda(sdf_net, x),
+                                             reps=5)
+        out, grad = OG.sdf_outgrad_cuda(sdf_net, x)
+        ins = [x, -d, -grad, out[:, 1:]]
+        step_ms["color_fwd"] = cuda_ms(lambda: CK.color_fwd_cuda(color_net, *ins),
+                                       reps=5)
+    k_ms = cuda_ms(lambda: OG.outgrad_bwd_cuda(scfg, og_pack, x, obar, gbar), reps=3)
+    # The plain backward: autograd.grad over a prebuilt double-backward
+    # graph, in 4 slices of 32,768 rows (the whole graph does not fit).
+    p_ms = 0.0
+    for i in range(0, n, 32768):
+        xs = x[i:i + 32768].clone().requires_grad_(True)
+        o = OG.sdf_outgrad_plain(sdf_net, xs)
+        cs = [obar[i:i + 32768], gbar[i:i + 32768]]
+        p_ms += cuda_ms(lambda: torch.autograd.grad(o, [xs] + sdf_params, cs,
+                                                    retain_graph=True), reps=2)
+        del o
+    b, by = bound_ms(*k4_bwd_work(scfg, n, sdf_net))
+    load = smi_under_load(lambda: OG.outgrad_bwd_cuda(scfg, og_pack, x, obar, gbar),
+                          k_ms)
+    log("time", kernel="sdf_outgrad_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
+        plain_note="autograd.grad of the plain version, 4 slices of 32768 rows",
+        bound_ms=b, bound_by=by, sm_clock_power_under_kernel=load)
+    results["sdf_outgrad_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
+                                       bound_ms=b, bound_by=by)]
+    step_ms["sdf_outgrad_bwd"] = k_ms
+    torch.cuda.empty_cache()
+
+    k_ms = cuda_ms(lambda: CK.color_bwd_cuda(ccfg, cl_pack, *ins, cbar), reps=3)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    o = CK.color_plain(color_net, *leaves)
+    p_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves + color_params, cbar,
+                                               retain_graph=True), reps=3)
+    del o
+    b, by = bound_ms(*k5_bwd_work(ccfg, n, color_net))
+    load = smi_under_load(lambda: CK.color_bwd_cuda(ccfg, cl_pack, *ins, cbar), k_ms)
+    log("time", kernel="color_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
+        plain_note="autograd.grad of the plain version", bound_ms=b,
+        bound_by=by, sm_clock_power_under_kernel=load)
+    results["color_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b,
+                                 bound_by=by)]
+    step_ms["color_bwd"] = k_ms
+    log("composed_step_shapes", rows=n, kernel_ms=step_ms)
+    del x, d, obar, gbar, cbar, out, grad, ins, leaves
+    torch.cuda.empty_cache()
+    for k in results:
+        results[k] = {"max_abs_err": errs[k], "times": results[k]}
+    return results, step_ms
+
+
 def camera(h, w):
     """The reference's NDC-style K for a 60-degree horizontal field of view."""
     import numpy as np
@@ -602,7 +871,11 @@ def time_of(idx):
     return idx / (N_FRAMES - 1) * 2.0 - 1.0
 
 
-def phase_main(cfg, fields, counters):
+def phase_main(cfg, fields, counters, per_chunk, views=VIEWS, phase="main"):
+    """``views`` renders of the full-width model through ``render_image``;
+    the launch counters are zeroed just before and read just after, and
+    must show ``per_chunk`` launches of each named kernel per chunk and none
+    of the others."""
     import numpy as np
     import torch
     from copenerf_torch.evaluation.render import ImageRenderer
@@ -622,35 +895,36 @@ def phase_main(cfg, fields, counters):
                                      1.0)
 
     one(0)                                   # warm-up (not counted)
+    torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     view_ms = []
     outs = []
-    for i in range(VIEWS):
+    for i in range(views):
         t0 = time.perf_counter()
         outs.append(one(i))
         view_ms.append(1e3 * (time.perf_counter() - t0))
     launches = {c.name: c.launches for c in counters}
-    n_chunks = VIEWS * -(-(h * w) // CHUNK)
+    n_chunks = views * -(-(h * w) // CHUNK)
     for i, res in enumerate(outs):
         for k, v in res.items():
             if not np.all(np.isfinite(v)):
-                fail(f"view {i}: non-finite {k}")
+                fail(f"{phase} view {i}: non-finite {k}")
         if res["color"].shape != (h, w, 3) or res["depth"].shape != (h, w):
-            fail(f"view {i}: wrong output shapes")
+            fail(f"{phase} view {i}: wrong output shapes")
         center = float(res["depth"][h // 2, w // 2])
-        log("view", view=i, frame=frames[i], ms=view_ms[i],
+        log("view", path=phase, view=i, frame=frames[i], ms=view_ms[i],
             rays_per_s=h * w / (view_ms[i] / 1e3), depth_center=center)
         # The centre ray meets the init sphere (radius 0.5, 2.5 away).
         if not 1.5 < center < 2.5:
-            fail(f"view {i}: centre depth {center} misses the init sphere")
-    want = {"sdf_value": 4 * n_chunks, "rendercore_fwd": n_chunks,
-            "rendercore_bwd": 0, "sdf_value_diff_fwd": 0, "sdf_value_bwd": 0}
-    log("main", views=VIEWS, resolution=list(RES), chunk=CHUNK,
+            fail(f"{phase} view {i}: centre depth {center} misses the init sphere")
+    want = {c.name: per_chunk.get(c.name, 0) * n_chunks for c in counters}
+    log(phase, views=views, resolution=list(RES), chunk=CHUNK,
         chunks=n_chunks, launches=launches, expected=want,
-        mean_view_ms=sum(view_ms) / VIEWS)
+        mean_view_ms=sum(view_ms) / views,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if launches != want:
-        fail(f"launch counts {launches} != {want}")
+        fail(f"{phase} launch counts {launches} != {want}")
     return launches, (K, w2c[0], time_of(frames[0]), depth_range)
 
 
@@ -801,11 +1075,15 @@ def train_setup(cfg, seed):
     return s, rcfg, batch
 
 
-def phase_train(cfg, fields, counters, step_ms):
-    """TRAIN_STEPS stage-1 steps on a copy of the main path's nets, one
-    fixed batch; launch counters zeroed just before and read just after.
-    ``step_ms``: each kernel's time alone at the step's shapes, for the
-    kernels / glue split of the mean step."""
+def phase_train(cfg, fields, counters, step_ms, per_step, steps=TRAIN_STEPS,
+                window=5, phase="train"):
+    """``steps`` stage-1 steps on a copy of the main path's nets, one fixed
+    batch; launch counters zeroed just before and read just after, which
+    must show ``per_step`` launches of each named kernel per step and none
+    of the others. ``step_ms``: each kernel's time alone at the step's
+    shapes, for the kernels / glue split of the mean step; the loss must be
+    finite and its mean over the last ``window`` steps below that over the
+    first."""
     import numpy as np
     import torch
     from copenerf_torch.training import step as TS
@@ -815,10 +1093,11 @@ def phase_train(cfg, fields, counters, step_ms):
     step = TS.build_train_step(rcfg, s)
     tc = cfg["training"]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     losses, times = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         # The first iterations of a run: the field lr warms up linearly over
         # nb_warm_up_it iterations, the motion lr does not (the trainer's
         # schedule).
@@ -828,32 +1107,32 @@ def phase_train(cfg, fields, counters, step_ms):
         loss = float(m["loss"])          # a host copy: the step has ended
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(loss)
-        log("step", step=i, loss=loss, ms=times[-1],
+        log("step", path=phase, step=i, loss=loss, ms=times[-1],
             loss_rgb=float(m["loss_rgb"]), loss_flow_rgb=float(m["loss_flow_rgb"]),
             sdf_consistency_loss=float(m["sdf_consistency_loss"]),
             psnr=float(m["psnr"]))
     launches = {c.name: c.launches for c in counters}
-    want = {"sdf_value": 4 * TRAIN_STEPS, "rendercore_fwd": TRAIN_STEPS,
-            "rendercore_bwd": TRAIN_STEPS, "sdf_value_diff_fwd": TRAIN_STEPS,
-            "sdf_value_bwd": TRAIN_STEPS}
+    want = {c.name: per_step.get(c.name, 0) * steps for c in counters}
     mean_ms = float(np.mean(times[1:]))
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
     kernel_ms = (step_ms[f"sdf_value_{STEP_ROWS // 2}"]
                  + 3 * step_ms[f"sdf_value_{STEP_ROWS // 8}"]
-                 + sum(step_ms[k] for k in ("rendercore_fwd", "rendercore_bwd",
-                                            "sdf_value_diff_fwd", "sdf_value_bwd")))
-    log("train", steps=TRAIN_STEPS, rays=s.n_points, resolution=list(TRAIN_RES),
+                 + sum(step_ms[k] * count for k, count in per_step.items()
+                       if k != "sdf_value"))
+    log(phase, steps=steps, rays=s.n_points, resolution=list(TRAIN_RES),
         launches=launches, expected=want, mean_step_ms=mean_ms,
-        mean_step_ms_note="steps 1..29 (step 0 allocates)",
+        mean_step_ms_note=f"steps 1..{steps - 1} (step 0 allocates)",
         kernel_ms_per_step=kernel_ms, glue_ms_per_step=mean_ms - kernel_ms,
-        rays_per_s=s.n_points / (mean_ms / 1e3), first5_mean_loss=first,
-        last5_mean_loss=last, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rays_per_s=s.n_points / (mean_ms / 1e3),
+        **{f"first{window}_mean_loss": first, f"last{window}_mean_loss": last},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if not np.all(np.isfinite(losses)):
-        fail(f"non-finite train loss: {losses}")
+        fail(f"{phase}: non-finite train loss: {losses}")
     if not last < first:
-        fail(f"loss did not descend: first 5 {first}, last 5 {last}")
+        fail(f"{phase}: loss did not descend: first {window} {first}, "
+             f"last {window} {last}")
     if launches != want:
-        fail(f"train launch counts {launches} != {want}")
+        fail(f"{phase} launch counts {launches} != {want}")
     return launches, (s, rcfg, batch)
 
 
@@ -879,7 +1158,7 @@ def step_grads(fields, rcfg, s, batch, ray_idx, t_rand):
 CONS_RTOL = 2e-3
 
 
-def phase_train_card_vs_cpu(fields, checked, train):
+def phase_train_card_vs_cpu(fields, checked, train, phase="train_card_vs_cpu"):
     """One step, 64 rays (4 patches of the train batch) and their jitter,
     on the card (kernels) and on the CPU (plain versions). Main-path nets:
     every metric within 1e-4 relative + 1e-6, every gradient tensor within
@@ -915,7 +1194,7 @@ def phase_train_card_vs_cpu(fields, checked, train):
         cpu_ms = 1e3 * (time.perf_counter() - t0)
         g_err = [rel_norm(a, b) for a, b in zip(g_card, g_cpu)]
         worst = max(range(len(g_err)), key=g_err.__getitem__)
-        log("train_card_vs_cpu", nets=nets, rays=64, metrics_card=m_card,
+        log(phase, nets=nets, rays=64, metrics_card=m_card,
             metrics_cpu=m_cpu,
             grad_worst_rel_norm=g_err[worst], grad_worst=names[worst],
             card_ms=card_ms, cpu_ms=cpu_ms)
@@ -926,7 +1205,7 @@ def phase_train_card_vs_cpu(fields, checked, train):
         g_tol = 1e-3 if nets == "main" else 1e-2
         bad_g = [nm for nm, e in zip(names, g_err) if not e <= g_tol]
         if bad_m or bad_g:
-            fail(f"train card vs cpu ({nets} nets): metrics {bad_m}, "
+            fail(f"{phase} ({nets} nets): metrics {bad_m}, "
                  f"gradients {bad_g[:6]}")
 
 
@@ -945,6 +1224,18 @@ KERNELS = {
     "sdf_value_bwd": dict(
         source="copenerf_torch/csrc/sdf_value_bwd.cu",
         replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:515"),
+    "sdf_outgrad_fwd": dict(
+        source="copenerf_torch/csrc/sdf_outgrad_fwd.cu",
+        replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:472"),
+    "sdf_outgrad_bwd": dict(
+        source="copenerf_torch/csrc/sdf_outgrad_bwd.cu",
+        replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:515"),
+    "color_fwd": dict(
+        source="copenerf_torch/csrc/color_fwd.cu",
+        replaces="copenerf_tpu/ops/pallas/color_kernels.py:188"),
+    "color_bwd": dict(
+        source="copenerf_torch/csrc/color_bwd.cu",
+        replaces="copenerf_tpu/ops/pallas/color_kernels.py:209"),
 }
 
 
@@ -961,6 +1252,8 @@ def main():
 
     # The port must be beside this script: fail before printing anything.
     sys.path.insert(0, REPO)
+    from copenerf_torch.ops.kernels import color as CK
+    from copenerf_torch.ops.kernels import outgrad as OG
     from copenerf_torch.ops.kernels import rendercore as RC
     from copenerf_torch.ops.kernels import sdf_value as SV
     from copenerf_torch.ops.kernels import sdf_value_diff as SVD
@@ -968,22 +1261,45 @@ def main():
     phase_device()
     phase_build()
     cfg, _, fields, checked = full_width_nets(seed=0)
+    ncfg, _, nfields, nchecked = full_width_nets(seed=0, negative_ray=True)
     with torch.no_grad():
         kres = phase_kernels(checked)
     tres, step_ms = phase_train_kernels(checked)
     kres.update(tres)
+    cres, cstep_ms = phase_composed_kernels(nchecked)
+    kres.update(cres)
+    log("unported_bounds", rows=STEP_ROWS, bound_ms=unported_bounds(
+        checked["sdf"].cfg, checked["color"].cfg, STEP_ROWS, checked["sdf"],
+        checked["color"]))
     counters = [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER,
-                SVD.BWD_COUNTER]
-    render_launches, view = phase_main(cfg, fields, counters)
+                SVD.BWD_COUNTER, OG.FWD_COUNTER, OG.BWD_COUNTER, CK.FWD_COUNTER,
+                CK.BWD_COUNTER]
+    launches = {}
+    launches["render"], view = phase_main(
+        cfg, fields, counters, {"sdf_value": 4, "rendercore_fwd": 1})
     phase_card_vs_cpu(cfg, fields, checked, view)
-    train_launches, train = phase_train(cfg, fields, counters, step_ms)
+    launches["train"], train = phase_train(
+        cfg, fields, counters, step_ms,
+        {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
+         "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1})
     phase_train_card_vs_cpu(fields, checked, train)
+    # The composed path (use_negative_ray_vector): K4 + K5 in place of K1.
+    launches["render_composed"], _ = phase_main(
+        ncfg, nfields, counters,
+        {"sdf_value": 4, "sdf_outgrad_fwd": 1, "color_fwd": 1}, views=1,
+        phase="composed_main")
+    launches["train_composed"], ctrain = phase_train(
+        ncfg, nfields, counters, {**step_ms, **cstep_ms},
+        {"sdf_value": 4, "sdf_outgrad_fwd": 1, "sdf_outgrad_bwd": 1,
+         "color_fwd": 1, "color_bwd": 1, "sdf_value_diff_fwd": 1,
+         "sdf_value_bwd": 1}, steps=10, window=3, phase="composed_train")
+    phase_train_card_vs_cpu(nfields, nchecked, ctrain, phase="composed_card_vs_cpu")
 
     rows = []
     for name, meta in KERNELS.items():
         # The time line is the main path's largest shape for each kernel.
         t = kres[name]["times"][0]
-        by_path = {"render": render_launches[name], "train": train_launches[name]}
+        by_path = {path: counts[name] for path, counts in launches.items()}
         rows.append({"name": name, "route": "cuda", "source": meta["source"],
                      "replaces": meta["replaces"],
                      "launches": sum(by_path.values()),

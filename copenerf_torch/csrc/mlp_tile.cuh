@@ -1,8 +1,11 @@
 // Shared device helpers of the port's field kernels (sdf_value.cu,
-// rendercore_fwd.cu, sdf_value_bwd.cu, rendercore_bwd.cu): the row-tile
-// layout, the f32 FFMA tile GEMM, the per-row dot for narrow heads, the
-// positional encoding and its Jacobian products, the shared-exp softplus-100
-// and the per-row staging of the backward kernels.
+// rendercore_fwd.cu, sdf_value_bwd.cu, rendercore_bwd.cu, sdf_outgrad_*.cu,
+// color_*.cu): the row-tile layout, the f32 FFMA tile GEMM, the per-row dot
+// for narrow heads, the positional encoding and its Jacobian products, the
+// shared-exp softplus-100, the per-row staging of the backward kernels, and
+// the sweeps the render-core kernels share with the outgrad and color
+// kernels (the SDF forward, the gradient sweep, channel B, the A + B
+// down-sweep, the color MLP forward and backward).
 //
 // Layout: a block of 256 threads (8 warps) owns a tile of kRows = 64 rows.
 // Activations live in shared memory, one 256-float line per row; warp w owns
@@ -66,6 +69,19 @@ inline bool make_offsets(Offsets& off, int n_hidden, const long long* w,
   for (int l = 0; l < n_color; ++l) {
     off.wc[l] = wc[l];
     off.bc[l] = bc[l];
+  }
+  return true;
+}
+
+// Host: fill `off` for the color MLP alone (n_color layers; wct may be null).
+inline bool make_color_offsets(Offsets& off, int n_color, const long long* wc,
+                               const long long* bc, const long long* wct) {
+  if (n_color < 2 || n_color > kMaxColorLayers) return false;
+  off = Offsets{};
+  for (int l = 0; l < n_color; ++l) {
+    off.wc[l] = wc[l];
+    off.bc[l] = bc[l];
+    if (wct) off.wct[l] = wct[l];
   }
   return true;
 }
@@ -390,6 +406,290 @@ __device__ __forceinline__ float pe4_jac(const float* gb, const float* xs, int c
   const float f = (float)(1 << k);
   const float a = xs[j] * f;
   return rem < 4 ? gb[j] * f * cosf(a) : -gb[j] * f * sinf(a);
+}
+
+// Column j of J_pe(dirs)^T pb for one view direction (d_in = 3): pb is the
+// cotangent of [dirs, sin(2^0 dirs), cos(2^0 dirs), ...].
+__device__ __forceinline__ float pe3_jac_t(const float* pb, const float* dirs, int multires,
+                                           int j) {
+  float acc = pb[j];
+  for (int k = 0; k < multires; ++k) {
+    const float f = (float)(1 << k);
+    const float a = dirs[j] * f;
+    acc += pb[3 + 6 * k + j] * (cosf(a) * f);
+    acc += pb[6 + 6 * k + j] * (-sinf(a) * f);
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Sweeps shared by the SDF kernels with an input gradient (rendercore_*.cu,
+// sdf_outgrad_*.cu) and by the color kernels (rendercore_*.cu, color_*.cu).
+// Each works on the block's 64-row tile in shared memory; `sig_at(l, r, c)`
+// reads sigmoid(100 z) of SDF hidden layer l kept by the forward.
+// ---------------------------------------------------------------------------
+
+// The input-gradient reverse sweep (sdf_kernels.py `_grad_sweep_tile`) in h:
+// u_{L} = W_last[:, 0] * sig_L (L the last hidden layer), then for l = L down
+// to l_stop: r_l = u_l W_l^T, split at the skip into (h | e) / sqrt(2) with
+// the PE part into e, and u_{l-1} = r_l * sig_{l-1}. `put_u(l, r, c, u)` sees
+// every u_l. With l_stop == 0 h ends holding ee = d(sdf)/d(PE) (d0 wide, the
+// skip's PE part added); with l_stop == 1 it ends at u_0, for a backward that
+// needs the u_l alone. Starts with a barrier.
+template <int KS, class Sig, class PutU>
+__device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, const Offsets& off,
+                                               const SdfGeom& g, float* h, float* e,
+                                               float* w_s, int l_stop, Sig sig_at,
+                                               PutU put_u) {
+  const int n_hidden = g.n_lin - 1;
+  const int split = g.hidden - g.d0;
+  __syncthreads();
+  {
+    const float* w0 = P + off.w_last0;
+    const int l = n_hidden - 1;
+    const int width = sdf_out_dim(g, l);
+    for (int i = threadIdx.x; i < kRows * width; i += kThreads) {
+      const int r = i / width, c = i - r * width;
+      const float u = w0[c] * sig_at(l, r, c);
+      h[r * 256 + c] = u;
+      put_u(l, r, c, u);
+    }
+  }
+  for (int l = n_hidden - 1; l >= l_stop; --l) {
+    const int K = sdf_out_dim(g, l);
+    const int N = sdf_in_dim(g, l);
+    const bool at_skip = (l == g.skip);
+    gemm<KS>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+      if (at_skip) {
+        v *= kInvSqrt2;
+        if (c >= split) {  // the PE part of the skip input: ee_skip
+          e[r * g.d0 + (c - split)] = v;
+          return;
+        }
+      }
+      if (l > 0) {
+        const float u = v * sig_at(l - 1, r, c);
+        h[r * 256 + c] = u;
+        put_u(l - 1, r, c, u);
+      } else {
+        h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
+      }
+    });
+  }
+}
+
+// Channel B of the second-order backward, up-sweep (sdf_kernels.py
+// :361-380): the double backprop of grad = J_pe^T ee for a cotangent gb of
+// grad (4 per row at gb_s): p_0 = J_pe gb, then per hidden layer q_l = p_l W_l
+// (with p_0 / sqrt(2) appended at the skip), zB_l = q_l u_l 100 (1 - sig_l)
+// (written through `zb_at(l, r, c)`, u_l read through `u_at(l, r, c)`) and
+// p_{l+1} = q_l sig_l (/ sqrt(2) before the skip). `put_p(l, r, c, v)` sees
+// p_0 .. p_L+1, where p_{L+1} (L the last hidden layer) is the term of row 0
+// of the last layer's W (`wlast_col0_bar`). gb_s and xs must be visible to
+// every thread (a barrier before the call); h and e are overwritten.
+template <int KS, class Sig, class GetU, class Zb, class PutP>
+__device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, const Offsets& off,
+                                                 const SdfGeom& g, float* h, float* e,
+                                                 float* w_s, const float* gb_s, const float* xs,
+                                                 Sig sig_at, GetU u_at, Zb zb_at, PutP put_p) {
+  const int n_hidden = g.n_lin - 1;
+  const int split = g.hidden - g.d0;
+  for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
+    const int r = i / g.d0, c = i - r * g.d0;
+    const float v = pe4_jac(gb_s + r * 4, xs + r * 4, c);
+    e[i] = v;
+    put_p(0, r, c, v);
+  }
+  for (int l = 0; l < n_hidden; ++l) {
+    if (l > 0 && l == g.skip) {
+      for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
+        const int r = i / g.d0, c = i - r * g.d0;
+        const float v = e[i] * kInvSqrt2;
+        h[r * 256 + split + c] = v;
+        put_p(l, r, split + c, v);
+      }
+    }
+    const int K = sdf_in_dim(g, l);
+    const int N = sdf_out_dim(g, l);
+    const bool pre_skip = (l + 1 == g.skip);
+    gemm<KS>(l == 0 ? e : h, l == 0 ? g.d0 : 256, K, P + off.w[l], N, N, w_s,
+             [&](int r, int c, float q) {
+               const float sig = sig_at(l, r, c);
+               zb_at(l, r, c) = q * u_at(l, r, c) * 100.0f * (1.0f - sig);
+               float v = q * sig;
+               if (pre_skip) v *= kInvSqrt2;
+               h[r * 256 + c] = v;
+               put_p(l + 1, r, c, v);
+             });
+  }
+}
+
+// The last layer's cotangent and the two-channel down-sweep of the
+// second-order backward (sdf_kernels.py :382-419). The head's z_A is
+// [sb (sbar / scale, 1 per row), fb (the feature cotangent, d_feat per row at
+// row stride ld_fb)] and z_B is 0; then h = (z_A W_last) * sig_L and hb =
+// zB_L. Per hidden layer l from L down: z_l = h + hb (`put_z(l, r, c, v)`;
+// the head's z_A as put_z(L + 1, ...)), channel A h = (h W_l^T) * sig_{l-1}
+// with the skip's PE part into e, channel B hb = (hb W_l^T) * sig_{l-1} +
+// zB_{l-1}, down to layer 1 (its x-dependence is severed). h ends holding
+// e_hat = d(out)/d(PE) along channel A. fb may be hb. Starts with a barrier.
+template <int KS, class Sig, class Zb, class PutZ>
+__device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, const Offsets& off,
+                                                  const SdfGeom& g, int d_feat, float* h,
+                                                  float* hb, float* e, float* w_s,
+                                                  const float* sb, const float* fb, int ld_fb,
+                                                  Sig sig_at, Zb zb_at, PutZ put_z) {
+  const int n_hidden = g.n_lin - 1;
+  const int split = g.hidden - g.d0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < kRows * (1 + d_feat); i += kThreads) {
+    const int r = i / (1 + d_feat), c = i - r * (1 + d_feat);
+    put_z(n_hidden, r, c, c == 0 ? sb[r] : fb[r * ld_fb + c - 1]);
+  }
+  {
+    const float* w0 = P + off.w_last0;
+    const int lh = n_hidden - 1;
+    gemm<KS>(fb, ld_fb, d_feat, P + off.w_feat_t, g.hidden, g.hidden, w_s,
+             [&](int r, int c, float v) {
+               v = fmaf(sb[r], w0[c], v);
+               h[r * 256 + c] = v * sig_at(lh, r, c);
+               hb[r * 256 + c] = zb_at(lh, r, c);
+             });
+  }
+  for (int l = n_hidden - 1; l >= 0; --l) {
+    const int K = sdf_out_dim(g, l);
+    const int N = sdf_in_dim(g, l);
+    const bool at_skip = (l == g.skip);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
+      const int r = i / K, c = i - r * K;
+      put_z(l, r, c, h[r * 256 + c] + hb[r * 256 + c]);
+    }
+    gemm<KS>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+      if (at_skip) {
+        v *= kInvSqrt2;
+        if (c >= split) {
+          e[r * g.d0 + (c - split)] = v;
+          return;
+        }
+      }
+      if (l > 0)
+        h[r * 256 + c] = v * sig_at(l - 1, r, c);
+      else
+        h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
+    });
+    if (l == 0) break;  // channel B stops here: it never reaches x
+    gemm<KS>(hb, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+      if (at_skip) {
+        v *= kInvSqrt2;
+        if (c >= split) return;
+      }
+      hb[r * 256 + c] = fmaf(v, sig_at(l - 1, r, c), zb_at(l - 1, r, c));
+    });
+  }
+}
+
+// The IDR color MLP (color_kernels.py `_color_forward_tile`) on the kernel's
+// input order [feature, x, PE(dirs), grad, 0 pad] in cin (row stride cg.k0).
+// The feature columns must be in place; the rest are filled here from xr (x),
+// dr (dirs, 3 used) and gs (grad), 4 per row, which must be visible to every
+// thread (a barrier before the call). Hidden layers ReLU into h; with
+// kStaged, `put_ci(l, r, c, v)` sees every color layer's input (layer 0's
+// after a barrier). The head ends in `head(r, c, color)` for c < 3, the
+// sigmoid applied when cg.squeeze.
+template <int KS, bool kStaged, class PutCi, class Head>
+__device__ __forceinline__ void color_forward(const float* __restrict__ P, const Offsets& off,
+                                              const ColorGeom& cg, float* cin, float* h,
+                                              float* w_s, const float* xr, const float* dr,
+                                              const float* gs, PutCi put_ci, Head head) {
+  const int d_view = 3 * (1 + 2 * cg.multires);
+  const int extra = cg.k0 - cg.d_feat;
+  for (int i = threadIdx.x; i < kRows * extra; i += kThreads) {
+    const int r = i / extra, c = i - r * extra;
+    float v = 0.0f;
+    if (c < 4)
+      v = xr[r * 4 + c];
+    else if (c < 4 + d_view)
+      v = pe_value(dr + r * 4, 3, c - 4);
+    else if (c < 8 + d_view)
+      v = gs[r * 4 + (c - 4 - d_view)];
+    cin[r * cg.k0 + cg.d_feat + c] = v;
+  }
+  if (kStaged) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRows * cg.k0; i += kThreads) {
+      const int r = i / cg.k0;
+      put_ci(0, r, i - r * cg.k0, cin[i]);
+    }
+  }
+  for (int l = 0; l < cg.n_lin - 1; ++l) {
+    const float* bc = P + off.bc[l];
+    gemm<KS>(l == 0 ? cin : h, l == 0 ? cg.k0 : 256, l == 0 ? cg.k0 : cg.hidden,
+             P + off.wc[l], cg.hidden, cg.hidden, w_s, [&](int r, int c, float z) {
+               const float v = fmaxf(z + bc[c], 0.0f);
+               h[r * 256 + c] = v;
+               put_ci(l + 1, r, c, v);
+             });
+  }
+  __syncthreads();
+  const float* bl = P + off.bc[cg.n_lin - 1];
+  rowdot(h, 256, cg.hidden, P + off.wc[cg.n_lin - 1], 3, 3, [&](int r, int c, float v) {
+    v += bl[c];
+    head(r, c, cg.squeeze ? 1.0f / (1.0f + expf(-v)) : v);
+  });
+}
+
+// The first-order backward of color_forward (color_kernels.py :140-156). cs
+// holds each row's color (4 per row) and must be visible to every thread; h
+// must still hold the last hidden layer's output. cs becomes the head's zbar
+// = cbar c (1 - c) (`cbar_at(r, j)`, 0 past the last row), which goes down
+// the ReLU layers: the layer-l cotangent of the input is masked by the sign
+// of color layer l's input (`in_at(l, r, c)`). `put_cz(l, r, c, v)` sees the
+// output cotangent of every color layer. h0_bar (k0 wide, the kernel's input
+// order) ends in cin after a GEMM epilogue.
+template <int KS, class Cbar, class In, class PutCz>
+__device__ __forceinline__ void color_backward(const float* __restrict__ P, const Offsets& off,
+                                               const ColorGeom& cg, float* cin, float* h,
+                                               float* cs, float* w_s, Cbar cbar_at, In in_at,
+                                               PutCz put_cz) {
+  for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
+    const int r = i >> 2, j = i & 3;
+    float v = 0.0f;
+    if (j < 3) {
+      const float cb = cbar_at(r, j);
+      v = cg.squeeze ? cb * cs[i] * (1.0f - cs[i]) : cb;
+      put_cz(cg.n_lin - 1, r, j, v);
+    }
+    cs[i] = v;
+  }
+  __syncthreads();
+  {
+    // zbar of the last hidden layer: (zbar_head @ W_head) * (in > 0); h
+    // still holds that layer's output (the head's input).
+    const float* wl = P + off.wct[cg.n_lin - 1];  // (3, hidden)
+    for (int i = threadIdx.x; i < kRows * cg.hidden; i += kThreads) {
+      const int r = i / cg.hidden, c = i - r * cg.hidden;
+      float t = 0.0f;
+      for (int k = 0; k < 3; ++k) t = fmaf(cs[r * 4 + k], wl[k * cg.hidden + c], t);
+      const float v = h[r * 256 + c] > 0.0f ? t : 0.0f;
+      h[r * 256 + c] = v;
+      put_cz(cg.n_lin - 2, r, c, v);
+    }
+  }
+  for (int l = cg.n_lin - 2; l >= 1; --l) {
+    gemm<KS>(h, 256, cg.hidden, P + off.wct[l], cg.hidden, cg.hidden, w_s,
+             [&](int r, int c, float v) {
+               v = in_at(l, r, c) > 0.0f ? v : 0.0f;
+               h[r * 256 + c] = v;
+               put_cz(l - 1, r, c, v);
+             });
+  }
+  // h0_bar into cin, in passes of at most 256 columns.
+  gemm<KS>(h, 256, cg.hidden, P + off.wct[0], cg.k0, cg.k0 < 256 ? cg.k0 : 256, w_s,
+           [&](int r, int c, float v) { cin[r * cg.k0 + c] = v; });
+  if (cg.k0 > 256)
+    gemm<KS>(h, 256, cg.hidden, P + off.wct[0] + 256, cg.k0, cg.k0 - 256, w_s,
+             [&](int r, int c, float v) { cin[r * cg.k0 + 256 + c] = v; });
 }
 
 }  // namespace copenerf

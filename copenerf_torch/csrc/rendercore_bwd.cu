@@ -38,7 +38,9 @@
 // (T_l, z_A + z_B, u_l, p_l, color inputs and zbar: ~43 KB a row) is staged
 // per row in device memory and reduced by wgrad.cu's deterministic
 // split-row GEMM; rows past n are never staged, so the ragged tail adds
-// nothing.
+// nothing. The sweeps are mlp_tile.cuh's, shared with K4-bwd
+// (sdf_outgrad_bwd.cu: all but the color parts) and K5-bwd (color_bwd.cu:
+// the color parts).
 #include "mlp_tile.cuh"
 #include "wgrad.cuh"
 
@@ -83,11 +85,9 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
   float* sig_s = scratch + (long long)blockIdx.x * 2 * n_hidden * layer_floats;
   float* zb_s = sig_s + n_hidden * layer_floats;
   const long long tiles = (n + kRows - 1) / kRows;
-  const int split = g.hidden - g.d0;
-  const int d_view = 3 * (1 + 2 * cg.multires);
-  const int o_x = cg.d_feat;       // kernel color-input columns
+  const int o_x = cg.d_feat;  // kernel color-input columns
   const int o_d = o_x + 4;
-  const int o_g = o_d + d_view;
+  const int o_g = o_d + 3 * (1 + 2 * cg.multires);
   auto sig_at = [&](int l, int r, int c) { return sig_s[l * layer_floats + r * 256 + c]; };
   auto zb_at = [&](int l, int r, int c) -> float& { return zb_s[l * layer_floats + r * 256 + c]; };
 
@@ -120,39 +120,9 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     }
 
     // ---- input-gradient sweep: u_l = r_{l+1} * sig_l, staged ----
-    __syncthreads();
-    {
-      const float* w0 = P + off.w_last0;
-      const int l = n_hidden - 1;
-      const int width = sdf_out_dim(g, l);
-      for (int i = threadIdx.x; i < kRows * width; i += kThreads) {
-        const int r = i / width, c = i - r * width;
-        const float u = w0[c] * sig_at(l, r, c);
-        h[r * 256 + c] = u;
-        stage_put(st.u, l, row0 + r, n, c, u);
-      }
-    }
-    for (int l = n_hidden - 1; l >= 0; --l) {
-      const int K = sdf_out_dim(g, l);
-      const int N = sdf_in_dim(g, l);
-      const bool at_skip = (l == g.skip);
-      gemm<kSliceK>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
-        if (at_skip) {
-          v *= kInvSqrt2;
-          if (c >= split) {
-            e[r * g.d0 + (c - split)] = v;
-            return;
-          }
-        }
-        if (l > 0) {
-          const float u = v * sig_at(l - 1, r, c);
-          h[r * 256 + c] = u;
-          stage_put(st.u, l - 1, row0 + r, n, c, u);
-        } else {
-          h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
-        }
-      });
-    }
+    sdf_grad_sweep<kSliceK>(P, off, g, h, e, w_s, 0, sig_at, [&](int l, int r, int c, float u) {
+      stage_put(st.u, l, row0 + r, n, c, u);
+    });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
@@ -161,188 +131,47 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     __syncthreads();
 
     // ---- color forward on [feature, x, PE(dirs), grad, 0], inputs staged ----
-    const int extra = cg.k0 - cg.d_feat;
-    for (int i = threadIdx.x; i < kRows * extra; i += kThreads) {
-      const int r = i / extra, c = i - r * extra;
-      float v = 0.0f;
-      if (c < 4)
-        v = xr[r * 4 + c];
-      else if (c < 4 + d_view)
-        v = pe_value(dr + r * 4, 3, c - 4);
-      else if (c < 8 + d_view)
-        v = gs[r * 4 + (c - 4 - d_view)];
-      cin[r * cg.k0 + cg.d_feat + c] = v;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * cg.k0; i += kThreads) {
-      const int r = i / cg.k0;
-      stage_put(st.ci, 0, row0 + r, n, i - r * cg.k0, cin[i]);
-    }
-    for (int l = 0; l < cg.n_lin - 1; ++l) {
-      const float* bc = P + off.bc[l];
-      gemm<kSliceK>(l == 0 ? cin : h, l == 0 ? cg.k0 : 256, l == 0 ? cg.k0 : cg.hidden,
-                    P + off.wc[l], cg.hidden, cg.hidden, w_s, [&](int r, int c, float z) {
-                      const float v = fmaxf(z + bc[c], 0.0f);
-                      h[r * 256 + c] = v;
-                      stage_put(st.ci, l + 1, row0 + r, n, c, v);
-                    });
-    }
-    __syncthreads();
-    {
-      const float* bl = P + off.bc[cg.n_lin - 1];
-      rowdot(h, 256, cg.hidden, P + off.wc[cg.n_lin - 1], 3, 3, [&](int r, int c, float v) {
-        v += bl[c];
-        cs[r * 4 + c] = cg.squeeze ? 1.0f / (1.0f + expf(-v)) : v;
-      });
-    }
+    color_forward<kSliceK, true>(
+        P, off, cg, cin, h, w_s, xr, dr, gs,
+        [&](int l, int r, int c, float v) { stage_put(st.ci, l, row0 + r, n, c, v); },
+        [&](int r, int c, float v) { cs[r * 4 + c] = v; });
     __syncthreads();
 
-    // ---- color backward ----
-    for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
-      const int r = i >> 2, j = i & 3;
-      const long long gr = row0 + r;
-      float v = 0.0f;
-      if (j < 3 && gr < n) {
-        const float cb = cbar[gr * 3 + j];
-        v = cg.squeeze ? cb * cs[i] * (1.0f - cs[i]) : cb;
-        stage_put(st.cz, cg.n_lin - 1, gr, n, j, v);
-      }
-      cs[i] = v;
-    }
-    __syncthreads();
-    {
-      // zbar of the last hidden layer: (zbar_head @ W_head) * (in > 0); h
-      // still holds that layer's output (the head's input).
-      const float* wl = P + off.wct[cg.n_lin - 1];  // (3, hidden)
-      for (int i = threadIdx.x; i < kRows * cg.hidden; i += kThreads) {
-        const int r = i / cg.hidden, c = i - r * cg.hidden;
-        float t = 0.0f;
-        for (int k = 0; k < 3; ++k) t = fmaf(cs[r * 4 + k], wl[k * cg.hidden + c], t);
-        const float v = h[r * 256 + c] > 0.0f ? t : 0.0f;
-        h[r * 256 + c] = v;
-        stage_put(st.cz, cg.n_lin - 2, row0 + r, n, c, v);
-      }
-    }
-    for (int l = cg.n_lin - 2; l >= 1; --l) {
-      gemm<kSliceK>(h, 256, cg.hidden, P + off.wct[l], cg.hidden, cg.hidden, w_s,
-                    [&](int r, int c, float v) {
-                      const long long gr = row0 + r;
-                      v = stage_get(st.ci, l, gr, n, c) > 0.0f ? v : 0.0f;
-                      h[r * 256 + c] = v;
-                      stage_put(st.cz, l - 1, gr, n, c, v);
-                    });
-    }
-    // h0_bar (k0 wide, the kernel's column order) into cin, in passes of at
-    // most 256 columns.
-    gemm<kSliceK>(h, 256, cg.hidden, P + off.wct[0], cg.k0, cg.k0 < 256 ? cg.k0 : 256, w_s,
-                  [&](int r, int c, float v) { cin[r * cg.k0 + c] = v; });
-    if (cg.k0 > 256)
-      gemm<kSliceK>(h, 256, cg.hidden, P + off.wct[0] + 256, cg.k0, cg.k0 - 256, w_s,
-                    [&](int r, int c, float v) { cin[r * cg.k0 + 256 + c] = v; });
+    // ---- color backward: h0_bar into cin ----
+    color_backward<kSliceK>(
+        P, off, cg, cin, h, cs, w_s,
+        [&](int r, int j) {
+          const long long gr = row0 + r;
+          return gr < n ? cbar[gr * 3 + j] : 0.0f;
+        },
+        [&](int l, int r, int c) { return stage_get(st.ci, l, row0 + r, n, c); },
+        [&](int l, int r, int c, float v) { stage_put(st.cz, l, row0 + r, n, c, v); });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
       const long long gr = row0 + r;
       xc[i] = cin[r * cg.k0 + o_x + j];
       gs[i] = (gr < n ? gbar[gr * 4 + j] : 0.0f) + cin[r * cg.k0 + o_g + j];
-      if (j < 3 && gr < n) {
-        const float* pb = cin + r * cg.k0 + o_d;
-        float acc = pb[j];
-        for (int k = 0; k < cg.multires; ++k) {
-          const float f = (float)(1 << k);
-          const float a = dr[r * 4 + j] * f;
-          acc += pb[3 + 6 * k + j] * (cosf(a) * f);
-          acc += pb[6 + 6 * k + j] * (-sinf(a) * f);
-        }
-        dbar[gr * 3 + j] = acc;
-      }
+      if (j < 3 && gr < n)
+        dbar[gr * 3 + j] = pe3_jac_t(cin + r * cg.k0 + o_d, dr + r * 4, cg.multires, j);
     }
     __syncthreads();
 
     // ---- channel B up-sweep from J_pe (gbar + grad_bar_c) ----
-    for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
-      const int r = i / g.d0, c = i - r * g.d0;
-      const float v = pe4_jac(gs + r * 4, xs + r * 4, c);
-      e[i] = v;
-      stage_put(st.p, 0, row0 + r, n, c, v);
-    }
-    for (int l = 0; l < n_hidden; ++l) {
-      if (l > 0 && l == g.skip) {
-        for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
-          const int r = i / g.d0, c = i - r * g.d0;
-          const float v = e[i] * kInvSqrt2;
-          h[r * 256 + split + c] = v;
-          stage_put(st.p, l, row0 + r, n, split + c, v);
-        }
-      }
-      const int K = sdf_in_dim(g, l);
-      const int N = sdf_out_dim(g, l);
-      const bool pre_skip = (l + 1 == g.skip);
-      const bool last = (l == n_hidden - 1);
-      gemm<kSliceK>(l == 0 ? e : h, l == 0 ? g.d0 : 256, K, P + off.w[l], N, N, w_s,
-                    [&](int r, int c, float q) {
-                      const long long gr = row0 + r;
-                      const float sig = sig_at(l, r, c);
-                      zb_at(l, r, c) = q * stage_get(st.u, l, gr, n, c) * 100.0f * (1.0f - sig);
-                      float v = q * sig;
-                      if (pre_skip) v *= kInvSqrt2;
-                      h[r * 256 + c] = v;
-                      if (last)
-                        stage_put(st.rh, 0, gr, n, c, v);
-                      else
-                        stage_put(st.p, l + 1, gr, n, c, v);
-                    });
-    }
+    sdf_channel_b_up<kSliceK>(
+        P, off, g, h, e, w_s, gs, xs, sig_at,
+        [&](int l, int r, int c) { return stage_get(st.u, l, row0 + r, n, c); }, zb_at,
+        [&](int l, int r, int c, float v) {
+          if (l == n_hidden)
+            stage_put(st.rh, 0, row0 + r, n, c, v);
+          else
+            stage_put(st.p, l, row0 + r, n, c, v);
+        });
 
-    // ---- last layer: z_A = [sbar / scale, feat_bar], z_B = 0 ----
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * (1 + cg.d_feat); i += kThreads) {
-      const int r = i / (1 + cg.d_feat), c = i - r * (1 + cg.d_feat);
-      stage_put(st.z, n_hidden, row0 + r, n, c, c == 0 ? sb[r] : cin[r * cg.k0 + c - 1]);
-    }
-    {
-      const float* w0 = P + off.w_last0;
-      const int lh = n_hidden - 1;
-      gemm<kSliceK>(cin, cg.k0, cg.d_feat, P + off.w_feat_t, g.hidden, g.hidden, w_s,
-                    [&](int r, int c, float v) {
-                      v = fmaf(sb[r], w0[c], v);
-                      h[r * 256 + c] = v * sig_at(lh, r, c);
-                      hb[r * 256 + c] = zb_at(lh, r, c);
-                    });
-    }
-
-    // ---- down-sweep, channels A (h) and B (hb) ----
-    for (int l = n_hidden - 1; l >= 0; --l) {
-      const int K = sdf_out_dim(g, l);
-      const int N = sdf_in_dim(g, l);
-      const bool at_skip = (l == g.skip);
-      __syncthreads();
-      for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
-        const int r = i / K, c = i - r * K;
-        stage_put(st.z, l, row0 + r, n, c, h[r * 256 + c] + hb[r * 256 + c]);
-      }
-      gemm<kSliceK>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
-        if (at_skip) {
-          v *= kInvSqrt2;
-          if (c >= split) {
-            e[r * g.d0 + (c - split)] = v;
-            return;
-          }
-        }
-        if (l > 0)
-          h[r * 256 + c] = v * sig_at(l - 1, r, c);
-        else
-          h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
-      });
-      if (l == 0) break;  // channel B stops here: it never reaches x
-      gemm<kSliceK>(hb, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
-        if (at_skip) {
-          v *= kInvSqrt2;
-          if (c >= split) return;
-        }
-        hb[r * 256 + c] = fmaf(v, sig_at(l - 1, r, c), zb_at(l - 1, r, c));
-      });
-    }
+    // ---- z_A = [sbar / scale, feat_bar], z_B = 0, down channels A and B ----
+    sdf_down_sweep_ab<kSliceK>(
+        P, off, g, cg.d_feat, h, hb, e, w_s, sb, cin, cg.k0, sig_at, zb_at,
+        [&](int l, int r, int c, float v) { stage_put(st.z, l, row0 + r, n, c, v); });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;

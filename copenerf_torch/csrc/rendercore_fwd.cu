@@ -39,6 +39,8 @@
 //    feature GEMM writes columns 0..255 and the small parts follow.
 //  * It runs at under half of the f32 bound (times in PERF.md), limited as
 //    sdf_value.cu is by two warps per scheduler and the non-FFMA work.
+//  * The sweeps are mlp_tile.cuh's, shared with K4-fwd (sdf_outgrad_fwd.cu)
+//    and K5-fwd (color_fwd.cu).
 #include "mlp_tile.cuh"
 
 namespace copenerf {
@@ -64,7 +66,8 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
   const int n_hidden = g.n_lin - 1;
   float* sig_s = scratch + (long long)blockIdx.x * n_hidden * kRows * 256;
   const long long tiles = (n + kRows - 1) / kRows;
-  const int split = g.hidden - g.d0;
+  auto sig_at = [&](int l, int r, int c) { return sig_s[((long long)l * kRows + r) * 256 + c]; };
+  auto none = [](int, int, int, float) {};
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * kRows;
@@ -84,7 +87,7 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
         [&](int l, int r, int c, float sig) {
           sig_s[((long long)l * kRows + r) * 256 + c] = sig;
         },
-        [](int, int, int, float) {});
+        none);
     __syncthreads();
     const float b0 = P[off.b_last0];
     rowdot(h, 256, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {
@@ -98,47 +101,12 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     }
 
     // ---- input-gradient sweep in h: q = W_last[:, 0] * sig, r = q @ W^T ----
-    __syncthreads();
-    {
-      const float* w0 = P + off.w_last0;
-      const int l = n_hidden - 1;
-      const int width = sdf_out_dim(g, l);
-      for (int i = threadIdx.x; i < kRows * width; i += kThreads) {
-        const int r = i / width, c = i - r * width;
-        h[r * 256 + c] = w0[c] * sig_s[((long long)l * kRows + r) * 256 + c];
-      }
-    }
-    for (int l = n_hidden - 1; l >= 0; --l) {
-      const int K = sdf_out_dim(g, l);
-      const int N = sdf_in_dim(g, l);
-      const bool at_skip = (l == g.skip);
-      gemm<kSliceK>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
-        if (at_skip) {
-          v *= kInvSqrt2;
-          if (c >= split) {  // the PE part of the skip input: ee_skip
-            e[r * g.d0 + (c - split)] = v;
-            return;
-          }
-        }
-        if (l > 0)
-          h[r * 256 + c] = v * sig_s[((long long)(l - 1) * kRows + r) * 256 + c];
-        else
-          h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
-      });
-    }
+    sdf_grad_sweep<kSliceK>(P, off, g, h, e, w_s, 0, sig_at, none);
     // h now holds ee (d0 wide): grad = J_pe^T ee.
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
-      const float* ee = h + r * 256;
-      float acc = ee[j];
-      for (int k = 0; k < g.multires; ++k) {
-        const float f = (float)(1 << k);
-        const float av = xs[r * 4 + j] * f;
-        const int cs = 4 + k * 8 + j;
-        acc += ee[cs] * (cosf(av) * f);
-        acc += ee[cs + 4] * (-sinf(av) * f);
-      }
+      const float acc = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j);
       gs[i] = acc;
       const long long gr = row0 + r;
       if (gr < n) grad_out[gr * 4 + j] = acc;
@@ -146,34 +114,11 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     __syncthreads();
 
     // ---- color MLP on [feature, x, PE(dirs), grad, 0] ----
-    const int d_view = 3 * (1 + 2 * cg.multires);
-    const int extra = cg.k0 - cg.d_feat;
-    for (int i = threadIdx.x; i < kRows * extra; i += kThreads) {
-      const int r = i / extra, c = i - r * extra;
-      float v = 0.0f;
-      if (c < 4)
-        v = xr[r * 4 + c];
-      else if (c < 4 + d_view)
-        v = pe_value(dr + r * 4, 3, c - 4);
-      else if (c < 8 + d_view)
-        v = gs[r * 4 + (c - 4 - d_view)];
-      cin[r * cg.k0 + cg.d_feat + c] = v;
-    }
-    for (int l = 0; l < cg.n_lin - 1; ++l) {
-      const float* bc = P + off.bc[l];
-      gemm<kSliceK>(l == 0 ? cin : h, l == 0 ? cg.k0 : 256, l == 0 ? cg.k0 : cg.hidden,
-                    P + off.wc[l], cg.hidden, cg.hidden, w_s,
-                    [&](int r, int c, float z) { h[r * 256 + c] = fmaxf(z + bc[c], 0.0f); });
-    }
-    __syncthreads();
-    const float* bl = P + off.bc[cg.n_lin - 1];
-    rowdot(h, 256, cg.hidden, P + off.wc[cg.n_lin - 1], 3, 3,
-           [&](int r, int c, float v) {
-             v += bl[c];
-             if (cg.squeeze) v = 1.0f / (1.0f + expf(-v));
-             const long long gr = row0 + r;
-             if (gr < n) color_out[gr * 3 + c] = v;
-           });
+    color_forward<kSliceK, false>(P, off, cg, cin, h, w_s, xr, dr, gs, none,
+                                  [&](int r, int c, float v) {
+                                    const long long gr = row0 + r;
+                                    if (gr < n) color_out[gr * 3 + c] = v;
+                                  });
   }
 }
 

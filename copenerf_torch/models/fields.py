@@ -200,15 +200,23 @@ def sdf_with_gradient(net: SDFNetwork, x: torch.Tensor,
     return out, grad
 
 
-def sdf_output_and_gradient(net: SDFNetwork, x: torch.Tensor):
+def sdf_output_and_gradient_plain(net: SDFNetwork, x: torch.Tensor):
     """(out, grad) with ``grad``'s x-dependence severed (the reference
-    detaches pts before ``gradient()``); ``out`` stays differentiable."""
+    detaches pts before ``gradient()``); ``out`` stays differentiable. Plain
+    PyTorch on every device."""
     if not torch.is_grad_enabled():
         out, grad = sdf_with_gradient(net, x.detach())
         return out.detach(), grad.detach()
     out = net(x)
     _, grad = sdf_with_gradient(net, x.detach(), create_graph=True)
     return out, grad
+
+
+def sdf_output_and_gradient(net: SDFNetwork, x: torch.Tensor):
+    """``sdf_output_and_gradient_plain`` for (..., 4) points; CUDA tensors
+    run K4 (the outgrad kernel forward, its second-order backward kernel)."""
+    from ..ops.kernels.outgrad import sdf_outgrad
+    return sdf_outgrad(net, x)
 
 
 def sdf_value_nograd(net: SDFNetwork, x: torch.Tensor) -> torch.Tensor:
@@ -233,17 +241,12 @@ def sdf_grad_color(sdf_net: SDFNetwork, color_net: "ColorNetwork",
     With the reference's color config (idr, positive ray vector) this is the
     render-core op (for CUDA tensors K1-fwd, and K1-bwd when a gradient is
     asked for); otherwise it composes ``sdf_output_and_gradient`` +
-    ``color_apply``, which on the TPU is the fused outgrad kernel and has no
-    CUDA kernel yet, so CUDA tensors raise."""
+    ``color_apply`` (for CUDA tensors K4, then K5 in the idr mode or the
+    plain color MLP in the others, as in the JAX package)."""
     ccfg = color_net.cfg
     if ccfg.mode == "idr" and not ccfg.use_negative_ray_vector:
         from ..ops.kernels.rendercore import rendercore_fwd
         return rendercore_fwd(sdf_net, color_net, x, dirs)
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"color mode {ccfg.mode!r} (negative ray vector: "
-            f"{ccfg.use_negative_ray_vector}) needs the SDF outgrad kernel "
-            "(copenerf_tpu/ops/pallas/sdf_kernels.py:472), not ported yet")
     out, grad = sdf_output_and_gradient(sdf_net, x)
     color = color_apply(color_net, x, grad, dirs, out[..., 1:])
     return out[..., :1], grad, color
@@ -253,9 +256,9 @@ def sdf_grad_color_cons(sdf_net: SDFNetwork, color_net: "ColorNetwork",
                         x: torch.Tensor, dirs: torch.Tensor, y: torch.Tensor):
     """``sdf_grad_color`` plus the sdf-consistency re-query: the
     differentiable SDF value at the world-transformed batch ``y`` as a
-    fourth output ``sdf_w (...,)``. Composed as the render-core op and
-    ``sdf_scalar`` (K1 + K3), the JAX package's default; its folded
-    single-launch variant (``COPENERF_FOLD_CONS``) is not ported."""
+    fourth output ``sdf_w (...,)``. Composed as ``sdf_grad_color`` and
+    ``sdf_scalar`` (K1 or K4 + K5, then K3), the JAX package's default; its
+    folded single-launch variant (``COPENERF_FOLD_CONS``) is not ported."""
     sdf, grad, color = sdf_grad_color(sdf_net, color_net, x, dirs)
     return sdf, grad, color, sdf_scalar(sdf_net, y)
 
@@ -328,19 +331,41 @@ class ColorNetwork(nn.Module):
             h = torch.cat([points, view_dirs, feature_vectors], -1)
         else:
             raise ValueError(cfg.mode)
-        num_layers = len(cfg.dims)
+        return self.mlp(h)
+
+    def mlp(self, h: torch.Tensor) -> torch.Tensor:
+        """The layers on the concatenated input: ReLU hidden layers, the
+        sigmoid head when ``squeeze_out``."""
+        num_layers = len(self.cfg.dims)
         for l in range(num_layers - 1):
             h = self.layers[f"lin{l}"](h)
             if l < num_layers - 2:
                 h = F.relu(h)
-        if cfg.squeeze_out:
+        if self.cfg.squeeze_out:
             h = torch.sigmoid(h)
         return h
 
 
+def color_apply_plain(net: ColorNetwork, points, normals, view_dirs,
+                      feature_vectors) -> torch.Tensor:
+    """The color net in plain PyTorch on every device."""
+    return net(points, normals, view_dirs, feature_vectors)
+
+
 def color_apply(net: ColorNetwork, points, normals, view_dirs,
                 feature_vectors) -> torch.Tensor:
-    return net(points, normals, view_dirs, feature_vectors)
+    """``color_apply_plain``; CUDA tensors in the idr mode run K5 (the color
+    kernel forward, its backward kernel) on [points, dirs, normals,
+    features], negated outside the kernel under ``use_negative_ray_vector``.
+    The other modes stay plain on every device: the JAX package has no
+    kernel for them."""
+    if points.device.type == "cpu" or net.cfg.mode != "idr":
+        return color_apply_plain(net, points, normals, view_dirs,
+                                 feature_vectors)
+    from ..ops.kernels.color import color_mlp
+    if net.cfg.use_negative_ray_vector:
+        view_dirs, normals = -view_dirs, -normals
+    return color_mlp(net, points, view_dirs, normals, feature_vectors)
 
 
 # ---------------------------------------------------------------------------

@@ -141,10 +141,24 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
         _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L,
         _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.copenerf_sdf_outgrad_fwd.argtypes = (
+        [_P] * 7 + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P])
+    lib.copenerf_sdf_outgrad_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
+    lib.copenerf_sdf_outgrad_bwd.argtypes = (
+        [_P] * 8 + [_L] * 3 + [_P] * 3 + [_L] + [_P] * 3 + [_L] + [_I] * 5
+        + [_F, _I, _I, _P])
+    lib.copenerf_color_fwd.argtypes = (
+        [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_I] * 6 + [_P])
+    lib.copenerf_color_bwd_workspace.argtypes = [_L] + [_I] * 5 + [_P]
+    lib.copenerf_color_bwd.argtypes = (
+        [_P] * 4 + [_L] + [_P] * 14 + [_L] + [_I] * 6 + [_P])
     for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,
                lib.copenerf_sdf_value_bwd_workspace, lib.copenerf_sdf_value_bwd,
                lib.copenerf_rendercore_bwd_workspace,
-               lib.copenerf_rendercore_bwd):
+               lib.copenerf_rendercore_bwd, lib.copenerf_sdf_outgrad_fwd,
+               lib.copenerf_sdf_outgrad_bwd_workspace,
+               lib.copenerf_sdf_outgrad_bwd, lib.copenerf_color_fwd,
+               lib.copenerf_color_bwd_workspace, lib.copenerf_color_bwd):
         fn.restype = _I
     return lib
 
@@ -191,15 +205,19 @@ def check_input(t, name: str, width: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def needs_grad(tensors) -> bool:
+    """Whether autograd would need a backward of a call on ``tensors``
+    (inputs and weights): grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def check_no_grad(tensors, what: str) -> None:
     """The raw forward launchers refuse work that autograd would need: a
     differentiable call goes through the autograd.Functions
-    (``sdf_value_diff``, ``rendercore``), whose backward is a kernel too."""
-    if not torch.is_grad_enabled():
-        return
-    for t in tensors:
-        if t.requires_grad:
-            raise RuntimeError(
-                f"{what}: a CUDA input or weight requires grad while grad "
-                "mode is on; this launcher is forward-only (run under "
-                "torch.no_grad(), or call the differentiable entry point)")
+    (``sdf_value_diff``, ``rendercore``, ``outgrad``, ``color``), whose
+    backward is a kernel too."""
+    if needs_grad(tensors):
+        raise RuntimeError(
+            f"{what}: a CUDA input or weight requires grad while grad "
+            "mode is on; this launcher is forward-only (run under "
+            "torch.no_grad(), or call the differentiable entry point)")

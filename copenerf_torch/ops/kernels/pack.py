@@ -17,15 +17,21 @@ does outside its kernels (``sdf_kernels.py`` ``_prep``):
     multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
     backward.
 
-The backward kernels write their weight gradients into one flat buffer too
-(``rendercore_grad_layout``, ``sdf_value_grad_layout``): per layer the
-gradient of the effective W in the kernel's (out, in) layout (the color
-layer 0 with the permuted, padded inputs of ``wct[0]``) and of b.
-``unpack_*_grads`` map it back to each layer's effective (W (out, in), b).
+The render-core kernels (K1) take the SDF and the color parts in one
+buffer; the outgrad kernels (K4) the SDF part with the feature columns; the
+color kernels (K5) the color part alone.
 
-A pack is cached on the SDF network, keyed by the storage and version of
-every parameter it reads, so a render call packs once and an in-place
-update (an optimizer step) or a move to another device repacks.
+The backward kernels write their weight gradients into one flat buffer too
+(``rendercore_grad_layout``, ``outgrad_grad_layout``, ``color_grad_layout``,
+``sdf_value_grad_layout``): per layer the gradient of the effective W in the
+kernel's (out, in) layout (the color layer 0 with the permuted, padded
+inputs of ``wct[0]``) and of b. ``unpack_*_grads`` map it back to each
+layer's effective (W (out, in), b).
+
+A pack is cached on the network it belongs to (the SDF network for a pack
+of both), keyed by the storage and version of every parameter it reads, so
+a render call packs once and an in-place update (an optimizer step) or a
+move to another device repacks.
 """
 
 from __future__ import annotations
@@ -41,6 +47,13 @@ MAX_WIDTH = 256              # shared-memory row buffers
 
 def sdf_skip(cfg) -> int:
     return cfg.skip_in[0] if cfg.skip_in else -1
+
+
+def sdf_geometry(cfg) -> tuple:
+    """The C entry points' SDF geometry arguments: n_lin, d_in, multires,
+    hidden, skip."""
+    return (len(cfg.dims) - 1, cfg.d_in, cfg.multires, cfg.d_hidden,
+            sdf_skip(cfg))
 
 
 def check_sdf_geometry(cfg) -> None:
@@ -77,23 +90,61 @@ def color_k0(ccfg) -> int:
     return k + (-k) % 4
 
 
-def check_color_geometry(sdf_cfg, ccfg) -> None:
+def color_geometry(ccfg) -> tuple:
+    """The C entry points' color geometry arguments: d_feat, n_lin, hidden,
+    multires, k0."""
+    return (ccfg.d_feature, len(ccfg.dims) - 1, ccfg.d_hidden,
+            ccfg.multires_view, color_k0(ccfg))
+
+
+def check_outgrad_geometry(cfg) -> None:
+    """Raise for an SDF config the outgrad kernels (K4) do not take: the
+    value kernels' geometry plus a feature head of a multiple of 4 columns
+    <= 256."""
+    check_sdf_geometry(cfg)
+    d_feat = cfg.d_out - 1
+    if d_feat < 4 or d_feat > MAX_WIDTH or d_feat % 4:
+        raise ValueError("SDF config not supported by the outgrad kernels: "
+                         f"d_out - 1 = {d_feat} must be a multiple of 4 in "
+                         f"[4, {MAX_WIDTH}]")
+
+
+def _color_problems(ccfg) -> list:
     problems = []
-    if ccfg.mode != "idr" or ccfg.use_negative_ray_vector:
-        problems.append("only mode idr with a positive ray vector")
+    if ccfg.mode != "idr":
+        problems.append("only mode idr")
     if ccfg.d_in != 11 or ccfg.d_out != 3:
         problems.append("d_in must be 11 and d_out 3")
-    if (ccfg.d_feature != sdf_cfg.d_out - 1 or ccfg.d_feature > MAX_WIDTH
-            or ccfg.d_feature % 4):
-        problems.append("d_feature must be sdf d_out - 1, a multiple of 4 "
-                        "<= 256")
+    if ccfg.d_feature > MAX_WIDTH or ccfg.d_feature % 4:
+        problems.append(f"d_feature must be a multiple of 4 <= {MAX_WIDTH}")
     if ccfg.d_hidden > MAX_WIDTH or ccfg.d_hidden % 4:
         problems.append(f"d_hidden must be a multiple of 4 <= {MAX_WIDTH}")
     if len(ccfg.dims) - 1 > MAX_COLOR_LAYERS:
         problems.append(f"more than {MAX_COLOR_LAYERS} layers")
+    return problems
+
+
+def check_color_mlp_geometry(ccfg) -> None:
+    """Raise for a color config the color kernels (K5) do not take. Either
+    ray vector: the caller negates dirs and grad outside the kernel."""
+    problems = _color_problems(ccfg)
     if problems:
-        raise ValueError("color config not supported by the CUDA kernel: "
+        raise ValueError("color config not supported by the color kernels: "
                          + "; ".join(problems))
+
+
+def check_color_geometry(sdf_cfg, ccfg) -> None:
+    """Raise for a color config the render-core kernels (K1) do not take:
+    the idr mode with a positive ray vector, its feature the SDF head's."""
+    problems = _color_problems(ccfg)
+    if ccfg.use_negative_ray_vector:
+        problems.append("a positive ray vector only (the negative one "
+                        "composes the outgrad and color kernels)")
+    if ccfg.d_feature != sdf_cfg.d_out - 1:
+        problems.append("d_feature must be sdf d_out - 1")
+    if problems:
+        raise ValueError("color config not supported by the render-core "
+                         "kernels: " + "; ".join(problems))
 
 
 class _Packer:
@@ -145,17 +196,17 @@ def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wt: bool) -> None:
         pk.add("w_feat_t", w[1:])
 
 
-def _cached(sdf_net, name: str, nets, make):
-    """``make()``, reused while no parameter of ``nets`` was replaced or
-    modified in place since the last call."""
+def _cached(owner, name: str, nets, make):
+    """``make()``, kept on ``owner`` and reused while no parameter of
+    ``nets`` was replaced or modified in place since the last call."""
     key = tuple((p.data_ptr(), p._version) for net in nets
                 for p in net.parameters())
-    hit = sdf_net.__dict__.get(name)
+    hit = owner.__dict__.get(name)
     if hit is not None and hit[0] == key:
         return hit[1]
     with torch.no_grad():
         packed = make()
-    sdf_net.__dict__[name] = (key, packed)
+    owner.__dict__[name] = (key, packed)
     return packed
 
 
@@ -192,17 +243,21 @@ def color_kernel_inputs(w: torch.Tensor, ccfg) -> torch.Tensor:
     return torch.cat([w, w.new_zeros((w.shape[0], pad))], 1) if pad else w
 
 
-def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
-    """(params (P,), offsets by name) for the render-core kernels, from the
-    effective layers of both nets."""
-    pk = _Packer()
-    _add_sdf(pk, sdf_layers, with_feature=True, with_wt=True)
+def _add_color(pk: _Packer, color_layers, ccfg) -> None:
     for l, (w, b) in enumerate(color_layers):          # w (out, in)
         if l == 0:
             w = color_kernel_inputs(w, ccfg)
         pk.add("wc", w.t().contiguous())
         pk.add("wct", w)
         pk.add("bc", b)
+
+
+def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
+    """(params (P,), offsets by name) for the render-core kernels, from the
+    effective layers of both nets."""
+    pk = _Packer()
+    _add_sdf(pk, sdf_layers, with_feature=True, with_wt=True)
+    _add_color(pk, color_layers, ccfg)
     return pk.done()
 
 
@@ -212,6 +267,36 @@ def pack_rendercore(sdf_net, color_net):
                    lambda: pack_rendercore_layers(
                        effective_layers(sdf_net), effective_layers(color_net),
                        color_net.cfg))
+
+
+def pack_outgrad_layers(sdf_layers):
+    """(params (P,), offsets by name) for the outgrad kernels (K4): the SDF
+    layers with W^T and the whole head (column 0, the feature columns both
+    ways)."""
+    pk = _Packer()
+    _add_sdf(pk, sdf_layers, with_feature=True, with_wt=True)
+    return pk.done()
+
+
+def pack_outgrad(sdf_net):
+    """``pack_outgrad_layers`` of ``sdf_net``, cached on the net."""
+    return _cached(sdf_net, "_pack_outgrad", (sdf_net,),
+                   lambda: pack_outgrad_layers(effective_layers(sdf_net)))
+
+
+def pack_color_layers(color_layers, ccfg):
+    """(params (P,), offsets by name) for the color kernels (K5): ``wc``,
+    ``wct``, ``bc`` per layer, layer 0 in the kernel's input order."""
+    pk = _Packer()
+    _add_color(pk, color_layers, ccfg)
+    return pk.done()
+
+
+def pack_color(color_net):
+    """``pack_color_layers`` of ``color_net``, cached on the net."""
+    return _cached(color_net, "_pack_color", (color_net,),
+                   lambda: pack_color_layers(effective_layers(color_net),
+                                             color_net.cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -253,19 +338,43 @@ def sdf_value_grad_layout(scfg):
     return lay.offs, lay.size
 
 
-def rendercore_grad_layout(scfg, ccfg):
-    """(offsets by name, size) of K1-bwd's gradient buffer: ``gw[l]``,
-    ``gb[l]`` per SDF layer, ``gw_last0`` (hidden,) added to the last SDF
-    layer's row 0, ``gwc[l]``, ``gbc[l]`` per color layer (layer 0 as
-    (out, k0) in the kernel's input order)."""
-    lay = _GradLayout()
+def _put_sdf_full(lay: _GradLayout, scfg) -> None:
     for o, i in _layer_shapes(scfg):
         lay.put("gw", o * i)
         lay.put("gb", o)
     lay.put("gw_last0", scfg.d_hidden, per_layer=False)
+
+
+def _put_color(lay: _GradLayout, ccfg) -> None:
     for l, (o, i) in enumerate(_layer_shapes(ccfg)):
         lay.put("gwc", o * (color_k0(ccfg) if l == 0 else i))
         lay.put("gbc", o)
+
+
+def outgrad_grad_layout(scfg):
+    """(offsets by name, size) of K4-bwd's gradient buffer: ``gw[l]``,
+    ``gb[l]`` per SDF layer and ``gw_last0`` (hidden,), added to the last
+    layer's row 0."""
+    lay = _GradLayout()
+    _put_sdf_full(lay, scfg)
+    return lay.offs, lay.size
+
+
+def color_grad_layout(ccfg):
+    """(offsets by name, size) of K5-bwd's gradient buffer: ``gwc[l]``,
+    ``gbc[l]`` per color layer (layer 0 as (out, k0) in the kernel's input
+    order)."""
+    lay = _GradLayout()
+    _put_color(lay, ccfg)
+    return lay.offs, lay.size
+
+
+def rendercore_grad_layout(scfg, ccfg):
+    """(offsets by name, size) of K1-bwd's gradient buffer: K4-bwd's SDF
+    part, then K5-bwd's color part."""
+    lay = _GradLayout()
+    _put_sdf_full(lay, scfg)
+    _put_color(lay, ccfg)
     return lay.offs, lay.size
 
 
@@ -292,14 +401,20 @@ def unpack_sdf_value_grads(buf, offs, scfg) -> list:
     return out
 
 
-def unpack_rendercore_grads(buf, offs, scfg, ccfg):
-    """K1-bwd's buffer -> ([(W_bar, b_bar)] per SDF layer, [(W_bar, b_bar)]
-    per color layer), each W_bar (out, in) in the layer's own input order."""
+def unpack_outgrad_grads(buf, offs, scfg) -> list:
+    """K4-bwd's buffer (or K1-bwd's SDF part) -> [(W_bar (out, in), b_bar)]
+    per SDF layer, ``gw_last0`` added to the last layer's row 0."""
     sdf = [(_take(buf, offs["gw"][l], (o, i)), _take(buf, offs["gb"][l], (o,)))
            for l, (o, i) in enumerate(_layer_shapes(scfg))]
     w_last = sdf[-1][0].clone()
     w_last[0] += _take(buf, offs["gw_last0"], (scfg.d_hidden,))
     sdf[-1] = (w_last, sdf[-1][1])
+    return sdf
+
+
+def unpack_color_grads(buf, offs, ccfg) -> list:
+    """K5-bwd's buffer (or K1-bwd's color part) -> [(W_bar (out, in),
+    b_bar)] per color layer, layer 0 in its own input order."""
     color = []
     for l, (o, i) in enumerate(_layer_shapes(ccfg)):
         b = _take(buf, offs["gbc"][l], (o,))
@@ -310,7 +425,28 @@ def unpack_rendercore_grads(buf, offs, scfg, ccfg):
         else:
             w = _take(buf, offs["gwc"][l], (o, i))
         color.append((w, b))
-    return sdf, color
+    return color
+
+
+def unpack_rendercore_grads(buf, offs, scfg, ccfg):
+    """K1-bwd's buffer -> ([(W_bar, b_bar)] per SDF layer, [(W_bar, b_bar)]
+    per color layer), each W_bar (out, in) in the layer's own input order."""
+    return (unpack_outgrad_grads(buf, offs, scfg),
+            unpack_color_grads(buf, offs, ccfg))
+
+
+def _fill_sdf(buf, offs, sdf_bars) -> None:
+    for l, (w, b) in enumerate(sdf_bars):
+        buf[offs["gw"][l]:offs["gw"][l] + w.numel()] = w.reshape(-1)
+        buf[offs["gb"][l]:offs["gb"][l] + b.numel()] = b
+
+
+def _fill_color(buf, offs, color_bars, ccfg) -> None:
+    for l, (w, b) in enumerate(color_bars):
+        if l == 0:
+            w = color_kernel_inputs(w, ccfg)
+        buf[offs["gwc"][l]:offs["gwc"][l] + w.numel()] = w.reshape(-1)
+        buf[offs["gbc"][l]:offs["gbc"][l] + b.numel()] = b
 
 
 def pack_rendercore_grads(sdf_bars, color_bars, scfg, ccfg) -> torch.Tensor:
@@ -318,12 +454,22 @@ def pack_rendercore_grads(sdf_bars, color_bars, scfg, ccfg) -> torch.Tensor:
     per-layer (W_bar, b_bar) lists -> the kernel's gradient buffer."""
     offs, size = rendercore_grad_layout(scfg, ccfg)
     buf = sdf_bars[0][0].new_zeros(size)
-    for l, (w, b) in enumerate(sdf_bars):
-        buf[offs["gw"][l]:offs["gw"][l] + w.numel()] = w.reshape(-1)
-        buf[offs["gb"][l]:offs["gb"][l] + b.numel()] = b
-    for l, (w, b) in enumerate(color_bars):
-        if l == 0:
-            w = color_kernel_inputs(w, ccfg)
-        buf[offs["gwc"][l]:offs["gwc"][l] + w.numel()] = w.reshape(-1)
-        buf[offs["gbc"][l]:offs["gbc"][l] + b.numel()] = b
+    _fill_sdf(buf, offs, sdf_bars)
+    _fill_color(buf, offs, color_bars, ccfg)
+    return buf
+
+
+def pack_outgrad_grads(sdf_bars, scfg) -> torch.Tensor:
+    """The inverse of ``unpack_outgrad_grads`` with ``gw_last0`` zero."""
+    offs, size = outgrad_grad_layout(scfg)
+    buf = sdf_bars[0][0].new_zeros(size)
+    _fill_sdf(buf, offs, sdf_bars)
+    return buf
+
+
+def pack_color_grads(color_bars, ccfg) -> torch.Tensor:
+    """The inverse of ``unpack_color_grads``."""
+    offs, size = color_grad_layout(ccfg)
+    buf = color_bars[0][0].new_zeros(size)
+    _fill_color(buf, offs, color_bars, ccfg)
     return buf

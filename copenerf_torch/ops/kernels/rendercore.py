@@ -19,11 +19,13 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...models.fields import color_apply, sdf_output_and_gradient
+from ...models.fields import (color_apply_plain,
+                              sdf_output_and_gradient_plain)
 from . import build
-from .pack import (check_color_geometry, check_sdf_geometry, color_k0,
+from .color import color_relu_margin as _color_margin
+from .pack import (check_color_geometry, check_sdf_geometry, color_geometry,
                    effective_layers, pack_rendercore, pack_rendercore_layers,
-                   rendercore_grad_layout, sdf_skip, unpack_rendercore_grads)
+                   rendercore_grad_layout, sdf_geometry, unpack_rendercore_grads)
 
 COUNTER = build.KernelCounter("rendercore_fwd")
 BWD_COUNTER = build.KernelCounter("rendercore_bwd")
@@ -31,40 +33,29 @@ BWD_COUNTER = build.KernelCounter("rendercore_bwd")
 
 def rendercore_fwd_plain(sdf_net, color_net, x: torch.Tensor,
                          dirs: torch.Tensor):
-    """The composed path: SDF forward, ``autograd.grad`` with the input
+    """The composed path in plain PyTorch on every device (the yardstick of
+    K1 on the card too): SDF forward, ``autograd.grad`` with the input
     detached (``create_graph`` under grad mode, so the second-order terms
     reach the weights), color MLP. Returns (sdf (...,1), grad (...,4),
     color (...,3))."""
-    out, grad = sdf_output_and_gradient(sdf_net, x)
-    color = color_apply(color_net, x, grad, dirs, out[..., 1:])
+    out, grad = sdf_output_and_gradient_plain(sdf_net, x)
+    color = color_apply_plain(color_net, x, grad, dirs, out[..., 1:])
     return out[..., :1], grad, color
 
 
 def color_relu_margin(sdf_net, color_net, x: torch.Tensor,
                       dirs: torch.Tensor) -> torch.Tensor:
     """(n,) the smallest |pre-activation| of the color MLP's ReLUs in each
-    row, from the plain version. Where it lies within rounding of 0 the
-    ReLU's derivative flips under any change of summation order, so the
-    checks of K1-bwd zero those rows' color cotangent."""
-    pre = []
-    hooks = [color_net.layers[f"lin{l}"].register_forward_hook(
-        lambda m, i, o: pre.append(o.detach().abs().amin(-1)))
-        for l in range(len(color_net.cfg.dims) - 2)]
-    try:
-        with torch.no_grad():
-            rendercore_fwd_plain(sdf_net, color_net, x, dirs)
-    finally:
-        for h in hooks:
-            h.remove()
-    return torch.stack(pre).amin(0)
+    row of the plain render-core query (``color.color_relu_margin``), for
+    the checks of K1-bwd."""
+    with torch.no_grad():
+        out, grad = sdf_output_and_gradient_plain(sdf_net, x)
+    return _color_margin(color_net, x, dirs, grad, out[..., 1:])
 
 
 def _geometry(scfg, ccfg) -> tuple:
     """The C entry points' SDF and color geometry arguments."""
-    return ((len(scfg.dims) - 1, scfg.d_in, scfg.multires, scfg.d_hidden,
-             sdf_skip(scfg)),
-            (ccfg.d_feature, len(ccfg.dims) - 1, ccfg.d_hidden,
-             ccfg.multires_view, color_k0(ccfg)))
+    return sdf_geometry(scfg), color_geometry(ccfg)
 
 
 def _check_rows(scfg, ccfg, x, dirs) -> None:
@@ -188,14 +179,6 @@ class RenderCore(torch.autograd.Function):
                 *[w for w, _ in color_bars], *[b for _, b in color_bars])
 
 
-def _needs_grad(sdf_net, color_net, x, dirs) -> bool:
-    if not torch.is_grad_enabled():
-        return False
-    return (x.requires_grad or dirs.requires_grad
-            or any(p.requires_grad for p in sdf_net.parameters())
-            or any(p.requires_grad for p in color_net.parameters()))
-
-
 def rendercore_fwd(sdf_net, color_net, x: torch.Tensor, dirs: torch.Tensor):
     """(sdf (...,1), grad (...,4), color (...,3)) of (..., 4) points and
     (..., 3) view dirs, differentiable wherever grad mode asks for it."""
@@ -204,7 +187,8 @@ def rendercore_fwd(sdf_net, color_net, x: torch.Tensor, dirs: torch.Tensor):
     lead = x.shape[:-1]
     xf = x.reshape(-1, 4).contiguous()
     df = dirs.reshape(-1, 3).contiguous()
-    if _needs_grad(sdf_net, color_net, x, dirs):
+    if build.needs_grad([x, dirs, *sdf_net.parameters(),
+                         *color_net.parameters()]):
         ws_s, bs_s = zip(*effective_layers(sdf_net))
         ws_c, bs_c = zip(*effective_layers(color_net))
         sdf, grad, color = RenderCore.apply(sdf_net.cfg, color_net.cfg, xf, df,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .pack import check_sdf_geometry, pack_sdf_value, sdf_skip
+from .pack import check_sdf_geometry, pack_sdf_value, sdf_geometry
 
 COUNTER = build.KernelCounter("sdf_value")
 
@@ -37,9 +37,8 @@ def launch_value(cfg, packed, x: torch.Tensor,
     code = build.load_library().copenerf_sdf_value(
         x.data_ptr(), out.data_ptr(), params.data_ptr(),
         build.offsets(offs["w"]), build.offsets(offs["b"]), offs["w_last0"],
-        offs["b_last0"], x.shape[0],
-        len(cfg.dims) - 1, cfg.d_in, cfg.multires, cfg.d_hidden,
-        sdf_skip(cfg), float(cfg.scale), build.stream(x))
+        offs["b_last0"], x.shape[0], *sdf_geometry(cfg), float(cfg.scale),
+        build.stream(x))
     build.check(code, "sdf_value")
     counter.launches += 1
     return out

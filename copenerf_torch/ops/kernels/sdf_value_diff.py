@@ -19,7 +19,7 @@ from torch.autograd.function import once_differentiable
 
 from . import build
 from .pack import (check_sdf_geometry, effective_layers, pack_sdf_value_layers,
-                   sdf_skip, sdf_value_grad_layout, unpack_sdf_value_grads)
+                   sdf_geometry, sdf_value_grad_layout, unpack_sdf_value_grads)
 from .sdf_value import launch_value
 
 FWD_COUNTER = build.KernelCounter("sdf_value_diff_fwd")
@@ -40,8 +40,7 @@ def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     params, offs = packed
     goffs, gsize = sdf_value_grad_layout(cfg)
     n, dev = x.shape[0], x.device
-    n_lin = len(cfg.dims) - 1
-    geom = (n_lin, cfg.d_in, cfg.multires, cfg.d_hidden, sdf_skip(cfg))
+    geom = sdf_geometry(cfg)
     blocks = build.n_blocks(dev)
     lib = build.load_library()
     n_stage, n_part, n_scratch = build.workspace(

@@ -16,9 +16,12 @@ f64 (f32 rounding moves those pre-activations by up to ~2e-6 at full width,
 and a ReLU that flips in one f32 version and not the other moves its row's
 gradients by far more than rounding). The nets are the geometric init
 perturbed by ``perturb_``, so the PE columns are not zero and the SDF head's
-columns differ: a fault in the PE or in the column order shows."""
+columns differ: a fault in the PE or in the column order shows. The
+composed path's kernels (K4 outgrad, K5 color) are held to the same rules;
+K4's head output, like sdf, to 1e-4 absolute."""
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ import torch
 from copenerf_torch.evaluation.render import ImageRenderer
 from copenerf_torch.models import fields as TF
 from copenerf_torch.models.mlp import perturb_
+from copenerf_torch.ops.kernels import color as CK
+from copenerf_torch.ops.kernels import outgrad as OG
 from copenerf_torch.ops.kernels import rendercore as RC
 from copenerf_torch.ops.kernels import sdf_value as SV
 from copenerf_torch.ops.kernels import sdf_value_diff as SVD
@@ -250,3 +255,107 @@ def test_render_image_card_matches_cpu():
     for k in ("color", "depth", "normal"):
         np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=0,
                                    atol=2e-3, err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_composed_kernels_match_plain_on_card(width, n):
+    """K4-fwd and K5-fwd (on the composed path's inputs: dirs and grad
+    negated, the feature a slice of the head) against their plain versions."""
+    _require_cuda()
+    sdf_net, color_net = _nets(width, "cuda")
+    x, d = _rows(n, seed=n + 3)
+    with torch.no_grad():
+        out, grad = OG.sdf_outgrad_cuda(sdf_net, x)
+        ref_out, ref_grad = OG.sdf_outgrad_plain(sdf_net, x)
+        torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-4)
+        torch.testing.assert_close(
+            grad, ref_grad, rtol=0,
+            atol=1e-4 * max(1.0, ref_grad.abs().max().item()))
+        ins = (x, -d, -ref_grad, ref_out[:, 1:])
+        torch.testing.assert_close(CK.color_fwd_cuda(color_net, *ins),
+                                   CK.color_plain(color_net, *ins), rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_composed_backward_kernels_match_plain_on_card(width, n):
+    """K4-bwd (through ``SdfOutGrad``) for the head's cotangent, the
+    gradient's and both, and K5-bwd (through ``ColorMLP``) to every input
+    and weight, against autograd of the plain versions and f64."""
+    _require_cuda()
+    sdf_net, color_net = _nets(width, "cuda")
+    sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
+    x, d = _rows(n, seed=n + 11)
+    g = torch.Generator(device="cuda").manual_seed(n + 1)
+    full = [torch.randn((n, sdf_net.cfg.d_out), generator=g, device="cuda"),
+            torch.randn((n, 4), generator=g, device="cuda")]
+    sp, sp64 = list(sdf_net.parameters()), list(sdf64.parameters())
+    norms = []
+    for on in ((1, 0), (0, 1), (1, 1)):
+        cots = [c * m for c, m in zip(full, on)]
+        got = _grads(lambda a: OG.sdf_outgrad(sdf_net, a), (x,), sp, cots)
+        ref = _grads(lambda a: OG.sdf_outgrad_plain(sdf_net, a), (x,), sp, cots)
+        ref64 = _grads(lambda a: OG.sdf_outgrad_plain(sdf64, a), (x.double(),),
+                       sp64, [c.double() for c in cots])
+        scales = [sum(t) for t in zip(*norms)] if sum(on) == 2 else None
+        norms.append([c.norm().item() for c in ref64])
+        _check_vs_f64(got, ref, ref64, f"K4 {on}", scales)
+    with torch.no_grad():
+        out, grad = OG.sdf_outgrad_plain(sdf_net, x)
+    ins = (x, -d, -grad, out[:, 1:].contiguous())
+    margin = CK.color_relu_margin(color64, *[t.double() for t in ins])
+    cbar = (torch.randn((n, 3), generator=g, device="cuda")
+            * (margin >= KINK_MARGIN).float()[:, None])
+    cp, cp64 = list(color_net.parameters()), list(color64.parameters())
+    got = _grads(lambda *a: CK.color_mlp(color_net, *a), ins, cp, [cbar])
+    ref = _grads(lambda *a: CK.color_plain(color_net, *a), ins, cp, [cbar])
+    ref64 = _grads(lambda *a: CK.color_plain(color64, *a),
+                   [t.double() for t in ins], cp64, [cbar.double()])
+    _check_vs_f64(got, ref, ref64, "K5")
+
+
+@pytest.mark.gpu
+def test_composed_path_routes_to_k4_and_k5_on_card():
+    """Under the negative ray vector ``sdf_grad_color`` on the card runs K4
+    and K5 (forward and, under autograd, backward) and no K1; the plain
+    yardstick of K1, ``rendercore_fwd_plain``, launches no kernel."""
+    _require_cuda()
+    scfg, ccfg = WIDTHS["small"]
+    ccfg = dataclasses.replace(ccfg, use_negative_ray_vector=True)
+    sdf_net = perturb_(TF.SDFNetwork(scfg, torch.Generator().manual_seed(0)),
+                       torch.Generator().manual_seed(2)).cuda()
+    color_net = perturb_(TF.ColorNetwork(ccfg, torch.Generator().manual_seed(1)),
+                         torch.Generator().manual_seed(3)).cuda()
+    x, d = _rows(100, seed=5)
+    counters = (RC.COUNTER, RC.BWD_COUNTER, OG.FWD_COUNTER, OG.BWD_COUNTER,
+                CK.FWD_COUNTER, CK.BWD_COUNTER, SV.COUNTER, SVD.FWD_COUNTER,
+                SVD.BWD_COUNTER)
+
+    def launched(fn):
+        before = [c.launches for c in counters]
+        fn()
+        torch.cuda.synchronize()
+        return [c.launches - b for c, b in zip(counters, before)]
+
+    def train():
+        sdf, grad, color = TF.sdf_grad_color(sdf_net, color_net, x, d)
+        (sdf.sum() + grad.square().sum() + color.sum()).backward()
+
+    def render():
+        with torch.no_grad():
+            TF.sdf_grad_color(sdf_net, color_net, x, d)
+
+    def plain():
+        RC.rendercore_fwd_plain(sdf_net, color_net, x, d)
+        with torch.no_grad():
+            RC.rendercore_fwd_plain(sdf_net, color_net, x, d)
+
+    assert launched(train) == [0, 0, 1, 1, 1, 1, 0, 0, 0]
+    assert launched(render) == [0, 0, 1, 0, 1, 0, 0, 0, 0]
+    assert launched(plain) == [0] * len(counters)
+    assert all(p.grad is not None for p in sdf_net.parameters())
+    assert all(p.grad is not None for p in color_net.parameters())

@@ -48,6 +48,8 @@ def test_import_leaves_jax_unloaded():
             "copenerf_torch.ops.kernels.sdf_value, "
             "copenerf_torch.ops.kernels.rendercore, "
             "copenerf_torch.ops.kernels.sdf_value_diff, "
+            "copenerf_torch.ops.kernels.outgrad, "
+            "copenerf_torch.ops.kernels.color, "
             "copenerf_torch.poses.motion, copenerf_torch.poses.retriever, "
             "copenerf_torch.training.checkpoints, "
             "copenerf_torch.training.step; "

@@ -276,13 +276,14 @@ def test_cuda_entry_refuses_cpu_tensors(nets):
 
 
 def test_unported_color_mode_raises_off_cpu(nets):
-    """Off the CPU, a color mode whose TPU path is the (unported) outgrad
-    kernel raises instead of running the plain version."""
+    """Off the CPU, a color mode whose TPU path is the outgrad kernel (K4)
+    reaches that kernel's launcher, which refuses a tensor that is not on a
+    CUDA card, instead of running the plain version."""
     _, tp = nets
     ccfg = dataclasses.replace(tp["color"].cfg, mode="no_normal", d_in=7,
                                multires_view=0)
     color = TF.ColorNetwork(ccfg)
     x = torch.empty((8, 4), device="meta")
     d = torch.empty((8, 3), device="meta")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         TF.sdf_grad_color(tp["sdf"], color, x, d)

@@ -166,6 +166,47 @@ def test_render_every_output_key(models, train):
         close(got[k], ref[k], render_tol(k), k)
 
 
+COMPOSED = {  # the composed field path (K4 + K5 on the card)
+    "negative_ray": JF.ColorConfig(d_feature=32, d_hidden=64, n_layers=3,
+                                   multires_view=2,
+                                   use_negative_ray_vector=True),
+    "no_normal": JF.ColorConfig(d_feature=32, d_hidden=64, n_layers=3,
+                                mode="no_normal", d_in=7, multires_view=0),
+}
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("color", sorted(COMPOSED))
+def test_render_composed_color_configs(models, color, train):
+    """Every output key of ``render`` with a color config that composes
+    the SDF outgrad and the color MLP instead of the render-core op."""
+    cfgs, jp, tp = models
+    ccfg = COMPOSED[color]
+    jc = JF.color_init(jax.random.PRNGKey(4), ccfg)
+    cfgs = {**cfgs, "color": ccfg}
+    jp = {**jp, "color": jc}
+    tp = {**tp, **X.params_from_jax(
+        {"color": jax.tree_util.tree_map(np.asarray, jc)},
+        {"color": TF.ColorConfig(**dataclasses.asdict(ccfg))}, device="cpu")}
+    n = 24
+    ro, rd, rn = _rays(n, seed=11)
+    near = np.full((n, 1), 0.8, np.float32)
+    far = np.full((n, 1), 3.2, np.float32)
+    t_rand = rng(12).uniform(size=(n, RCFG["n_samples"])).astype(np.float32)
+    kw = dict(cos_anneal_ratio=0.7, train=train)
+    ref = JRen.render(cfgs, jp, *map(jnp.asarray, (ro, rd, rn)), 0.1,
+                      jnp.asarray(near), jnp.asarray(far),
+                      rcfg=JRen.RendererConfig(**RCFG),
+                      t_rand=jnp.asarray(t_rand) if train else None, **kw)
+    with torch.no_grad():
+        got = TRen.render(tp, t(ro), t(rd), t(rn), 0.1, t(near), t(far),
+                          rcfg=TRen.RendererConfig(**RCFG),
+                          t_rand=t(t_rand) if train else None, **kw)
+    assert set(got) == set(ref)
+    for k in ref:
+        close(got[k], ref[k], render_tol(k), f"{color} {k}")
+
+
 def test_render_without_importance(models):
     cfgs, jp, tp = models
     n = 9

@@ -124,10 +124,16 @@ def static(stage1=True, train_motion=True, pose_grad=False, inject=False):
                 inject_sampling=inject)
 
 
-def models(seed=0):
-    jp = JF.init_all_fields(jax.random.PRNGKey(seed), JCFGS)
+def models(seed=0, color=None):
+    """(JAX params, port fields) of JCFGS; ``color``: overrides of the color
+    config (the composed field path)."""
+    jcfgs, tcfgs = JCFGS, TCFGS
+    if color:
+        jcfgs = {**JCFGS, "color": dataclasses.replace(JCFGS["color"], **color)}
+        tcfgs = {**TCFGS, "color": dataclasses.replace(TCFGS["color"], **color)}
+    jp = JF.init_all_fields(jax.random.PRNGKey(seed), jcfgs)
     jp = jax.tree_util.tree_map(np.asarray, jp)
-    return jp, X.params_from_jax(jp, TCFGS, device="cpu")
+    return jp, X.params_from_jax(jp, tcfgs, device="cpu")
 
 
 def sampling(seed):
@@ -256,10 +262,20 @@ def test_motion_chain_gradients_match_jax():
 # compute_losses and the step
 # ---------------------------------------------------------------------------
 
-CASES = {  # (static switches, gradient tolerance share)
-    "stage1": (static(), 1e-3),
-    "stage1_pose_grad": (static(pose_grad=True), 1e-3),
-    "stage2": (static(stage1=False, train_motion=False), 2e-4),
+# The composed field path (K4 + K5 on the card): the negative ray vector,
+# and a mode without normals (its color input has no view-dir PE: the JAX
+# ColorConfig.dims quirk of ROADMAP Queue 3).
+NEGATIVE_RAY = {"use_negative_ray_vector": True}
+NO_NORMAL = {"mode": "no_normal", "d_in": 7, "multires_view": 0}
+
+CASES = {  # (static switches, gradient tolerance share, color overrides)
+    "stage1": (static(), 1e-3, None),
+    "stage1_pose_grad": (static(pose_grad=True), 1e-3, None),
+    "stage2": (static(stage1=False, train_motion=False), 2e-4, None),
+    "stage1_negative_ray": (static(), 1e-3, NEGATIVE_RAY),
+    "stage1_no_normal": (static(), 1e-3, NO_NORMAL),
+    "stage2_negative_ray": (static(stage1=False, train_motion=False), 2e-4,
+                            NEGATIVE_RAY),
 }
 
 
@@ -267,14 +283,15 @@ CASES = {  # (static switches, gradient tolerance share)
 def test_compute_losses_matches_jax(case):
     """Every metric and the gradients of both optimizer groups (sdf + color
     + variance; motion) for the same weights, ray_idx and t_rand."""
-    jp, tp = models(0)
+    s_kw, grad_rtol, color = CASES[case]
+    jp, tp = models(0, color)
     nb = _np_batch()
     idx, t_rand = sampling(5)
-    s_kw, grad_rtol = CASES[case]
     rcfg_j, rcfg_t = JRendererConfig(**RCFG), RendererConfig(**RCFG)
+    jcfgs = {**JCFGS, "color": JF.ColorConfig(**dataclasses.asdict(tp["color"].cfg))}
 
     def jf(params):
-        return JS.compute_losses(JCFGS, rcfg_j, JS.StepStatic(**s_kw), params,
+        return JS.compute_losses(jcfgs, rcfg_j, JS.StepStatic(**s_kw), params,
                                  jax_batch(nb), jnp.asarray(idx),
                                  t_rand=jnp.asarray(t_rand))
 

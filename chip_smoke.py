@@ -57,9 +57,25 @@ Phases, each printed on its own line, any failure exits non-zero:
             K4-fwd, 1 K4-bwd, 1 K5-fwd, 1 K5-bwd, 1 K3-fwd, 1 K3-bwd per
             step, no K1; the loss finite, its last-3 mean below its first-3.
 12. composed_card_vs_cpu  ``train_card_vs_cpu`` under that config.
-13. the ``{"kernels": [...]}`` line (launches per path: render, train,
-   render_composed, train_composed), then the contract line
-   ``{"ok": true, "device": {...}}`` last.
+13. fold_kernels  K6 (K1 with the K3 query at y folded into its launches,
+            the JAX package's COPENERF_FOLD_CONS=1) on the perturbed idr
+            nets: K6-fwd against ``rendercore_cons_plain``, K6-bwd against
+            autograd of it and f64 for sbar, gbar, cbar (KINK_MARGIN), swbar
+            alone and all four, at 262,144 and 1,000 rows; times at 131,072
+            rows beside K1 + K3 timed in turns in the same call.
+14. fold_train  10 steps as in ``composed_train`` with COPENERF_FOLD_CONS=1
+            set in this process (restored after): 4 K2 + 1 K6-fwd + 1 K6-bwd
+            per step, no K1 or K3.
+15. fold_card_vs_cpu  ``train_card_vs_cpu`` with the fold and the
+            sdf-consistency pose gradient on (K6's y_bar reaches the motion
+            net).
+16. out_kernels  ``fields.sdf_output`` driven once (counters zeroed: 1 K7-fwd
+            + 1 K7-bwd), then K7 against ``sdf_apply`` and f64 (column 0,
+            the feature columns, all) at 262,144 and 1,000 rows; times at
+            131,072 rows.
+17. the ``{"kernels": [...]}`` line (launches per path: render, train,
+   render_composed, train_composed, train_fold, sdf_output), then the
+   contract line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -207,26 +223,38 @@ def k5_bwd_work(ccfg, n, color_net):
             (112 + 8 * ccfg.d_feature) * n + 2 * weight_bytes(color_net))
 
 
-def unported_bounds(scfg, ccfg, n, sdf_net, color_net):
-    """Bound ms of the kernels still to port at n rows: K6, K1 with the K3
-    query at y folded into its launches (their work summed), forward and
-    backward; K7, the full head (sdf, feature) with a first-order backward
-    (forward recomputed, the down-sweep to x, the weight reductions: three
-    times the forward's products)."""
-    def plus(a, b):
-        return a[0] + b[0], a[1] + b[1]
+def k6_fwd_work(scfg, ccfg, n, sdf_net, color_net):
+    """(FLOP, bytes) of the folded render-core forward on n rows: K1-fwd's
+    work and the value sweep at y; y in and sdf_w out (20 B) per row beside
+    K1-fwd's rows, the weights once."""
+    flop1, _ = k1_work(scfg, ccfg, n, sdf_net, color_net)
+    flop2, _ = k2_work(scfg, n, sdf_net)
+    return flop1 + flop2, 80 * n + weight_bytes(sdf_net, color_net)
 
+
+def k6_bwd_work(scfg, ccfg, n, sdf_net, color_net):
+    """(FLOP, bytes) of the folded backward on n rows: K1-bwd's work and
+    K3-bwd's at y; y and swbar in, y_bar out (36 B) per row beside K1-bwd's
+    rows, the weights read and their gradients written once."""
+    flop1, _ = k1_bwd_work(scfg, ccfg, n, sdf_net, color_net)
+    flop3, _ = k3_bwd_work(scfg, n, sdf_net)
+    return flop1 + flop3, 124 * n + 2 * weight_bytes(sdf_net, color_net)
+
+
+def k7_fwd_work(scfg, n, sdf_net):
+    """(FLOP, bytes) of the SDF output forward on n rows: the hidden layers
+    and the full head; x in (16 B), the d_out-wide head out per row."""
     head = sdf_hidden_macs(scfg) + scfg.d_hidden * scfg.d_out
-    wb = weight_bytes(sdf_net)
-    work = {
-        "K6_fwd": plus(k1_work(scfg, ccfg, n, sdf_net, color_net),
-                       k2_work(scfg, n, sdf_net)),
-        "K6_bwd": plus(k1_bwd_work(scfg, ccfg, n, sdf_net, color_net),
-                       k3_bwd_work(scfg, n, sdf_net)),
-        "K7_fwd": (2 * head * n, (16 + 4 * scfg.d_out) * n + wb),
-        "K7_bwd": (6 * head * n, (32 + 4 * scfg.d_out) * n + 2 * wb),
-    }
-    return {k: bound_ms(*w) for k, w in work.items()}
+    return 2 * head * n, (16 + 4 * scfg.d_out) * n + weight_bytes(sdf_net)
+
+
+def k7_bwd_work(scfg, n, sdf_net):
+    """(FLOP, bytes) of its first-order backward on n rows: the forward
+    recomputed, the down-sweep to x and the weight reductions, each the
+    forward's products; x and obar in, x_bar out per row, the weights read
+    and their gradients written once."""
+    head = sdf_hidden_macs(scfg) + scfg.d_hidden * scfg.d_out
+    return 6 * head * n, (32 + 4 * scfg.d_out) * n + 2 * weight_bytes(sdf_net)
 
 
 def bound_ms(flop, nbytes):
@@ -294,10 +322,21 @@ def phase_build():
 
     t0 = time.perf_counter()
     build.load_library()
-    usage = [ln.strip() for ln in build.build_log().splitlines()
-             if re.search(r"Used \d+ registers|spill", ln)]
+    # "kernel<template bool args>: registers, spills" per compiled kernel.
+    usage, name, nvcc_s = [], "?", {}
+    for ln in build.build_log().splitlines():
+        if ln.startswith("nvcc seconds "):
+            src, sec = ln[len("nvcc seconds "):].split(": ")
+            nvcc_s[src] = float(sec)
+            continue
+        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(I(?:Lb[01]E)+E)?", ln)
+        if m:
+            name = m.group(1) + ("<%s>" % ",".join(re.findall(r"Lb([01])E", m.group(2)))
+                                 if m.group(2) else "")
+        elif re.search(r"Used \d+ registers|spill", ln):
+            usage.append(f"{name}: {ln.strip()}")
     log("build", seconds=round(time.perf_counter() - t0, 3),
-        cached=build.BUILD_STATS["cached"], ptxas=usage)
+        cached=build.BUILD_STATS["cached"], nvcc_seconds=nvcc_s, ptxas=usage)
 
 
 def full_width_nets(seed, negative_ray=False):
@@ -356,17 +395,8 @@ def phase_kernels(fields):
         got = RC.rendercore_fwd_cuda(sdf_net, color_net, x, d)
         ref = RC.rendercore_fwd_plain(sdf_net, color_net, x, d)
         torch.cuda.synchronize()
-        worst = 0.0
-        for name, g_, r_ in zip(("sdf", "grad", "color"), got, ref):
-            scale = max(1.0, r_.abs().max().item()) if name == "grad" else 1.0
-            e = (g_ - r_).abs().max().item()
-            tol = 1e-4 * scale
-            log("check", kernel="rendercore_fwd", output=name, rows=n,
-                max_abs_err=e, tol=tol)
-            if not e <= tol:
-                fail(f"rendercore_fwd {name} at {n} rows: err {e} > {tol}")
-            worst = max(worst, e)
-        errs["rendercore_fwd"] = max(errs["rendercore_fwd"], worst)
+        errs["rendercore_fwd"] = max(errs["rendercore_fwd"], check_forward(
+            "rendercore_fwd", ("sdf", "grad", "color"), got, ref, n))
         del got, ref
 
     # Times at the render chunk's shapes: 32768 rays x 64 / x 16 samples
@@ -518,29 +548,15 @@ def phase_train_kernels(fields):
             cbar_zeroed_share=1.0 - smooth.float().mean().item())
         full[2] = full[2] * smooth.float()[:, None]
         del margin
-        chan_norms = []
-        for chan, on in (("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)),
-                         ("cbar", (0, 0, 1)), ("all", (1, 1, 1))):
-            cots = [c * m for c, m in zip(full, on)]
-            got = _vjp(lambda a, b: RC.rendercore_fwd(sdf_net, color_net, a, b),
-                       [x, d], params, cots)
-            ref = _vjp_slices(
-                lambda a, b: RC.rendercore_fwd_plain(sdf_net, color_net, a, b),
-                [x, d], params, cots, 32768)
-            ref64 = _vjp_slices(
-                lambda a, b: RC.rendercore_fwd_plain(sdf64, color64, a, b),
-                [x.double(), d.double()], params64, [c.double() for c in cots],
-                16384)
-            torch.cuda.synchronize()
-            scales = None
-            if chan == "all":
-                scales = [sum(t) for t in zip(*chan_norms)]
-            else:
-                chan_norms.append([c.norm().item() for c in ref64])
-            e = check_grads(dict(kernel="rendercore_bwd", rows=n, channel=chan),
-                            names, got, ref, ref64, scales)
-            errs["rendercore_bwd"] = max(errs["rendercore_bwd"], e)
-            del got, ref, ref64
+        e = check_channels(
+            "rendercore_bwd", n, names,
+            lambda a, b: RC.rendercore_fwd(sdf_net, color_net, a, b),
+            lambda f64, a, b: RC.rendercore_fwd_plain(
+                *((sdf64, color64) if f64 else (sdf_net, color_net)), a, b),
+            [x, d], params, params64, full,
+            [("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)), ("cbar", (0, 0, 1)),
+             ("all", (1, 1, 1))], 32768)
+        errs["rendercore_bwd"] = max(errs["rendercore_bwd"], e)
         xk = x.clone().requires_grad_(True)
         v = SVD.sdf_value_diff(sdf_net, xk)
         with torch.no_grad():
@@ -679,15 +695,8 @@ def phase_composed_kernels(fields):
             got = OG.sdf_outgrad_cuda(sdf_net, x)
             ref_out, ref_grad = OG.sdf_outgrad_plain(sdf_net, x)
         torch.cuda.synchronize()
-        for name, g_, r_ in zip(("out", "grad"), got, (ref_out, ref_grad)):
-            scale = max(1.0, r_.abs().max().item()) if name == "grad" else 1.0
-            e = (g_ - r_).abs().max().item()
-            tol = 1e-4 * scale
-            log("check", kernel="sdf_outgrad_fwd", output=name, rows=n,
-                max_abs_err=e, tol=tol)
-            if not e <= tol:
-                fail(f"sdf_outgrad_fwd {name} at {n} rows: err {e} > {tol}")
-            errs["sdf_outgrad_fwd"] = max(errs["sdf_outgrad_fwd"], e)
+        errs["sdf_outgrad_fwd"] = max(errs["sdf_outgrad_fwd"], check_forward(
+            "sdf_outgrad_fwd", ("out", "grad"), got, (ref_out, ref_grad), n))
         del got
         ins = [x, -d, -ref_grad, ref_out[:, 1:]]
         with torch.no_grad():
@@ -701,27 +710,14 @@ def phase_composed_kernels(fields):
         g = torch.Generator(device=DEVICE).manual_seed(n + 1)
         obar = torch.randn((n, scfg.d_out), generator=g, device=DEVICE)
         gbar = torch.randn((n, 4), generator=g, device=DEVICE)
-        chan_norms = []
-        for chan, (mo, mg) in (("sbar", (col0, 0.0)), ("feat", (1.0 - col0, 0.0)),
-                               ("gbar", (0.0 * col0, 1.0)),
-                               ("all", (torch.ones_like(col0), 1.0))):
-            cots = [obar * mo, gbar * mg]
-            got = _vjp(lambda a: OG.sdf_outgrad(sdf_net, a), [x], sdf_params, cots)
-            ref = _vjp_slices(lambda a: OG.sdf_outgrad_plain(sdf_net, a), [x],
-                              sdf_params, cots, 32768)
-            ref64 = _vjp_slices(lambda a: OG.sdf_outgrad_plain(sdf64, a),
-                                [x.double()], list(sdf64.parameters()),
-                                [c.double() for c in cots], 16384)
-            torch.cuda.synchronize()
-            scales = None
-            if chan == "all":
-                scales = [sum(t) for t in zip(*chan_norms)]
-            else:
-                chan_norms.append([c.norm().item() for c in ref64])
-            e = check_grads(dict(kernel="sdf_outgrad_bwd", rows=n, channel=chan),
-                            sdf_names, got, ref, ref64, scales)
-            errs["sdf_outgrad_bwd"] = max(errs["sdf_outgrad_bwd"], e)
-            del got, ref, ref64
+        e = check_channels(
+            "sdf_outgrad_bwd", n, sdf_names, lambda a: OG.sdf_outgrad(sdf_net, a),
+            lambda f64, a: OG.sdf_outgrad_plain(sdf64 if f64 else sdf_net, a),
+            [x], sdf_params, list(sdf64.parameters()), [obar, gbar],
+            [("sbar", (col0, 0.0)), ("feat", (1.0 - col0, 0.0)),
+             ("gbar", (0.0 * col0, 1.0)), ("all", (torch.ones_like(col0), 1.0))],
+            32768)
+        errs["sdf_outgrad_bwd"] = max(errs["sdf_outgrad_bwd"], e)
 
         ins = [t.contiguous() for t in ins]
         margin = CK.color_relu_margin(color64, *[t.double() for t in ins])
@@ -830,6 +826,254 @@ def phase_composed_kernels(fields):
     for k in results:
         results[k] = {"max_abs_err": errs[k], "times": results[k]}
     return results, step_ms
+
+
+def check_forward(kernel, names, got, ref, rows):
+    """Forward outputs against the plain version: 1e-4 absolute (grad 1e-4
+    x max(1, max|grad|)). Returns the largest error."""
+    worst = 0.0
+    for name, g_, r_ in zip(names, got, ref):
+        scale = max(1.0, r_.abs().max().item()) if name == "grad" else 1.0
+        e = (g_ - r_).abs().max().item()
+        tol = 1e-4 * scale
+        log("check", kernel=kernel, output=name, rows=rows, max_abs_err=e, tol=tol)
+        if not e <= tol:
+            fail(f"{kernel} {name} at {rows} rows: err {e} > {tol}")
+        worst = max(worst, e)
+    return worst
+
+
+def check_channels(kernel, n, names, kernel_fn, plain_fn, inputs, params, params64,
+                   full, channels, slices):
+    """The backward of ``kernel_fn`` against autograd of ``plain_fn(nets,
+    *inputs)`` in f32 and f64 (``slices`` rows at a time), for each cotangent
+    mask of ``channels`` in turn (the last with all on: its scales are the
+    sums of the channels' norms). Returns the largest |kernel - plain|."""
+    import torch
+
+    worst, chan_norms = 0.0, []
+    inputs64 = [t.double() for t in inputs]
+    for chan, on in channels:
+        cots = [c * m for c, m in zip(full, on)]
+        got = _vjp(kernel_fn, inputs, params, cots)
+        ref = _vjp_slices(lambda *a: plain_fn(False, *a), inputs, params, cots,
+                          slices)
+        ref64 = _vjp_slices(lambda *a: plain_fn(True, *a), inputs64, params64,
+                            [c.double() for c in cots], slices // 2)
+        torch.cuda.synchronize()
+        scales = None
+        if chan == "all":
+            scales = [sum(t) for t in zip(*chan_norms)]
+        else:
+            chan_norms.append([c.norm().item() for c in ref64])
+        worst = max(worst, check_grads(dict(kernel=kernel, rows=n, channel=chan),
+                                       names, got, ref, ref64, scales))
+        del got, ref, ref64
+    return worst
+
+
+def alternate_ms(fns, reps):
+    """CUDA-event ms of each of ``fns`` (name -> fn), in turns a, b, b, a:
+    the mean of its two readings."""
+    ms = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for k in order:
+        ms[k].append(cuda_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def phase_fold_kernels(fields):
+    """K6, the render core with the consistency query at y folded into its
+    launches, on the perturbed full-width nets (idr, positive ray): K6-fwd
+    against ``rendercore_cons_plain`` and K6-bwd (``RenderCoreCons``)
+    against autograd of it and f64 for sbar, gbar, cbar (KINK_MARGIN rule),
+    swbar alone and all four, at 262,144 and 1,000 rows; then times at the
+    train step's shapes (131,072 rows) beside the composed pair K1 + K3
+    timed in turns in the same call (the fold-versus-two-launches
+    measurement), the plain version and the bounds."""
+    import torch
+    from copenerf_torch.ops.kernels import pack
+    from copenerf_torch.ops.kernels import rendercore as RC
+    from copenerf_torch.ops.kernels import rendercore_cons as RCC
+    from copenerf_torch.ops.kernels import sdf_value_diff as SVD
+
+    sdf_net, color_net = fields["sdf"], fields["color"]
+    scfg, ccfg = sdf_net.cfg, color_net.cfg
+    nets64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
+    params = [*sdf_net.parameters(), *color_net.parameters()]
+    params64 = [*nets64[0].parameters(), *nets64[1].parameters()]
+    names = (["x", "dirs", "y"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
+             + [f"color.{k}" for k, _ in color_net.named_parameters()])
+    errs = {"rendercore_cons_fwd": 0.0, "rendercore_cons_bwd": 0.0}
+    outs = ("sdf", "grad", "color", "sdf_w")
+    for n in CHECK_ROWS:
+        x, d = sample_rows(n, seed=n + 31)
+        y, _ = sample_rows(n, seed=n + 32)
+        with torch.no_grad():
+            got = RCC.rendercore_cons(sdf_net, color_net, x, d, y)
+            ref = RCC.rendercore_cons_plain(sdf_net, color_net, x, d, y)
+        torch.cuda.synchronize()
+        errs["rendercore_cons_fwd"] = max(errs["rendercore_cons_fwd"], check_forward(
+            "rendercore_cons_fwd", outs, got, ref, n))
+        del got, ref
+        g = torch.Generator(device=DEVICE).manual_seed(n + 3)
+        full = [torch.randn(s, generator=g, device=DEVICE)
+                for s in ((n, 1), (n, 4), (n, 3), (n,))]
+        margin = RC.color_relu_margin(*nets64, x.double(), d.double())
+        smooth = (margin >= KINK_MARGIN).float()
+        log("kinks", kernel="rendercore_cons_bwd", rows=n, margin=KINK_MARGIN,
+            cbar_zeroed_share=1.0 - smooth.mean().item())
+        full[2] = full[2] * smooth[:, None]
+        del margin
+        e = check_channels(
+            "rendercore_cons_bwd", n, names,
+            lambda *a: RCC.rendercore_cons(sdf_net, color_net, *a),
+            lambda f64, *a: RCC.rendercore_cons_plain(
+                *(nets64 if f64 else (sdf_net, color_net)), *a),
+            [x, d, y], params, params64, full,
+            [(c, [float(i == k) for i in range(4)])
+             for k, c in enumerate(("sbar", "gbar", "cbar", "swbar"))]
+            + [("all", [1.0] * 4)], 32768)
+        errs["rendercore_cons_bwd"] = max(errs["rendercore_cons_bwd"], e)
+        del x, d, y, full
+        torch.cuda.empty_cache()
+
+    # Times at the train step's shapes: the fold against K1 + K3, in turns.
+    n = STEP_ROWS
+    x, d = sample_rows(n, seed=14)
+    y, _ = sample_rows(n, seed=15)
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    cots = [torch.randn(s, generator=g, device=DEVICE)
+            for s in ((n, 1), (n, 4), (n, 3), (n,))]
+    with torch.no_grad():
+        rc_pack = pack.pack_rendercore(sdf_net, color_net)
+        v_pack = pack.pack_sdf_value_layers(pack.effective_layers(sdf_net),
+                                            with_wt=True)
+    fwd = alternate_ms({
+        "fold": lambda: RCC.launch_cons_fwd(scfg, ccfg, rc_pack, x, d, y),
+        "pair": lambda: (RC.launch_fwd(scfg, ccfg, rc_pack, x, d),
+                         SVD.launch_value(scfg, v_pack, y, SVD.FWD_COUNTER))}, 5)
+    bwd = alternate_ms({
+        "fold": lambda: RCC.rendercore_cons_bwd_cuda(scfg, ccfg, rc_pack, x, d, y,
+                                                     *cots),
+        "pair": lambda: (RC.rendercore_bwd_cuda(scfg, ccfg, rc_pack, x, d, *cots[:3]),
+                         SVD.sdf_value_bwd_cuda(scfg, v_pack, y, cots[3]))}, 3)
+    with torch.no_grad():
+        p_fwd = cuda_ms(lambda: RCC.rendercore_cons_plain(sdf_net, color_net, x, d, y),
+                        reps=3)
+    # The plain backward: autograd.grad over a prebuilt graph, in 4 slices.
+    p_bwd = 0.0
+    for i in range(0, n, 32768):
+        ins = [t[i:i + 32768].clone().requires_grad_(True) for t in (x, d, y)]
+        out = RCC.rendercore_cons_plain(sdf_net, color_net, *ins)
+        cs = [c[i:i + 32768] for c in cots]
+        p_bwd += cuda_ms(lambda: torch.autograd.grad(out, ins + params, cs,
+                                                     retain_graph=True), reps=2)
+        del out, ins
+    results = {}
+    for name, t, p_ms, work in (
+            ("rendercore_cons_fwd", fwd, p_fwd, k6_fwd_work),
+            ("rendercore_cons_bwd", bwd, p_bwd, k6_bwd_work)):
+        b, by = bound_ms(*work(scfg, ccfg, n, sdf_net, color_net))
+        log("time", kernel=name, rows=n, kernel_ms=t["fold"],
+            k1_plus_k3_ms=t["pair"], fold_over_pair=t["fold"] / t["pair"],
+            timing_note="fold and pair in turns a, b, b, a; means of two",
+            plain_ms=p_ms, bound_ms=b, bound_by=by)
+        results[name] = {"max_abs_err": errs[name], "times": [dict(
+            rows=n, ms=t["fold"], plain_ms=p_ms, bound_ms=b, bound_by=by)]}
+    log("fold_vs_two_launches", rows=n,
+        fold_ms=fwd["fold"] + bwd["fold"], k1_plus_k3_ms=fwd["pair"] + bwd["pair"],
+        fold_fwd_ms=fwd["fold"], pair_fwd_ms=fwd["pair"],
+        fold_bwd_ms=bwd["fold"], pair_bwd_ms=bwd["pair"])
+    step = {"rendercore_cons_fwd": fwd["fold"], "rendercore_cons_bwd": bwd["fold"]}
+    del x, d, y, cots
+    torch.cuda.empty_cache()
+    return results, step
+
+
+def phase_out_kernels(fields, counters):
+    """K7, the SDF output with a first-order backward, on the perturbed
+    full-width SDF net: first ``fields.sdf_output`` driven once forward and
+    backward at the train step's rows with the launch counters zeroed just
+    before and read just after (1 K7-fwd + 1 K7-bwd, nothing else); then
+    K7-fwd against ``sdf_apply`` and K7-bwd against autograd of it and f64
+    for the head's cotangent on column 0, on the feature columns and on all,
+    at 262,144 and 1,000 rows; then times at 131,072 rows beside the plain
+    version and the bounds."""
+    import torch
+    from copenerf_torch.models import fields as F
+    from copenerf_torch.ops.kernels import pack
+    from copenerf_torch.ops.kernels import sdf_out as SO
+
+    sdf_net = fields["sdf"]
+    scfg = sdf_net.cfg
+    sdf64 = copy.deepcopy(sdf_net).double()
+    params, params64 = list(sdf_net.parameters()), list(sdf64.parameters())
+    names = ["x"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
+
+    n = STEP_ROWS
+    x, _ = sample_rows(n, seed=16)
+    xg = x.clone().requires_grad_(True)
+    for c in counters:
+        c.launches = 0
+    F.sdf_output(sdf_net, xg).square().sum().backward()
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches for c in counters}
+    want = {c.name: int(c in (SO.FWD_COUNTER, SO.BWD_COUNTER)) for c in counters}
+    log("sdf_output", rows=n, launches=launches, expected=want)
+    if launches != want:
+        fail(f"sdf_output launch counts {launches} != {want}")
+    for p in params:
+        p.grad = None
+    del xg
+
+    errs = {"sdf_out_fwd": 0.0, "sdf_out_bwd": 0.0}
+    col0 = torch.zeros(scfg.d_out, device=DEVICE)
+    col0[0] = 1.0
+    for n in CHECK_ROWS:
+        x, _ = sample_rows(n, seed=n + 41)
+        with torch.no_grad():
+            e = check_forward("sdf_out_fwd", ["out"], [F.sdf_output(sdf_net, x)],
+                              [SO.sdf_out_plain(sdf_net, x)], n)
+        errs["sdf_out_fwd"] = max(errs["sdf_out_fwd"], e)
+        g = torch.Generator(device=DEVICE).manual_seed(n + 4)
+        obar = torch.randn((n, scfg.d_out), generator=g, device=DEVICE)
+        e = check_channels(
+            "sdf_out_bwd", n, names, lambda a: F.sdf_output(sdf_net, a),
+            lambda f64, a: SO.sdf_out_plain(sdf64 if f64 else sdf_net, a),
+            [x], params, params64, [obar],
+            [("sbar", [col0]), ("feat", [1.0 - col0]), ("all", [torch.ones_like(col0)])],
+            65536)
+        errs["sdf_out_bwd"] = max(errs["sdf_out_bwd"], e)
+        del x, obar
+        torch.cuda.empty_cache()
+
+    n = STEP_ROWS
+    x, _ = sample_rows(n, seed=17)
+    obar = torch.randn((n, scfg.d_out), generator=torch.Generator(
+        device=DEVICE).manual_seed(17), device=DEVICE)
+    with torch.no_grad():
+        og_pack = pack.pack_outgrad(sdf_net)
+        k_fwd = cuda_ms(lambda: SO.launch_out_fwd(scfg, og_pack, x), reps=5)
+        p_fwd = cuda_ms(lambda: SO.sdf_out_plain(sdf_net, x), reps=5)
+    k_bwd = cuda_ms(lambda: SO.sdf_out_bwd_cuda(scfg, og_pack, x, obar), reps=5)
+    xs = x.clone().requires_grad_(True)
+    out = SO.sdf_out_plain(sdf_net, xs)
+    p_bwd = cuda_ms(lambda: torch.autograd.grad(out, [xs] + params, obar,
+                                                retain_graph=True), reps=3)
+    del out
+    results = {}
+    for name, k_ms, p_ms, work in (("sdf_out_fwd", k_fwd, p_fwd, k7_fwd_work),
+                                   ("sdf_out_bwd", k_bwd, p_bwd, k7_bwd_work)):
+        b, by = bound_ms(*work(scfg, n, sdf_net))
+        log("time", kernel=name, rows=n, kernel_ms=k_ms, plain_ms=p_ms,
+            plain_note="the plain forward / autograd.grad of it", bound_ms=b,
+            bound_by=by)
+        results[name] = {"max_abs_err": errs[name], "times": [dict(
+            rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b, bound_by=by)]}
+    del x, xs, obar
+    torch.cuda.empty_cache()
+    return results, launches
 
 
 def camera(h, w):
@@ -1158,7 +1402,8 @@ def step_grads(fields, rcfg, s, batch, ray_idx, t_rand):
 CONS_RTOL = 2e-3
 
 
-def phase_train_card_vs_cpu(fields, checked, train, phase="train_card_vs_cpu"):
+def phase_train_card_vs_cpu(fields, checked, train, phase="train_card_vs_cpu",
+                            pose_grad=None):
     """One step, 64 rays (4 patches of the train batch) and their jitter,
     on the card (kernels) and on the CPU (plain versions). Main-path nets:
     every metric within 1e-4 relative + 1e-6, every gradient tensor within
@@ -1173,12 +1418,16 @@ def phase_train_card_vs_cpu(fields, checked, train, phase="train_card_vs_cpu"):
     |sdf_w - sdf| (~5e-3) of SDF values near 1 at two poses of the motion
     chain (31 frames x 10 Euler substeps of 4x4 products), whose last bits
     differ between the card and the CPU, with the plain versions on the card
-    as with the kernels."""
+    as with the kernels. ``pose_grad`` overrides the config's
+    ``sdf_consistency_enable_pose_grad`` (the sdf-consistency query's y
+    cotangent then reaches the motion net's gradients)."""
     import torch
     from copenerf_torch.training import step as TS
 
     s, rcfg, batch = train
-    s64 = TS.StepStatic(**{**s.__dict__, "n_points": 64})
+    s64 = TS.StepStatic(**{**s.__dict__, "n_points": 64,
+                           "sdf_cons_pose_grad": (s.sdf_cons_pose_grad if pose_grad is None
+                                                  else pose_grad)})
     idx, t_rand = batch["ray_idx"][:64], batch["t_rand"][:64]
     cpu_batch = {k: (v.cpu() if torch.is_tensor(v) else v)
                  for k, v in batch.items()}
@@ -1194,7 +1443,8 @@ def phase_train_card_vs_cpu(fields, checked, train, phase="train_card_vs_cpu"):
         cpu_ms = 1e3 * (time.perf_counter() - t0)
         g_err = [rel_norm(a, b) for a, b in zip(g_card, g_cpu)]
         worst = max(range(len(g_err)), key=g_err.__getitem__)
-        log(phase, nets=nets, rays=64, metrics_card=m_card,
+        log(phase, nets=nets, rays=64, pose_grad=s64.sdf_cons_pose_grad,
+            metrics_card=m_card,
             metrics_cpu=m_cpu,
             grad_worst_rel_norm=g_err[worst], grad_worst=names[worst],
             card_ms=card_ms, cpu_ms=cpu_ms)
@@ -1236,6 +1486,18 @@ KERNELS = {
     "color_bwd": dict(
         source="copenerf_torch/csrc/color_bwd.cu",
         replaces="copenerf_tpu/ops/pallas/color_kernels.py:209"),
+    "rendercore_cons_fwd": dict(
+        source="copenerf_torch/csrc/rendercore_cons_fwd.cu",
+        replaces="copenerf_tpu/ops/pallas/rendercore_kernels.py:326"),
+    "rendercore_cons_bwd": dict(
+        source="copenerf_torch/csrc/rendercore_cons_bwd.cu",
+        replaces="copenerf_tpu/ops/pallas/rendercore_kernels.py:364"),
+    "sdf_out_fwd": dict(
+        source="copenerf_torch/csrc/sdf_outgrad_fwd.cu",
+        replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:472"),
+    "sdf_out_bwd": dict(
+        source="copenerf_torch/csrc/sdf_value_bwd.cu",
+        replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:515"),
 }
 
 
@@ -1255,6 +1517,8 @@ def main():
     from copenerf_torch.ops.kernels import color as CK
     from copenerf_torch.ops.kernels import outgrad as OG
     from copenerf_torch.ops.kernels import rendercore as RC
+    from copenerf_torch.ops.kernels import rendercore_cons as RCC
+    from copenerf_torch.ops.kernels import sdf_out as SO
     from copenerf_torch.ops.kernels import sdf_value as SV
     from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 
@@ -1268,12 +1532,10 @@ def main():
     kres.update(tres)
     cres, cstep_ms = phase_composed_kernels(nchecked)
     kres.update(cres)
-    log("unported_bounds", rows=STEP_ROWS, bound_ms=unported_bounds(
-        checked["sdf"].cfg, checked["color"].cfg, STEP_ROWS, checked["sdf"],
-        checked["color"]))
     counters = [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER,
                 SVD.BWD_COUNTER, OG.FWD_COUNTER, OG.BWD_COUNTER, CK.FWD_COUNTER,
-                CK.BWD_COUNTER]
+                CK.BWD_COUNTER, RCC.FWD_COUNTER, RCC.BWD_COUNTER, SO.FWD_COUNTER,
+                SO.BWD_COUNTER]
     launches = {}
     launches["render"], view = phase_main(
         cfg, fields, counters, {"sdf_value": 4, "rendercore_fwd": 1})
@@ -1294,6 +1556,27 @@ def main():
          "color_fwd": 1, "color_bwd": 1, "sdf_value_diff_fwd": 1,
          "sdf_value_bwd": 1}, steps=10, window=3, phase="composed_train")
     phase_train_card_vs_cpu(nfields, nchecked, ctrain, phase="composed_card_vs_cpu")
+
+    # The folded consistency query (COPENERF_FOLD_CONS=1, read at call
+    # time): K6 in place of K1 + K3, then K7 through fields.sdf_output.
+    fres, fstep_ms = phase_fold_kernels(checked)
+    kres.update(fres)
+    saved = os.environ.get("COPENERF_FOLD_CONS")
+    os.environ["COPENERF_FOLD_CONS"] = "1"
+    try:
+        launches["train_fold"], ftrain = phase_train(
+            cfg, fields, counters, {**step_ms, **fstep_ms},
+            {"sdf_value": 4, "rendercore_cons_fwd": 1, "rendercore_cons_bwd": 1},
+            steps=10, window=3, phase="fold_train")
+        phase_train_card_vs_cpu(fields, checked, ftrain, phase="fold_card_vs_cpu",
+                                pose_grad=True)
+    finally:
+        if saved is None:
+            os.environ.pop("COPENERF_FOLD_CONS")
+        else:
+            os.environ["COPENERF_FOLD_CONS"] = saved
+    ores, launches["sdf_output"] = phase_out_kernels(checked, counters)
+    kres.update(ores)
 
     rows = []
     for name, meta in KERNELS.items():

@@ -3,9 +3,10 @@
 // color_*.cu): the row-tile layout, the f32 FFMA tile GEMM, the per-row dot
 // for narrow heads, the positional encoding and its Jacobian products, the
 // shared-exp softplus-100, the per-row staging of the backward kernels, and
-// the sweeps the render-core kernels share with the outgrad and color
+// the sweeps the render-core kernels share with the outgrad, value and color
 // kernels (the SDF forward, the gradient sweep, channel B, the A + B
-// down-sweep, the color MLP forward and backward).
+// down-sweep, the first-order channel-A down-sweep, the color MLP forward
+// and backward).
 //
 // Layout: a block of 256 threads (8 warps) owns a tile of kRows = 64 rows.
 // Activations live in shared memory, one 256-float line per row; warp w owns
@@ -585,6 +586,45 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
         if (c >= split) return;
       }
       hb[r * 256 + c] = fmaf(v, sig_at(l - 1, r, c), zb_at(l - 1, r, c));
+    });
+  }
+}
+
+// The first-order down-sweep, channel A alone (sdf_kernels.py
+// `make_bwd_kernel(second_order=False)`, rendercore_kernels.py
+// `_value_only_bwd`): h holds z_L, the last hidden layer's output cotangent.
+// Per hidden layer l from L down: `put_z(l, r, c, v)` sees z_l, then
+// h = (z_l W_l^T) * sig_{l-1}, split at the skip (h | e) / sqrt(2) with the
+// PE part into e. h ends holding e_hat = d(out)/d(PE) (d0 wide). Starts with
+// a barrier. Used by K6-bwd and K7-bwd; K3-bwd (sdf_value_bwd.cu) keeps the
+// inline copy it was measured with (through this function ptxas gave it 249
+// registers instead of 245).
+template <int KS, class Sig, class PutZ>
+__device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, const Offsets& off,
+                                                 const SdfGeom& g, float* h, float* e,
+                                                 float* w_s, Sig sig_at, PutZ put_z) {
+  const int split = g.hidden - g.d0;
+  for (int l = g.n_lin - 2; l >= 0; --l) {
+    const int K = sdf_out_dim(g, l);
+    const int N = sdf_in_dim(g, l);
+    const bool at_skip = (l == g.skip);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
+      const int r = i / K;
+      put_z(l, r, i - r * K, h[r * 256 + (i - r * K)]);
+    }
+    gemm<KS>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+      if (at_skip) {
+        v *= kInvSqrt2;
+        if (c >= split) {  // the PE part of the skip input
+          e[r * g.d0 + (c - split)] = v;
+          return;
+        }
+      }
+      if (l > 0)
+        h[r * 256 + c] = v * sig_at(l - 1, r, c);
+      else
+        h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
     });
   }
 }

@@ -64,13 +64,14 @@ wgrad_partial_kernel(const WgradArgs a, float* __restrict__ partial) {
 
   for (int p = 0; p < job.n_pairs; ++p) {
     const WgradPair pr = job.p[p];
-    for (long long r0 = r_begin; r0 < r_end; r0 += kSliceRows) {
+    const long long p_end = pr.rows > 0 && pr.rows < r_end ? pr.rows : r_end;
+    for (long long r0 = r_begin; r0 < p_end; r0 += kSliceRows) {
       __syncthreads();  // the previous slice is consumed
       for (int idx = threadIdx.x; idx < kSliceRows * kTile; idx += kThreadsW) {
         const int kk = idx / kTile;
         const int c = idx - kk * kTile;
         const long long r = r0 + kk;
-        const bool rok = r < r_end;
+        const bool rok = r < p_end;
         const int o = o0 + c;
         const int i = i0 + c;
         float zv = 0.0f;

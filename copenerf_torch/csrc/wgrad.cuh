@@ -16,6 +16,11 @@
 //      pair 0 (the bias gradient), into its own slot of a partial buffer;
 //   2. final: each output element sums its split slots in split order.
 //
+// A pair may cover fewer rows than the launch (`rows`): the folded
+// render-core backward (K6) stages its second row set (the consistency
+// query at y) after the x rows of pair 0 only, so pair 0 spans 2n rows and
+// the pairs of x alone stop at n.
+//
 // Deterministic: the order of every sum is fixed by the shapes. Against an
 // autograd sum over all rows the result differs by f32 reassociation.
 // Bound: operations (f32 FFMA, 2 FLOP per row and output element) or, for
@@ -32,6 +37,7 @@ struct WgradPair {
   const float* z;  // (n, >= O) with row stride ldz; nullptr: ones (O == 1)
   const float* t;  // (n, >= I) with row stride ldt
   int ldz, ldt;
+  long long rows;  // rows [0, rows) of the launch's n; 0: all n
 };
 
 // out[o][i] = sum_rows sum_pairs z[r][o] * t[r][i], row-major (O, I);

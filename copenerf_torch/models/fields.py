@@ -16,13 +16,16 @@ Each network keeps its frozen config in ``.cfg`` and its layers in a
 
 Routing: a CUDA tensor reaches the hand-written kernels
 (``ops/kernels/``), a CPU tensor their plain versions; there is no mode
-switch (the JAX package's ``set_fused_sdf`` has no counterpart).
+switch (the JAX package's ``set_fused_sdf`` has no counterpart). The one
+switch the port keeps is the JAX package's own ``COPENERF_FOLD_CONS``
+(``sdf_grad_color_cons``), with the same default (off).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Tuple
 
 import torch
@@ -189,6 +192,14 @@ def sdf_apply(net: SDFNetwork, x: torch.Tensor) -> torch.Tensor:
     return net(x)
 
 
+def sdf_output(net: SDFNetwork, x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., d_out) with first-order autograd: ``sdf_apply``;
+    CUDA tensors run K7 (the SDF output kernel forward, its first-order
+    backward kernel)."""
+    from ..ops.kernels.sdf_out import sdf_out
+    return sdf_out(net, x)
+
+
 def sdf_with_gradient(net: SDFNetwork, x: torch.Tensor,
                       create_graph: bool = False):
     """(sdf+feature, d(sdf)/dx) for (..., 4) inputs by one reverse pass."""
@@ -256,9 +267,21 @@ def sdf_grad_color_cons(sdf_net: SDFNetwork, color_net: "ColorNetwork",
                         x: torch.Tensor, dirs: torch.Tensor, y: torch.Tensor):
     """``sdf_grad_color`` plus the sdf-consistency re-query: the
     differentiable SDF value at the world-transformed batch ``y`` as a
-    fourth output ``sdf_w (...,)``. Composed as ``sdf_grad_color`` and
-    ``sdf_scalar`` (K1 or K4 + K5, then K3), the JAX package's default; its
-    folded single-launch variant (``COPENERF_FOLD_CONS``) is not ported."""
+    fourth output ``sdf_w (...,)``.
+
+    Routing mirrors the JAX package: with ``COPENERF_FOLD_CONS=1`` in the
+    environment (read at call time), CUDA tensors in the idr mode with a
+    positive ray vector run the folded query (K6: the render core and the
+    value query at ``y`` in the same launches, one weight-gradient
+    reduction). Otherwise, the default, it composes ``sdf_grad_color`` and
+    ``sdf_scalar`` (K1 or K4 + K5, then K3); CPU tensors always compose the
+    plain versions."""
+    ccfg = color_net.cfg
+    if (x.device.type != "cpu" and ccfg.mode == "idr"
+            and not ccfg.use_negative_ray_vector
+            and os.environ.get("COPENERF_FOLD_CONS") == "1"):
+        from ..ops.kernels.rendercore_cons import rendercore_cons
+        return rendercore_cons(sdf_net, color_net, x, dirs, y)
     sdf, grad, color = sdf_grad_color(sdf_net, color_net, x, dirs)
     return sdf, grad, color, sdf_scalar(sdf_net, y)
 

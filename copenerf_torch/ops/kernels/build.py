@@ -84,13 +84,18 @@ def build() -> str:
         cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj]
         procs.append((subprocess.Popen(cmd, stdout=log,
                                        stderr=subprocess.STDOUT), obj, log))
-    failed = []
-    for proc, obj, log in procs:
-        proc.wait()
-        log.close()
-        if proc.returncode != 0:
-            failed.append(obj)
+    # Each source's wall time, read as the processes end, goes to build.log.
+    done = {}
+    while len(done) < len(procs):
+        for proc, obj, log in procs:
+            if obj not in done and proc.poll() is not None:
+                done[obj] = time.perf_counter() - t0
+                log.close()
+        time.sleep(0.05)
+    failed = [obj for proc, obj, _ in procs if proc.returncode != 0]
     logs = "".join(open(obj + ".log").read() for _, obj, _ in procs)
+    logs += "".join(f"nvcc seconds {os.path.basename(obj).split('.cu.')[0]}.cu: "
+                    f"{done[obj]:.1f}\n" for _, obj, _ in procs)
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
         f.write(logs)
     if failed:
@@ -152,13 +157,29 @@ def load_library() -> ctypes.CDLL:
     lib.copenerf_color_bwd_workspace.argtypes = [_L] + [_I] * 5 + [_P]
     lib.copenerf_color_bwd.argtypes = (
         [_P] * 4 + [_L] + [_P] * 14 + [_L] + [_I] * 6 + [_P])
+    lib.copenerf_rendercore_cons_fwd.argtypes = (
+        [_P] * 11 + [_L] * 4 + [_P] * 3 + [_L] + [_I] * 5 + [_F] + [_I] * 7 + [_P])
+    lib.copenerf_rendercore_cons_bwd_workspace.argtypes = (
+        lib.copenerf_rendercore_bwd_workspace.argtypes)
+    lib.copenerf_rendercore_cons_bwd.argtypes = (
+        [_P] * 14 + [_L] * 5 + [_P] * 6 + [_L] + [_P] * 5 + [_L] + [_I] * 5
+        + [_F] + [_I] * 7 + [_P])
+    lib.copenerf_sdf_out_fwd.argtypes = (
+        [_P] * 5 + [_L] * 5 + [_I] * 5 + [_F, _I, _I, _P])
+    lib.copenerf_sdf_out_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
+    lib.copenerf_sdf_out_bwd.argtypes = (
+        [_P] * 7 + [_L] * 3 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _I, _P])
     for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,
                lib.copenerf_sdf_value_bwd_workspace, lib.copenerf_sdf_value_bwd,
                lib.copenerf_rendercore_bwd_workspace,
                lib.copenerf_rendercore_bwd, lib.copenerf_sdf_outgrad_fwd,
                lib.copenerf_sdf_outgrad_bwd_workspace,
                lib.copenerf_sdf_outgrad_bwd, lib.copenerf_color_fwd,
-               lib.copenerf_color_bwd_workspace, lib.copenerf_color_bwd):
+               lib.copenerf_color_bwd_workspace, lib.copenerf_color_bwd,
+               lib.copenerf_rendercore_cons_fwd,
+               lib.copenerf_rendercore_cons_bwd_workspace,
+               lib.copenerf_rendercore_cons_bwd, lib.copenerf_sdf_out_fwd,
+               lib.copenerf_sdf_out_bwd_workspace, lib.copenerf_sdf_out_bwd):
         fn.restype = _I
     return lib
 
@@ -214,8 +235,8 @@ def needs_grad(tensors) -> bool:
 def check_no_grad(tensors, what: str) -> None:
     """The raw forward launchers refuse work that autograd would need: a
     differentiable call goes through the autograd.Functions
-    (``sdf_value_diff``, ``rendercore``, ``outgrad``, ``color``), whose
-    backward is a kernel too."""
+    (``sdf_value_diff``, ``rendercore``, ``rendercore_cons``, ``outgrad``,
+    ``sdf_out``, ``color``), whose backward is a kernel too."""
     if needs_grad(tensors):
         raise RuntimeError(
             f"{what}: a CUDA input or weight requires grad while grad "

@@ -127,15 +127,17 @@ _CP_ASYNC = re.compile(
     r"const unsigned dst = \(unsigned\)__cvta_generic_to_shared\(smem\);\s*"
     r"const int src_bytes = pred \? 16 : 0;\s*asm volatile\(.*?\"r\"\(src_bytes\)\);",
     re.S)
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\(")
+_LAUNCH = re.compile(
+    r"(\w+(?:<[^<>()]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\(")
 
 
 def _host_source(text: str) -> str:
     """A CUDA source rewritten for ``HEADER``: dynamic shared memory, the
-    launch syntax and the cp.async asm."""
+    launch syntax (the kernel in parentheses: it may be a template-id) and
+    the cp.async asm."""
     text = text.replace("extern __shared__ float4 smem4[];",
                         "float4* smem4 = host_dynamic_shared();")
-    text = _LAUNCH.sub(r"HOST_LAUNCH(\2, \3, \4, \1, ", text)
+    text = _LAUNCH.sub(r"HOST_LAUNCH(\2, \3, \4, (\1), ", text)
     text = _CP_ASYNC.sub("if (pred) std::memcpy(smem, gmem, 16); "
                          "else std::memset(smem, 0, 16);", text)
     text = text.replace('asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));', "")
@@ -267,7 +269,10 @@ def check(width: str = "small", negative_ray: bool = False,
     from . import outgrad as OG
     from . import pack
     from . import rendercore as RC
+    from . import rendercore_cons as RCC
+    from . import sdf_out as SO
     from . import sdf_value as SV
+    from . import sdf_value_diff as SVD
 
     torch.manual_seed(0)
     sdf, col = nets(width, negative_ray)
@@ -346,6 +351,32 @@ def check(width: str = "small", negative_ray: bool = False,
     bwd("K1-bwd" if not negative_ray else "K4 + K5 composed", kernel_query,
         plain_query, [x, d], [sdf, col],
         [torch.randn(n, 1), torch.randn(n, 4), torch.randn(n, 3)])
+
+    # K7 (the SDF output, first order) and, with a positive ray vector, K6
+    # (the render core with the consistency query at y folded in).
+    y = (torch.rand(n, 4) * 2 - 1) * 1.2
+    with torch.no_grad():
+        fwd("K7-fwd", SO.launch_out_fwd(scfg, pack.pack_outgrad(sdf), x),
+            SO.sdf_out_plain(sdf, x))
+        if not negative_ray:
+            got = RCC.launch_cons_fwd(scfg, ccfg, pack.pack_rendercore(sdf, col),
+                                      x, d, y)
+            for nm, a, b in zip(("sdf", "grad", "color", "sdf_w"), got,
+                                RCC.rendercore_cons_plain(sdf, col, x, d, y)):
+                fwd(f"K6-fwd {nm}", a, b, scaled=nm == "grad")
+    bwd("K7-bwd", lambda xx: SO.SdfOut.apply(scfg, xx, *eff(sdf)),
+        lambda mods, xx: SO.sdf_out_plain(mods[0], xx), [x], [sdf],
+        [torch.randn(n, scfg.d_out)])
+    bwd("K3-bwd", lambda xx: SVD.SdfValueDiff.apply(scfg, xx, *eff(sdf)),
+        lambda mods, xx: SVD.sdf_value_diff_plain(mods[0], xx), [x], [sdf],
+        [torch.randn(n)])
+    if not negative_ray:
+        bwd("K6-bwd",
+            lambda xx, dd, yy: RCC.RenderCoreCons.apply(scfg, ccfg, xx, dd, yy,
+                                                        *eff(sdf), *eff(col)),
+            lambda mods, *a: RCC.rendercore_cons_plain(*mods, *a), [x, d, y],
+            [sdf, col], [torch.randn(n, 1), torch.randn(n, 4), torch.randn(n, 3),
+                         torch.randn(n)])
     return res
 
 

@@ -17,16 +17,18 @@ does outside its kernels (``sdf_kernels.py`` ``_prep``):
     multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
     backward.
 
-The render-core kernels (K1) take the SDF and the color parts in one
-buffer; the outgrad kernels (K4) the SDF part with the feature columns; the
+The render-core kernels (K1, and K6 with the consistency query folded in)
+take the SDF and the color parts in one buffer; the outgrad kernels (K4)
+and the SDF output kernels (K7) the SDF part with the feature columns; the
 color kernels (K5) the color part alone.
 
 The backward kernels write their weight gradients into one flat buffer too
-(``rendercore_grad_layout``, ``outgrad_grad_layout``, ``color_grad_layout``,
-``sdf_value_grad_layout``): per layer the gradient of the effective W in the
-kernel's (out, in) layout (the color layer 0 with the permuted, padded
-inputs of ``wct[0]``) and of b. ``unpack_*_grads`` map it back to each
-layer's effective (W (out, in), b).
+(``rendercore_grad_layout``, also K6-bwd's: the x rows and the y rows feed
+the same SDF slots; ``outgrad_grad_layout``, ``color_grad_layout``,
+``sdf_value_grad_layout``, also K7-bwd's with the whole head): per layer
+the gradient of the effective W in the kernel's (out, in) layout (the color
+layer 0 with the permuted, padded inputs of ``wct[0]``) and of b.
+``unpack_*_grads`` map it back to each layer's effective (W (out, in), b).
 
 A pack is cached on the network it belongs to (the SDF network for a pack
 of both), keyed by the storage and version of every parameter it reads, so
@@ -326,22 +328,25 @@ class _GradLayout:
         self.size += numel + (-numel) % 4
 
 
-def sdf_value_grad_layout(scfg):
-    """(offsets by name, size) of K3-bwd's gradient buffer: ``gw[l]``,
-    ``gb[l]`` per SDF layer; the last layer holds its row 0 only."""
-    lay = _GradLayout()
+def _put_sdf(lay: _GradLayout, scfg, head_rows: int) -> None:
     shapes = _layer_shapes(scfg)
-    shapes[-1] = (1, shapes[-1][1])
+    shapes[-1] = (head_rows, shapes[-1][1])
     for o, i in shapes:
         lay.put("gw", o * i)
         lay.put("gb", o)
+
+
+def sdf_value_grad_layout(scfg, head_rows: int = 1):
+    """(offsets by name, size) of K3-bwd's gradient buffer: ``gw[l]``,
+    ``gb[l]`` per SDF layer; the last layer holds its first ``head_rows``
+    rows: row 0 for K3, all d_out for K7-bwd (``sdf_out``)."""
+    lay = _GradLayout()
+    _put_sdf(lay, scfg, head_rows)
     return lay.offs, lay.size
 
 
 def _put_sdf_full(lay: _GradLayout, scfg) -> None:
-    for o, i in _layer_shapes(scfg):
-        lay.put("gw", o * i)
-        lay.put("gb", o)
+    _put_sdf(lay, scfg, scfg.d_out)
     lay.put("gw_last0", scfg.d_hidden, per_layer=False)
 
 
@@ -385,13 +390,14 @@ def _take(buf, off, shape):
     return buf[off:off + n].view(shape)
 
 
-def unpack_sdf_value_grads(buf, offs, scfg) -> list:
-    """K3-bwd's buffer -> [(W_bar (out, in), b_bar (out,))] per SDF layer;
-    the last layer's rows past 0 are zero."""
+def unpack_sdf_value_grads(buf, offs, scfg, head_rows: int = 1) -> list:
+    """K3-bwd's buffer (K7-bwd's with ``head_rows`` d_out) -> [(W_bar
+    (out, in), b_bar (out,))] per SDF layer; the last layer's rows past
+    ``head_rows`` are zero."""
     shapes = _layer_shapes(scfg)
     out = []
     for l, (o, i) in enumerate(shapes):
-        rows = 1 if l == len(shapes) - 1 else o
+        rows = head_rows if l == len(shapes) - 1 else o
         w = _take(buf, offs["gw"][l], (rows, i))
         b = _take(buf, offs["gb"][l], (rows,))
         if rows != o:

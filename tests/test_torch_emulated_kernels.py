@@ -2,8 +2,9 @@
 (``copenerf_torch/ops/kernels/emulate.py``): every kernel, launched by its
 own wrapper on CPU tensors, held against its plain version at the small
 widths of the other port tests (SDF scale 1.3, so a fault in the scale's
-place shows; the default config's scale is 1), with both ray vectors, on a
-ragged row count (150 rows: two full tiles of 64 and a tail).
+place shows; the default config's scale is 1), with both ray vectors (the
+folded render core K6, like K1, with the positive one only), on a ragged row
+count (150 rows: two full tiles of 64 and a tail).
 
 Tolerances, as ``chip_smoke.py``: forward outputs 1e-4 absolute (grad 1e-4
 of its largest entry, at least 1e-4); every gradient tensor of a backward
@@ -18,11 +19,13 @@ import pytest
 
 from copenerf_torch.ops.kernels import emulate
 
-FORWARD = ["K2", "K4-fwd out", "K4-fwd grad", "K5-fwd"]
-BACKWARD = ["K4-bwd obar", "K4-bwd gbar", "K4-bwd both", "K5-bwd"]
+FORWARD = ["K2", "K4-fwd out", "K4-fwd grad", "K5-fwd", "K7-fwd"]
+BACKWARD = ["K3-bwd", "K4-bwd obar", "K4-bwd gbar", "K4-bwd both", "K5-bwd",
+            "K7-bwd"]
 CHECKS = {
     "positive": FORWARD + ["K1-fwd sdf", "K1-fwd grad", "K1-fwd color"]
-                + BACKWARD + ["K1-bwd"],
+                + [f"K6-fwd {o}" for o in ("sdf", "grad", "color", "sdf_w")]
+                + BACKWARD + ["K1-bwd", "K6-bwd"],
     "negative": FORWARD + BACKWARD + ["K4 + K5 composed"],
 }
 

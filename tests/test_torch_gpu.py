@@ -17,8 +17,9 @@ and a ReLU that flips in one f32 version and not the other moves its row's
 gradients by far more than rounding). The nets are the geometric init
 perturbed by ``perturb_``, so the PE columns are not zero and the SDF head's
 columns differ: a fault in the PE or in the column order shows. The
-composed path's kernels (K4 outgrad, K5 color) are held to the same rules;
-K4's head output, like sdf, to 1e-4 absolute."""
+composed path's kernels (K4 outgrad, K5 color), the folded render core (K6)
+and the SDF output (K7) are held to the same rules; K4's and K7's head
+outputs and K6's sdf_w, like sdf, to 1e-4 absolute."""
 
 import copy
 import dataclasses
@@ -33,6 +34,8 @@ from copenerf_torch.models.mlp import perturb_
 from copenerf_torch.ops.kernels import color as CK
 from copenerf_torch.ops.kernels import outgrad as OG
 from copenerf_torch.ops.kernels import rendercore as RC
+from copenerf_torch.ops.kernels import rendercore_cons as RCC
+from copenerf_torch.ops.kernels import sdf_out as SO
 from copenerf_torch.ops.kernels import sdf_value as SV
 from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 from copenerf_torch.ops.renderer import RendererConfig
@@ -359,3 +362,112 @@ def test_composed_path_routes_to_k4_and_k5_on_card():
     assert launched(plain) == [0] * len(counters)
     assert all(p.grad is not None for p in sdf_net.parameters())
     assert all(p.grad is not None for p in color_net.parameters())
+
+
+def _fwd_close(got, ref, names):
+    """Forward outputs: 1e-4 absolute, grad 1e-4 x max(1, max|grad|)."""
+    for name, g, r in zip(names, got, ref):
+        tol = 1e-4 * (max(1.0, r.abs().max().item()) if name == "grad" else 1)
+        torch.testing.assert_close(g, r, rtol=0, atol=tol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_fold_kernels_match_plain_on_card(width, n):
+    """K6-fwd against ``rendercore_cons_plain`` (K1's and K3's plain
+    versions), and K6-bwd (through ``RenderCoreCons``) against autograd of
+    the plain version and f64 for sbar, gbar, cbar and swbar alone and all
+    four: x_bar, dirs_bar, y_bar and every parameter of both nets."""
+    _require_cuda()
+    sdf_net, color_net = _nets(width, "cuda")
+    x, d = _rows(n, seed=n + 13)
+    y, _ = _rows(n, seed=n + 17)
+    with torch.no_grad():
+        _fwd_close(RCC.rendercore_cons(sdf_net, color_net, x, d, y),
+                   RCC.rendercore_cons_plain(sdf_net, color_net, x, d, y),
+                   ("sdf", "grad", "color", "sdf_w"))
+    params = [*sdf_net.parameters(), *color_net.parameters()]
+    sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
+    g = torch.Generator(device="cuda").manual_seed(n + 2)
+    full = [torch.randn(s, generator=g, device="cuda")
+            for s in ((n, 1), (n, 4), (n, 3), (n,))]
+    margin = RC.color_relu_margin(sdf64, color64, x.double(), d.double())
+    full[2] = full[2] * (margin >= KINK_MARGIN).float()[:, None]
+    norms = []
+    for on in ((1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, 1), (1, 1, 1, 1)):
+        cots = [c * m for c, m in zip(full, on)]
+        got = _grads(lambda *a: RCC.rendercore_cons(sdf_net, color_net, *a),
+                     (x, d, y), params, cots)
+        ref = _grads(lambda *a: RCC.rendercore_cons_plain(sdf_net, color_net, *a),
+                     (x, d, y), params, cots)
+        ref64 = _grads(lambda *a: RCC.rendercore_cons_plain(sdf64, color64, *a),
+                       (x.double(), d.double(), y.double()),
+                       [*sdf64.parameters(), *color64.parameters()],
+                       [c.double() for c in cots])
+        scales = [sum(t) for t in zip(*norms)] if sum(on) == 4 else None
+        norms.append([c.norm().item() for c in ref64])
+        _check_vs_f64(got, ref, ref64, f"K6 {on}", scales)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_sdf_out_kernels_match_plain_on_card(width, n):
+    """K7-fwd against ``sdf_apply`` and K7-bwd (through ``SdfOut``) against
+    autograd of it and f64, for the head's cotangent on column 0, on the
+    feature columns and on all of it."""
+    _require_cuda()
+    sdf_net, _ = _nets(width, "cuda")
+    sdf64 = copy.deepcopy(sdf_net).double()
+    x, _ = _rows(n, seed=n + 19)
+    with torch.no_grad():
+        torch.testing.assert_close(TF.sdf_output(sdf_net, x),
+                                   SO.sdf_out_plain(sdf_net, x), rtol=0, atol=1e-4)
+    d_out = sdf_net.cfg.d_out
+    g = torch.Generator(device="cuda").manual_seed(n + 3)
+    obar = torch.randn((n, d_out), generator=g, device="cuda")
+    col0 = torch.zeros(d_out, device="cuda")
+    col0[0] = 1.0
+    sp, sp64 = list(sdf_net.parameters()), list(sdf64.parameters())
+    norms = []
+    for mask in (col0, 1.0 - col0, torch.ones_like(col0)):
+        cots = [obar * mask]
+        got = _grads(lambda a: TF.sdf_output(sdf_net, a), (x,), sp, cots)
+        ref = _grads(lambda a: SO.sdf_out_plain(sdf_net, a), (x,), sp, cots)
+        ref64 = _grads(lambda a: SO.sdf_out_plain(sdf64, a), (x.double(),), sp64,
+                       [c.double() for c in cots])
+        scales = [sum(t) for t in zip(*norms)] if len(norms) == 2 else None
+        norms.append([c.norm().item() for c in ref64])
+        _check_vs_f64(got, ref, ref64, "K7", scales)
+
+
+@pytest.mark.gpu
+def test_fold_switch_and_sdf_output_route_to_k6_and_k7_on_card(monkeypatch):
+    """``sdf_grad_color_cons`` under grad composes K1 + K3 by default and
+    runs K6 alone under ``COPENERF_FOLD_CONS=1``; ``sdf_output`` runs K7."""
+    _require_cuda()
+    sdf_net, color_net = _nets("small", "cuda")
+    x, d = _rows(100, seed=6)
+    y, _ = _rows(100, seed=7)
+    counters = (RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER, SVD.BWD_COUNTER,
+                RCC.FWD_COUNTER, RCC.BWD_COUNTER, SO.FWD_COUNTER, SO.BWD_COUNTER)
+
+    def launched(fn):
+        before = [c.launches for c in counters]
+        fn()
+        torch.cuda.synchronize()
+        return [c.launches - b for c, b in zip(counters, before)]
+
+    def step():
+        sdf, grad, color, sdf_w = TF.sdf_grad_color_cons(sdf_net, color_net, x, d, y)
+        (sdf.sum() + grad.square().sum() + color.sum() + sdf_w.sum()).backward()
+
+    def output():
+        TF.sdf_output(sdf_net, x).sum().backward()
+
+    monkeypatch.delenv("COPENERF_FOLD_CONS", raising=False)
+    assert launched(step) == [1, 1, 1, 1, 0, 0, 0, 0]
+    monkeypatch.setenv("COPENERF_FOLD_CONS", "1")
+    assert launched(step) == [0, 0, 0, 0, 1, 1, 0, 0]
+    assert launched(output) == [0, 0, 0, 0, 0, 0, 1, 1]

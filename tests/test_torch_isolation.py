@@ -1,5 +1,6 @@
-"""The port stands alone: nothing in ``copenerf_torch`` or ``chip_smoke.py``
-imports JAX or the JAX package, and importing the port loads neither."""
+"""The port stands alone: nothing in ``copenerf_torch``, ``chip_smoke.py``
+or ``kernel_times.py`` imports JAX or the JAX package, and importing the
+port loads neither."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "copenerf_tpu", "optax")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_times.py")]
     for root, _, files in os.walk(os.path.join(REPO, "copenerf_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -50,6 +51,9 @@ def test_import_leaves_jax_unloaded():
             "copenerf_torch.ops.kernels.sdf_value_diff, "
             "copenerf_torch.ops.kernels.outgrad, "
             "copenerf_torch.ops.kernels.color, "
+            "copenerf_torch.ops.kernels.rendercore_cons, "
+            "copenerf_torch.ops.kernels.sdf_out, "
+            "copenerf_torch.ops.kernels.emulate, "
             "copenerf_torch.poses.motion, copenerf_torch.poses.retriever, "
             "copenerf_torch.training.checkpoints, "
             "copenerf_torch.training.step; "

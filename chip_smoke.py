@@ -7,21 +7,27 @@ Phases, each printed on its own line, any failure exits non-zero:
 
 1. device   card name, count, ``nvidia-smi`` name and power limit; TF32 off.
 2. build    nvcc builds every kernel in ``copenerf_torch/csrc`` (one process
-            per source, in parallel); prints the build time and ptxas usage.
+            per source, in parallel); prints the build time and ptxas usage,
+            then (``registers``) the registers and spill bytes of the
+            tensor-core kernels: K1 and K6 (3xTF32, ``csrc/mma_tile.cuh``)
+            and their reduction.
 3. kernels  each forward kernel against its plain PyTorch version on the card
             at the main path's widths (the full-width SDF + color net of
             configs/default.yaml, geometric init perturbed by ``perturb_`` so
             that the PE columns are not zero and the head's columns differ)
             and at a ragged row count; then CUDA-event times at the render
             chunk's shapes beside the plain version and the bound from FLOP
-            and bytes counted from the shapes.
+            and bytes counted from the shapes (K1 and K6 also beside
+            ``tc_bound_ms``, the same work in 3xTF32 on the tensor cores).
 4. train_kernels  K1-bwd and K3 (fwd, bwd) through their autograd.Functions
             against autograd of the plain versions on the same perturbed nets,
             at 262,144 and 1,000 rows: K1 for sbar, gbar, cbar alone and all
             three (no color cotangent on rows with a color ReLU within
             KINK_MARGIN of its kink), every input and parameter gradient;
             then CUDA-event times at the train step's shapes (131,072 rows;
-            the forward kernels too, for the step's kernels / glue split).
+            the forward kernels too, for the step's kernels / glue split);
+            K1-bwd's line splits it into the row kernel and the weight-
+            gradient reduction (``torch.profiler`` device times).
 5. composed_kernels  K4 (SDF outgrad) and K5 (color MLP), the kernels of
             the composed field path (``use_negative_ray_vector: true``), on
             the perturbed full-width nets of that config: the forward
@@ -90,6 +96,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+TC_TF32_PEAK = 495e12   # H100 SXM dense TF32 FLOP/s on the tensor cores
 HBM_RATE = 3.35e12      # H100 SXM HBM3 bytes/s
 CHUNK = 32768
 VIEWS = 3
@@ -263,6 +270,25 @@ def bound_ms(flop, nbytes):
                                        else "bytes")
 
 
+def tc_bound_ms(flop, nbytes):
+    """The bound of the same work in 3xTF32 on the tensor cores (K1, K6):
+    three TF32 products per f32 product."""
+    return 1e3 * max(3 * flop / TC_TF32_PEAK, nbytes / HBM_RATE)
+
+
+def split_ms(fn, reps, row_kernel):
+    """(row kernel ms, reduction ms, every kernel's ms) of one call of a
+    backward launcher, from torch.profiler's device times
+    (``kernel_times.kernel_split``); "not measured" where it sees none."""
+    from kernel_times import kernel_split
+
+    split = kernel_split(fn, reps)
+    if split is None:
+        return "not measured", "not measured", "not measured"
+    return (sum(v for k, v in split.items() if row_kernel in k),
+            sum(v for k, v in split.items() if k.startswith("wgrad")), split)
+
+
 def smi_under_load(fn, ms_each):
     """SM clock and power draw read by nvidia-smi while ~1.5 s of ``fn``
     launches run (a card below its power limit clocks down under load)."""
@@ -329,14 +355,23 @@ def phase_build():
             src, sec = ln[len("nvcc seconds "):].split(": ")
             nvcc_s[src] = float(sec)
             continue
-        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(I(?:Lb[01]E)+E)?", ln)
+        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
+                      r"(I(?:L(?:b|i|N\w+?E)\d+E)+E)?", ln)
         if m:
-            name = m.group(1) + ("<%s>" % ",".join(re.findall(r"Lb([01])E", m.group(2)))
-                                 if m.group(2) else "")
+            name = m.group(1) + ("<%s>" % ",".join(
+                re.findall(r"L(?:b|i|N\w+?E)(\d+)E", m.group(2))) if m.group(2) else "")
         elif re.search(r"Used \d+ registers|spill", ln):
             usage.append(f"{name}: {ln.strip()}")
     log("build", seconds=round(time.perf_counter() - t0, 3),
         cached=build.BUILD_STATS["cached"], nvcc_seconds=nvcc_s, ptxas=usage)
+    # The tensor-core kernels (K1, K6 and their reduction): registers and
+    # spill bytes (stores, loads).
+    from kernel_times import registers
+
+    tc = {k: dict(zip(("registers", "spill_stores", "spill_loads"), v))
+          for k, v in registers(build.build_log()).items()
+          if k.startswith(("rendercore_", "wgrad_tc_"))}
+    log("registers", kernels=tc)
 
 
 def full_width_nets(seed, negative_ray=False):
@@ -425,14 +460,17 @@ def phase_kernels(fields):
             RC.rendercore_fwd_plain(sdf_net, color_net, x[i:i + sl],
                                     d[i:i + sl])
     p_ms = cuda_ms(plain_slices, reps=1)
-    b, by = bound_ms(*k1_work(scfg, ccfg, n, sdf_net, color_net))
+    work = k1_work(scfg, ccfg, n, sdf_net, color_net)
+    b, by = bound_ms(*work)
     load = smi_under_load(
         lambda: RC.rendercore_fwd_cuda(sdf_net, color_net, x, d), k_ms)
     log("time", kernel="rendercore_fwd", rows=n, kernel_ms=k_ms,
         plain_ms=p_ms, plain_note="8 slices of 524288 rows", bound_ms=b,
-        bound_by=by, sm_clock_power_under_kernel=load)
+        bound_by=by, tc_bound_ms=tc_bound_ms(*work),
+        sm_clock_power_under_kernel=load)
     results["rendercore_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
-                                      bound_ms=b, bound_by=by)]
+                                      bound_ms=b, bound_by=by,
+                                      tc_bound_ms=tc_bound_ms(*work))]
     del x, d
     torch.cuda.empty_cache()
     for k in results:
@@ -605,14 +643,20 @@ def phase_train_kernels(fields):
         p_ms += cuda_ms(lambda: torch.autograd.grad(out, [xs, ds] + params, cs,
                                                     retain_graph=True), reps=2)
         del out
-    b, by = bound_ms(*k1_bwd_work(scfg, ccfg, n, sdf_net, color_net))
+    work = k1_bwd_work(scfg, ccfg, n, sdf_net, color_net)
+    b, by = bound_ms(*work)
     load = smi_under_load(lambda: RC.rendercore_bwd_cuda(
         scfg, ccfg, rc_pack, x, d, *cots), k_ms)
+    row_ms, red_ms, split = split_ms(lambda: RC.rendercore_bwd_cuda(
+        scfg, ccfg, rc_pack, x, d, *cots), 3, "rendercore_bwd_kernel")
     log("time", kernel="rendercore_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
         plain_note="autograd.grad of the plain version, 4 slices of 32768 rows",
-        bound_ms=b, bound_by=by, sm_clock_power_under_kernel=load)
+        bound_ms=b, bound_by=by, tc_bound_ms=tc_bound_ms(*work),
+        row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
+        sm_clock_power_under_kernel=load)
     results["rendercore_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
-                                      bound_ms=b, bound_by=by)]
+                                      bound_ms=b, bound_by=by,
+                                      tc_bound_ms=tc_bound_ms(*work))]
     torch.cuda.empty_cache()
 
     k_ms = cuda_ms(lambda: SVD.launch_value(scfg, v_pack, x, SVD.FWD_COUNTER),
@@ -655,7 +699,10 @@ def phase_train_kernels(fields):
             lambda: RC.rendercore_fwd_cuda(sdf_net, color_net, x, d), reps=5)
         step_bound["rendercore_fwd"] = bound_ms(
             *k1_work(scfg, ccfg, n, sdf_net, color_net))[0]
-    log("step_shapes", rows=n, kernel_ms=step_ms, bound_ms=step_bound)
+    log("step_shapes", rows=n, kernel_ms=step_ms, bound_ms=step_bound,
+        tc_bound_ms={"rendercore_fwd": tc_bound_ms(*k1_work(scfg, ccfg, n, sdf_net,
+                                                              color_net)),
+                     "rendercore_bwd": results["rendercore_bwd"][0]["tc_bound_ms"]})
     del x, d, cots, xs, xk
     torch.cuda.empty_cache()
     for k in results:
@@ -971,16 +1018,22 @@ def phase_fold_kernels(fields):
                                                      retain_graph=True), reps=2)
         del out, ins
     results = {}
-    for name, t, p_ms, work in (
-            ("rendercore_cons_fwd", fwd, p_fwd, k6_fwd_work),
-            ("rendercore_cons_bwd", bwd, p_bwd, k6_bwd_work)):
-        b, by = bound_ms(*work(scfg, ccfg, n, sdf_net, color_net))
+    row_ms, red_ms, split = split_ms(lambda: RCC.rendercore_cons_bwd_cuda(
+        scfg, ccfg, rc_pack, x, d, y, *cots), 3, "rendercore_bwd_kernel")
+    for name, t, p_ms, work, extra in (
+            ("rendercore_cons_fwd", fwd, p_fwd, k6_fwd_work, {}),
+            ("rendercore_cons_bwd", bwd, p_bwd, k6_bwd_work,
+             dict(row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split))):
+        wk = work(scfg, ccfg, n, sdf_net, color_net)
+        b, by = bound_ms(*wk)
         log("time", kernel=name, rows=n, kernel_ms=t["fold"],
             k1_plus_k3_ms=t["pair"], fold_over_pair=t["fold"] / t["pair"],
             timing_note="fold and pair in turns a, b, b, a; means of two",
-            plain_ms=p_ms, bound_ms=b, bound_by=by)
+            plain_ms=p_ms, bound_ms=b, bound_by=by, tc_bound_ms=tc_bound_ms(*wk),
+            **extra)
         results[name] = {"max_abs_err": errs[name], "times": [dict(
-            rows=n, ms=t["fold"], plain_ms=p_ms, bound_ms=b, bound_by=by)]}
+            rows=n, ms=t["fold"], plain_ms=p_ms, bound_ms=b, bound_by=by,
+            tc_bound_ms=tc_bound_ms(*wk))]}
     log("fold_vs_two_launches", rows=n,
         fold_ms=fwd["fold"] + bwd["fold"], k1_plus_k3_ms=fwd["pair"] + bwd["pair"],
         fold_fwd_ms=fwd["fold"], pair_fwd_ms=fwd["pair"],
@@ -1590,7 +1643,8 @@ def main():
                      "max_abs_err": kres[name]["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None,
-                     "rows": t["rows"]})
+                     "rows": t["rows"],
+                     **({"tc_bound_ms": t["tc_bound_ms"]} if "tc_bound_ms" in t else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print_contract_line()
     return 0

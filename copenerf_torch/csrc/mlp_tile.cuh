@@ -17,7 +17,9 @@
 // float4 of the weight slice for 64 FFMAs. Weights stream from device memory
 // (L2-resident: a few MB in all) through a KS x 256 shared-memory slice.
 // Everything is f32 (no TF32, no bf16): the sharpened NeuS alpha cannot
-// tolerate bf16-level SDF error.
+// tolerate bf16-level SDF error. The sweeps take the GEMM as a policy (`G`,
+// default FfmaGemm: `gemm` on rows of 256); K1 and K6 pass mma_tile.cuh's
+// 3xTF32 tensor-core policy, whose rows are 272 floats.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -299,6 +301,19 @@ __device__ __forceinline__ void gemm(const float* in, int ld_in, int K,
     gemm_rows<1, KS>(in, ld_in, K, W, ldw, N, w_s, epi);
 }
 
+// The GEMM policy of the sweeps below (`G`): `gemm` on activation rows of
+// kLd floats. K1 and K6 pass the tensor-core policy (mma_tile.cuh TcGemm);
+// the other kernels take this default.
+struct FfmaGemm {
+  static constexpr int kLd = 256;
+  template <int KS, class Epi>
+  __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
+                                             const float* __restrict__ W, int ldw, int N,
+                                             float* __restrict__ w_s, Epi epi) {
+    gemm<KS>(in, ld_in, K, W, ldw, N, w_s, epi);
+  }
+};
+
 // Narrow head (N <= 4 columns): one warp reduction per row and column.
 // Needs a __syncthreads() before it if `in` was written by other warps'
 // element-wise passes. Lane 0 calls epi(r, n, value).
@@ -349,11 +364,12 @@ __device__ __forceinline__ void load_and_encode(const float* __restrict__ x, lon
 // `keep(l, r, c, sig)` sees every sigmoid(100 z); `put(l, r, c, v)` sees
 // every value v written as column c of layer l's input (l >= 1: the
 // previous layer's output and the skip layer's scaled PE part).
-template <int KS, class Keep, class Put>
+template <int KS, class G = FfmaGemm, class Keep, class Put>
 __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
                                                    const Offsets& off, const SdfGeom& g,
                                                    const float* e, float* h, float* w_s,
                                                    Keep keep, Put put) {
+  constexpr int ld = G::kLd;
   for (int l = 0; l < g.n_lin - 1; ++l) {
     if (l == g.skip) {
       // Input of the skip layer: [h, e] / sqrt(2); h was scaled in the
@@ -362,20 +378,20 @@ __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
       for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
         const int r = i / g.d0;
         const float v = e[i] * kInvSqrt2;
-        h[r * kSliceCols + split + (i - r * g.d0)] = v;
+        h[r * ld + split + (i - r * g.d0)] = v;
         put(l, r, split + (i - r * g.d0), v);
       }
     }
     const float* bias = P + off.b[l];
     const bool pre_skip = (l + 1 == g.skip);
-    gemm<KS>(l == 0 ? e : h, l == 0 ? g.d0 : kSliceCols, sdf_in_dim(g, l),
+    G::template run<KS>(l == 0 ? e : h, l == 0 ? g.d0 : ld, sdf_in_dim(g, l),
              P + off.w[l], sdf_out_dim(g, l), sdf_out_dim(g, l), w_s,
              [&](int r, int c, float z) {
                float sig, sp;
                sig_softplus100(z + bias[c], sig, sp);
                keep(l, r, c, sig);
                const float v = pre_skip ? sp * kInvSqrt2 : sp;
-               h[r * kSliceCols + c] = v;
+               h[r * ld + c] = v;
                put(l + 1, r, c, v);
              });
   }
@@ -437,11 +453,12 @@ __device__ __forceinline__ float pe3_jac_t(const float* pb, const float* dirs, i
 // every u_l. With l_stop == 0 h ends holding ee = d(sdf)/d(PE) (d0 wide, the
 // skip's PE part added); with l_stop == 1 it ends at u_0, for a backward that
 // needs the u_l alone. Starts with a barrier.
-template <int KS, class Sig, class PutU>
+template <int KS, class G = FfmaGemm, class Sig, class PutU>
 __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, const Offsets& off,
                                                const SdfGeom& g, float* h, float* e,
                                                float* w_s, int l_stop, Sig sig_at,
                                                PutU put_u) {
+  constexpr int ld = G::kLd;
   const int n_hidden = g.n_lin - 1;
   const int split = g.hidden - g.d0;
   __syncthreads();
@@ -452,7 +469,7 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
     for (int i = threadIdx.x; i < kRows * width; i += kThreads) {
       const int r = i / width, c = i - r * width;
       const float u = w0[c] * sig_at(l, r, c);
-      h[r * 256 + c] = u;
+      h[r * ld + c] = u;
       put_u(l, r, c, u);
     }
   }
@@ -460,7 +477,7 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
     const int K = sdf_out_dim(g, l);
     const int N = sdf_in_dim(g, l);
     const bool at_skip = (l == g.skip);
-    gemm<KS>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(h, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) {  // the PE part of the skip input: ee_skip
@@ -470,10 +487,10 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
       }
       if (l > 0) {
         const float u = v * sig_at(l - 1, r, c);
-        h[r * 256 + c] = u;
+        h[r * ld + c] = u;
         put_u(l - 1, r, c, u);
       } else {
-        h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
+        h[r * ld + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
       }
     });
   }
@@ -488,11 +505,12 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
 // p_0 .. p_L+1, where p_{L+1} (L the last hidden layer) is the term of row 0
 // of the last layer's W (`wlast_col0_bar`). gb_s and xs must be visible to
 // every thread (a barrier before the call); h and e are overwritten.
-template <int KS, class Sig, class GetU, class Zb, class PutP>
+template <int KS, class G = FfmaGemm, class Sig, class GetU, class Zb, class PutP>
 __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,
                                                  float* w_s, const float* gb_s, const float* xs,
                                                  Sig sig_at, GetU u_at, Zb zb_at, PutP put_p) {
+  constexpr int ld = G::kLd;
   const int n_hidden = g.n_lin - 1;
   const int split = g.hidden - g.d0;
   for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
@@ -506,20 +524,20 @@ __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, co
       for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {
         const int r = i / g.d0, c = i - r * g.d0;
         const float v = e[i] * kInvSqrt2;
-        h[r * 256 + split + c] = v;
+        h[r * ld + split + c] = v;
         put_p(l, r, split + c, v);
       }
     }
     const int K = sdf_in_dim(g, l);
     const int N = sdf_out_dim(g, l);
     const bool pre_skip = (l + 1 == g.skip);
-    gemm<KS>(l == 0 ? e : h, l == 0 ? g.d0 : 256, K, P + off.w[l], N, N, w_s,
+    G::template run<KS>(l == 0 ? e : h, l == 0 ? g.d0 : ld, K, P + off.w[l], N, N, w_s,
              [&](int r, int c, float q) {
                const float sig = sig_at(l, r, c);
                zb_at(l, r, c) = q * u_at(l, r, c) * 100.0f * (1.0f - sig);
                float v = q * sig;
                if (pre_skip) v *= kInvSqrt2;
-               h[r * 256 + c] = v;
+               h[r * ld + c] = v;
                put_p(l + 1, r, c, v);
              });
   }
@@ -534,12 +552,13 @@ __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, co
 // with the skip's PE part into e, channel B hb = (hb W_l^T) * sig_{l-1} +
 // zB_{l-1}, down to layer 1 (its x-dependence is severed). h ends holding
 // e_hat = d(out)/d(PE) along channel A. fb may be hb. Starts with a barrier.
-template <int KS, class Sig, class Zb, class PutZ>
+template <int KS, class G = FfmaGemm, class Sig, class Zb, class PutZ>
 __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, const Offsets& off,
                                                   const SdfGeom& g, int d_feat, float* h,
                                                   float* hb, float* e, float* w_s,
                                                   const float* sb, const float* fb, int ld_fb,
                                                   Sig sig_at, Zb zb_at, PutZ put_z) {
+  constexpr int ld = G::kLd;
   const int n_hidden = g.n_lin - 1;
   const int split = g.hidden - g.d0;
   __syncthreads();
@@ -550,11 +569,11 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
   {
     const float* w0 = P + off.w_last0;
     const int lh = n_hidden - 1;
-    gemm<KS>(fb, ld_fb, d_feat, P + off.w_feat_t, g.hidden, g.hidden, w_s,
+    G::template run<KS>(fb, ld_fb, d_feat, P + off.w_feat_t, g.hidden, g.hidden, w_s,
              [&](int r, int c, float v) {
                v = fmaf(sb[r], w0[c], v);
-               h[r * 256 + c] = v * sig_at(lh, r, c);
-               hb[r * 256 + c] = zb_at(lh, r, c);
+               h[r * ld + c] = v * sig_at(lh, r, c);
+               hb[r * ld + c] = zb_at(lh, r, c);
              });
   }
   for (int l = n_hidden - 1; l >= 0; --l) {
@@ -564,9 +583,9 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
       const int r = i / K, c = i - r * K;
-      put_z(l, r, c, h[r * 256 + c] + hb[r * 256 + c]);
+      put_z(l, r, c, h[r * ld + c] + hb[r * ld + c]);
     }
-    gemm<KS>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(h, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) {
@@ -575,17 +594,17 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
         }
       }
       if (l > 0)
-        h[r * 256 + c] = v * sig_at(l - 1, r, c);
+        h[r * ld + c] = v * sig_at(l - 1, r, c);
       else
-        h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
+        h[r * ld + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
     });
     if (l == 0) break;  // channel B stops here: it never reaches x
-    gemm<KS>(hb, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(hb, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) return;
       }
-      hb[r * 256 + c] = fmaf(v, sig_at(l - 1, r, c), zb_at(l - 1, r, c));
+      hb[r * ld + c] = fmaf(v, sig_at(l - 1, r, c), zb_at(l - 1, r, c));
     });
   }
 }
@@ -599,10 +618,11 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
 // a barrier. Used by K6-bwd and K7-bwd; K3-bwd (sdf_value_bwd.cu) keeps the
 // inline copy it was measured with (through this function ptxas gave it 249
 // registers instead of 245).
-template <int KS, class Sig, class PutZ>
+template <int KS, class G = FfmaGemm, class Sig, class PutZ>
 __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,
                                                  float* w_s, Sig sig_at, PutZ put_z) {
+  constexpr int ld = G::kLd;
   const int split = g.hidden - g.d0;
   for (int l = g.n_lin - 2; l >= 0; --l) {
     const int K = sdf_out_dim(g, l);
@@ -611,9 +631,9 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
       const int r = i / K;
-      put_z(l, r, i - r * K, h[r * 256 + (i - r * K)]);
+      put_z(l, r, i - r * K, h[r * ld + (i - r * K)]);
     }
-    gemm<KS>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(h, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) {  // the PE part of the skip input
@@ -622,9 +642,9 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
         }
       }
       if (l > 0)
-        h[r * 256 + c] = v * sig_at(l - 1, r, c);
+        h[r * ld + c] = v * sig_at(l - 1, r, c);
       else
-        h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
+        h[r * ld + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
     });
   }
 }
@@ -637,11 +657,12 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
 // kStaged, `put_ci(l, r, c, v)` sees every color layer's input (layer 0's
 // after a barrier). The head ends in `head(r, c, color)` for c < 3, the
 // sigmoid applied when cg.squeeze.
-template <int KS, bool kStaged, class PutCi, class Head>
+template <int KS, bool kStaged, class G = FfmaGemm, class PutCi, class Head>
 __device__ __forceinline__ void color_forward(const float* __restrict__ P, const Offsets& off,
                                               const ColorGeom& cg, float* cin, float* h,
                                               float* w_s, const float* xr, const float* dr,
                                               const float* gs, PutCi put_ci, Head head) {
+  constexpr int ld = G::kLd;
   const int d_view = 3 * (1 + 2 * cg.multires);
   const int extra = cg.k0 - cg.d_feat;
   for (int i = threadIdx.x; i < kRows * extra; i += kThreads) {
@@ -664,16 +685,16 @@ __device__ __forceinline__ void color_forward(const float* __restrict__ P, const
   }
   for (int l = 0; l < cg.n_lin - 1; ++l) {
     const float* bc = P + off.bc[l];
-    gemm<KS>(l == 0 ? cin : h, l == 0 ? cg.k0 : 256, l == 0 ? cg.k0 : cg.hidden,
+    G::template run<KS>(l == 0 ? cin : h, l == 0 ? cg.k0 : ld, l == 0 ? cg.k0 : cg.hidden,
              P + off.wc[l], cg.hidden, cg.hidden, w_s, [&](int r, int c, float z) {
                const float v = fmaxf(z + bc[c], 0.0f);
-               h[r * 256 + c] = v;
+               h[r * ld + c] = v;
                put_ci(l + 1, r, c, v);
              });
   }
   __syncthreads();
   const float* bl = P + off.bc[cg.n_lin - 1];
-  rowdot(h, 256, cg.hidden, P + off.wc[cg.n_lin - 1], 3, 3, [&](int r, int c, float v) {
+  rowdot(h, ld, cg.hidden, P + off.wc[cg.n_lin - 1], 3, 3, [&](int r, int c, float v) {
     v += bl[c];
     head(r, c, cg.squeeze ? 1.0f / (1.0f + expf(-v)) : v);
   });
@@ -687,11 +708,12 @@ __device__ __forceinline__ void color_forward(const float* __restrict__ P, const
 // of color layer l's input (`in_at(l, r, c)`). `put_cz(l, r, c, v)` sees the
 // output cotangent of every color layer. h0_bar (k0 wide, the kernel's input
 // order) ends in cin after a GEMM epilogue.
-template <int KS, class Cbar, class In, class PutCz>
+template <int KS, class G = FfmaGemm, class Cbar, class In, class PutCz>
 __device__ __forceinline__ void color_backward(const float* __restrict__ P, const Offsets& off,
                                                const ColorGeom& cg, float* cin, float* h,
                                                float* cs, float* w_s, Cbar cbar_at, In in_at,
                                                PutCz put_cz) {
+  constexpr int ld = G::kLd;
   for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
     const int r = i >> 2, j = i & 3;
     float v = 0.0f;
@@ -711,24 +733,24 @@ __device__ __forceinline__ void color_backward(const float* __restrict__ P, cons
       const int r = i / cg.hidden, c = i - r * cg.hidden;
       float t = 0.0f;
       for (int k = 0; k < 3; ++k) t = fmaf(cs[r * 4 + k], wl[k * cg.hidden + c], t);
-      const float v = h[r * 256 + c] > 0.0f ? t : 0.0f;
-      h[r * 256 + c] = v;
+      const float v = h[r * ld + c] > 0.0f ? t : 0.0f;
+      h[r * ld + c] = v;
       put_cz(cg.n_lin - 2, r, c, v);
     }
   }
   for (int l = cg.n_lin - 2; l >= 1; --l) {
-    gemm<KS>(h, 256, cg.hidden, P + off.wct[l], cg.hidden, cg.hidden, w_s,
+    G::template run<KS>(h, ld, cg.hidden, P + off.wct[l], cg.hidden, cg.hidden, w_s,
              [&](int r, int c, float v) {
                v = in_at(l, r, c) > 0.0f ? v : 0.0f;
-               h[r * 256 + c] = v;
+               h[r * ld + c] = v;
                put_cz(l - 1, r, c, v);
              });
   }
   // h0_bar into cin, in passes of at most 256 columns.
-  gemm<KS>(h, 256, cg.hidden, P + off.wct[0], cg.k0, cg.k0 < 256 ? cg.k0 : 256, w_s,
+  G::template run<KS>(h, ld, cg.hidden, P + off.wct[0], cg.k0, cg.k0 < 256 ? cg.k0 : 256, w_s,
            [&](int r, int c, float v) { cin[r * cg.k0 + c] = v; });
   if (cg.k0 > 256)
-    gemm<KS>(h, 256, cg.hidden, P + off.wct[0] + 256, cg.k0, cg.k0 - 256, w_s,
+    G::template run<KS>(h, ld, cg.hidden, P + off.wct[0] + 256, cg.k0, cg.k0 - 256, w_s,
              [&](int r, int c, float v) { cin[r * cg.k0 + 256 + c] = v; });
 }
 

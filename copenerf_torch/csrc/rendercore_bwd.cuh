@@ -35,18 +35,26 @@
 // Bound on an H100: operations. ~8.2 MFLOP per row (SDF forward 0.95, feature
 // 0.13, gradient sweep 0.92, color forward 0.54, color backward 0.54, channel
 // B up-sweep 0.92, down-sweep A + B 1.83, weight reductions 2.4) against 60
-// bytes of rows in and out. f32 FFMA throughout, as K1-fwd.
-// Design: K1-fwd's tile (64 rows, 256 threads, one 64 x 256 activation
+// bytes of rows in and out: 16.5 ms at 131,072 rows at the f32 FFMA rate,
+// 6.7 ms in 3xTF32 on the tensor cores (3 x FLOP / 495 TFLOP/s). Its second
+// roof is the staged rows: ~43 KB a row (5.6 GB at 131,072 rows), written
+// once by the row kernel and read once by the reduction, ~3.4 ms of HBM
+// traffic.
+// Design: K1-fwd's tile (64 rows, 256 threads, one 64 x 272 activation
 // buffer every GEMM overwrites in place, 32-deep weight slices) with the
 // 64 x 292 color-input buffer reused as the channel-B buffer of the
-// down-sweep. The per-layer sigmoids and zB go to a per-block scratch in
-// device memory (persistent grid). Every matrix the weight gradients need
-// (T_l, z_A + z_B, u_l, p_l, color inputs and zbar: ~43 KB a row) is staged
-// per row in device memory and reduced by wgrad.cu's deterministic
-// split-row GEMM; rows past n are never staged, so the ragged tail adds
-// nothing. The sweeps are mlp_tile.cuh's, shared with K4-bwd
-// (sdf_outgrad_bwd.cu: all but the color parts) and K5-bwd (color_bwd.cu:
-// the color parts).
+// down-sweep (row stride 272 there too). Every GEMM of the row kernel (about
+// 50 a tile) runs on mma_tile.cuh's 3xTF32 core (`TcGemm`); the narrow heads
+// stay FFMA. 230,400 of the 232,448 bytes of shared memory. The per-layer
+// sigmoids and zB go to a per-block scratch in device memory (persistent
+// grid). Every matrix the weight gradients need (T_l, z_A + z_B, u_l, p_l,
+// color inputs and zbar) is staged per row in device memory and reduced by
+// wgrad.cu's tensor-core split-row GEMM (`wgrad_tc_launch`: 128 x 128
+// output tiles, 32-row slices in a two-stage cp.async pipeline, 3xTF32,
+// the 1,024-row splits summed in order); rows past n are never staged, so
+// the ragged tail adds nothing. The sweeps are mlp_tile.cuh's, shared with
+// K4-bwd (sdf_outgrad_bwd.cu: all but the color parts) and K5-bwd
+// (color_bwd.cu: the color parts), which keep the FFMA GEMM and reduction.
 //
 // K6-bwd (kCons) adds, per row of y with the cotangent swbar of sdf_w, after
 // the x tile in the same block: K3-bwd's row kernel (sdf_value_bwd.cu) on
@@ -60,7 +68,7 @@
 // and ~17 KB a row more of staged rows (~61 KB in all).
 #pragma once
 
-#include "mlp_tile.cuh"
+#include "mma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace copenerf {
@@ -89,10 +97,10 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
                       const float* __restrict__ P, Offsets off, float* __restrict__ scratch,
                       long long n, SdfGeom g, ColorGeom cg, RcStages st) {
   extern __shared__ float4 smem4[];
-  float* h = reinterpret_cast<float*>(smem4);  // activations / channel A, stride 256
-  float* cin = h + kRows * kSliceCols;         // color input / h0_bar, stride k0;
-  float* hb = cin;                             //   channel B of the down-sweep, stride 256
-  float* e = cin + kRows * max(cg.k0, 256);    // PE; ee; J_pe gbar; e_hat
+  float* h = reinterpret_cast<float*>(smem4);  // activations / channel A, stride kTcLd
+  float* cin = h + kRows * kTcLd;              // color input / h0_bar, stride k0;
+  float* hb = cin;                             //   channel B of the down-sweep, stride kTcLd
+  float* e = cin + kRows * max(cg.k0, kTcLd);  // PE; ee; J_pe gbar; e_hat
   float* xs = e + kRows * g.d0;                // x * scale
   float* xr = xs + kRows * 4;                  // raw x
   float* dr = xr + kRows * 4;                  // dirs (3 used)
@@ -130,36 +138,36 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     }
 
     // ---- SDF forward: inputs to the stage, sigmoids to the scratch ----
-    sdf_hidden_forward<kSliceK>(
+    sdf_hidden_forward<kSliceK, TcGemm>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
         [&](int l, int r, int c, float v) { stage_put(st.t, l, row0 + r, n, c, v); });
     {
       const float* bf = P + off.b_feat;
-      gemm<kSliceK>(h, 256, g.hidden, P + off.w_feat, cg.d_feat, cg.d_feat, w_s,
-                    [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; });
+      tc_gemm<kSliceK, kTcVariant>(h, kTcLd, g.hidden, P + off.w_feat, cg.d_feat, cg.d_feat, w_s,
+                                   [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; });
     }
 
     // ---- input-gradient sweep: u_l = r_{l+1} * sig_l, staged ----
-    sdf_grad_sweep<kSliceK>(P, off, g, h, e, w_s, 0, sig_at, [&](int l, int r, int c, float u) {
+    sdf_grad_sweep<kSliceK, TcGemm>(P, off, g, h, e, w_s, 0, sig_at, [&](int l, int r, int c, float u) {
       stage_put(st.u, l, row0 + r, n, c, u);
     });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
-      gs[i] = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j);
+      gs[i] = pe4_jac_t(h + r * kTcLd, xs + r * 4, g.multires, j);
     }
     __syncthreads();
 
     // ---- color forward on [feature, x, PE(dirs), grad, 0], inputs staged ----
-    color_forward<kSliceK, true>(
+    color_forward<kSliceK, true, TcGemm>(
         P, off, cg, cin, h, w_s, xr, dr, gs,
         [&](int l, int r, int c, float v) { stage_put(st.ci, l, row0 + r, n, c, v); },
         [&](int r, int c, float v) { cs[r * 4 + c] = v; });
     __syncthreads();
 
     // ---- color backward: h0_bar into cin ----
-    color_backward<kSliceK>(
+    color_backward<kSliceK, TcGemm>(
         P, off, cg, cin, h, cs, w_s,
         [&](int r, int j) {
           const long long gr = row0 + r;
@@ -179,7 +187,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     __syncthreads();
 
     // ---- channel B up-sweep from J_pe (gbar + grad_bar_c) ----
-    sdf_channel_b_up<kSliceK>(
+    sdf_channel_b_up<kSliceK, TcGemm>(
         P, off, g, h, e, w_s, gs, xs, sig_at,
         [&](int l, int r, int c) { return stage_get(st.u, l, row0 + r, n, c); }, zb_at,
         [&](int l, int r, int c, float v) {
@@ -190,7 +198,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
         });
 
     // ---- z_A = [sbar / scale, feat_bar], z_B = 0, down channels A and B ----
-    sdf_down_sweep_ab<kSliceK>(
+    sdf_down_sweep_ab<kSliceK, TcGemm>(
         P, off, g, cg.d_feat, h, hb, e, w_s, sb, cin, cg.k0, sig_at, zb_at,
         [&](int l, int r, int c, float v) { stage_put(st.z, l, row0 + r, n, c, v); });
     __syncthreads();
@@ -198,7 +206,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
       const int r = i >> 2, j = i & 3;
       const long long gr = row0 + r;
       if (gr < n)
-        xbar[gr * 4 + j] = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j) * g.scale + xc[i];
+        xbar[gr * 4 + j] = pe4_jac_t(h + r * kTcLd, xs + r * 4, g.multires, j) * g.scale + xc[i];
     }
 
     if constexpr (kCons) {
@@ -212,7 +220,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
         const int r = i / g.d0;
         stage_put(st.t, 0, n + row0 + r, n2, i - r * g.d0, e[i]);
       }
-      sdf_hidden_forward<kSliceK>(
+      sdf_hidden_forward<kSliceK, TcGemm>(
           P, off, g, e, h, w_s,
           [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
           [&](int l, int r, int c, float v) { stage_put(st.t, l, n + row0 + r, n2, c, v); });
@@ -229,17 +237,17 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
         }
         for (int i = threadIdx.x; i < kRows * g.hidden; i += kThreads) {
           const int r = i / g.hidden, c = i - r * g.hidden;
-          h[r * 256 + c] = sb[r] * w0[c] * sig_at(lh, r, c);
+          h[r * kTcLd + c] = sb[r] * w0[c] * sig_at(lh, r, c);
         }
       }
-      sdf_down_sweep_a<kSliceK>(P, off, g, h, e, w_s, sig_at, [&](int l, int r, int c, float v) {
+      sdf_down_sweep_a<kSliceK, TcGemm>(P, off, g, h, e, w_s, sig_at, [&](int l, int r, int c, float v) {
         stage_put(st.z, l, n + row0 + r, n2, c, v);
       });
       __syncthreads();
       for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
         const int r = i >> 2, j = i & 3;
         const long long gr = row0 + r;
-        if (gr < n) ybar[gr * 4 + j] = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j) * g.scale;
+        if (gr < n) ybar[gr * 4 + j] = pe4_jac_t(h + r * kTcLd, xs + r * 4, g.multires, j) * g.scale;
       }
     }
   }
@@ -322,7 +330,7 @@ int rc_jobs(const SdfGeom& g, const ColorGeom& cg, const RcStages& st, long long
 }
 
 size_t rc_bwd_smem(int d0, int k0) {
-  return sizeof(float) * (kRows * kSliceCols + kRows * (k0 > 256 ? k0 : 256) + kRows * d0 + 7 * kRows * 4 +
+  return sizeof(float) * (kRows * kTcLd + kRows * (k0 > kTcLd ? k0 : kTcLd) + kRows * d0 + 7 * kRows * 4 +
                           2 * kSliceK * kSliceCols);
 }
 
@@ -401,7 +409,7 @@ int rc_bwd_run(const float* x, const float* dirs, const float* y, const float* s
   WgradJob jobs[kMaxWgradJobs];
   const int n_jobs = rc_jobs(g, cg, st, kCons ? n : 0, grads, off_gw, off_gb, off_gw_last0,
                              off_gwc, off_gbc, jobs);
-  return (int)wgrad_launch(jobs, n_jobs, n_tz, partial, s);
+  return (int)wgrad_tc_launch(jobs, n_jobs, n_tz, partial, s);
 }
 
 }  // namespace

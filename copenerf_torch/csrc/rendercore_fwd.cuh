@@ -25,39 +25,48 @@
 // Outputs sdf (n, 1), grad (n, 4), color (n, 3).
 //
 // Bound on an H100: operations. ~2.5 MFLOP against ~60 bytes per row; the
-// f32 FFMA rate (67 TFLOP/s) is the limit by more than 1000x.
+// f32 FFMA rate (67 TFLOP/s) is the limit by more than 1000x. On the tensor
+// cores in 3xTF32 (mma_tile.cuh: each f32 product as three TF32 products,
+// f32-level accuracy) the roof is 3 x FLOP / 495 TFLOP/s, 0.41x the FFMA
+// bound (`tc_bound_ms` in chip_smoke.py).
 // Design:
+//  * Every GEMM of the SDF forward, the feature, the gradient sweep and the
+//    color MLP runs on mma_tile.cuh's 3xTF32 core (`TcGemm`, the sweeps'
+//    GEMM policy); the narrow heads (the SDF column 0, the 3 colors) stay
+//    FFMA row dots. Each warp owns 32 output columns of all 64 rows and
+//    splits the weights it loads in registers (a split on the host would
+//    double the ~5 MB a tile streams from L2; its time is in PERF.md).
 //  * The 256-wide feature never goes to device memory: it is written by the
 //    feature GEMM straight into the shared-memory color-input buffer, where
 //    it waits out the gradient sweep (the point of the TPU kernel).
 //  * The sweep needs the 8 hidden layers' sigmoid(100 z): 8 KB per row, 512
 //    KB per 64-row tile, far beyond 227 KB of shared memory. They go to a
-//    per-block scratch in device memory (written once, read once), sized by
-//    a persistent grid of one block per SM (about 69 MB on 132 SMs, so a
-//    large part stays in the 50 MB L2) and never by n. The alternative, a
-//    16-row tile holding them in shared memory, would cut the FFMA per
-//    shared-memory load 4x and re-stream every weight 4x as often; per row
-//    the scratch costs 16 KB of traffic against ~80 KB of weight streaming
-//    from L2, so it is not what bounds the kernel.
-//  * Shared memory: one 64 x 256 activation buffer that every GEMM of the
-//    forward, the sweep and the color MLP overwrites in place (a warp owns
-//    its rows), the 64 x 292 color-input buffer (feature, x, PE(dirs), grad,
-//    pad), the PE / skip-gradient buffer and two 32 x 256 weight slices
-//    (double-buffered cp.async): 223,232 of the 232,448 bytes a block may
-//    use. Ping-pong activation buffers would leave room only for 4-deep
-//    slices, i.e. two barriers per 4 k.
+//    per-block scratch in device memory (written once, read once: 16 KB a
+//    row, ~2.1 GB at 131,072 rows, ~0.6 ms at the HBM rate where it misses
+//    L2), sized by a persistent grid of one block per SM (about 69 MB on 132
+//    SMs, so a large part stays in the 50 MB L2) and never by n.
+//  * Shared memory: one 64 x 272 activation buffer that every GEMM of the
+//    forward, the sweep and the color MLP overwrites in place (the stride of
+//    272 floats, 16 mod 32 banks, keeps the A-fragment loads free of bank
+//    conflicts: 4 KB more than rows of 256), the 64 x 292 color-input
+//    buffer (feature, x, PE(dirs), grad, pad), the PE / skip-gradient
+//    buffer and two 32 x 256 weight slices (double-buffered cp.async,
+//    swizzled for the B fragments): 227,328 of the 232,448 bytes a block
+//    may use, so one block (8 warps) per SM.
+//  * What bounds it now: one block per SM with two block-wide barriers per
+//    32-deep weight slice, so each slice's cp.async and each epilogue's
+//    sigmoid scratch traffic stall all eight warps; and the split of every
+//    activation fragment by all eight warps (PERF.md has the times).
 //  * The color input columns are permuted on the host (feature first) so the
 //    feature GEMM writes columns 0..255 and the small parts follow.
-//  * It runs at under half of the f32 bound (times in PERF.md), limited as
-//    sdf_value.cu is by two warps per scheduler and the non-FFMA work.
 //  * The sweeps are mlp_tile.cuh's, shared with K4-fwd (sdf_outgrad_fwd.cu)
-//    and K5-fwd (color_fwd.cu).
+//    and K5-fwd (color_fwd.cu), which keep the FFMA GEMM.
 //  * K6-fwd (kCons) reuses the x tile's buffers (h, e, xs) for the y tile
 //    once the x tile's outputs are written: ~0.92 MFLOP a row more against
-//    20 bytes (y in, sdf_w out), at K1-fwd's 32-deep weight slices.
+//    20 bytes (y in, sdf_w out), on the same core.
 #pragma once
 
-#include "mlp_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace copenerf {
 namespace {
@@ -73,8 +82,8 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
                       Offsets off, float* __restrict__ scratch, long long n,
                       SdfGeom g, ColorGeom cg) {
   extern __shared__ float4 smem4[];
-  float* h = reinterpret_cast<float*>(smem4);  // activations, row stride 256
-  float* cin = h + kRows * kSliceCols;  // color input, row stride cg.k0
+  float* h = reinterpret_cast<float*>(smem4);  // activations, row stride kTcLd
+  float* cin = h + kRows * kTcLd;       // color input, row stride cg.k0
   float* e = cin + kRows * cg.k0;    // PE, then the skip part of the sweep
   float* xs = e + kRows * g.d0;         // x * scale
   float* xr = xs + kRows * 4;           // raw x
@@ -100,7 +109,7 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     load_and_encode(x, n, row0, g, xs, e);
 
     // ---- SDF forward; sigmoids to the block's scratch ----
-    sdf_hidden_forward<kSliceK>(
+    sdf_hidden_forward<kSliceK, TcGemm>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) {
           sig_s[((long long)l * kRows + r) * 256 + c] = sig;
@@ -108,23 +117,23 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
         none);
     __syncthreads();
     const float b0 = P[off.b_last0];
-    rowdot(h, 256, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {
+    rowdot(h, kTcLd, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {
       const long long gr = row0 + r;
       if (gr < n) sdf_out[gr] = (v + b0) / g.scale;
     });
     {
       const float* bf = P + off.b_feat;
-      gemm<kSliceK>(h, 256, g.hidden, P + off.w_feat, cg.d_feat, cg.d_feat, w_s,
-                    [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; });
+      tc_gemm<kSliceK, kTcVariant>(h, kTcLd, g.hidden, P + off.w_feat, cg.d_feat, cg.d_feat, w_s,
+                                   [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; });
     }
 
     // ---- input-gradient sweep in h: q = W_last[:, 0] * sig, r = q @ W^T ----
-    sdf_grad_sweep<kSliceK>(P, off, g, h, e, w_s, 0, sig_at, none);
+    sdf_grad_sweep<kSliceK, TcGemm>(P, off, g, h, e, w_s, 0, sig_at, none);
     // h now holds ee (d0 wide): grad = J_pe^T ee.
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
-      const float acc = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j);
+      const float acc = pe4_jac_t(h + r * kTcLd, xs + r * 4, g.multires, j);
       gs[i] = acc;
       const long long gr = row0 + r;
       if (gr < n) grad_out[gr * 4 + j] = acc;
@@ -132,19 +141,19 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     __syncthreads();
 
     // ---- color MLP on [feature, x, PE(dirs), grad, 0] ----
-    color_forward<kSliceK, false>(P, off, cg, cin, h, w_s, xr, dr, gs, none,
-                                  [&](int r, int c, float v) {
-                                    const long long gr = row0 + r;
-                                    if (gr < n) color_out[gr * 3 + c] = v;
-                                  });
+    color_forward<kSliceK, false, TcGemm>(P, off, cg, cin, h, w_s, xr, dr, gs, none,
+                                          [&](int r, int c, float v) {
+                                            const long long gr = row0 + r;
+                                            if (gr < n) color_out[gr * 3 + c] = v;
+                                          });
 
     if constexpr (kCons) {
       // ---- the consistency query: K2's value sweep on the tile of y ----
       __syncthreads();  // the x tile's readers of xs and e are done
       load_and_encode(y, n, row0, g, xs, e);
-      sdf_hidden_forward<kSliceK>(P, off, g, e, h, w_s, none, none);
+      sdf_hidden_forward<kSliceK, TcGemm>(P, off, g, e, h, w_s, none, none);
       __syncthreads();
-      rowdot(h, 256, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {
+      rowdot(h, kTcLd, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {
         const long long gr = row0 + r;
         if (gr < n) sdfw_out[gr] = (v + b0) / g.scale;
       });
@@ -155,7 +164,7 @@ rendercore_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
 // Shared memory of one block, in bytes.
 size_t rendercore_smem(int d0, int k0) {
   return sizeof(float) *
-         (kRows * kSliceCols + kRows * k0 + kRows * d0 + 4 * kRows * 4 +
+         (kRows * kTcLd + kRows * k0 + kRows * d0 + 4 * kRows * 4 +
           2 * kSliceK * kSliceCols);
 }
 

@@ -23,8 +23,9 @@
 //
 // Deterministic: the order of every sum is fixed by the shapes. Against an
 // autograd sum over all rows the result differs by f32 reassociation.
-// Bound: operations (f32 FFMA, 2 FLOP per row and output element) or, for
-// narrow layers, the bytes of the staged rows.
+// Bound: operations (f32 FFMA, 2 FLOP per row and output element; 3xTF32
+// on the tensor cores for K1 and K6) or, for narrow layers, the bytes of
+// the staged rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,5 +56,11 @@ long long wgrad_partial_floats(const WgradJob* jobs, int n_jobs, long long n);
 // Both passes on `stream`; returns the first launch error.
 cudaError_t wgrad_launch(const WgradJob* jobs, int n_jobs, long long n, float* partial,
                          cudaStream_t stream);
+
+// The same with pass 1 on the tensor cores (K1-bwd, K6-bwd; the same
+// partial buffer), in mma_tile.cuh's TcVariant `variant` (0: kTcVariant,
+// 3xTF32; the others for the accuracy trial of tc_check.cu).
+cudaError_t wgrad_tc_launch(const WgradJob* jobs, int n_jobs, long long n, float* partial,
+                            cudaStream_t stream, int variant = 0);
 
 }  // namespace copenerf

@@ -169,6 +169,8 @@ def load_library() -> ctypes.CDLL:
     lib.copenerf_sdf_out_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
     lib.copenerf_sdf_out_bwd.argtypes = (
         [_P] * 7 + [_L] * 3 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _I, _P])
+    lib.copenerf_tile_gemm_check.argtypes = [_P] * 4 + [_L] + [_I] * 4 + [_P] * 2
+    lib.copenerf_wgrad_check.argtypes = [_P] * 5 + [_L] + [_I] * 5 + [_P]
     for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,
                lib.copenerf_sdf_value_bwd_workspace, lib.copenerf_sdf_value_bwd,
                lib.copenerf_rendercore_bwd_workspace,
@@ -179,7 +181,8 @@ def load_library() -> ctypes.CDLL:
                lib.copenerf_rendercore_cons_fwd,
                lib.copenerf_rendercore_cons_bwd_workspace,
                lib.copenerf_rendercore_cons_bwd, lib.copenerf_sdf_out_fwd,
-               lib.copenerf_sdf_out_bwd_workspace, lib.copenerf_sdf_out_bwd):
+               lib.copenerf_sdf_out_bwd_workspace, lib.copenerf_sdf_out_bwd,
+               lib.copenerf_tile_gemm_check, lib.copenerf_wgrad_check):
         fn.restype = _I
     return lib
 

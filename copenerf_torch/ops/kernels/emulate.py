@@ -8,9 +8,16 @@ implements the CUDA subset the kernels use on host threads: one
 ``std::thread`` per CUDA thread, the blocks of a launch in turn,
 ``std::barrier`` for ``__syncthreads`` and the warp shuffles, shared memory
 filled with NaN at each block's start (a read before a write shows), and
-``cp.async`` as a synchronous copy. A copy of the sources under
-``_build/emulated/`` has the launch syntax and the ``asm`` of
-``mlp_tile.cuh`` rewritten. ``emulated()`` points the wrappers' ``build``
+``cp.async`` as a synchronous copy (zero-filled past its source bytes). The
+tensor-core instructions of ``mma_tile.cuh``: ``cvt.rna.tf32.f32`` rounds to
+nearest, ties away from zero, to 10 explicit mantissa bits; ``mma.sync``
+m16n8k8 TF32 is a warp-collective exchange of every lane's fragments through
+a per-warp buffer between two warp barriers, each lane then computing its
+four outputs from the PTX fragment layout, ignoring the low 13 bits of each
+operand as the hardware does, the eight products summed exactly and added
+to the accumulator with one rounding (the card's own accumulation rounding
+is not modelled). A copy of the sources under ``_build/emulated/`` has the
+launch syntax and every ``asm`` rewritten. ``emulated()`` points the wrappers' ``build``
 module at that library and lets the launchers take CPU tensors, so the
 launchers and the autograd.Functions run as they are; ``check`` holds every
 kernel against its plain version: forward outputs by their largest
@@ -79,10 +86,15 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline float __expf(float x) { return std::exp(x); }
 inline float __logf(float x) { return std::log(x); }
 inline float __frcp_rn(float x) { return 1.0f / x; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline float __int_as_float(int u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline std::barrier<>* host_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> host_warp_barriers;
 inline std::vector<std::array<float, 32>> host_shuffle;
+struct HostMmaLane { unsigned a[4], b[2]; float c[4]; };
+inline std::vector<std::array<HostMmaLane, 32>> host_mma;
 inline float4* host_shared;
 inline float4* host_dynamic_shared() { return host_shared; }
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
@@ -106,6 +118,7 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, std::function<void()
   for (int w = 0; w < (nt + 31) / 32; ++w)
     host_warp_barriers.emplace_back(new std::barrier<>(32));
   host_shuffle.assign((nt + 31) / 32, {});
+  host_mma.assign((nt + 31) / 32, {});
   const float nan = std::numeric_limits<float>::quiet_NaN();
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -120,6 +133,36 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, std::function<void()
       for (auto& th : threads) th.join();
     }
 }
+// cvt.rna.tf32.f32: nearest, ties away from zero, 10 explicit mantissa bits.
+inline unsigned host_tf32_rna(float x) {
+  unsigned u = __float_as_uint(x);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0x1000u;
+  return u & 0xffffe000u;
+}
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 d = a b + d, one warp.
+inline void host_mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  HostMmaLane& mine = host_mma[w][lane];
+  for (int i = 0; i < 4; ++i) mine.a[i] = a[i] & 0xffffe000u;
+  for (int i = 0; i < 2; ++i) mine.b[i] = b[i] & 0xffffe000u;
+  for (int i = 0; i < 4; ++i) mine.c[i] = d[i];
+  host_warp_barriers[w]->arrive_and_wait();
+  const auto& buf = host_mma[w];
+  const int g = lane / 4, t = lane % 4;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >= 2 ? 8 : 0), col = 2 * t + (i & 1);
+    double s = 0.0;
+    for (int k = 0; k < 8; ++k) {
+      const unsigned av = buf[(row % 8) * 4 + k % 4].a[(row >= 8) + 2 * (k >= 4)];
+      const unsigned bv = buf[col * 4 + k % 4].b[k >= 4];
+      s += (double)__uint_as_float(av) * (double)__uint_as_float(bv);
+    }
+    out[i] = (float)((double)buf[lane].c[i] + s);
+  }
+  host_warp_barriers[w]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
 #define HOST_LAUNCH(G, B, S, K, ...) host_launch(dim3(G), dim3(B), S, [&] { K(__VA_ARGS__); })
 """
 
@@ -127,6 +170,13 @@ _CP_ASYNC = re.compile(
     r"const unsigned dst = \(unsigned\)__cvta_generic_to_shared\(smem\);\s*"
     r"const int src_bytes = pred \? 16 : 0;\s*asm volatile\(.*?\"r\"\(src_bytes\)\);",
     re.S)
+_CP_ZFILL = re.compile(
+    r"const unsigned dst = \(unsigned\)__cvta_generic_to_shared\(smem\);\s*"
+    r"asm volatile\(\"cp\.async\.cg\.shared\.global.*?\"r\"\(bytes\)\);",
+    re.S)
+_CVT_TF32 = ('asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));')
+_MMA = re.compile(r"asm\(\s*\"mma\.sync\.aligned\.m16n8k8\.row\.col\."
+                  r"f32\.tf32\.tf32\.f32.*?\);", re.S)
 _LAUNCH = re.compile(
     r"(\w+(?:<[^<>()]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\(")
 
@@ -140,6 +190,10 @@ def _host_source(text: str) -> str:
     text = _LAUNCH.sub(r"HOST_LAUNCH(\2, \3, \4, (\1), ", text)
     text = _CP_ASYNC.sub("if (pred) std::memcpy(smem, gmem, 16); "
                          "else std::memset(smem, 0, 16);", text)
+    text = _CP_ZFILL.sub("std::memset(smem, 0, 16); std::memcpy(smem, gmem, bytes);",
+                         text)
+    text = text.replace(_CVT_TF32, "r = host_tf32_rna(x);")
+    text = _MMA.sub("host_mma_tf32(d, a, b);", text)
     text = text.replace('asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));', "")
     text = text.replace('asm volatile("cp.async.commit_group;\\n" ::);', "")
     if "asm" in text:

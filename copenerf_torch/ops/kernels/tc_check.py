@@ -1,0 +1,86 @@
+"""The accuracy trial and card check of the tensor-core core
+(``csrc/tc_check.cu`` over ``csrc/mma_tile.cuh``): the 64-row tile GEMM and
+the weight-gradient reduction that K1 and K6 run in 3xTF32, on operands the
+caller chooses, beside the f32 FFMA versions of the other kernels.
+
+Nothing of the main path calls these launchers; ``tests/test_torch_gpu.py``,
+``tests/test_torch_mma_emulation.py`` (through the host emulation) and
+``kernel_times.py --trial`` hold their results against an f64 product.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+# The C entry points' `mode`: 0 f32 FFMA, else mma_tile.cuh's TcVariant;
+# tile_gemm also takes PRESPLIT, 3xTF32 with the weights split on the host.
+MODES = {"ffma": 0, "tf32": 1, "3xtf32": 2, "3xtf32_acc": 3}
+PRESPLIT = "3xtf32_presplit"
+ROWS_PER_SPLIT = 1024        # wgrad.cu kRowsPerSplit
+
+
+def _mat(t, name: str) -> None:
+    if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous f32 matrix")
+    build.check_input(t, name, t.shape[1])
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits, nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    bits = torch.where(finite, bits + 0x1000, bits) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def tile_gemm(a: torch.Tensor, w: torch.Tensor, mode: str = "3xtf32", reps: int = 1,
+              aux: torch.Tensor | None = None) -> torch.Tensor:
+    """a (m, K) @ w (K, N) through the render-core kernels' tile GEMM (K and
+    N multiples of 4, N <= 256); mode PRESPLIT splits w here. For
+    timing: each block repeats the GEMM ``reps`` times, and with ``aux``
+    (2 m N floats) the epilogue multiplies by aux[i] and stores to
+    aux[m N + i], the load-after-store chain of the sweeps' epilogues."""
+    _mat(a, "a")
+    _mat(w, "w")
+    if w.shape[0] != a.shape[1]:
+        raise ValueError(f"a is {tuple(a.shape)}, w {tuple(w.shape)}")
+    c = torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+    w_lo, code = w, 4 if mode == PRESPLIT else MODES[mode]
+    if mode == PRESPLIT:
+        w = tf32_rna(w)
+        w_lo = tf32_rna(w_lo - w)
+    code = build.load_library().copenerf_tile_gemm_check(
+        a.data_ptr(), w.data_ptr(), w_lo.data_ptr(), c.data_ptr(), a.shape[0],
+        a.shape[1], w.shape[1], code, reps,
+        aux.data_ptr() if aux is not None else None, build.stream(a))
+    build.check(code, f"tile_gemm_check {mode}")
+    return c
+
+
+def row_reduce(z: torch.Tensor, t: torch.Tensor, O: int, I: int,
+               mode: str = "3xtf32"):
+    """(z[:, :O]^T t[:, :I] (O, I), z[:, :O].sum(0)) through the
+    weight-gradient reduction, z and t staged as the backward kernels stage
+    them: row strides z.shape[1], t.shape[1] (multiples of 4, at least O and
+    I); the columns past O and I are never read."""
+    _mat(z, "z")
+    _mat(t, "t")
+    n = z.shape[0]
+    f32 = dict(dtype=torch.float32, device=z.device)
+    w_out = torch.empty((O, I), **f32)
+    b_out = torch.empty((O,), **f32)
+    partial = torch.empty((O * I + O) * -(-n // ROWS_PER_SPLIT), **f32)
+    code = build.load_library().copenerf_wgrad_check(
+        z.data_ptr(), t.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+        partial.data_ptr(), n, O, I, z.shape[1], t.shape[1], MODES[mode],
+        build.stream(z))
+    build.check(code, f"wgrad_check {mode}")
+    return w_out, b_out
+
+
+def rel_err(got: torch.Tensor, ref64: torch.Tensor) -> float:
+    """||got - ref|| / ||ref|| against an f64 reference."""
+    return ((got.double() - ref64).norm() / ref64.norm()).item()

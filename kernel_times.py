@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""CUDA-event times of the port's kernels that predate the fold (K1-K5) at
-the train step's shapes, one JSON line.
+"""CUDA-event times of the port's kernels at the main path's shapes, each
+split into the device time of every CUDA kernel its launcher runs, one JSON
+line; with ``--trial``, the accuracy trial of the tensor-core core instead.
 
     python3 kernel_times.py [--root DIR] [--label NAME]
+    python3 kernel_times.py --trial
 
-Times every launcher of K2, K1, K3, K4 and K5 on 131,072 rows (K2 on
-65,536) of the full-width nets of ``configs/default.yaml``, their
-geometric init perturbed with ``perturb_``, random inputs and cotangents
-from fixed seeds, each the mean of ``REPS`` launches after a warm-up.
-``--root`` imports ``copenerf_torch`` (and builds its kernels) from another
-checkout, e.g. a parent commit unpacked with ``git archive`` into a
+Times every launcher of K1-K7 on 131,072 rows (the train step's field
+queries; K2 on 65,536, K1-fwd also on 4,194,304, a render chunk) of the
+full-width nets of ``configs/default.yaml``, their geometric init perturbed
+with ``perturb_``, random inputs and cotangents from fixed seeds: the mean of
+``REPS`` launches after a warm-up (CUDA events), then the same launches under
+``torch.profiler`` (CUDA activity), whose device time per kernel name gives
+the split (K1-bwd: the row kernel, ``wgrad_*partial_kernel`` and
+``wgrad_final_kernel``; "not measured" where the profiler sees no device
+time). ``--root`` imports ``copenerf_torch`` (and builds its kernels) from
+another checkout, e.g. a parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists, so two versions compare on one card in
 one call, in turns: ``--root A``, ``--root B``, ``--root B``, ``--root A``.
+
+``--trial`` holds the tile GEMM and the weight-gradient reduction of K1 and
+K6 (``csrc/tc_check.cu``) against an f64 product at the shapes K1
+multiplies, in every variant (f32 FFMA, 1xTF32, 3xTF32 as shipped, 3xTF32
+summed on the tensor core), and times the shipped split of the weights in
+registers against weights split on the host (``3xtf32_presplit``).
+
 Needs a CUDA card; prints the card's ``nvidia-smi`` name and power limit
 first.
 """
@@ -19,21 +32,79 @@ first.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
 ROWS = 131072
+CHUNK_ROWS = 32768 * 128
 REPS = 10
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--label", default="")
-    a = ap.parse_args(argv)
-    root = os.path.abspath(a.root)
-    sys.path.insert(0, root)
+def event_ms(fn, reps):
+    import torch
 
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_split(fn, reps):
+    """{CUDA kernel name: device ms per call of fn} from torch.profiler, or
+    None when it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us <= 0:
+            continue
+        m = re.search(r"(\w+_kernel)(<[^>(]*>)?", ev.key)
+        name = m.group(1) + (m.group(2) or "") if m else ev.key[:60]
+        split[name] = split.get(name, 0.0) + us / 1e3 / reps
+    return split or None
+
+
+def registers(log):
+    """{kernel: (registers, spill stores, spill loads)} from ptxas -v."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)"
+                      r"(I(?:L(?:b|i|N\w+?E)\d+E)+E)?", ln)
+        if m:
+            name = m.group(1) + ("<%s>" % ",".join(
+                re.findall(r"L(?:b|i|N\w+?E)(\d+)E", m.group(2))) if m.group(2) else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+    return out
+
+
+def smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def run_times(label, root):
     import torch
     from copenerf_torch.models import fields as F
     from copenerf_torch.models.mlp import perturb_
@@ -41,13 +112,10 @@ def main(argv=None):
     from copenerf_torch.ops.kernels import color as CK
     from copenerf_torch.ops.kernels import outgrad as OG
     from copenerf_torch.ops.kernels import rendercore as RC
+    from copenerf_torch.ops.kernels import rendercore_cons as RCC
+    from copenerf_torch.ops.kernels import sdf_out as SO
     from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_times.py needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
     build.load_library()
     g = torch.Generator().manual_seed(1)
     sdf = perturb_(F.SDFNetwork(F.SDFConfig(), torch.Generator().manual_seed(0)), g)
@@ -61,8 +129,12 @@ def main(argv=None):
 
     n = ROWS
     x = rand(n, 4) * 0.6
+    y = rand(n, 4) * 0.6
     d = torch.nn.functional.normalize(rand(n, 3), dim=-1)
+    xc = rand(CHUNK_ROWS, 4) * 0.6
+    dc = torch.nn.functional.normalize(rand(CHUNK_ROWS, 3), dim=-1)
     sbar, gbar, cbar, obar = rand(n, 1), rand(n, 4), rand(n, 3), rand(n, scfg.d_out)
+    swbar = rand(n)
     with torch.no_grad():
         rc = pack.pack_rendercore(sdf, col)
         val = pack.pack_sdf_value_layers(pack.effective_layers(sdf), with_wt=True)
@@ -72,6 +144,7 @@ def main(argv=None):
     fns = {
         "sdf_value_65536": lambda: SVD.launch_value(scfg, val, x[:n // 2], SVD.FWD_COUNTER),
         "rendercore_fwd": lambda: RC.launch_fwd(scfg, ccfg, rc, x, d),
+        "rendercore_fwd_4194304": lambda: RC.launch_fwd(scfg, ccfg, rc, xc, dc),
         "rendercore_bwd": lambda: RC.rendercore_bwd_cuda(scfg, ccfg, rc, x, d, sbar,
                                                          gbar, cbar),
         "sdf_value_diff_fwd": lambda: SVD.launch_value(scfg, val, x, SVD.FWD_COUNTER),
@@ -80,22 +153,95 @@ def main(argv=None):
         "sdf_outgrad_bwd": lambda: OG.outgrad_bwd_cuda(scfg, og, x, obar, gbar),
         "color_fwd": lambda: CK.launch_color_fwd(ccfg, cl, x, d, grad, feat),
         "color_bwd": lambda: CK.color_bwd_cuda(ccfg, cl, x, d, grad, feat, cbar),
+        "rendercore_cons_fwd": lambda: RCC.launch_cons_fwd(scfg, ccfg, rc, x, d, y),
+        "rendercore_cons_bwd": lambda: RCC.rendercore_cons_bwd_cuda(
+            scfg, ccfg, rc, x, d, y, sbar, gbar, cbar, swbar),
+        "sdf_out_fwd": lambda: SO.launch_out_fwd(scfg, og, x),
+        "sdf_out_bwd": lambda: SO.sdf_out_bwd_cuda(scfg, og, x, obar),
     }
-    ms = {}
+    ms, split = {}, {}
     with torch.no_grad():
         for name, fn in fns.items():
-            fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(REPS):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            ms[name] = start.elapsed_time(end) / REPS
-    print(json.dumps({"label": a.label, "root": root, "rows": n, "reps": REPS,
-                      "card": torch.cuda.get_device_name(0), "ms": ms}), flush=True)
+            reps = 3 if name == "rendercore_fwd_4194304" else REPS
+            ms[name] = event_ms(fn, reps)
+            split[name] = kernel_split(fn, reps) or "not measured"
+            torch.cuda.empty_cache()
+    regs = {k: v for k, v in registers(build.build_log()).items()
+            if re.search(r"rendercore|wgrad", k)}
+    print(json.dumps({"label": label, "root": root, "rows": n, "chunk_rows": CHUNK_ROWS,
+                      "reps": REPS, "card": torch.cuda.get_device_name(0), "ms": ms,
+                      "kernel_ms": split, "registers_spill_st_ld": regs}), flush=True)
+
+
+def run_trial():
+    """Relative Frobenius errors against f64 of the tile GEMM (m rows of
+    64-row tiles, K x N weights) and the reduction (n rows, O x I), for
+    activations >= 0 (softplus, ReLU outputs) and of either sign
+    (cotangents), weights N(0, 1/K); then times of the tile GEMM with the
+    weights split in registers and split on the host."""
+    import torch
+    from copenerf_torch.ops.kernels import build
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    build.load_library()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m = 64 * 132
+    res = {"tile_gemm": {}, "reduction": {}}
+    for K, N in ((52, 256), (256, 256), (256, 204), (292, 256)):
+        w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+        for kind in ("nonneg", "signed"):
+            a = torch.randn((m, K), generator=gen, device="cuda")
+            a = a.abs() if kind == "nonneg" else a
+            ref = a.double() @ w.double()
+            res["tile_gemm"][f"64x{K}x{N} {kind}"] = {
+                mode: TC.rel_err(TC.tile_gemm(a, w, mode), ref) for mode in TC.MODES}
+    for n, O, I in ((1024, 256, 256), (131072, 256, 256)):
+        for kind in ("nonneg", "signed"):
+            z = torch.randn((n, O), generator=gen, device="cuda")
+            t = torch.randn((n, I), generator=gen, device="cuda")
+            t = t.abs() if kind == "nonneg" else t
+            ref = z.double().T @ t.double()
+            res["reduction"][f"{n}x{O}x{I} {kind}"] = {
+                mode: TC.rel_err(TC.row_reduce(z, t, O, I, mode)[0], ref)
+                for mode in TC.MODES}
+    # The tile GEMM alone: each block repeats it, so the slope over the
+    # repeats is one 64 x 256 x 256 GEMM per tile of ROWS rows, without and
+    # with the epilogue's load-after-store chain.
+    a = torch.randn((ROWS, 256), generator=gen, device="cuda").abs()
+    w = torch.randn((256, 256), generator=gen, device="cuda") / 16
+    aux = torch.rand((2 * ROWS * 256,), generator=gen, device="cuda")
+    times = {"note": f"{ROWS} rows x 256 x 256 per GEMM: ms from the slope over "
+                     "1 and 9 repeats, TFLOP/s of f32 products"}
+    for mode in ("ffma", "3xtf32", "3xtf32_acc", "tf32", "3xtf32_presplit"):
+        for chain in (None, aux):
+            t1 = event_ms(lambda: TC.tile_gemm(a, w, mode, 1, chain), REPS)
+            t9 = event_ms(lambda: TC.tile_gemm(a, w, mode, 9, chain), REPS)
+            per = (t9 - t1) / 8
+            key = mode + (" epilogue chain" if chain is not None else "")
+            times[key] = {"ms_1_rep": t1, "ms_per_gemm": per,
+                          "tflops": 2 * ROWS * 256 * 256 / per / 1e9}
+    res["tile_gemm_ms"] = times
+    print(json.dumps({"trial": res, "card": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--trial", action="store_true")
+    a = ap.parse_args(argv)
+    root = os.path.abspath(a.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times.py needs a CUDA card")
+    print(smi(), flush=True)
+    if a.trial:
+        run_trial()
+    else:
+        run_times(a.label, root)
     return 0
 
 

@@ -471,3 +471,121 @@ def test_fold_switch_and_sdf_output_route_to_k6_and_k7_on_card(monkeypatch):
     monkeypatch.setenv("COPENERF_FOLD_CONS", "1")
     assert launched(step) == [0, 0, 0, 0, 1, 1, 0, 0]
     assert launched(output) == [0, 0, 0, 0, 0, 0, 1, 1]
+
+
+# The 3xTF32 tensor-core core of K1 and K6 (csrc/mma_tile.cuh through
+# csrc/tc_check.cu): its error against an f64 product must stay within 2x
+# that of the f32 FFMA version the other kernels run, on the same inputs.
+# The tile GEMM's activation columns past K hold NaN, so a read past K shows.
+TILE_WIDTHS = [(52, 256), (256, 204), (204, 256), (292, 256), (256, 52),
+               (256, 36), (28, 64), (64, 28), (64, 48), (48, 32)]
+REDUCE_WIDTHS = [(257, 256), (256, 292), (256, 52), (204, 256), (3, 256),
+                 (1, 256), (33, 64), (64, 28), (48, 56)]
+
+
+TC_PRODUCT_TOL = 2.0 ** -21      # a 3xTF32 product's own relative error
+
+
+def _tc_inputs(shape, seed, nonneg=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randn(shape, generator=g, device="cuda")
+    return t.abs() if nonneg else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", TILE_WIDTHS)
+def test_tc_tile_gemm_odd_widths_on_card(K, N):
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    _require_cuda()
+    for m in (1, 70, 4096):
+        a = _tc_inputs((m, K), seed=K * N + m, nonneg=True)
+        w = _tc_inputs((K, N), seed=K + N) / K ** 0.5
+        ref = a.double() @ w.double()
+        e_ffma = TC.rel_err(TC.tile_gemm(a, w, "ffma"), ref)
+        e_tc = TC.rel_err(TC.tile_gemm(a, w, "3xtf32"), ref)
+        assert e_tc <= 2 * e_ffma, (K, N, m, e_tc, e_ffma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("O,I", REDUCE_WIDTHS)
+def test_tc_row_reduction_odd_widths_on_card(O, I):
+    """The reduction of K1-bwd and K6-bwd on staged rows whose padding
+    columns hold NaN (never read): weights and bias against f64, within 2x
+    the FFMA reduction's error or TC_PRODUCT_TOL (at one row each output is
+    one product, which f32 rounds once and 3xTF32 leaves lo * lo out of)."""
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    _require_cuda()
+    for n in (1, 1000, 2500):
+        z = torch.full((n, (O + 3) // 4 * 4), float("nan"), device="cuda")
+        t = torch.full((n, (I + 3) // 4 * 4), float("nan"), device="cuda")
+        z[:, :O] = _tc_inputs((n, O), seed=O + n)
+        t[:, :I] = _tc_inputs((n, I), seed=I * n, nonneg=True)
+        ref = z[:, :O].double().T @ t[:, :I].double()
+        ref_b = z[:, :O].double().sum(0)
+        w_f, b_f = TC.row_reduce(z, t, O, I, "ffma")
+        w_t, b_t = TC.row_reduce(z, t, O, I, "3xtf32")
+        assert TC.rel_err(w_t, ref) <= max(2 * TC.rel_err(w_f, ref), TC_PRODUCT_TOL), (O, I, n)
+        assert TC.rel_err(b_t, ref_b) <= 2 * TC.rel_err(b_f, ref_b) + 1e-7, (O, I, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["64x52x256", "64x256x256", "64x256x204",
+                                   "64x292x256", "reduce 1024x256x256"])
+def test_tc_accuracy_trial_on_card(shape):
+    """The accuracy trial at the shapes K1 multiplies (the tile GEMM over
+    528 tiles; the reduction over one 1,024-row split): 3xTF32 within 2x the
+    FFMA GEMM's error against f64, for activations >= 0 and of either
+    sign."""
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    _require_cuda()
+    for nonneg in (True, False):
+        if shape.startswith("reduce"):
+            z = _tc_inputs((1024, 256), seed=1)
+            t = _tc_inputs((1024, 256), seed=2, nonneg=nonneg)
+            ref = z.double().T @ t.double()
+            errs = [TC.rel_err(TC.row_reduce(z, t, 256, 256, m)[0], ref)
+                    for m in ("ffma", "3xtf32")]
+        else:
+            _, K, N = (int(v) for v in shape.split("x"))
+            a = _tc_inputs((64 * 528, K), seed=K, nonneg=nonneg)
+            w = _tc_inputs((K, N), seed=N) / K ** 0.5
+            ref = a.double() @ w.double()
+            errs = [TC.rel_err(TC.tile_gemm(a, w, m), ref) for m in ("ffma", "3xtf32")]
+        assert errs[1] <= 2 * errs[0], (shape, nonneg, errs)
+
+
+@pytest.mark.gpu
+def test_tensor_cores_only_in_k1_and_k6_on_card():
+    """``cuobjdump -sass`` of the built library: the K1 and K6 kernels (row
+    kernels and their reduction) issue TF32 HMMA; the kernels of K2, K3, K4,
+    K5 and K7 issue none."""
+    import re
+    import shutil
+    import subprocess
+
+    from copenerf_torch.ops.kernels import build
+
+    _require_cuda()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.build()], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = part.split("\n", 1)
+        m = re.search(r"([a-z_]+_kernel)", name)
+        if m is None:
+            continue
+        key = m.group(1) + ("<1>" if "ILb1E" in name else "")
+        funcs[key] = funcs.get(key, "") + body
+    tc = ["rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
+          "rendercore_bwd_kernel<1>", "wgrad_tc_partial_kernel"]
+    ffma = ["sdf_value_kernel", "sdf_value_bwd_kernel", "sdf_out_bwd_kernel",
+            "sdf_outgrad_fwd_kernel", "sdf_outgrad_bwd_kernel", "color_fwd_kernel",
+            "color_bwd_kernel", "wgrad_partial_kernel", "wgrad_final_kernel"]
+    for k in tc:
+        assert re.search(r"HMMA\.[\w.]*TF32", funcs[k]), k
+    for k in ffma:
+        assert "HMMA" not in funcs[k] and "HGMMA" not in funcs[k], k

@@ -9,16 +9,18 @@ Phases, each printed on its own line, any failure exits non-zero:
 2. build    nvcc builds every kernel in ``copenerf_torch/csrc`` (one process
             per source, in parallel); prints the build time and ptxas usage,
             then (``registers``) the registers and spill bytes of the
-            tensor-core kernels: K1 and K6 (3xTF32, ``csrc/mma_tile.cuh``)
-            and their reduction.
+            tensor-core kernels: K1 and K6 (3xTF32 on ``mma.sync``,
+            ``csrc/mma_tile.cuh``), K2 and K3 (3xTF32 on ``wgmma``,
+            ``csrc/wgmma_tile.cuh``) and their reduction, and any ptxas
+            line about the wgmma pipeline (``wgmma_warnings``).
 3. kernels  each forward kernel against its plain PyTorch version on the card
             at the main path's widths (the full-width SDF + color net of
             configs/default.yaml, geometric init perturbed by ``perturb_`` so
             that the PE columns are not zero and the head's columns differ)
             and at a ragged row count; then CUDA-event times at the render
             chunk's shapes beside the plain version and the bound from FLOP
-            and bytes counted from the shapes (K1 and K6 also beside
-            ``tc_bound_ms``, the same work in 3xTF32 on the tensor cores).
+            and bytes counted from the shapes and ``tc_bound_ms``, the same
+            work in 3xTF32 on the tensor cores.
 4. train_kernels  K1-bwd and K3 (fwd, bwd) through their autograd.Functions
             against autograd of the plain versions on the same perturbed nets,
             at 262,144 and 1,000 rows: K1 for sbar, gbar, cbar alone and all
@@ -26,8 +28,10 @@ Phases, each printed on its own line, any failure exits non-zero:
             KINK_MARGIN of its kink), every input and parameter gradient;
             then CUDA-event times at the train step's shapes (131,072 rows;
             the forward kernels too, for the step's kernels / glue split);
-            K1-bwd's line splits it into the row kernel and the weight-
-            gradient reduction (``torch.profiler`` device times).
+            K1-bwd's and K3-bwd's lines split them into the row kernel and
+            the weight-gradient reduction (``torch.profiler`` device times);
+            K3-bwd's also times ``torch.mm`` of its reduction as a yardstick;
+            the value pack a step builds once for K2 and K3 is timed too.
 5. composed_kernels  K4 (SDF outgrad) and K5 (color MLP), the kernels of
             the composed field path (``use_negative_ray_vector: true``), on
             the perturbed full-width nets of that config: the forward
@@ -167,6 +171,27 @@ def k3_bwd_work(scfg, n, sdf_net):
     return 2 * macs * n, 36 * n + 2 * weight_bytes(sdf_net)
 
 
+def reduction_mm_ms(scfg, n):
+    """CUDA-event ms of K3-bwd's weight reduction done by torch.mm: z_l^T
+    t_l over n staged rows for every SDF layer (the head's column 0 too), on
+    random rows of the staged widths. A yardstick, timed only."""
+    import torch
+    from copenerf_torch.models.fields import idr_layer_dims
+
+    n_lin = len(scfg.dims) - 1
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    pairs = []
+    for l in range(n_lin):
+        i, o = idr_layer_dims(scfg, l)
+        o = 1 if l == n_lin - 1 else o
+        pairs.append((torch.randn((n, o), generator=g, device=DEVICE),
+                      torch.randn((n, i), generator=g, device=DEVICE)))
+    ms = cuda_ms(lambda: [torch.mm(z.t(), t) for z, t in pairs], reps=5)
+    del pairs
+    torch.cuda.empty_cache()
+    return ms
+
+
 def k1_bwd_work(scfg, ccfg, n, sdf_net, color_net):
     """(FLOP, bytes) of K1-bwd on n rows: the SDF forward and feature
     recomputed, the gradient sweep, the color MLP forward and backward, the
@@ -271,9 +296,15 @@ def bound_ms(flop, nbytes):
 
 
 def tc_bound_ms(flop, nbytes):
-    """The bound of the same work in 3xTF32 on the tensor cores (K1, K6):
-    three TF32 products per f32 product."""
+    """The bound of the same work in 3xTF32 on the tensor cores: three TF32
+    products per f32 product."""
     return 1e3 * max(3 * flop / TC_TF32_PEAK, nbytes / HBM_RATE)
+
+
+def bounds(flop, nbytes):
+    """bound_ms, bound_by and tc_bound_ms of the same work, for a time line."""
+    b, by = bound_ms(flop, nbytes)
+    return dict(bound_ms=b, bound_by=by, tc_bound_ms=tc_bound_ms(flop, nbytes))
 
 
 def split_ms(fn, reps, row_kernel):
@@ -370,8 +401,11 @@ def phase_build():
 
     tc = {k: dict(zip(("registers", "spill_stores", "spill_loads"), v))
           for k, v in registers(build.build_log()).items()
-          if k.startswith(("rendercore_", "wgrad_tc_"))}
+          if k.startswith(("rendercore_", "wgrad_tc_", "sdf_value"))}
     log("registers", kernels=tc)
+    # ptxas says when it serializes the wgmma pipeline (a performance loss).
+    warn = [ln.strip() for ln in build.build_log().splitlines() if "wgmma" in ln]
+    log("wgmma_warnings", lines=warn)
 
 
 def full_width_nets(seed, negative_ray=False):
@@ -440,12 +474,12 @@ def phase_kernels(fields):
         x, _ = sample_rows(n, seed=7)
         k_ms = cuda_ms(lambda: SV.sdf_value_cuda(sdf_net, x), reps=5)
         p_ms = cuda_ms(lambda: SV.sdf_value_plain(sdf_net, x), reps=3)
-        b, by = bound_ms(*k2_work(scfg, n, sdf_net))
+        bd = bounds(*k2_work(scfg, n, sdf_net))
         load = smi_under_load(lambda: SV.sdf_value_cuda(sdf_net, x), k_ms)
         log("time", kernel="sdf_value", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
-            bound_ms=b, bound_by=by, sm_clock_power_under_kernel=load)
+            **bd, sm_clock_power_under_kernel=load)
         results.setdefault("sdf_value", []).append(
-            dict(rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b, bound_by=by))
+            dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd))
         del x
     n = CHUNK * 128
     x, d = sample_rows(n, seed=8)
@@ -628,8 +662,7 @@ def phase_train_kernels(fields):
     results = {}
     with torch.no_grad():
         rc_pack = pack.pack_rendercore(sdf_net, color_net)
-        v_pack = pack.pack_sdf_value_layers(pack.effective_layers(sdf_net),
-                                            with_wt=True)
+        v_pack = pack.pack_sdf_value_layers(pack.effective_layers(sdf_net))
     k_ms = cuda_ms(lambda: RC.rendercore_bwd_cuda(scfg, ccfg, rc_pack, x, d,
                                                   *cots), reps=3)
     # The plain backward: autograd.grad over a prebuilt double-backward
@@ -662,12 +695,10 @@ def phase_train_kernels(fields):
     k_ms = cuda_ms(lambda: SVD.launch_value(scfg, v_pack, x, SVD.FWD_COUNTER),
                    reps=5)
     p_ms = cuda_ms(lambda: SVD.sdf_value_diff_plain(sdf_net, x), reps=3)
-    b, by = bound_ms(*k2_work(scfg, n, sdf_net))
+    bd = bounds(*k2_work(scfg, n, sdf_net))
     log("time", kernel="sdf_value_diff_fwd", rows=n, kernel_ms=k_ms,
-        plain_ms=p_ms, plain_note="the plain forward under autograd",
-        bound_ms=b, bound_by=by)
-    results["sdf_value_diff_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
-                                          bound_ms=b, bound_by=by)]
+        plain_ms=p_ms, plain_note="the plain forward under autograd", **bd)
+    results["sdf_value_diff_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
     obar = cots[0][:, 0].contiguous()
     k_ms = cuda_ms(lambda: SVD.sdf_value_bwd_cuda(scfg, v_pack, x, obar), reps=5)
     xs = x.clone().requires_grad_(True)
@@ -675,19 +706,25 @@ def phase_train_kernels(fields):
     p_ms = cuda_ms(lambda: torch.autograd.grad(out, [xs] + sdf_params, obar,
                                                retain_graph=True), reps=3)
     del out
-    b, by = bound_ms(*k3_bwd_work(scfg, n, sdf_net))
+    bd = bounds(*k3_bwd_work(scfg, n, sdf_net))
     load = smi_under_load(lambda: SVD.sdf_value_bwd_cuda(scfg, v_pack, x, obar),
                           k_ms)
+    row_ms, red_ms, split = split_ms(lambda: SVD.sdf_value_bwd_cuda(
+        scfg, v_pack, x, obar), 3, "sdf_value_bwd_kernel")
     log("time", kernel="sdf_value_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
-        plain_note="autograd.grad of the plain version", bound_ms=b,
-        bound_by=by, sm_clock_power_under_kernel=load)
-    results["sdf_value_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
-                                     bound_ms=b, bound_by=by)]
+        plain_note="autograd.grad of the plain version", **bd,
+        row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
+        reduction_mm_ms=reduction_mm_ms(scfg, n),
+        reduction_mm_note="torch.mm of z_l^T t_l over the staged rows, every "
+                          "layer: the reduction's yardstick, not called by the port",
+        sm_clock_power_under_kernel=load)
+    results["sdf_value_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
 
     # The forward kernels at the step's shapes too (K2 at 1024 x 64 and
     # 1024 x 16 rows, K1-fwd at 1024 x 128), for the step's breakdown.
     step_ms = {k: v[0]["ms"] for k, v in results.items()}
     step_bound = {k: v[0]["bound_ms"] for k, v in results.items()}
+    step_tc = {k: v[0]["tc_bound_ms"] for k, v in results.items()}
     with torch.no_grad():
         for rows in (n // 2, n // 8):
             xk, _ = sample_rows(rows, seed=10)
@@ -695,14 +732,25 @@ def phase_train_kernels(fields):
                 lambda: SV.sdf_value_cuda(sdf_net, xk), reps=5)
             step_bound[f"sdf_value_{rows}"] = bound_ms(
                 *k2_work(scfg, rows, sdf_net))[0]
+            step_tc[f"sdf_value_{rows}"] = tc_bound_ms(*k2_work(scfg, rows, sdf_net))
         step_ms["rendercore_fwd"] = cuda_ms(
             lambda: RC.rendercore_fwd_cuda(sdf_net, color_net, x, d), reps=5)
         step_bound["rendercore_fwd"] = bound_ms(
             *k1_work(scfg, ccfg, n, sdf_net, color_net))[0]
+        # The value pack a train step builds once for its K2 and K3
+        # launches (glue): wall time per call, and its kernels' device time.
+        def value_pack():
+            return pack.pack_sdf_value_layers(pack.effective_layers(sdf_net))
+
+        from kernel_times import kernel_split
+
+        pack_ms = cuda_ms(value_pack, reps=5)
+        pack_split = kernel_split(value_pack, 5)
     log("step_shapes", rows=n, kernel_ms=step_ms, bound_ms=step_bound,
-        tc_bound_ms={"rendercore_fwd": tc_bound_ms(*k1_work(scfg, ccfg, n, sdf_net,
-                                                              color_net)),
-                     "rendercore_bwd": results["rendercore_bwd"][0]["tc_bound_ms"]})
+        tc_bound_ms={**step_tc, "rendercore_fwd": tc_bound_ms(
+            *k1_work(scfg, ccfg, n, sdf_net, color_net))},
+        value_pack_ms=pack_ms,
+        value_pack_device_ms=sum(pack_split.values()) if pack_split else "not measured")
     del x, d, cots, xs, xk
     torch.cuda.empty_cache()
     for k in results:
@@ -794,25 +842,23 @@ def phase_composed_kernels(fields):
         k_ms = cuda_ms(lambda: OG.sdf_outgrad_cuda(sdf_net, x), reps=3)
         p_ms = cuda_ms(lambda: [OG.sdf_outgrad_plain(sdf_net, x[i:i + sl])
                                 for i in range(0, n, sl)], reps=1)
-        b, by = bound_ms(*k4_fwd_work(scfg, n, sdf_net))
+        bd = bounds(*k4_fwd_work(scfg, n, sdf_net))
         load = smi_under_load(lambda: OG.sdf_outgrad_cuda(sdf_net, x), k_ms)
         log("time", kernel="sdf_outgrad_fwd", rows=n, kernel_ms=k_ms,
-            plain_ms=p_ms, plain_note="8 slices of 524288 rows", bound_ms=b,
-            bound_by=by, sm_clock_power_under_kernel=load)
-        results["sdf_outgrad_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
-                                           bound_ms=b, bound_by=by)]
+            plain_ms=p_ms, plain_note="8 slices of 524288 rows", **bd,
+            sm_clock_power_under_kernel=load)
+        results["sdf_outgrad_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
         out, grad = OG.sdf_outgrad_cuda(sdf_net, x)
         ins = [x, -d, -grad, out[:, 1:]]
         k_ms = cuda_ms(lambda: CK.color_fwd_cuda(color_net, *ins), reps=3)
         p_ms = cuda_ms(lambda: [CK.color_plain(color_net, *[t[i:i + sl] for t in ins])
                                 for i in range(0, n, sl)], reps=1)
-        b, by = bound_ms(*k5_fwd_work(ccfg, n, color_net))
+        bd = bounds(*k5_fwd_work(ccfg, n, color_net))
         load = smi_under_load(lambda: CK.color_fwd_cuda(color_net, *ins), k_ms)
         log("time", kernel="color_fwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
-            plain_note="8 slices of 524288 rows", bound_ms=b, bound_by=by,
+            plain_note="8 slices of 524288 rows", **bd,
             sm_clock_power_under_kernel=load)
-        results["color_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b,
-                                     bound_by=by)]
+        results["color_fwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
         del x, d, out, grad, ins
     torch.cuda.empty_cache()
 
@@ -842,14 +888,13 @@ def phase_composed_kernels(fields):
         p_ms += cuda_ms(lambda: torch.autograd.grad(o, [xs] + sdf_params, cs,
                                                     retain_graph=True), reps=2)
         del o
-    b, by = bound_ms(*k4_bwd_work(scfg, n, sdf_net))
+    bd = bounds(*k4_bwd_work(scfg, n, sdf_net))
     load = smi_under_load(lambda: OG.outgrad_bwd_cuda(scfg, og_pack, x, obar, gbar),
                           k_ms)
     log("time", kernel="sdf_outgrad_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
         plain_note="autograd.grad of the plain version, 4 slices of 32768 rows",
-        bound_ms=b, bound_by=by, sm_clock_power_under_kernel=load)
-    results["sdf_outgrad_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
-                                       bound_ms=b, bound_by=by)]
+        **bd, sm_clock_power_under_kernel=load)
+    results["sdf_outgrad_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
     step_ms["sdf_outgrad_bwd"] = k_ms
     torch.cuda.empty_cache()
 
@@ -859,13 +904,12 @@ def phase_composed_kernels(fields):
     p_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves + color_params, cbar,
                                                retain_graph=True), reps=3)
     del o
-    b, by = bound_ms(*k5_bwd_work(ccfg, n, color_net))
+    bd = bounds(*k5_bwd_work(ccfg, n, color_net))
     load = smi_under_load(lambda: CK.color_bwd_cuda(ccfg, cl_pack, *ins, cbar), k_ms)
     log("time", kernel="color_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
-        plain_note="autograd.grad of the plain version", bound_ms=b,
-        bound_by=by, sm_clock_power_under_kernel=load)
-    results["color_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b,
-                                 bound_by=by)]
+        plain_note="autograd.grad of the plain version", **bd,
+        sm_clock_power_under_kernel=load)
+    results["color_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
     step_ms["color_bwd"] = k_ms
     log("composed_step_shapes", rows=n, kernel_ms=step_ms)
     del x, d, obar, gbar, cbar, out, grad, ins, leaves
@@ -994,8 +1038,7 @@ def phase_fold_kernels(fields):
             for s in ((n, 1), (n, 4), (n, 3), (n,))]
     with torch.no_grad():
         rc_pack = pack.pack_rendercore(sdf_net, color_net)
-        v_pack = pack.pack_sdf_value_layers(pack.effective_layers(sdf_net),
-                                            with_wt=True)
+        v_pack = pack.pack_sdf_value_layers(pack.effective_layers(sdf_net))
     fwd = alternate_ms({
         "fold": lambda: RCC.launch_cons_fwd(scfg, ccfg, rc_pack, x, d, y),
         "pair": lambda: (RC.launch_fwd(scfg, ccfg, rc_pack, x, d),
@@ -1118,12 +1161,11 @@ def phase_out_kernels(fields, counters):
     results = {}
     for name, k_ms, p_ms, work in (("sdf_out_fwd", k_fwd, p_fwd, k7_fwd_work),
                                    ("sdf_out_bwd", k_bwd, p_bwd, k7_bwd_work)):
-        b, by = bound_ms(*work(scfg, n, sdf_net))
+        bd = bounds(*work(scfg, n, sdf_net))
         log("time", kernel=name, rows=n, kernel_ms=k_ms, plain_ms=p_ms,
-            plain_note="the plain forward / autograd.grad of it", bound_ms=b,
-            bound_by=by)
+            plain_note="the plain forward / autograd.grad of it", **bd)
         results[name] = {"max_abs_err": errs[name], "times": [dict(
-            rows=n, ms=k_ms, plain_ms=p_ms, bound_ms=b, bound_by=by)]}
+            rows=n, ms=k_ms, plain_ms=p_ms, **bd)]}
     del x, xs, obar
     torch.cuda.empty_cache()
     return results, launches
@@ -1643,8 +1685,7 @@ def main():
                      "max_abs_err": kres[name]["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None,
-                     "rows": t["rows"],
-                     **({"tc_bound_ms": t["tc_bound_ms"]} if "tc_bound_ms" in t else {})})
+                     "rows": t["rows"], "tc_bound_ms": t["tc_bound_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print_contract_line()
     return 0

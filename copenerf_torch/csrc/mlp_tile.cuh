@@ -16,10 +16,14 @@
 // 8 x 8 block: per k it reads 8 row values (broadcast, float4 over k) and two
 // float4 of the weight slice for 64 FFMAs. Weights stream from device memory
 // (L2-resident: a few MB in all) through a KS x 256 shared-memory slice.
-// Everything is f32 (no TF32, no bf16): the sharpened NeuS alpha cannot
-// tolerate bf16-level SDF error. The sweeps take the GEMM as a policy (`G`,
-// default FfmaGemm: `gemm` on rows of 256); K1 and K6 pass mma_tile.cuh's
-// 3xTF32 tensor-core policy, whose rows are 272 floats.
+// Every value is f32 and every product at least as accurate as an f32 FFMA
+// (no plain TF32, no bf16): the sharpened NeuS alpha cannot tolerate
+// bf16-level SDF error. The sweeps take the GEMM as a policy (`G`, default
+// FfmaGemm: `gemm` on rows of 256), which also says where each hidden
+// layer's weights are (`G::w`, `G::wt`); K1 and K6 pass mma_tile.cuh's
+// 3xTF32 `mma.sync` policy (TcGemm), K2, K3-fwd and K3-bwd wgmma_tile.cuh's
+// 3xTF32 `wgmma` policy (WgGemm, weights pre-packed by the host); both keep
+// activation rows of 272 floats.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +52,8 @@ struct Offsets {
   long long bc[kMaxColorLayers];   // (out,)
   long long wct[kMaxColorLayers];  // W^T (out, in), for the color backward
   long long w_feat_t;              // feature columns as (d_feat, hidden)
+  long long wp[kMaxSdfHidden];     // W_l as wgmma B (pack.py wg_pack_b), forward
+  long long wtp[kMaxSdfHidden];    // W_l^T as wgmma B, for the down-sweep
 };
 
 // Host: fill `off` from the entry point's named offsets of n_hidden SDF
@@ -302,10 +308,18 @@ __device__ __forceinline__ void gemm(const float* in, int ld_in, int K,
 }
 
 // The GEMM policy of the sweeps below (`G`): `gemm` on activation rows of
-// kLd floats. K1 and K6 pass the tensor-core policy (mma_tile.cuh TcGemm);
-// the other kernels take this default.
+// kLd floats, w_s of kWsFloats. K1 and K6 pass mma_tile.cuh's TcGemm, K2
+// and K3 wgmma_tile.cuh's WgGemm; the other kernels take this default.
 struct FfmaGemm {
   static constexpr int kLd = 256;
+  static constexpr int kWsFloats = 2 * 64 * kSliceCols;  // two 64-deep slices
+  // SDF hidden layer l's W (in, out) and W^T (out, in) as run() takes them.
+  __device__ static __forceinline__ const float* w(const float* P, const Offsets& off, int l) {
+    return P + off.w[l];
+  }
+  __device__ static __forceinline__ const float* wt(const float* P, const Offsets& off, int l) {
+    return P + off.wt[l];
+  }
   template <int KS, class Epi>
   __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
                                              const float* __restrict__ W, int ldw, int N,
@@ -385,7 +399,7 @@ __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
     const float* bias = P + off.b[l];
     const bool pre_skip = (l + 1 == g.skip);
     G::template run<KS>(l == 0 ? e : h, l == 0 ? g.d0 : ld, sdf_in_dim(g, l),
-             P + off.w[l], sdf_out_dim(g, l), sdf_out_dim(g, l), w_s,
+             G::w(P, off, l), sdf_out_dim(g, l), sdf_out_dim(g, l), w_s,
              [&](int r, int c, float z) {
                float sig, sp;
                sig_softplus100(z + bias[c], sig, sp);
@@ -477,7 +491,7 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
     const int K = sdf_out_dim(g, l);
     const int N = sdf_in_dim(g, l);
     const bool at_skip = (l == g.skip);
-    G::template run<KS>(h, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(h, ld, K, G::wt(P, off, l), N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) {  // the PE part of the skip input: ee_skip
@@ -531,7 +545,7 @@ __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, co
     const int K = sdf_in_dim(g, l);
     const int N = sdf_out_dim(g, l);
     const bool pre_skip = (l + 1 == g.skip);
-    G::template run<KS>(l == 0 ? e : h, l == 0 ? g.d0 : ld, K, P + off.w[l], N, N, w_s,
+    G::template run<KS>(l == 0 ? e : h, l == 0 ? g.d0 : ld, K, G::w(P, off, l), N, N, w_s,
              [&](int r, int c, float q) {
                const float sig = sig_at(l, r, c);
                zb_at(l, r, c) = q * u_at(l, r, c) * 100.0f * (1.0f - sig);
@@ -585,7 +599,7 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
       const int r = i / K, c = i - r * K;
       put_z(l, r, c, h[r * ld + c] + hb[r * ld + c]);
     }
-    G::template run<KS>(h, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(h, ld, K, G::wt(P, off, l), N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) {
@@ -599,7 +613,7 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
         h[r * ld + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
     });
     if (l == 0) break;  // channel B stops here: it never reaches x
-    G::template run<KS>(hb, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(hb, ld, K, G::wt(P, off, l), N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) return;
@@ -615,9 +629,7 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
 // Per hidden layer l from L down: `put_z(l, r, c, v)` sees z_l, then
 // h = (z_l W_l^T) * sig_{l-1}, split at the skip (h | e) / sqrt(2) with the
 // PE part into e. h ends holding e_hat = d(out)/d(PE) (d0 wide). Starts with
-// a barrier. Used by K6-bwd and K7-bwd; K3-bwd (sdf_value_bwd.cu) keeps the
-// inline copy it was measured with (through this function ptxas gave it 249
-// registers instead of 245).
+// a barrier. Used by K3-bwd (on WgGemm), K6-bwd and K7-bwd.
 template <int KS, class G = FfmaGemm, class Sig, class PutZ>
 __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,
@@ -633,7 +645,7 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
       const int r = i / K;
       put_z(l, r, i - r * K, h[r * ld + (i - r * K)]);
     }
-    G::template run<KS>(h, ld, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
+    G::template run<KS>(h, ld, K, G::wt(P, off, l), N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
         v *= kInvSqrt2;
         if (c >= split) {  // the PE part of the skip input

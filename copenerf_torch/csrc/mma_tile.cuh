@@ -1,7 +1,8 @@
 // The 3xTF32 tensor-core GEMM of the render-core kernels (K1 and K6): the
 // 64-row tile product of mlp_tile.cuh `gemm` on `mma.sync` m16n8k8 TF32,
 // and the helpers the weight-gradient reduction (wgrad.cu
-// `wgrad_tc_partial_kernel`) shares with it.
+// `wgrad_tc_partial_kernel`, also K3-bwd's and K7-bwd's) and the wgmma core
+// (wgmma_tile.cuh) share with it.
 //
 // 3xTF32: each f32 operand x splits into hi = tf32(x) (cvt.rna: 10 explicit
 // mantissa bits, nearest, ties away) and lo = tf32(x - hi); a product is
@@ -220,7 +221,8 @@ __device__ __forceinline__ void tc_gemm(const float* in, int ld_in, int K,
 }
 
 // The GEMM policy of the sweeps (mlp_tile.cuh) for K1 and K6.
-struct TcGemm {
+// It reads the weights where FfmaGemm does (`w`, `wt`).
+struct TcGemm : FfmaGemm {
   static constexpr int kLd = kTcLd;
   template <int KS, class Epi>
   __device__ static __forceinline__ void run(const float* in, int ld_in, int K,

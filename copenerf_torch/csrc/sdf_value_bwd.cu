@@ -29,36 +29,44 @@
 // once, read back by the reduction) are the design's own traffic, not the
 // function's.
 // Design: the row kernel is sdf_value.cu's tile (64 rows, activations in
-// shared memory, 64-deep weight slices) run forward, then backward over W^T
-// in place in the same buffer; the sigmoids go to a per-block scratch in
-// device memory (persistent grid, one block per SM). K7's feature cotangent
-// is read into the activation buffer once the forward has staged it, and
-// the head's GEMM writes z_L over it, so K7 needs no more shared memory than
-// K3. Rows past n are never staged, so the ragged tail adds nothing to the
-// weight gradients.
-#include "mlp_tile.cuh"
+// shared memory) run forward, then backward over W^T in place in the same
+// buffer; the sigmoids go to a per-block scratch in device memory
+// (persistent grid, one block per SM). K3-bwd runs its GEMMs (the forward
+// recompute and the channel-A down-sweep) on K2's wgmma 3xTF32 core
+// (wgmma_tile.cuh WgGemm, the weights packed both ways by the host); K7-bwd
+// keeps the FFMA GEMM. Both reduce the weight gradients on the tensor cores
+// in 3xTF32 (wgrad.cu `wgrad_tc_partial_kernel`, K1's reduction): the FFMA
+// reduction was 35-37% of their time and 1.8x slower than autograd's cuBLAS
+// products. K7's feature cotangent is read into the activation buffer once
+// the forward has staged it, and the head's GEMM writes z_L over it, so K7
+// needs no more shared memory than K3. Rows past n are never staged, so the
+// ragged tail adds nothing to the weight gradients.
+#include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace copenerf {
 namespace {
 
-constexpr int kSliceK = 64;
+constexpr int kSliceK = 64;  // K7-bwd's FFMA slices
+
+using G3 = WgGemm;  // K3-bwd's GEMM policy
 
 __global__ void __launch_bounds__(kThreads, 1)
 sdf_value_bwd_kernel(const float* __restrict__ x, const float* __restrict__ obar,
                      float* __restrict__ xbar, const float* __restrict__ P, Offsets off,
                      float* __restrict__ scratch, long long n, SdfGeom g, StageSet st_t,
                      StageSet st_z) {
+  constexpr int ld = G3::kLd;
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);
-  float* e = h + kRows * kSliceCols;
+  float* e = h + kRows * ld;
   float* xs = e + kRows * g.d0;
   float* zs = xs + kRows * 4;
   float* w_s = zs + kRows;
   const int n_hidden = g.n_lin - 1;
   float* sig_s = scratch + (long long)blockIdx.x * n_hidden * kRows * 256;
   const long long tiles = (n + kRows - 1) / kRows;
-  const int split = g.hidden - g.d0;
+  auto sig_at = [&](int l, int r, int c) { return sig_s[((long long)l * kRows + r) * 256 + c]; };
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * kRows;
@@ -72,7 +80,7 @@ sdf_value_bwd_kernel(const float* __restrict__ x, const float* __restrict__ obar
     }
 
     // ---- forward: layer inputs to the stage, sigmoids to the scratch ----
-    sdf_hidden_forward<kSliceK>(
+    sdf_hidden_forward<G3::kSliceK, G3>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) {
           sig_s[((long long)l * kRows + r) * 256 + c] = sig;
@@ -89,40 +97,21 @@ sdf_value_bwd_kernel(const float* __restrict__ x, const float* __restrict__ obar
         stage_put(st_z, n_hidden, row0 + i, n, 0, zs[i]);
       for (int i = threadIdx.x; i < kRows * width; i += kThreads) {
         const int r = i / width, c = i - r * width;
-        h[r * 256 + c] = zs[r] * w0[c] * sig_s[((long long)l * kRows + r) * 256 + c];
+        h[r * ld + c] = zs[r] * w0[c] * sig_at(l, r, c);
       }
     }
 
     // ---- down-sweep: stage z_l, then z_l @ W_l (over W^T) ----
-    for (int l = n_hidden - 1; l >= 0; --l) {
-      const int K = sdf_out_dim(g, l);
-      const int N = sdf_in_dim(g, l);
-      const bool at_skip = (l == g.skip);
-      __syncthreads();
-      for (int i = threadIdx.x; i < kRows * K; i += kThreads) {
-        const int r = i / K;
-        stage_put(st_z, l, row0 + r, n, i - r * K, h[r * 256 + (i - r * K)]);
-      }
-      gemm<kSliceK>(h, 256, K, P + off.wt[l], N, N, w_s, [&](int r, int c, float v) {
-        if (at_skip) {
-          v *= kInvSqrt2;
-          if (c >= split) {  // the PE part of the skip input
-            e[r * g.d0 + (c - split)] = v;
-            return;
-          }
-        }
-        if (l > 0)
-          h[r * 256 + c] = v * sig_s[((long long)(l - 1) * kRows + r) * 256 + c];
-        else
-          h[r * 256 + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
-      });
-    }
+    sdf_down_sweep_a<G3::kSliceK, G3>(P, off, g, h, e, w_s, sig_at,
+                                      [&](int l, int r, int c, float v) {
+                                        stage_put(st_z, l, row0 + r, n, c, v);
+                                      });
     // h now holds e_hat (d0 wide): x_bar = J_pe^T e_hat * scale.
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
       const long long gr = row0 + r;
-      if (gr < n) xbar[gr * 4 + j] = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j) * g.scale;
+      if (gr < n) xbar[gr * 4 + j] = pe4_jac_t(h + r * ld, xs + r * 4, g.multires, j) * g.scale;
     }
   }
 }
@@ -237,9 +226,10 @@ int value_jobs(const SdfGeom& g, int d_head, const StageSet& t, const StageSet& 
   return g.n_lin;
 }
 
+// Shared bytes of a row kernel on GEMM policy G.
+template <class G>
 size_t value_bwd_smem(const SdfGeom& g) {
-  return sizeof(float) * (kRows * kSliceCols + kRows * g.d0 + kRows * 4 + kRows +
-                          2 * kSliceK * kSliceCols);
+  return sizeof(float) * (kRows * G::kLd + kRows * g.d0 + kRows * 4 + kRows + G::kWsFloats);
 }
 
 bool value_geometry(int n_lin, int d_in, int multires, int hidden, int skip, float scale,
@@ -272,7 +262,7 @@ int value_bwd_run(const float* x, const float* obar, float* xbar, const float* p
                   long long n, const SdfGeom& g, int d_out, int n_blocks, void* stream) {
   StageSet t, z;
   value_stage_layout(g, d_out, n, stage, t, z);
-  const size_t smem = value_bwd_smem(g);
+  const size_t smem = kFullHead ? value_bwd_smem<FfmaGemm>(g) : value_bwd_smem<G3>(g);
   const long long tiles = (n + kRows - 1) / kRows;
   const int grid = (int)(tiles < n_blocks ? tiles : n_blocks);
   cudaStream_t s = (cudaStream_t)stream;
@@ -294,7 +284,7 @@ int value_bwd_run(const float* x, const float* obar, float* xbar, const float* p
   if (err != cudaSuccess) return (int)err;
   WgradJob jobs[kMaxWgradJobs];
   const int n_jobs = value_jobs(g, d_out, t, z, grads, off_gw, off_gb, jobs);
-  return (int)wgrad_launch(jobs, n_jobs, n, partial, s);
+  return (int)wgrad_tc_launch(jobs, n_jobs, n, partial, s);
 }
 
 }  // namespace
@@ -314,15 +304,16 @@ extern "C" int copenerf_sdf_value_bwd_workspace(long long n, int n_lin, int d_in
 // x_bar (n, 4) and the weight gradients (into `grads` at off_gw / off_gb
 // per layer, pack.py `sdf_value_grad_layout`) of sdf(x (n, 4)) for the
 // cotangent obar (n,). The off_* weight arguments are float offsets into
-// `params` as for copenerf_sdf_value, plus W^T per hidden layer. Returns the
-// first CUDA error.
+// `params` as for copenerf_sdf_value, plus W^T and W^T as wgmma B (the
+// down-sweep's, pack.py `wg_pack_b`) per hidden layer. Returns the first
+// CUDA error.
 extern "C" int copenerf_sdf_value_bwd(
     const float* x, const float* obar, float* xbar, const float* params,
     const long long* off_w, const long long* off_b, const long long* off_wt,
-    long long off_w_last0, long long off_b_last0, float* grads, const long long* off_gw,
-    const long long* off_gb, float* stage, float* partial, float* scratch, long long n,
-    int n_lin, int d_in, int multires, int hidden, int skip, float scale, int n_blocks,
-    void* stream) {
+    const long long* off_wp, const long long* off_wtp, long long off_w_last0,
+    long long off_b_last0, float* grads, const long long* off_gw, const long long* off_gb,
+    float* stage, float* partial, float* scratch, long long n, int n_lin, int d_in,
+    int multires, int hidden, int skip, float scale, int n_blocks, void* stream) {
   if (n <= 0) return 0;
   SdfGeom g;
   Offsets off;
@@ -330,6 +321,10 @@ extern "C" int copenerf_sdf_value_bwd(
       !make_offsets(off, n_lin - 1, off_w, off_b, off_wt, off_w_last0, off_b_last0, 0, 0, 0,
                     nullptr, nullptr))
     return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < n_lin - 1; ++l) {
+    off.wp[l] = off_wp[l];
+    off.wtp[l] = off_wtp[l];
+  }
   return value_bwd_run<false>(x, obar, xbar, params, off, grads, off_gw, off_gb, stage, partial,
                               scratch, n, g, 1, n_blocks, stream);
 }

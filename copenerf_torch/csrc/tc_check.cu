@@ -1,10 +1,10 @@
-// The accuracy trial and card check of the tensor-core core (mma_tile.cuh):
-// the 64-row tile GEMM and the weight-gradient reduction of K1 and K6, on
-// operands the caller chooses, beside the f32 FFMA versions the other
-// kernels run. Nothing of the main path calls these entry points; the
+// The accuracy trial and card check of the tensor-core cores: the 64-row
+// tile GEMM of K1 and K6 (mma_tile.cuh, `mma.sync`) and of K2 and K3
+// (wgmma_tile.cuh, `wgmma`), and the weight-gradient reduction, on operands
+// the caller chooses, beside the f32 FFMA versions the other kernels run. Nothing of the main path calls these entry points; the
 // tests and PERF.md's trial hold their results against an f64 product
 // (ops/kernels/tc_check.py).
-#include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace copenerf {
@@ -12,6 +12,10 @@ namespace {
 
 constexpr int kSliceK = 32;
 constexpr int kPresplit = 4;  // mode: 3xTF32, W split on the host
+// Modes of the wgmma core (W packed by the host, pack.py wg_pack_b): the
+// shipped WgGemm, and one TF32 product as the control that shows what the
+// split buys.
+constexpr int kWg = 5, kWg1 = 6;
 
 // The alternative split, for its time: W's (hi, lo) split on the host (Wl
 // the lo parts), both streamed from L2 into 16-deep slice pairs (the same
@@ -123,7 +127,11 @@ tile_gemm_check_kernel(const float* __restrict__ A, const float* __restrict__ W,
     C[i] = v;
   };
   for (int rep = 0; rep < reps; ++rep) {
-    if constexpr (kMode == 0)
+    if constexpr (kMode == kWg)
+      WgGemm::run<WgGemm::kSliceK>(a_s, ld, K, W, N, N, w_s, epi);
+    else if constexpr (kMode == kWg1)
+      wg_gemm<kTf32x1>(a_s, ld, K, W, N, w_s, epi);
+    else if constexpr (kMode == 0)
       gemm<kSliceK>(a_s, ld, K, W, N, N, w_s, epi);
     else if constexpr (kMode == kPresplit)
       tc_gemm_presplit(a_s, ld, K, W, Wl, N, w_s, epi);
@@ -135,7 +143,8 @@ tile_gemm_check_kernel(const float* __restrict__ A, const float* __restrict__ W,
 template <int kMode>
 int launch_tile(const float* A, const float* W, const float* Wl, float* C, long long m, int K,
                 int N, int ld, int reps, float* aux, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kRows * ld + 2 * kSliceK * kSliceCols);
+  const size_t smem = sizeof(float) * (kRows * ld + (kMode >= kWg ? kWgWsFloats
+                                                                  : 2 * kSliceK * kSliceCols));
   cudaError_t err = cudaFuncSetAttribute(tile_gemm_check_kernel<kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -153,7 +162,8 @@ using namespace copenerf;
 // C (m, N) = A (m, K) W (K, N), all row-major f32, K and N multiples of 4,
 // N <= 256. mode: 0 f32 FFMA, 1 one TF32 product, 2 3xTF32 (the render-core
 // kernels' kTcVariant), 3 3xTF32 summed on the tensor core, 4 3xTF32 with W
-// split on the host (W the hi parts as f32 bit patterns, Wl the lo parts).
+// split on the host (W the hi parts as f32 bit patterns, Wl the lo parts);
+// 5 and 6 the wgmma core (kWg, kWg1 above) with W as packed by wg_pack_b.
 // Each block runs the GEMM `reps` times (for timing: the slope over reps is
 // one tile GEMM and its epilogue); aux, if set, holds 2 m N floats that the
 // epilogue reads and writes (see the kernel).
@@ -171,6 +181,8 @@ extern "C" int copenerf_tile_gemm_check(const float* A, const float* W, const fl
     case kTf32x3: return launch_tile<kTf32x3>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
     case kTf32x3Acc: return launch_tile<kTf32x3Acc>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
     case kPresplit: return launch_tile<kPresplit>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
+    case kWg: return launch_tile<kWg>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
+    case kWg1: return launch_tile<kWg1>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -130,7 +130,7 @@ _F = ctypes.c_float
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     lib.copenerf_sdf_value.argtypes = [
-        _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P]
+        _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P]
     lib.copenerf_rendercore_fwd.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _L,
         _I, _I, _I, _I, _I, _F,
@@ -138,7 +138,7 @@ def load_library() -> ctypes.CDLL:
     lib.copenerf_sdf_value_bwd_workspace.argtypes = [
         _L, _I, _I, _I, _I, _I, _I, _P]
     lib.copenerf_sdf_value_bwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L,
         _I, _I, _I, _I, _I, _F, _I, _P]
     lib.copenerf_rendercore_bwd_workspace.argtypes = [
         _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]

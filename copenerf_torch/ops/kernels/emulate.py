@@ -16,8 +16,21 @@ a per-warp buffer between two warp barriers, each lane then computing its
 four outputs from the PTX fragment layout, ignoring the low 13 bits of each
 operand as the hardware does, the eight products summed exactly and added
 to the accumulator with one rounding (the card's own accumulation rounding
-is not modelled). A copy of the sources under ``_build/emulated/`` has the
-launch syntax and every ``asm`` rewritten. ``emulated()`` points the wrappers' ``build``
+is not modelled). The wgmma core of ``wgmma_tile.cuh``: ``wgmma.mma_async``
+m64n128k8 TF32 is a warpgroup-collective exchange of every thread's A
+fragment through a per-warpgroup buffer between two barriers of its 128
+threads, each thread computing its 64 accumulators from A and from B read
+out of shared memory through the matrix descriptor (start address, leading
+and stride byte offsets, no swizzle or the 128-byte one), computed when
+issued; ``wgmma.fence``, ``commit_group``, ``wait_group`` and
+``fence.proxy.async`` are no-ops; an ``mbarrier`` (init, arrive.expect_tx,
+try_wait.parity, inval) is a phase, a pending count and a transaction count
+under a mutex; ``cp.async.bulk`` copies at once and completes its bytes on
+the barrier. Shared memory is 1024-byte aligned, as the swizzle needs. A
+descriptor that disagrees across the warpgroup, a read past shared memory
+or a barrier used uninitialized makes the launch return an error. A copy
+of the sources under ``_build/emulated/`` has the launch syntax and every
+``asm`` rewritten. ``emulated()`` points the wrappers' ``build``
 module at that library and lets the launchers take CPU tensors, so the
 launchers and the autograd.Functions run as they are; ``check`` holds every
 kernel against its plain version: forward outputs by their largest
@@ -54,8 +67,11 @@ HEADER = r"""
 #include <cmath>
 #include <cstring>
 #include <functional>
+#include <atomic>
 #include <limits>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 using std::max;
@@ -82,7 +98,10 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline std::atomic<int> host_error{0};
+inline cudaError_t cudaGetLastError() {
+  return host_error.exchange(0) ? cudaErrorInvalidValue : cudaSuccess;
+}
 inline float __expf(float x) { return std::exp(x); }
 inline float __logf(float x) { return std::log(x); }
 inline float __frcp_rn(float x) { return 1.0f / x; }
@@ -96,7 +115,22 @@ inline std::vector<std::array<float, 32>> host_shuffle;
 struct HostMmaLane { unsigned a[4], b[2]; float c[4]; };
 inline std::vector<std::array<HostMmaLane, 32>> host_mma;
 inline float4* host_shared;
+inline size_t host_shared_bytes;
 inline float4* host_dynamic_shared() { return host_shared; }
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return (size_t)((const char*)p - (const char*)host_shared);
+}
+struct HostWgLane { unsigned a[4]; unsigned long long desc; int scale; };
+// Two exchange buffers a warpgroup, used in turn (a thread's count of its
+// wgmma calls picks one), so one barrier a call suffices: a buffer is
+// written again only after the next call's barrier, which every reader of
+// it has passed.
+inline std::vector<std::array<std::array<HostWgLane, 128>, 2>> host_wg;
+inline thread_local unsigned host_wg_calls;
+inline std::vector<std::unique_ptr<std::barrier<>>> host_wg_barriers;
+struct HostMbar { unsigned count, pending, phase; long long tx; };
+inline std::mutex host_mbar_mutex;
+inline std::map<const void*, HostMbar> host_mbars;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -110,15 +144,21 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, std::function<void()
   gridDim = grid;
   blockDim = block;
   const int nt = block.x;
-  std::vector<float4> shared(smem / 16 + 1);
-  host_shared = shared.data();
+  std::vector<float4> shared(smem / 16 + 1 + 64);
+  host_shared = reinterpret_cast<float4*>(
+      (reinterpret_cast<size_t>(shared.data()) + 1023) & ~(size_t)1023);
+  host_shared_bytes = (smem / 16 + 1) * 16;
   std::barrier<> bar(nt);
   host_block_barrier = &bar;
   host_warp_barriers.clear();
   for (int w = 0; w < (nt + 31) / 32; ++w)
     host_warp_barriers.emplace_back(new std::barrier<>(32));
+  host_wg_barriers.clear();
+  for (int w = 0; w < nt / 128; ++w) host_wg_barriers.emplace_back(new std::barrier<>(128));
   host_shuffle.assign((nt + 31) / 32, {});
   host_mma.assign((nt + 31) / 32, {});
+  host_wg.assign(nt / 128, {});
+  host_mbars.clear();
   const float nan = std::numeric_limits<float>::quiet_NaN();
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -127,6 +167,7 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, std::function<void()
       for (int t = 0; t < nt; ++t)
         threads.emplace_back([&, t, bx, by] {
           threadIdx = {(unsigned)t, 0, 0};
+          host_wg_calls = 0;
           blockIdx = {bx, by, 0};
           fn();
         });
@@ -163,6 +204,117 @@ inline void host_mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned 
   host_warp_barriers[w]->arrive_and_wait();
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
+// Element (n, k) of a K-major B operand through a wgmma matrix descriptor:
+// bits 0-13 start address, 16-29 leading byte offset, 32-45 stride byte
+// offset (each >> 4), 62-63 the swizzle (0 none, 1 128-byte).
+inline const float* host_desc_elem(unsigned long long desc, int n, int k) {
+  const size_t start = (size_t)(desc & 0x3FFF) << 4;
+  const size_t lbo = (size_t)((desc >> 16) & 0x3FFF) << 4;
+  const size_t sbo = (size_t)((desc >> 32) & 0x3FFF) << 4;
+  const int mode = (int)(desc >> 62);
+  size_t a;
+  if (mode == 1) {
+    a = start + (n / 8) * sbo + (n % 8) * 128 + 4 * k;
+    a ^= ((a >> 7) & 7) << 4;
+  } else if (mode == 0) {
+    a = start + (n / 8) * sbo + (n % 8) * 16 + (k / 4) * lbo + (k % 4) * 4;
+  } else {
+    host_error = 1;
+    return nullptr;
+  }
+  if (a + 4 > host_shared_bytes) {
+    host_error = 1;
+    return nullptr;
+  }
+  return reinterpret_cast<const float*>(reinterpret_cast<const char*>(host_shared) + a);
+}
+// wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 with A from
+// registers, one warpgroup: d = a b (+ d when scale_d).
+inline void host_wgmma_tf32(float (&d)[64], const unsigned (&a)[4], unsigned long long desc,
+                            int scale_d) {
+  const int wg = threadIdx.x / 128, me = threadIdx.x % 128;
+  auto& buf = host_wg[wg][host_wg_calls++ & 1];
+  HostWgLane& mine = buf[me];
+  for (int i = 0; i < 4; ++i) mine.a[i] = a[i] & 0xffffe000u;
+  mine.desc = desc;
+  mine.scale = scale_d;
+  host_wg_barriers[wg]->arrive_and_wait();
+  for (int l = 0; l < 128; ++l)
+    if (buf[l].desc != desc || buf[l].scale != scale_d) host_error = 1;
+  const int q = me / 32, lane = me % 32, g = lane / 4, t = lane % 4;
+  float out[64];
+  for (int j = 0; j < 16; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * q + g + (i >= 2 ? 8 : 0), col = 8 * j + 2 * t + (i & 1);
+      double s = 0.0;
+      for (int k = 0; k < 8; ++k) {
+        const unsigned av =
+            buf[(row / 16) * 32 + (row % 8) * 4 + k % 4].a[(row % 16 >= 8) + 2 * (k >= 4)];
+        const float* bp = host_desc_elem(desc, col, k);
+        if (bp == nullptr) continue;
+        const unsigned bv = __float_as_uint(*bp) & 0xffffe000u;
+        s += (double)__uint_as_float(av) * (double)__uint_as_float(bv);
+      }
+      out[4 * j + i] = (float)((scale_d ? (double)d[4 * j + i] : 0.0) + s);
+    }
+  for (int i = 0; i < 64; ++i) d[i] = out[i];
+}
+inline void host_mbar_complete(HostMbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1u;
+    b.pending = b.count;
+  }
+}
+inline HostMbar* host_mbar_find(const void* bar) {
+  auto it = host_mbars.find(bar);
+  if (it == host_mbars.end()) {
+    host_error = 1;
+    return nullptr;
+  }
+  return &it->second;
+}
+inline void host_mbar_init(const void* bar, unsigned count) {
+  std::lock_guard<std::mutex> lk(host_mbar_mutex);
+  host_mbars[bar] = HostMbar{count, count, 0u, 0};
+}
+inline void host_mbar_inval(const void* bar) {
+  std::lock_guard<std::mutex> lk(host_mbar_mutex);
+  if (host_mbar_find(bar)) host_mbars.erase(bar);
+}
+inline void host_mbar_expect_tx(const void* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> lk(host_mbar_mutex);
+  HostMbar* b = host_mbar_find(bar);
+  if (b == nullptr) return;
+  if (b->pending == 0) host_error = 1;
+  b->tx += bytes;
+  b->pending -= 1;
+  host_mbar_complete(*b);
+}
+inline bool host_mbar_try_wait(const void* bar, unsigned parity) {
+  bool done = true;
+  {
+    std::lock_guard<std::mutex> lk(host_mbar_mutex);
+    HostMbar* b = host_mbar_find(bar);
+    if (b != nullptr) done = b->phase != (parity & 1u);
+  }
+  if (!done) std::this_thread::yield();
+  return done;
+}
+// cp.async.bulk global -> shared, completing `bytes` on the barrier.
+inline void host_bulk_g2s(float* dst, const float* src, unsigned bytes, const void* bar) {
+  const size_t off = __cvta_generic_to_shared(dst);
+  if (bytes % 16 || off % 16 || reinterpret_cast<size_t>(src) % 16 ||
+      off + bytes > host_shared_bytes) {
+    host_error = 1;
+    return;
+  }
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> lk(host_mbar_mutex);
+  HostMbar* b = host_mbar_find(bar);
+  if (b == nullptr) return;
+  b->tx -= bytes;
+  host_mbar_complete(*b);
+}
 #define HOST_LAUNCH(G, B, S, K, ...) host_launch(dim3(G), dim3(B), S, [&] { K(__VA_ARGS__); })
 """
 
@@ -177,6 +329,26 @@ _CP_ZFILL = re.compile(
 _CVT_TF32 = ('asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));')
 _MMA = re.compile(r"asm\(\s*\"mma\.sync\.aligned\.m16n8k8\.row\.col\."
                   r"f32\.tf32\.tf32\.f32.*?\);", re.S)
+# The wgmma core (wgmma_tile.cuh): each helper's one asm statement, and
+# what the host runs in its place.
+_WG_ASM = [
+    (re.compile(r'asm volatile\("mbarrier\.init\..*?\);', re.S),
+     "host_mbar_init(bar, count);"),
+    (re.compile(r'asm volatile\("mbarrier\.inval\..*?\);', re.S),
+     "host_mbar_inval(bar);"),
+    (re.compile(r'asm volatile\("mbarrier\.arrive\.expect_tx\..*?\);', re.S),
+     "host_mbar_expect_tx(bar, bytes);"),
+    (re.compile(r'asm volatile\(\s*"\{\\n\.reg \.pred p;\\nmbarrier\.try_wait\..*?\);',
+                re.S), "done = host_mbar_try_wait(bar, parity);"),
+    (re.compile(r'asm volatile\(\s*"cp\.async\.bulk\..*?\);', re.S),
+     "host_bulk_g2s(dst, src, bytes, bar);"),
+    (re.compile(r'asm volatile\("fence\.proxy\.async\..*?\);', re.S), ""),
+    (re.compile(r'asm volatile\("wgmma\.(?:fence|commit_group|wait_group)\..*?\);', re.S), ""),
+    (re.compile(r'asm volatile\("" : "\+f"\(v\)::"memory"\);'), ""),
+    (re.compile(r'asm volatile\(\s*"\{\\n\.reg \.pred p;\\nsetp\.ne\.b32 p, %69, 0;\\n"'
+                r'\s*"wgmma\.mma_async\..*?\);', re.S),
+     "host_wgmma_tf32(d, a, desc, scale_d);"),
+]
 _LAUNCH = re.compile(
     r"(\w+(?:<[^<>()]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\(")
 
@@ -196,6 +368,8 @@ def _host_source(text: str) -> str:
     text = _MMA.sub("host_mma_tf32(d, a, b);", text)
     text = text.replace('asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));', "")
     text = text.replace('asm volatile("cp.async.commit_group;\\n" ::);', "")
+    for pattern, host in _WG_ASM:
+        text = pattern.sub(host, text)
     if "asm" in text:
         raise RuntimeError("an asm statement the emulation does not know")
     return text
@@ -421,7 +595,8 @@ def check(width: str = "small", negative_ray: bool = False,
     bwd("K7-bwd", lambda xx: SO.SdfOut.apply(scfg, xx, *eff(sdf)),
         lambda mods, xx: SO.sdf_out_plain(mods[0], xx), [x], [sdf],
         [torch.randn(n, scfg.d_out)])
-    bwd("K3-bwd", lambda xx: SVD.SdfValueDiff.apply(scfg, xx, *eff(sdf)),
+    bwd("K3-bwd", lambda xx: SVD.SdfValueDiff.apply(scfg, pack.pack_sdf_value(sdf), xx,
+                                                    *eff(sdf)),
         lambda mods, xx: SVD.sdf_value_diff_plain(mods[0], xx), [x], [sdf],
         [torch.randn(n)])
     if not negative_ray:

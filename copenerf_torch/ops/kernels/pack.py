@@ -12,6 +12,8 @@ does outside its kernels (``sdf_kernels.py`` ``_prep``):
     its bias; ``w_feat``, ``b_feat``: its feature columns (hidden, d_feat)
     and their bias; ``w_feat_t``: the feature columns as (d_feat, hidden),
     for the backward;
+  * ``wp[l]``, ``wtp[l]`` (the value packs only): W_l and W_l^T as the
+    wgmma core's B operand (``wg_pack_b``), for K2, K3-fwd and K3-bwd;
   * ``wc[l]``, ``bc[l]``: color layer l (in, out); layer 0 has its input
     rows permuted to [feature, x, PE(dirs), grad] and zero-padded to k0 (a
     multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
@@ -45,6 +47,8 @@ from ...models.embedder import embed_dim
 MAX_SDF_HIDDEN_LAYERS = 16   # mlp_tile.cuh kMaxSdfHidden
 MAX_COLOR_LAYERS = 6         # mlp_tile.cuh kMaxColorLayers
 MAX_WIDTH = 256              # shared-memory row buffers
+WG_SLICE_K = 32              # wgmma_tile.cuh kWgSliceK
+WG_ROWS = 128                # columns of one warpgroup's product
 
 
 def sdf_skip(cfg) -> int:
@@ -173,7 +177,79 @@ class _Packer:
         return torch.cat(self.parts).contiguous(), self.offs
 
 
-_PER_LAYER = ("w", "b", "wt", "wc", "wct", "bc")
+_PER_LAYER = ("w", "b", "wt", "wp", "wtp", "wc", "wct", "bc")
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits, nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    bits = torch.where(finite, bits + 0x1000, bits) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+_WG_INDEX = {}
+
+
+def _wg_index(shapes, device):
+    """(flat indices, lo mask) that gather the packed B of every (N, K,
+    transposed) in ``shapes`` at once from the concatenation of their flat
+    source matrices and one trailing zero (every padding position reads
+    it): B^T (N, K) is the source itself, or its transpose when
+    ``transposed`` (the source then (K, N)). Order per matrix: (slice, part,
+    row n, stored position p), the two parts (hi and lo) gathering the same
+    values; the mask marks the lo part."""
+    key = (tuple(shapes), str(device))
+    if key in _WG_INDEX:
+        return _WG_INDEX[key]
+    idx, lo, base = [], [], 0
+    for N, K, transposed in shapes:
+        n_pad = -(-N // WG_ROWS) * WG_ROWS
+        n_sl = -(-K // WG_SLICE_K)
+        n = torch.arange(n_pad)[:, None]
+        p = torch.arange(WG_SLICE_K)[None, :]
+        pl = ((p // 4) ^ (n % 8)) * 4 + p % 4     # the 128-byte swizzle undone
+        b, h, kk = pl // 16, (pl % 16) // 8, pl % 8
+        k_in = 16 * b + 4 * (kk % 4) + 2 * h + kk // 4
+        k = torch.arange(n_sl)[:, None, None] * WG_SLICE_K + k_in   # (slices, n, p)
+        nn = n.expand(n_pad, WG_SLICE_K)[None]
+        src = base + (k * N + nn if transposed else nn * K + k)
+        one = torch.where((k < K) & (nn < N), src, -1)[:, None]
+        one = one.expand(n_sl, 2, n_pad, WG_SLICE_K)
+        idx.append(one.reshape(-1))
+        lo.append((torch.arange(2)[None, :, None, None] == 1).expand_as(one).reshape(-1))
+        base += N * K
+    idx = torch.cat(idx)
+    _WG_INDEX[key] = (torch.where(idx < 0, base, idx).to(device), torch.cat(lo).to(device))
+    return _WG_INDEX[key]
+
+
+def wg_pack_many(mats) -> list:
+    """``wg_pack_b`` of several matrices in one gather: each entry (m,
+    transposed) packs B^T = m (N, K), or m^T when ``transposed``."""
+    shapes = [(*(m.shape[::-1] if t else m.shape), t) for m, t in mats]
+    device = mats[0][0].device
+    src = torch.cat([m.detach().reshape(-1).float() for m, _ in mats]
+                    + [torch.zeros(1, device=device)])
+    idx, lo_mask = _wg_index(shapes, device)
+    out = src[idx]                   # per slice: (hi, lo) of the same values
+    hi = tf32_rna(out)
+    out = torch.where(lo_mask, tf32_rna(out - hi), hi)
+    sizes = [2 * -(-N // WG_ROWS) * WG_ROWS * -(-K // WG_SLICE_K) * WG_SLICE_K
+             for N, K, _ in shapes]
+    return list(out.split(sizes))
+
+
+def wg_pack_b(bt: torch.Tensor) -> torch.Tensor:
+    """The B operand (K x N) of the wgmma core (``csrc/wgmma_tile.cuh``)
+    given as bt = B^T (N, K): per 32-deep slice of K, the TF32 hi parts
+    (hi = tf32(b)) then the lo parts (tf32(b - hi)), each N rows (N rounded
+    up to 128, zero past N and past K) of 32 values. Within each 16-value
+    block the order is the core's k permutation (position 8 h + kk holds
+    k = 4 (kk % 4) + 2 h + kk // 4, matching A's float4 loads), and 16-byte
+    chunk c of row n is stored at c ^ (n % 8) (the 128-byte swizzle)."""
+    return wg_pack_many([(bt, False)])[0]
 
 
 def effective_layers(net) -> list:
@@ -183,12 +259,16 @@ def effective_layers(net) -> list:
                           for l in range(len(net.cfg.dims) - 1))]
 
 
-def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wt: bool) -> None:
+def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wg: bool = False) -> None:
+    if with_wg:       # the forward's B^T is W (out, in), the down-sweep's W^T
+        wg = iter(wg_pack_many([(w, t) for w, _ in layers[:-1] for t in (False, True)]))
     for w, b in layers[:-1]:                           # w (out, in)
         pk.add("w", w.t().contiguous())
         pk.add("b", b)
-        if with_wt:
-            pk.add("wt", w)
+        pk.add("wt", w)
+        if with_wg:
+            pk.add("wp", next(wg))
+            pk.add("wtp", next(wg))
     w, b = layers[-1]                                  # (d_out, hidden)
     pk.add("w_last0", w[0])
     pk.add("b_last0", b[:1])
@@ -212,16 +292,18 @@ def _cached(owner, name: str, nets, make):
     return packed
 
 
-def pack_sdf_value_layers(layers, with_wt: bool = False):
-    """(params (P,), offsets by name) for the value kernels, from the SDF
-    net's effective layers; ``with_wt`` adds the W^T the backward needs."""
+def pack_sdf_value_layers(layers):
+    """(params (P,), offsets by name) for the value kernels (K2, K3-fwd and
+    K3-bwd), from the SDF net's effective layers: W and W^T, plain and
+    packed for the wgmma core."""
     pk = _Packer()
-    _add_sdf(pk, layers, with_feature=False, with_wt=with_wt)
+    _add_sdf(pk, layers, with_feature=False, with_wg=True)
     return pk.done()
 
 
 def pack_sdf_value(sdf_net):
-    """``pack_sdf_value_layers`` of ``sdf_net``, cached on the net."""
+    """``pack_sdf_value_layers`` of ``sdf_net``, cached on the net: a train
+    step's K2 launches and its K3 share one pack."""
     return _cached(sdf_net, "_pack_sdf_value", (sdf_net,),
                    lambda: pack_sdf_value_layers(effective_layers(sdf_net)))
 
@@ -258,7 +340,7 @@ def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
     """(params (P,), offsets by name) for the render-core kernels, from the
     effective layers of both nets."""
     pk = _Packer()
-    _add_sdf(pk, sdf_layers, with_feature=True, with_wt=True)
+    _add_sdf(pk, sdf_layers, with_feature=True)
     _add_color(pk, color_layers, ccfg)
     return pk.done()
 
@@ -276,7 +358,7 @@ def pack_outgrad_layers(sdf_layers):
     layers with W^T and the whole head (column 0, the feature columns both
     ways)."""
     pk = _Packer()
-    _add_sdf(pk, sdf_layers, with_feature=True, with_wt=True)
+    _add_sdf(pk, sdf_layers, with_feature=True)
     return pk.done()
 
 

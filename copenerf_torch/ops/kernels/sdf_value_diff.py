@@ -9,7 +9,8 @@ device: a CUDA tensor goes through ``SdfValueDiff`` (an
 ``autograd.Function`` whose forward launches K3-fwd and whose backward
 launches K3-bwd, or raises), a CPU tensor takes ``sdf_value_diff_plain``.
 The Function's inputs are x and the SDF net's effective weights and
-biases, so autograd carries the kernel's W-bars through weight norm.
+biases, so autograd carries the kernel's W-bars through weight norm, and
+their pack, the one the net's K2 launches use (built once a train step).
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import build
-from .pack import (check_sdf_geometry, effective_layers, pack_sdf_value_layers,
-                   sdf_geometry, sdf_value_grad_layout, unpack_sdf_value_grads)
+from .pack import (check_sdf_geometry, effective_layers, pack_sdf_value, sdf_geometry,
+                   sdf_value_grad_layout, unpack_sdf_value_grads)
 from .sdf_value import launch_value
 
 FWD_COUNTER = build.KernelCounter("sdf_value_diff_fwd")
@@ -54,7 +55,8 @@ def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     code = lib.copenerf_sdf_value_bwd(
         x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
         build.offsets(offs["w"]), build.offsets(offs["b"]),
-        build.offsets(offs["wt"]), offs["w_last0"], offs["b_last0"],
+        build.offsets(offs["wt"]), build.offsets(offs["wp"]),
+        build.offsets(offs["wtp"]), offs["w_last0"], offs["b_last0"],
         grads.data_ptr(), build.offsets(goffs["gw"]),
         build.offsets(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
         scratch.data_ptr(), n, *geom, float(cfg.scale), blocks,
@@ -66,13 +68,13 @@ def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
 
 class SdfValueDiff(torch.autograd.Function):
     """sdf (n,) of x (n, 4); inputs after x: the effective W (out, in) of
-    every SDF layer, then every b."""
+    every SDF layer, then every b. ``packed`` is their value pack
+    (``pack.pack_sdf_value_layers``, or ``pack.pack_sdf_value`` of the net
+    they come from); the kernels read it, and the W and b carry the
+    gradients."""
 
     @staticmethod
-    def forward(ctx, cfg, x, *wb):
-        n_lin = len(wb) // 2
-        packed = pack_sdf_value_layers(list(zip(wb[:n_lin], wb[n_lin:])),
-                                       with_wt=True)
+    def forward(ctx, cfg, packed, x, *wb):
         ctx.cfg, ctx.packed = cfg, packed
         ctx.save_for_backward(x)
         return launch_value(cfg, packed, x, FWD_COUNTER)
@@ -83,7 +85,7 @@ class SdfValueDiff(torch.autograd.Function):
         x, = ctx.saved_tensors
         x_bar, bars = sdf_value_bwd_cuda(ctx.cfg, ctx.packed, x,
                                          obar.contiguous())
-        return (None, x_bar, *[w for w, _ in bars], *[b for _, b in bars])
+        return (None, None, x_bar, *[w for w, _ in bars], *[b for _, b in bars])
 
 
 def sdf_value_diff(net, x: torch.Tensor) -> torch.Tensor:
@@ -92,5 +94,6 @@ def sdf_value_diff(net, x: torch.Tensor) -> torch.Tensor:
         return sdf_value_diff_plain(net, x)
     lead = x.shape[:-1]
     ws, bs = zip(*effective_layers(net))
-    out = SdfValueDiff.apply(net.cfg, x.reshape(-1, 4).contiguous(), *ws, *bs)
+    out = SdfValueDiff.apply(net.cfg, pack_sdf_value(net), x.reshape(-1, 4).contiguous(),
+                             *ws, *bs)
     return out.reshape(lead)

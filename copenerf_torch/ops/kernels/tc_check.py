@@ -1,6 +1,7 @@
-"""The accuracy trial and card check of the tensor-core core
-(``csrc/tc_check.cu`` over ``csrc/mma_tile.cuh``): the 64-row tile GEMM and
-the weight-gradient reduction that K1 and K6 run in 3xTF32, on operands the
+"""The accuracy trial and card check of the tensor-core cores
+(``csrc/tc_check.cu`` over ``csrc/mma_tile.cuh`` and ``csrc/wgmma_tile.cuh``):
+the 64-row tile GEMM that K1 and K6 run on ``mma.sync`` and K2 and K3 on
+``wgmma``, in 3xTF32, and the weight-gradient reduction, on operands the
 caller chooses, beside the f32 FFMA versions of the other kernels.
 
 Nothing of the main path calls these launchers; ``tests/test_torch_gpu.py``,
@@ -13,11 +14,16 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .pack import tf32_rna, wg_pack_b
 
 # The C entry points' `mode`: 0 f32 FFMA, else mma_tile.cuh's TcVariant;
-# tile_gemm also takes PRESPLIT, 3xTF32 with the weights split on the host.
+# tile_gemm also takes PRESPLIT, 3xTF32 with the weights split on the host,
+# and WG_MODES, the wgmma core (the weights packed by pack.wg_pack_b): "wg"
+# as K2 and K3 ship it, and one TF32 product, the control that shows what
+# the split buys.
 MODES = {"ffma": 0, "tf32": 1, "3xtf32": 2, "3xtf32_acc": 3}
 PRESPLIT = "3xtf32_presplit"
+WG_MODES = {"wg": 5, "wg_tf32": 6}
 ROWS_PER_SPLIT = 1024        # wgrad.cu kRowsPerSplit
 
 
@@ -27,19 +33,11 @@ def _mat(t, name: str) -> None:
     build.check_input(t, name, t.shape[1])
 
 
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32 (10 explicit mantissa bits, nearest, ties away from
-    zero), as ``cvt.rna.tf32.f32`` rounds it."""
-    bits = x.contiguous().view(torch.int32)
-    finite = (bits & 0x7F800000) != 0x7F800000
-    bits = torch.where(finite, bits + 0x1000, bits) & ~0x1FFF
-    return bits.view(torch.float32)
-
-
 def tile_gemm(a: torch.Tensor, w: torch.Tensor, mode: str = "3xtf32", reps: int = 1,
               aux: torch.Tensor | None = None) -> torch.Tensor:
-    """a (m, K) @ w (K, N) through the render-core kernels' tile GEMM (K and
-    N multiples of 4, N <= 256); mode PRESPLIT splits w here. For
+    """a (m, K) @ w (K, N) through a tile GEMM (K and N multiples of 4,
+    N <= 256): the render-core kernels' in ``MODES`` and PRESPLIT (w split
+    here), the wgmma core in ``WG_MODES`` (w packed here). For
     timing: each block repeats the GEMM ``reps`` times, and with ``aux``
     (2 m N floats) the epilogue multiplies by aux[i] and stores to
     aux[m N + i], the load-after-store chain of the sweeps' epilogues."""
@@ -48,13 +46,19 @@ def tile_gemm(a: torch.Tensor, w: torch.Tensor, mode: str = "3xtf32", reps: int 
     if w.shape[0] != a.shape[1]:
         raise ValueError(f"a is {tuple(a.shape)}, w {tuple(w.shape)}")
     c = torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
-    w_lo, code = w, 4 if mode == PRESPLIT else MODES[mode]
+    w_lo, n_out = w, w.shape[1]
     if mode == PRESPLIT:
+        code = 4
         w = tf32_rna(w)
         w_lo = tf32_rna(w_lo - w)
+    elif mode in WG_MODES:
+        code = WG_MODES[mode]
+        w = w_lo = wg_pack_b(w.t())
+    else:
+        code = MODES[mode]
     code = build.load_library().copenerf_tile_gemm_check(
         a.data_ptr(), w.data_ptr(), w_lo.data_ptr(), c.data_ptr(), a.shape[0],
-        a.shape[1], w.shape[1], code, reps,
+        a.shape[1], n_out, code, reps,
         aux.data_ptr() if aux is not None else None, build.stream(a))
     build.check(code, f"tile_gemm_check {mode}")
     return c

@@ -7,23 +7,30 @@ line; with ``--trial``, the accuracy trial of the tensor-core core instead.
     python3 kernel_times.py --trial
 
 Times every launcher of K1-K7 on 131,072 rows (the train step's field
-queries; K2 on 65,536, K1-fwd also on 4,194,304, a render chunk) of the
+queries; K2 on 65,536 and on 2,097,152, a render chunk's first sweep;
+K1-fwd also on 4,194,304, a render chunk's render core) of the
 full-width nets of ``configs/default.yaml``, their geometric init perturbed
 with ``perturb_``, random inputs and cotangents from fixed seeds: the mean of
 ``REPS`` launches after a warm-up (CUDA events), then the same launches under
 ``torch.profiler`` (CUDA activity), whose device time per kernel name gives
-the split (K1-bwd: the row kernel, ``wgrad_*partial_kernel`` and
+the split (K1-bwd, K3-bwd: the row kernel, ``wgrad_*partial_kernel`` and
 ``wgrad_final_kernel``; "not measured" where the profiler sees no device
-time). ``--root`` imports ``copenerf_torch`` (and builds its kernels) from
+time); beside them one ``torch.mm`` of K3-bwd's weight reduction over the
+staged rows, every layer (``sdf_value_bwd_reduction_mm``, a yardstick the
+port never calls), and ``value_step_16384``: a K2 and a K3-fwd launch on
+16,384 rows each after a weight update, so with the weight packing a train
+step does for them. ``--root`` imports ``copenerf_torch`` (and builds its kernels) from
 another checkout, e.g. a parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists, so two versions compare on one card in
 one call, in turns: ``--root A``, ``--root B``, ``--root B``, ``--root A``.
 
-``--trial`` holds the tile GEMM and the weight-gradient reduction of K1 and
-K6 (``csrc/tc_check.cu``) against an f64 product at the shapes K1
-multiplies, in every variant (f32 FFMA, 1xTF32, 3xTF32 as shipped, 3xTF32
-summed on the tensor core), and times the shipped split of the weights in
-registers against weights split on the host (``3xtf32_presplit``).
+``--trial`` holds the tile GEMMs (K1 and K6 on ``mma.sync``, K2 and K3 on
+``wgmma``) and the weight-gradient reduction (``csrc/tc_check.cu``) against
+an f64 product at the shapes the kernels multiply (K = 52, 204, 256, 292),
+in every variant (f32 FFMA, 1xTF32, 3xTF32 as shipped, 3xTF32 summed on
+the tensor core; wgmma as shipped and in 1xTF32), and times each tile
+GEMM's slope (``mma.sync`` with the weights split in registers or on the
+host, ``wgmma`` with them packed by the host).
 
 Needs a CUDA card; prints the card's ``nvidia-smi`` name and power limit
 first.
@@ -114,6 +121,7 @@ def run_times(label, root):
     from copenerf_torch.ops.kernels import rendercore as RC
     from copenerf_torch.ops.kernels import rendercore_cons as RCC
     from copenerf_torch.ops.kernels import sdf_out as SO
+    from copenerf_torch.ops.kernels import sdf_value as SV
     from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 
     build.load_library()
@@ -132,23 +140,47 @@ def run_times(label, root):
     y = rand(n, 4) * 0.6
     d = torch.nn.functional.normalize(rand(n, 3), dim=-1)
     xc = rand(CHUNK_ROWS, 4) * 0.6
+    xv = xc[:CHUNK_ROWS // 2]
     dc = torch.nn.functional.normalize(rand(CHUNK_ROWS, 3), dim=-1)
     sbar, gbar, cbar, obar = rand(n, 1), rand(n, 4), rand(n, 3), rand(n, scfg.d_out)
     swbar = rand(n)
     with torch.no_grad():
         rc = pack.pack_rendercore(sdf, col)
-        val = pack.pack_sdf_value_layers(pack.effective_layers(sdf), with_wt=True)
+        try:              # a tree that packs W^T only on request (--root)
+            val = pack.pack_sdf_value_layers(pack.effective_layers(sdf), with_wt=True)
+        except TypeError:
+            val = pack.pack_sdf_value_layers(pack.effective_layers(sdf))
         og, cl = pack.pack_outgrad(sdf), pack.pack_color(col)
         out, grad = OG.launch_outgrad_fwd(scfg, og, x)
     feat = out[:, 1:]
+    # K3-bwd's staged rows at their widths (z_l: the layer's outputs, the
+    # head's column 0; t_l: its inputs), for the torch.mm yardstick.
+    n_lin = len(scfg.dims) - 1
+    staged = [(rand(n, 1 if l == n_lin - 1 else F.idr_layer_dims(scfg, l)[1]),
+               rand(n, F.idr_layer_dims(scfg, l)[0])) for l in range(n_lin)]
+    p0 = next(sdf.parameters())
+
+    def value_step():
+        """What a train step spends on the value kernels' weights after an
+        optimizer step: a new parameter version (the packs' caches miss),
+        one K2 launch through ``sdf_value`` and one K3-fwd through
+        ``sdf_value_diff``, each on 16,384 rows, the packing included."""
+        p0.add_(0.0)
+        SV.sdf_value_cuda(sdf, x[:n // 8])
+        with torch.enable_grad():
+            SVD.sdf_value_diff(sdf, x[:n // 8])
+
     fns = {
+        "value_step_16384": value_step,
         "sdf_value_65536": lambda: SVD.launch_value(scfg, val, x[:n // 2], SVD.FWD_COUNTER),
+        "sdf_value_2097152": lambda: SVD.launch_value(scfg, val, xv, SVD.FWD_COUNTER),
         "rendercore_fwd": lambda: RC.launch_fwd(scfg, ccfg, rc, x, d),
         "rendercore_fwd_4194304": lambda: RC.launch_fwd(scfg, ccfg, rc, xc, dc),
         "rendercore_bwd": lambda: RC.rendercore_bwd_cuda(scfg, ccfg, rc, x, d, sbar,
                                                          gbar, cbar),
         "sdf_value_diff_fwd": lambda: SVD.launch_value(scfg, val, x, SVD.FWD_COUNTER),
         "sdf_value_bwd": lambda: SVD.sdf_value_bwd_cuda(scfg, val, x, sbar[:, 0]),
+        "sdf_value_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged],
         "sdf_outgrad_fwd": lambda: OG.launch_outgrad_fwd(scfg, og, x),
         "sdf_outgrad_bwd": lambda: OG.outgrad_bwd_cuda(scfg, og, x, obar, gbar),
         "color_fwd": lambda: CK.launch_color_fwd(ccfg, cl, x, d, grad, feat),
@@ -162,12 +194,12 @@ def run_times(label, root):
     ms, split = {}, {}
     with torch.no_grad():
         for name, fn in fns.items():
-            reps = 3 if name == "rendercore_fwd_4194304" else REPS
+            reps = 3 if name in ("rendercore_fwd_4194304", "sdf_value_2097152") else REPS
             ms[name] = event_ms(fn, reps)
             split[name] = kernel_split(fn, reps) or "not measured"
             torch.cuda.empty_cache()
     regs = {k: v for k, v in registers(build.build_log()).items()
-            if re.search(r"rendercore|wgrad", k)}
+            if re.search(r"rendercore|wgrad|sdf_value", k)}
     print(json.dumps({"label": label, "root": root, "rows": n, "chunk_rows": CHUNK_ROWS,
                       "reps": REPS, "card": torch.cuda.get_device_name(0), "ms": ms,
                       "kernel_ms": split, "registers_spill_st_ld": regs}), flush=True)
@@ -187,14 +219,15 @@ def run_trial():
     gen = torch.Generator(device="cuda").manual_seed(3)
     m = 64 * 132
     res = {"tile_gemm": {}, "reduction": {}}
-    for K, N in ((52, 256), (256, 256), (256, 204), (292, 256)):
+    for K, N in ((52, 256), (256, 256), (256, 204), (204, 256), (292, 256), (256, 52)):
         w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
         for kind in ("nonneg", "signed"):
             a = torch.randn((m, K), generator=gen, device="cuda")
             a = a.abs() if kind == "nonneg" else a
             ref = a.double() @ w.double()
             res["tile_gemm"][f"64x{K}x{N} {kind}"] = {
-                mode: TC.rel_err(TC.tile_gemm(a, w, mode), ref) for mode in TC.MODES}
+                mode: TC.rel_err(TC.tile_gemm(a, w, mode), ref)
+                for mode in (*TC.MODES, *TC.WG_MODES)}
     for n, O, I in ((1024, 256, 256), (131072, 256, 256)):
         for kind in ("nonneg", "signed"):
             z = torch.randn((n, O), generator=gen, device="cuda")
@@ -212,7 +245,8 @@ def run_trial():
     aux = torch.rand((2 * ROWS * 256,), generator=gen, device="cuda")
     times = {"note": f"{ROWS} rows x 256 x 256 per GEMM: ms from the slope over "
                      "1 and 9 repeats, TFLOP/s of f32 products"}
-    for mode in ("ffma", "3xtf32", "3xtf32_acc", "tf32", "3xtf32_presplit"):
+    for mode in ("ffma", "3xtf32", "3xtf32_acc", "tf32", "3xtf32_presplit",
+                 *TC.WG_MODES):
         for chain in (None, aux):
             t1 = event_ms(lambda: TC.tile_gemm(a, w, mode, 1, chain), REPS)
             t9 = event_ms(lambda: TC.tile_gemm(a, w, mode, 9, chain), REPS)

@@ -473,9 +473,10 @@ def test_fold_switch_and_sdf_output_route_to_k6_and_k7_on_card(monkeypatch):
     assert launched(output) == [0, 0, 0, 0, 0, 0, 1, 1]
 
 
-# The 3xTF32 tensor-core core of K1 and K6 (csrc/mma_tile.cuh through
-# csrc/tc_check.cu): its error against an f64 product must stay within 2x
-# that of the f32 FFMA version the other kernels run, on the same inputs.
+# The 3xTF32 tensor-core cores, of K1 and K6 (csrc/mma_tile.cuh) and of K2
+# and K3 (csrc/wgmma_tile.cuh), through csrc/tc_check.cu: the error against
+# an f64 product must stay within 2x that of the f32 FFMA version the other
+# kernels run, on the same inputs.
 # The tile GEMM's activation columns past K hold NaN, so a read past K shows.
 TILE_WIDTHS = [(52, 256), (256, 204), (204, 256), (292, 256), (256, 52),
                (256, 36), (28, 64), (64, 28), (64, 48), (48, 32)]
@@ -558,10 +559,94 @@ def test_tc_accuracy_trial_on_card(shape):
 
 
 @pytest.mark.gpu
-def test_tensor_cores_only_in_k1_and_k6_on_card():
-    """``cuobjdump -sass`` of the built library: the K1 and K6 kernels (row
-    kernels and their reduction) issue TF32 HMMA; the kernels of K2, K3, K4,
-    K5 and K7 issue none."""
+@pytest.mark.parametrize("K,N", TILE_WIDTHS)
+def test_wg_tile_gemm_odd_widths_on_card(K, N):
+    """The wgmma core of K2 and K3 (csrc/wgmma_tile.cuh): as shipped within
+    2x the FFMA GEMM's error against f64; every variant exact on small
+    integers (the fragment layouts, the descriptor strides, the swizzle)."""
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    _require_cuda()
+    for m in (1, 70, 4096):
+        a = _tc_inputs((m, K), seed=K * N + m, nonneg=True)
+        w = _tc_inputs((K, N), seed=K + N) / K ** 0.5
+        ref = a.double() @ w.double()
+        e_ffma = TC.rel_err(TC.tile_gemm(a, w, "ffma"), ref)
+        e_wg = TC.rel_err(TC.tile_gemm(a, w, "wg"), ref)
+        assert e_wg <= 2 * e_ffma, (K, N, m, e_wg, e_ffma)
+    g = torch.Generator(device="cuda").manual_seed(K * N)
+    a = torch.randint(-8, 9, (70, K), generator=g, device="cuda").float()
+    w = torch.randint(-8, 9, (K, N), generator=g, device="cuda").float()
+    ref = a.double() @ w.double()
+    for mode in TC.WG_MODES:
+        assert torch.equal(TC.tile_gemm(a, w, mode).double(), ref), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["64x52x256", "64x256x256", "64x256x204",
+                                   "64x204x256"])
+def test_wg_accuracy_trial_on_card(shape):
+    """The wgmma core at the shapes K2 and K3 multiply, over 528 tiles: as
+    shipped within 2x the FFMA GEMM's error against f64, for activations
+    >= 0 and of either sign."""
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    _require_cuda()
+    _, K, N = (int(v) for v in shape.split("x"))
+    for nonneg in (True, False):
+        a = _tc_inputs((64 * 528, K), seed=K + 1, nonneg=nonneg)
+        w = _tc_inputs((K, N), seed=N + 1) / K ** 0.5
+        ref = a.double() @ w.double()
+        errs = [TC.rel_err(TC.tile_gemm(a, w, m), ref) for m in ("ffma", "wg")]
+        assert errs[1] <= 2 * errs[0], (shape, nonneg, errs)
+
+
+def _grads_in_slices(fn, x, params, obar, sl):
+    """``_grads`` of fn over row slices of ``sl`` rows: x_bar concatenated,
+    parameter gradients summed (the plain f64 graph of 262,144 full-width
+    rows is large)."""
+    acc = None
+    for i in range(0, x.shape[0], sl):
+        gr = _grads(fn, (x[i:i + sl],), params, [obar[i:i + sl]])
+        if acc is None:
+            acc = [[gr[0]]] + gr[1:]
+        else:
+            acc[0].append(gr[0])
+            acc[1:] = [u + v for u, v in zip(acc[1:], gr[1:])]
+    return [torch.cat(acc[0])] + acc[1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1000, 262144])
+def test_value_kernels_match_plain_at_full_width_on_card(n):
+    """K2 (and K3-fwd, its kernel) against the plain value to 1e-4, and
+    K3-bwd's every gradient against f64 within 2x the plain f32 version's
+    error (or 1e-5 of its norm), at full width on the main path's row
+    counts."""
+    _require_cuda()
+    sdf_net, _ = _nets("full", "cuda")
+    x, _ = _rows(n, seed=n + 3)
+    with torch.no_grad():
+        torch.testing.assert_close(SV.sdf_value_cuda(sdf_net, x),
+                                   SV.sdf_value_plain(sdf_net, x), rtol=0, atol=1e-4)
+    obar = torch.randn((n,), generator=torch.Generator(device="cuda").manual_seed(n),
+                       device="cuda")
+    sdf64 = copy.deepcopy(sdf_net).double()
+    sp = list(sdf_net.parameters())
+    got = _grads(lambda a: SVD.sdf_value_diff(sdf_net, a), (x,), sp, [obar])
+    ref = _grads_in_slices(lambda a: SVD.sdf_value_diff_plain(sdf_net, a), x, sp,
+                           obar, 65536)
+    ref64 = _grads_in_slices(lambda a: SVD.sdf_value_diff_plain(sdf64, a), x.double(),
+                             list(sdf64.parameters()), obar.double(), 32768)
+    _check_vs_f64(got, ref, ref64, f"K3 at {n} rows")
+
+
+@pytest.mark.gpu
+def test_tensor_core_instructions_per_kernel_on_card():
+    """``cuobjdump -sass`` of the built library: K2 and K3-bwd issue TF32
+    HGMMA (wgmma); K1 and K6 (row kernels) and the tensor-core reduction
+    (K1, K3, K6, K7) issue TF32 HMMA (mma.sync); the kernels of K4, K5 and
+    K7, the FFMA reduction and the final sums issue neither."""
     import re
     import shutil
     import subprocess
@@ -580,12 +665,17 @@ def test_tensor_cores_only_in_k1_and_k6_on_card():
             continue
         key = m.group(1) + ("<1>" if "ILb1E" in name else "")
         funcs[key] = funcs.get(key, "") + body
+    wg = ["sdf_value_kernel", "sdf_value_bwd_kernel"]
     tc = ["rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
           "rendercore_bwd_kernel<1>", "wgrad_tc_partial_kernel"]
-    ffma = ["sdf_value_kernel", "sdf_value_bwd_kernel", "sdf_out_bwd_kernel",
-            "sdf_outgrad_fwd_kernel", "sdf_outgrad_bwd_kernel", "color_fwd_kernel",
-            "color_bwd_kernel", "wgrad_partial_kernel", "wgrad_final_kernel"]
+    ffma = ["sdf_out_bwd_kernel", "sdf_outgrad_fwd_kernel", "sdf_outgrad_bwd_kernel",
+            "color_fwd_kernel", "color_bwd_kernel", "wgrad_partial_kernel",
+            "wgrad_final_kernel"]
+    for k in wg:
+        assert re.search(r"HGMMA\.[\w.]*TF32", funcs[k]), k
+        assert "HMMA" not in funcs[k].replace("HGMMA", ""), k
     for k in tc:
         assert re.search(r"HMMA\.[\w.]*TF32", funcs[k]), k
+        assert "HGMMA" not in funcs[k], k
     for k in ffma:
         assert "HMMA" not in funcs[k] and "HGMMA" not in funcs[k], k

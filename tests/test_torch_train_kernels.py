@@ -247,8 +247,7 @@ def test_backward_cuda_entries_refuse_cpu_tensors(nets):
     scfg, ccfg = tp["sdf"].cfg, tp["color"].cfg
     with torch.no_grad():
         packed = pack.pack_rendercore(tp["sdf"], tp["color"])
-        vpacked = pack.pack_sdf_value_layers(pack.effective_layers(tp["sdf"]),
-                                             with_wt=True)
+        vpacked = pack.pack_sdf_value_layers(pack.effective_layers(tp["sdf"]))
     with pytest.raises(ValueError, match="CUDA tensor"):
         RC.rendercore_bwd_cuda(scfg, ccfg, packed, xt, dt, torch.zeros(8, 1),
                                torch.zeros(8, 4), torch.zeros(8, 3))

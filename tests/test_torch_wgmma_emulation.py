@@ -1,0 +1,180 @@
+"""The wgmma core of K2 and K3 (``csrc/wgmma_tile.cuh``) as the host emulation
+runs it (``copenerf_torch/ops/kernels/emulate.py``: ``wgmma.mma_async``
+m64n128k8 TF32 with A from registers and B through a shared-memory
+descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
+
+* the host packing of B (``pack.wg_pack_b``) read back through the
+  descriptor's address arithmetic (the 128-byte swizzle, 1024-byte row
+  groups, the k permutation), for B and for B^T, ragged K and N, split into
+  hi and lo: every element lands where the core reads it, and the padding
+  is zero;
+* small integers, exact in TF32 and in every partial sum, through the tile
+  GEMM of ``csrc/tc_check.cu`` in both wgmma modes at ragged K and N < 256:
+  the fragment layouts, the descriptor strides and the swizzle must give the
+  product exactly;
+* one TF32 product against numpy's f64 product of the operands rounded to
+  TF32: within 4e-7 relative (the f32 sums);
+* 3xTF32 as K2 and K3 ship it against f64: within 2x the f32 FFMA GEMM's
+  error and within 1e-6 relative, at the widths K2 and K3 multiply (K = 52,
+  204, 256) and ragged ones; one TF32 product is far from it;
+* K2 and K3-bwd through their own wrappers at a width whose layers are
+  wider than one warpgroup's 128 columns (the second warpgroup's ragged
+  columns), against their plain versions with ``chip_smoke.py``'s rules.
+
+Skips where there is no ``g++``."""
+
+import copy
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from copenerf_torch.models import fields as F
+from copenerf_torch.models.mlp import perturb_
+from copenerf_torch.ops.kernels import emulate, pack
+from copenerf_torch.ops.kernels import sdf_value as SV
+from copenerf_torch.ops.kernels import sdf_value_diff as SVD
+from copenerf_torch.ops.kernels import tc_check as TC
+
+
+@pytest.fixture(scope="module")
+def emu():
+    if shutil.which("g++") is None:
+        pytest.skip("the host emulation of the CUDA kernels needs g++")
+    with emulate.emulated():
+        yield
+
+
+def tf32_np(x: np.ndarray) -> np.ndarray:
+    bits = x.astype(np.float32).view(np.uint32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    bits = np.where(finite, (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000), bits)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _read_packed(packed: np.ndarray, K: int, N: int) -> np.ndarray:
+    """The hi and lo parts of B (K x N) as the core reads the packed
+    buffer: slice s, k8 step j, element (k, n) at byte 32 j + 4 k of its
+    128-byte row n, rows 1024 bytes a group of 8, the 16-byte chunk XOR
+    (row % 8), A's k order within each 16-column block undone."""
+    n_pad, k_pad = -(-N // 128) * 128, -(-K // 32) * 32
+    raw = packed.view(np.uint8)
+    out = np.zeros((2, k_pad, n_pad), np.float32)
+    for s in range(k_pad // 32):
+        for part in range(2):
+            base = (2 * s + part) * n_pad * 128
+            for j in range(4):
+                for kk in range(8):
+                    b, h = j // 2, j % 2
+                    k_in = 16 * b + 4 * (kk % 4) + 2 * h + kk // 4
+                    for n in range(n_pad):
+                        a = (n // 8) * 1024 + (n % 8) * 128 + 32 * j + 4 * kk
+                        a ^= ((a >> 7) & 7) << 4
+                        out[part, 32 * s + k_in, n] = raw[base + a:base + a + 4].view(
+                            np.float32)[0]
+    return out
+
+
+@pytest.mark.parametrize("K,N,transposed", [(52, 204, False), (36, 136, True),
+                                            (64, 28, True), (256, 52, False),
+                                            (204, 256, True), (292, 256, False),
+                                            (4, 4, True), (32, 128, False)])
+def test_wg_pack_b_layout_matches_the_descriptor(K, N, transposed):
+    rng = np.random.default_rng(K * N)
+    m = rng.standard_normal((N, K) if transposed else (K, N)).astype(np.float32)
+    b = m.T if transposed else m                       # B (K, N)
+    bt = torch.from_numpy(m) if transposed else torch.from_numpy(m).t()
+    got = _read_packed(pack.wg_pack_b(bt).numpy(), K, N)
+    hi, lo = got[:, :K, :N]
+    np.testing.assert_array_equal(hi, tf32_np(b))
+    np.testing.assert_array_equal(lo, tf32_np(b - tf32_np(b)))
+    np.testing.assert_allclose(hi.astype(np.float64) + lo, b, rtol=2 ** -21, atol=0)
+    pad = got.copy()
+    pad[:, :K, :N] = 0
+    assert not pad.any()
+
+
+@pytest.mark.parametrize("K,N", [(52, 256), (204, 256), (28, 64), (256, 204),
+                                 (64, 136), (292, 36)])
+def test_emulated_wgmma_is_exact_on_integers(emu, K, N):
+    rng = np.random.default_rng(K + N)
+    a = rng.integers(-8, 9, size=(70, K)).astype(np.float32)
+    w = rng.integers(-8, 9, size=(K, N)).astype(np.float32)
+    for mode in TC.WG_MODES:
+        got = TC.tile_gemm(torch.from_numpy(a), torch.from_numpy(w), mode).numpy()
+        np.testing.assert_array_equal(got, a.astype(np.float64) @ w, err_msg=mode)
+
+
+def _mats(m, K, N, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    return a, w
+
+
+@pytest.mark.parametrize("K,N", [(52, 256), (204, 36), (256, 52)])
+def test_emulated_wgmma_tf32_product_matches_numpy(emu, K, N):
+    a, w = _mats(70, K, N, seed=K * 7 + N)
+    got = TC.tile_gemm(torch.from_numpy(a), torch.from_numpy(w), "wg_tf32").numpy()
+    ref = tf32_np(a).astype(np.float64) @ tf32_np(w).astype(np.float64)
+    assert np.linalg.norm(got - ref) <= 4e-7 * np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("K,N", [(52, 256), (204, 256), (256, 204), (256, 52),
+                                 (28, 64)])
+def test_emulated_wgmma_3xtf32_against_f64(emu, K, N):
+    a, w = _mats(130, K, N, seed=3 * K + N)
+    a = np.abs(a)
+    ref = a.astype(np.float64) @ w.astype(np.float64)
+    err = {m: np.linalg.norm(TC.tile_gemm(torch.from_numpy(a), torch.from_numpy(w),
+                                          m).numpy() - ref) / np.linalg.norm(ref)
+           for m in ("ffma", "wg", "wg_tf32")}
+    assert err["wg"] <= min(2 * err["ffma"], 1e-6), err
+    assert err["wg_tf32"] > 1e-5, err                # the split is what buys it
+
+
+WIDE = F.SDFConfig(d_out=9, d_hidden=160, n_layers=4, skip_in=(2,), multires=3,
+                   scale=1.3)
+
+
+@pytest.fixture(scope="module")
+def wide_net():
+    return perturb_(F.SDFNetwork(WIDE, torch.Generator().manual_seed(0)),
+                    torch.Generator().manual_seed(2))
+
+
+def _rows(n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1.2, 1.2, size=(n, 4)).astype(np.float32))
+
+
+def test_emulated_k2_past_one_warpgroup(emu, wide_net):
+    x = _rows(100, 5)
+    with torch.no_grad():
+        got = SV.launch_value(WIDE, pack.pack_sdf_value(wide_net), x, SV.COUNTER)
+        ref = SV.sdf_value_plain(wide_net, x)
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
+def test_emulated_k3_bwd_past_one_warpgroup(emu, wide_net):
+    """Every gradient of K3 (the wgmma forward and down-sweep, the
+    tensor-core reduction) within 2x the plain f32 version's error against
+    f64, or 1e-5 (``chip_smoke.py``'s rule)."""
+    x = _rows(100, 6)
+    obar = torch.from_numpy(np.random.default_rng(7).standard_normal(100).astype(np.float32))
+    net64 = copy.deepcopy(wide_net).double()
+    ws, bs = zip(*pack.effective_layers(wide_net))
+
+    def grads(fn, net, xx, cot):
+        xx = xx.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xx), [xx, *net.parameters()], cot)
+
+    got = grads(lambda xx: SVD.SdfValueDiff.apply(WIDE, pack.pack_sdf_value(wide_net), xx,
+                                                  *ws, *bs), wide_net, x, obar)
+    plain = grads(lambda xx: SVD.sdf_value_diff_plain(wide_net, xx), wide_net, x, obar)
+    r64 = grads(lambda xx: SVD.sdf_value_diff_plain(net64, xx), net64, x.double(),
+                obar.double())
+    for a, b, c in zip(got, plain, r64):
+        dk, dp = (a.double() - c).norm().item(), (b.double() - c).norm().item()
+        assert dk <= max(2 * dp, 1e-5 * c.norm().item()), (dk, dp)

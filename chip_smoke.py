@@ -10,7 +10,7 @@ Phases, each printed on its own line, any failure exits non-zero:
             per source, in parallel); prints the build time and ptxas usage,
             then (``registers``) the registers and spill bytes of the
             tensor-core kernels: K1 and K6 (3xTF32 on ``mma.sync``,
-            ``csrc/mma_tile.cuh``), K2 and K3 (3xTF32 on ``wgmma``,
+            ``csrc/mma_tile.cuh``), K2, K3 and K4 (3xTF32 on ``wgmma``,
             ``csrc/wgmma_tile.cuh``) and their reduction, and any ptxas
             line about the wgmma pipeline (``wgmma_warnings``).
 3. kernels  each forward kernel against its plain PyTorch version on the card
@@ -171,21 +171,16 @@ def k3_bwd_work(scfg, n, sdf_net):
     return 2 * macs * n, 36 * n + 2 * weight_bytes(sdf_net)
 
 
-def reduction_mm_ms(scfg, n):
-    """CUDA-event ms of K3-bwd's weight reduction done by torch.mm: z_l^T
-    t_l over n staged rows for every SDF layer (the head's column 0 too), on
-    random rows of the staged widths. A yardstick, timed only."""
+def reduction_mm_ms(scfg, n, second_order=False):
+    """CUDA-event ms of a backward's weight reduction done by torch.mm, one
+    product a layer on random rows of the staged widths
+    (``kernel_times.reduction_pairs``): K3-bwd's, or K4-bwd's with
+    ``second_order``. A yardstick, timed only."""
     import torch
-    from copenerf_torch.models.fields import idr_layer_dims
+    from kernel_times import reduction_pairs
 
-    n_lin = len(scfg.dims) - 1
-    g = torch.Generator(device=DEVICE).manual_seed(21)
-    pairs = []
-    for l in range(n_lin):
-        i, o = idr_layer_dims(scfg, l)
-        o = 1 if l == n_lin - 1 else o
-        pairs.append((torch.randn((n, o), generator=g, device=DEVICE),
-                      torch.randn((n, i), generator=g, device=DEVICE)))
+    pairs = reduction_pairs(scfg, n, torch.Generator(device=DEVICE).manual_seed(21),
+                            second_order)
     ms = cuda_ms(lambda: [torch.mm(z.t(), t) for z, t in pairs], reps=5)
     del pairs
     torch.cuda.empty_cache()
@@ -395,13 +390,13 @@ def phase_build():
             usage.append(f"{name}: {ln.strip()}")
     log("build", seconds=round(time.perf_counter() - t0, 3),
         cached=build.BUILD_STATS["cached"], nvcc_seconds=nvcc_s, ptxas=usage)
-    # The tensor-core kernels (K1, K6 and their reduction): registers and
+    # The tensor-core kernels (K1-K4, K6 and their reduction): registers and
     # spill bytes (stores, loads).
     from kernel_times import registers
 
     tc = {k: dict(zip(("registers", "spill_stores", "spill_loads"), v))
           for k, v in registers(build.build_log()).items()
-          if k.startswith(("rendercore_", "wgrad_tc_", "sdf_value"))}
+          if k.startswith(("rendercore_", "wgrad_tc_", "sdf_value", "sdf_outgrad"))}
     log("registers", kernels=tc)
     # ptxas says when it serializes the wgmma pipeline (a performance loss).
     warn = [ln.strip() for ln in build.build_log().splitlines() if "wgmma" in ln]
@@ -891,9 +886,16 @@ def phase_composed_kernels(fields):
     bd = bounds(*k4_bwd_work(scfg, n, sdf_net))
     load = smi_under_load(lambda: OG.outgrad_bwd_cuda(scfg, og_pack, x, obar, gbar),
                           k_ms)
+    row_ms, red_ms, split = split_ms(lambda: OG.outgrad_bwd_cuda(
+        scfg, og_pack, x, obar, gbar), 3, "sdf_outgrad_bwd_kernel")
     log("time", kernel="sdf_outgrad_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
         plain_note="autograd.grad of the plain version, 4 slices of 32768 rows",
-        **bd, sm_clock_power_under_kernel=load)
+        **bd, row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
+        reduction_mm_ms=reduction_mm_ms(scfg, n, second_order=True),
+        reduction_mm_note="torch.mm of each layer's staged pairs (z^T T + u^T p "
+                          "as one product over 2n rows): the reduction's "
+                          "yardstick, not called by the port",
+        sm_clock_power_under_kernel=load)
     results["sdf_outgrad_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
     step_ms["sdf_outgrad_bwd"] = k_ms
     torch.cuda.empty_cache()

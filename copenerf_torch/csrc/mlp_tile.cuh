@@ -20,10 +20,11 @@
 // (no plain TF32, no bf16): the sharpened NeuS alpha cannot tolerate
 // bf16-level SDF error. The sweeps take the GEMM as a policy (`G`, default
 // FfmaGemm: `gemm` on rows of 256), which also says where each hidden
-// layer's weights are (`G::w`, `G::wt`); K1 and K6 pass mma_tile.cuh's
-// 3xTF32 `mma.sync` policy (TcGemm), K2, K3-fwd and K3-bwd wgmma_tile.cuh's
-// 3xTF32 `wgmma` policy (WgGemm, weights pre-packed by the host); both keep
-// activation rows of 272 floats.
+// layer's weights are (`G::w`, `G::wt`) and the head's feature columns
+// (`G::wf`, `G::wft`); K1 and K6 pass mma_tile.cuh's 3xTF32 `mma.sync`
+// policy (TcGemm), K2, K3, K4-fwd (K7-fwd) and K4-bwd wgmma_tile.cuh's 3xTF32
+// `wgmma` policies (WgGemm, WgGemm1, weights pre-packed by the host); both
+// keep activation rows of 272 floats.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,6 +55,8 @@ struct Offsets {
   long long w_feat_t;              // feature columns as (d_feat, hidden)
   long long wp[kMaxSdfHidden];     // W_l as wgmma B (pack.py wg_pack_b), forward
   long long wtp[kMaxSdfHidden];    // W_l^T as wgmma B, for the down-sweep
+  long long wfp;                   // feature columns as wgmma B (hidden x d_feat)
+  long long wftp;                  // their transpose as wgmma B (d_feat x hidden)
 };
 
 // Host: fill `off` from the entry point's named offsets of n_hidden SDF
@@ -308,17 +311,26 @@ __device__ __forceinline__ void gemm(const float* in, int ld_in, int K,
 }
 
 // The GEMM policy of the sweeps below (`G`): `gemm` on activation rows of
-// kLd floats, w_s of kWsFloats. K1 and K6 pass mma_tile.cuh's TcGemm, K2
-// and K3 wgmma_tile.cuh's WgGemm; the other kernels take this default.
+// kLd floats, w_s of kWsFloats. K1 and K6 pass mma_tile.cuh's TcGemm, K2,
+// K3 and K4 wgmma_tile.cuh's WgGemm / WgGemm1; the other kernels take this
+// default.
 struct FfmaGemm {
   static constexpr int kLd = 256;
   static constexpr int kWsFloats = 2 * 64 * kSliceCols;  // two 64-deep slices
-  // SDF hidden layer l's W (in, out) and W^T (out, in) as run() takes them.
+  // SDF hidden layer l's W (in, out) and W^T (out, in) as run() takes them,
+  // and the head's feature columns both ways: wf (hidden, d_feat), the
+  // forward head's B, and wft (d_feat, hidden), the backward's.
   __device__ static __forceinline__ const float* w(const float* P, const Offsets& off, int l) {
     return P + off.w[l];
   }
   __device__ static __forceinline__ const float* wt(const float* P, const Offsets& off, int l) {
     return P + off.wt[l];
+  }
+  __device__ static __forceinline__ const float* wf(const float* P, const Offsets& off) {
+    return P + off.w_feat;
+  }
+  __device__ static __forceinline__ const float* wft(const float* P, const Offsets& off) {
+    return P + off.w_feat_t;
   }
   template <int KS, class Epi>
   __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
@@ -583,7 +595,7 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
   {
     const float* w0 = P + off.w_last0;
     const int lh = n_hidden - 1;
-    G::template run<KS>(fb, ld_fb, d_feat, P + off.w_feat_t, g.hidden, g.hidden, w_s,
+    G::template run<KS>(fb, ld_fb, d_feat, G::wft(P, off), g.hidden, g.hidden, w_s,
              [&](int r, int c, float v) {
                v = fmaf(sb[r], w0[c], v);
                h[r * ld + c] = v * sig_at(lh, r, c);

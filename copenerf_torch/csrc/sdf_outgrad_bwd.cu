@@ -22,20 +22,26 @@
 // (forward 0.92, sweep 0.89, channel B 0.92, head 0.13, down-sweep A + B
 // 1.81, weight reductions 1.97) against 1,064 bytes of rows in and 16 out.
 // Design: K1-bwd (rendercore_bwd.cu) without the color MLP, through the same
-// shared sweeps (mlp_tile.cuh): its 64-row tile, one 64 x 256 buffer for
+// shared sweeps (mlp_tile.cuh): its 64-row tile, one 64 x 272 buffer for
 // channel A and one for channel B (which first holds the feature cotangent,
-// read from obar), 32-deep weight slices; the per-layer sigmoids and zB in a
-// per-block scratch in device memory (persistent grid). T_l, z_A + z_B, u_l,
-// p_l and the row-0 term (~34 KB a row) are staged per row in device memory
-// and reduced by wgrad.cu's deterministic split-row GEMM; rows past n are
-// never staged, so the ragged tail adds nothing.
-#include "mlp_tile.cuh"
+// read from obar); the per-layer sigmoids and zB in a per-block scratch in
+// device memory (persistent grid). Every GEMM (the forward recompute, the
+// input-gradient sweep, channel B's up-sweep, the head's down GEMM over
+// W_feat^T and both channels of the down-sweep) runs on the wgmma 3xTF32
+// core (wgmma_tile.cuh) with a one-stage ring (WgGemm1): the two buffers
+// leave no room for a second 64 KB stage (221,504 bytes with one, 287,040
+// with two, of 232,448), so each slice's bulk copy is exposed. T_l,
+// z_A + z_B, u_l, p_l and the row-0 term (~34 KB a row) are staged per row
+// in device memory and reduced on the tensor cores in 3xTF32 by wgrad.cu's
+// deterministic split-row GEMM (`wgrad_tc_launch`, as K1, K3 and K7); rows
+// past n are never staged, so the ragged tail adds nothing.
+#include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace copenerf {
 namespace {
 
-constexpr int kSliceK = 32;
+using G = WgGemm1;
 
 // Staged per-row matrices of K4-bwd.
 struct OgStages {
@@ -52,9 +58,10 @@ sdf_outgrad_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ob
                        const float* __restrict__ P, Offsets off, float* __restrict__ scratch,
                        long long n, SdfGeom g, int d_out, OgStages st) {
   extern __shared__ float4 smem4[];
-  float* h = reinterpret_cast<float*>(smem4);  // activations / channel A, stride 256
-  float* hb = h + kRows * kSliceCols;          // feature cotangent, then channel B
-  float* e = hb + kRows * kSliceCols;          // PE; ee_skip; J_pe gbar; e_hat
+  constexpr int ld = G::kLd;
+  float* h = reinterpret_cast<float*>(smem4);  // activations / channel A, stride ld
+  float* hb = h + kRows * ld;                  // feature cotangent, then channel B
+  float* e = hb + kRows * ld;                  // PE; ee_skip; J_pe gbar; e_hat
   float* xs = e + kRows * g.d0;                // x * scale
   float* gs = xs + kRows * 4;                  // gbar
   float* sb = gs + kRows * 4;                  // obar_0 / scale
@@ -81,7 +88,7 @@ sdf_outgrad_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ob
     for (int i = threadIdx.x; i < kRows * d_feat; i += kThreads) {
       const int r = i / d_feat, c = i - r * d_feat;
       const long long gr = row0 + r;
-      hb[r * 256 + c] = gr < n ? obar[gr * d_out + 1 + c] : 0.0f;
+      hb[r * ld + c] = gr < n ? obar[gr * d_out + 1 + c] : 0.0f;
     }
     load_and_encode(x, n, row0, g, xs, e);
     for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {  // as e was written
@@ -90,19 +97,20 @@ sdf_outgrad_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ob
     }
 
     // ---- SDF forward: inputs to the stage, sigmoids to the scratch ----
-    sdf_hidden_forward<kSliceK>(
+    sdf_hidden_forward<G::kSliceK, G>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
         [&](int l, int r, int c, float v) { stage_put(st.t, l, row0 + r, n, c, v); });
 
     // ---- input-gradient sweep down to u_0, staged ----
-    sdf_grad_sweep<kSliceK>(P, off, g, h, e, w_s, 1, sig_at, [&](int l, int r, int c, float u) {
-      stage_put(st.u, l, row0 + r, n, c, u);
-    });
+    sdf_grad_sweep<G::kSliceK, G>(P, off, g, h, e, w_s, 1, sig_at,
+                                  [&](int l, int r, int c, float u) {
+                                    stage_put(st.u, l, row0 + r, n, c, u);
+                                  });
     __syncthreads();
 
     // ---- channel B up-sweep from J_pe gbar ----
-    sdf_channel_b_up<kSliceK>(
+    sdf_channel_b_up<G::kSliceK, G>(
         P, off, g, h, e, w_s, gs, xs, sig_at,
         [&](int l, int r, int c) { return stage_get(st.u, l, row0 + r, n, c); }, zb_at,
         [&](int l, int r, int c, float v) {
@@ -113,14 +121,14 @@ sdf_outgrad_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ob
         });
 
     // ---- z_A = [obar_0 / scale, obar_1..], z_B = 0, down channels A and B ----
-    sdf_down_sweep_ab<kSliceK>(
-        P, off, g, d_feat, h, hb, e, w_s, sb, hb, 256, sig_at, zb_at,
+    sdf_down_sweep_ab<G::kSliceK, G>(
+        P, off, g, d_feat, h, hb, e, w_s, sb, hb, ld, sig_at, zb_at,
         [&](int l, int r, int c, float v) { stage_put(st.z, l, row0 + r, n, c, v); });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
       const long long gr = row0 + r;
-      if (gr < n) xbar[gr * 4 + j] = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j) * g.scale;
+      if (gr < n) xbar[gr * 4 + j] = pe4_jac_t(h + r * ld, xs + r * 4, g.multires, j) * g.scale;
     }
   }
 }
@@ -181,8 +189,8 @@ int og_jobs(const SdfGeom& g, int d_out, const OgStages& st, float* grads,
 }
 
 size_t og_bwd_smem(const SdfGeom& g) {
-  return sizeof(float) * (2 * kRows * kSliceCols + kRows * g.d0 + 2 * kRows * 4 + kRows +
-                          2 * kSliceK * kSliceCols);
+  return sizeof(float) *
+         (2 * kRows * G::kLd + kRows * g.d0 + 2 * kRows * 4 + kRows + G::kWsFloats);
 }
 
 bool og_geometry(long long n, int n_lin, int d_in, int multires, int hidden, int skip,
@@ -218,25 +226,30 @@ extern "C" int copenerf_sdf_outgrad_bwd_workspace(long long n, int n_lin, int d_
 // x_bar (n, 4) and the SDF net's weight gradients (into `grads` at off_gw /
 // off_gb per layer and off_gw_last0, pack.py `outgrad_grad_layout`) for the
 // cotangents obar (n, d_out) and gbar (n, 4) of K4-fwd's outputs at x (n, 4).
-// The weight offsets are K4-fwd's (without the feature columns' (in, out)
-// copy and bias) plus w_feat_t, the feature columns as (d_out - 1, hidden).
-// Returns the first CUDA error.
+// The weight offsets are K4-fwd's (W, b, W and W^T as wgmma B per hidden
+// layer, the last layer's column 0 and its bias) plus wftp, the feature
+// columns' transpose as wgmma B (pack.py `wg_pack_b`). Returns the first
+// CUDA error.
 extern "C" int copenerf_sdf_outgrad_bwd(
     const float* x, const float* obar, const float* gbar, float* xbar, const float* params,
-    const long long* off_w, const long long* off_b, const long long* off_wt,
-    long long off_w_last0, long long off_b_last0, long long off_w_feat_t, float* grads,
-    const long long* off_gw, const long long* off_gb, long long off_gw_last0, float* stage,
-    float* partial, float* scratch, long long n, int n_lin, int d_in, int multires, int hidden,
-    int skip, float scale, int d_out, int n_blocks, void* stream) {
+    const long long* off_w, const long long* off_b, const long long* off_wp,
+    const long long* off_wtp, long long off_w_last0, long long off_b_last0, long long off_wftp,
+    float* grads, const long long* off_gw, const long long* off_gb, long long off_gw_last0,
+    float* stage, float* partial, float* scratch, long long n, int n_lin, int d_in,
+    int multires, int hidden, int skip, float scale, int d_out, int n_blocks, void* stream) {
   if (n <= 0) return 0;
   SdfGeom g;
   if (!og_geometry(n, n_lin, d_in, multires, hidden, skip, scale, d_out, g))
     return (int)cudaErrorInvalidValue;
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, off_w, off_b, off_wt, off_w_last0, off_b_last0, 0, 0, 0,
+  if (!make_offsets(off, n_lin - 1, off_w, off_b, nullptr, off_w_last0, off_b_last0, 0, 0, 0,
                     nullptr, nullptr))
     return (int)cudaErrorInvalidValue;
-  off.w_feat_t = off_w_feat_t;
+  for (int l = 0; l < n_lin - 1; ++l) {
+    off.wp[l] = off_wp[l];
+    off.wtp[l] = off_wtp[l];
+  }
+  off.wftp = off_wftp;
   OgStages st;
   og_stage_layout(g, d_out, n, stage, st);
   const size_t smem = og_bwd_smem(g);
@@ -252,5 +265,5 @@ extern "C" int copenerf_sdf_outgrad_bwd(
   if (err != cudaSuccess) return (int)err;
   WgradJob jobs[kMaxWgradJobs];
   const int n_jobs = og_jobs(g, d_out, st, grads, off_gw, off_gb, off_gw_last0, jobs);
-  return (int)wgrad_launch(jobs, n_jobs, n, partial, s);
+  return (int)wgrad_tc_launch(jobs, n_jobs, n, partial, s);
 }

@@ -19,21 +19,27 @@
 // Outputs out (n, d_out), grad (n, 4) (K4 only).
 //
 // Bound on an H100: operations. K4: ~2.0 MFLOP per row at the default
-// config (30 ns of f32 FFMA) against 16 bytes in and 1,044 bytes out (the
-// 257-wide head, 4.3 GB at a render chunk; 0.3 ns of device-memory
-// traffic); K7: ~1.1 MFLOP against 16 bytes in and 1,028 out.
-// Design: K1-fwd (rendercore_fwd.cu) without its color MLP. The feature
-// GEMM's epilogue writes the head straight to device memory; the sweep's
-// per-layer sigmoids go to a per-block scratch in device memory (persistent
-// grid, one block per SM), as in K1-fwd. Without the color-input buffer the
-// tile has room for 64-deep weight slices (as K2's sdf_value.cu). K7 is the
-// kWithGrad = false instantiation: no sweep, no scratch.
-#include "mlp_tile.cuh"
+// config (30 ns of f32 FFMA, 12 ns in 3xTF32 on the tensor cores) against
+// 16 bytes in and 1,044 bytes out (the 257-wide head, 4.3 GB at a render
+// chunk; 0.3 ns of device-memory traffic); K7: ~1.1 MFLOP against 16 bytes
+// in and 1,028 out.
+// Design: K2's tile (sdf_value.cu) with the head and the sweep. Every GEMM
+// (the hidden layers, the head's feature columns, the sweep over W^T) runs
+// on the wgmma 3xTF32 core (wgmma_tile.cuh WgGemm: activation rows of 272
+// floats, the weights packed by the host as wgmma B, a two-stage ring of
+// 32-deep slices; 216,128 bytes of shared memory). The feature GEMM's
+// epilogue writes the head straight to device memory; column 0 stays a
+// per-row dot. The sweep's per-layer sigmoids go to a per-block scratch in
+// device memory (persistent grid, one block per SM), written and read in
+// the row-major order of the FFMA design (the accumulator order measured
+// 20% slower on K3-bwd). K7 is the kWithGrad = false instantiation: no
+// sweep, no scratch.
+#include "wgmma_tile.cuh"
 
 namespace copenerf {
 namespace {
 
-constexpr int kSliceK = 64;
+using G = WgGemm;
 
 template <bool kWithGrad>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -41,8 +47,9 @@ sdf_outgrad_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                        float* __restrict__ grad_out, const float* __restrict__ P, Offsets off,
                        float* __restrict__ scratch, long long n, SdfGeom g, int d_out) {
   extern __shared__ float4 smem4[];
-  float* h = reinterpret_cast<float*>(smem4);  // activations, row stride 256
-  float* e = h + kRows * kSliceCols;           // PE, then the skip part of the sweep
+  constexpr int ld = G::kLd;
+  float* h = reinterpret_cast<float*>(smem4);  // activations, row stride ld
+  float* e = h + kRows * ld;                   // PE, then the skip part of the sweep
   float* xs = e + kRows * g.d0;                // x * scale
   float* w_s = xs + kRows * 4;
   const int n_hidden = g.n_lin - 1;
@@ -56,7 +63,7 @@ sdf_outgrad_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     const long long row0 = tile * kRows;
     __syncthreads();  // the previous tile's readers are done
     load_and_encode(x, n, row0, g, xs, e);
-    sdf_hidden_forward<kSliceK>(
+    sdf_hidden_forward<G::kSliceK, G>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) {
           if constexpr (kWithGrad) sig_s[((long long)l * kRows + r) * 256 + c] = sig;
@@ -64,26 +71,26 @@ sdf_outgrad_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
         none);
     __syncthreads();
     const float b0 = P[off.b_last0];
-    rowdot(h, 256, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {
+    rowdot(h, ld, g.hidden, P + off.w_last0, 1, 1, [&](int r, int, float v) {
       const long long gr = row0 + r;
       if (gr < n) out[gr * d_out] = (v + b0) / g.scale;
     });
     {
       const float* bf = P + off.b_feat;
-      gemm<kSliceK>(h, 256, g.hidden, P + off.w_feat, d_feat, d_feat, w_s,
-                    [&](int r, int c, float z) {
-                      const long long gr = row0 + r;
-                      if (gr < n) out[gr * d_out + 1 + c] = z + bf[c];
-                    });
+      G::run<G::kSliceK>(h, ld, g.hidden, G::wf(P, off), d_feat, d_feat, w_s,
+                         [&](int r, int c, float z) {
+                           const long long gr = row0 + r;
+                           if (gr < n) out[gr * d_out + 1 + c] = z + bf[c];
+                         });
     }
     if constexpr (kWithGrad) {
-      sdf_grad_sweep<kSliceK>(P, off, g, h, e, w_s, 0, sig_at, none);
+      sdf_grad_sweep<G::kSliceK, G>(P, off, g, h, e, w_s, 0, sig_at, none);
       // h now holds ee (d0 wide): grad = J_pe^T ee.
       __syncthreads();
       for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
         const int r = i >> 2, j = i & 3;
         const long long gr = row0 + r;
-        if (gr < n) grad_out[gr * 4 + j] = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j);
+        if (gr < n) grad_out[gr * 4 + j] = pe4_jac_t(h + r * ld, xs + r * 4, g.multires, j);
       }
     }
   }
@@ -91,20 +98,25 @@ sdf_outgrad_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 template <bool kWithGrad>
 int outgrad_fwd_run(const float* x, float* out, float* grad, const float* params,
-                    const long long* off_w, const long long* off_b, const long long* off_wt,
-                    long long off_w_last0, long long off_b_last0, long long off_w_feat,
-                    long long off_b_feat, float* scratch, long long n, int n_lin, int d_in,
-                    int multires, int hidden, int skip, float scale, int d_out, int n_blocks,
-                    void* stream) {
+                    const long long* off_w, const long long* off_b, const long long* off_wp,
+                    const long long* off_wtp, long long off_w_last0, long long off_b_last0,
+                    long long off_wfp, long long off_b_feat, float* scratch, long long n,
+                    int n_lin, int d_in, int multires, int hidden, int skip, float scale,
+                    int d_out, int n_blocks, void* stream) {
   if (n <= 0) return 0;
   if (d_in != 4 || d_out < 5 || (d_out - 1) % 4) return (int)cudaErrorInvalidValue;
   SdfGeom g{n_lin, d_in, multires, d_in * (1 + 2 * multires), hidden, skip, scale};
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, off_w, off_b, off_wt, off_w_last0, off_b_last0,
-                    off_w_feat, off_b_feat, 0, nullptr, nullptr))
+  if (!make_offsets(off, n_lin - 1, off_w, off_b, nullptr, off_w_last0, off_b_last0, 0,
+                    off_b_feat, 0, nullptr, nullptr))
     return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < n_lin - 1; ++l) {
+    off.wp[l] = off_wp[l];
+    if (off_wtp) off.wtp[l] = off_wtp[l];
+  }
+  off.wfp = off_wfp;
   const size_t smem =
-      sizeof(float) * (kRows * kSliceCols + kRows * g.d0 + kRows * 4 + 2 * kSliceK * kSliceCols);
+      sizeof(float) * (kRows * G::kLd + kRows * g.d0 + kRows * 4 + G::kWsFloats);
   cudaError_t err = cudaFuncSetAttribute(
       sdf_outgrad_fwd_kernel<kWithGrad>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -122,30 +134,32 @@ using namespace copenerf;
 
 // out (n, d_out) = [sdf, feature] and grad (n, 4) = d(sdf)/dx of x (n, 4).
 // The off_* arguments are float offsets into `params`: per SDF hidden layer
-// (n_lin - 1 of them) W (in, out), b and W^T; the last layer's column 0, its
-// bias, its feature columns (hidden, d_out - 1) and their bias. `scratch`
+// (n_lin - 1 of them) W (in, out), b, W as wgmma B and W^T as wgmma B (the
+// sweep's; pack.py `wg_pack_b`); the last layer's column 0, its bias, its
+// feature columns (hidden, d_out - 1) as wgmma B and their bias. `scratch`
 // holds n_blocks * (n_lin - 1) * 64 * 256 floats. Returns cudaGetLastError().
 extern "C" int copenerf_sdf_outgrad_fwd(
     const float* x, float* out, float* grad, const float* params, const long long* off_w,
-    const long long* off_b, const long long* off_wt, long long off_w_last0,
-    long long off_b_last0, long long off_w_feat, long long off_b_feat, float* scratch,
-    long long n, int n_lin, int d_in, int multires, int hidden, int skip, float scale,
-    int d_out, int n_blocks, void* stream) {
-  return outgrad_fwd_run<true>(x, out, grad, params, off_w, off_b, off_wt, off_w_last0,
-                               off_b_last0, off_w_feat, off_b_feat, scratch, n, n_lin, d_in,
+    const long long* off_b, const long long* off_wp, const long long* off_wtp,
+    long long off_w_last0, long long off_b_last0, long long off_wfp, long long off_b_feat,
+    float* scratch, long long n, int n_lin, int d_in, int multires, int hidden, int skip,
+    float scale, int d_out, int n_blocks, void* stream) {
+  return outgrad_fwd_run<true>(x, out, grad, params, off_w, off_b, off_wp, off_wtp, off_w_last0,
+                               off_b_last0, off_wfp, off_b_feat, scratch, n, n_lin, d_in,
                                multires, hidden, skip, scale, d_out, n_blocks, stream);
 }
 
 // K7-fwd: out (n, d_out) = [sdf, feature] of x (n, 4), the offsets as for
-// copenerf_sdf_outgrad_fwd without W^T; no scratch. Returns
+// copenerf_sdf_outgrad_fwd without the sweep's W^T; no scratch. Returns
 // cudaGetLastError().
 extern "C" int copenerf_sdf_out_fwd(const float* x, float* out, const float* params,
                                     const long long* off_w, const long long* off_b,
-                                    long long off_w_last0, long long off_b_last0,
-                                    long long off_w_feat, long long off_b_feat, long long n,
-                                    int n_lin, int d_in, int multires, int hidden, int skip,
-                                    float scale, int d_out, int n_blocks, void* stream) {
-  return outgrad_fwd_run<false>(x, out, nullptr, params, off_w, off_b, nullptr, off_w_last0,
-                                off_b_last0, off_w_feat, off_b_feat, nullptr, n, n_lin, d_in,
-                                multires, hidden, skip, scale, d_out, n_blocks, stream);
+                                    const long long* off_wp, long long off_w_last0,
+                                    long long off_b_last0, long long off_wfp,
+                                    long long off_b_feat, long long n, int n_lin, int d_in,
+                                    int multires, int hidden, int skip, float scale, int d_out,
+                                    int n_blocks, void* stream) {
+  return outgrad_fwd_run<false>(x, out, nullptr, params, off_w, off_b, off_wp, nullptr,
+                                off_w_last0, off_b_last0, off_wfp, off_b_feat, nullptr, n, n_lin,
+                                d_in, multires, hidden, skip, scale, d_out, n_blocks, stream);
 }

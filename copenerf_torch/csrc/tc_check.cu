@@ -1,5 +1,5 @@
 // The accuracy trial and card check of the tensor-core cores: the 64-row
-// tile GEMM of K1 and K6 (mma_tile.cuh, `mma.sync`) and of K2 and K3
+// tile GEMM of K1 and K6 (mma_tile.cuh, `mma.sync`) and of K2, K3 and K4
 // (wgmma_tile.cuh, `wgmma`), and the weight-gradient reduction, on operands
 // the caller chooses, beside the f32 FFMA versions the other kernels run. Nothing of the main path calls these entry points; the
 // tests and PERF.md's trial hold their results against an f64 product
@@ -13,9 +13,9 @@ namespace {
 constexpr int kSliceK = 32;
 constexpr int kPresplit = 4;  // mode: 3xTF32, W split on the host
 // Modes of the wgmma core (W packed by the host, pack.py wg_pack_b): the
-// shipped WgGemm, and one TF32 product as the control that shows what the
-// split buys.
-constexpr int kWg = 5, kWg1 = 6;
+// shipped WgGemm (two-stage ring), one TF32 product as the control that
+// shows what the split buys, and WgGemm1 (K4-bwd's one-stage ring).
+constexpr int kWg = 5, kWg1 = 6, kWgOneStage = 7;
 
 // The alternative split, for its time: W's (hi, lo) split on the host (Wl
 // the lo parts), both streamed from L2 into 16-deep slice pairs (the same
@@ -130,7 +130,9 @@ tile_gemm_check_kernel(const float* __restrict__ A, const float* __restrict__ W,
     if constexpr (kMode == kWg)
       WgGemm::run<WgGemm::kSliceK>(a_s, ld, K, W, N, N, w_s, epi);
     else if constexpr (kMode == kWg1)
-      wg_gemm<kTf32x1>(a_s, ld, K, W, N, w_s, epi);
+      wg_gemm<kTf32x1, 2>(a_s, ld, K, W, N, w_s, epi);
+    else if constexpr (kMode == kWgOneStage)
+      WgGemm1::run<WgGemm1::kSliceK>(a_s, ld, K, W, N, N, w_s, epi);
     else if constexpr (kMode == 0)
       gemm<kSliceK>(a_s, ld, K, W, N, N, w_s, epi);
     else if constexpr (kMode == kPresplit)
@@ -143,8 +145,10 @@ tile_gemm_check_kernel(const float* __restrict__ A, const float* __restrict__ W,
 template <int kMode>
 int launch_tile(const float* A, const float* W, const float* Wl, float* C, long long m, int K,
                 int N, int ld, int reps, float* aux, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kRows * ld + (kMode >= kWg ? kWgWsFloats
-                                                                  : 2 * kSliceK * kSliceCols));
+  const size_t smem =
+      sizeof(float) * (kRows * ld + (kMode == kWgOneStage ? WgGemm1::kWsFloats
+                                     : kMode >= kWg       ? WgGemm::kWsFloats
+                                                          : 2 * kSliceK * kSliceCols));
   cudaError_t err = cudaFuncSetAttribute(tile_gemm_check_kernel<kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -163,7 +167,8 @@ using namespace copenerf;
 // N <= 256. mode: 0 f32 FFMA, 1 one TF32 product, 2 3xTF32 (the render-core
 // kernels' kTcVariant), 3 3xTF32 summed on the tensor core, 4 3xTF32 with W
 // split on the host (W the hi parts as f32 bit patterns, Wl the lo parts);
-// 5 and 6 the wgmma core (kWg, kWg1 above) with W as packed by wg_pack_b.
+// 5, 6 and 7 the wgmma core (kWg, kWg1, kWgOneStage above) with W as
+// packed by wg_pack_b.
 // Each block runs the GEMM `reps` times (for timing: the slope over reps is
 // one tile GEMM and its epilogue); aux, if set, holds 2 m N floats that the
 // epilogue reads and writes (see the kernel).
@@ -183,6 +188,7 @@ extern "C" int copenerf_tile_gemm_check(const float* A, const float* W, const fl
     case kPresplit: return launch_tile<kPresplit>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
     case kWg: return launch_tile<kWg>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
     case kWg1: return launch_tile<kWg1>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
+    case kWgOneStage: return launch_tile<kWgOneStage>(A, W, Wl, C, m, K, N, ld, reps, aux, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,6 @@
-// The wgmma 3xTF32 GEMM core of K2 (sdf_value.cu, also K3-fwd) and K3-bwd
-// (sdf_value_bwd.cu): the sweeps' 64-row tile product (mlp_tile.cuh, the GEMM
+// The wgmma 3xTF32 GEMM core of K2 (sdf_value.cu, also K3-fwd), K3-bwd
+// (sdf_value_bwd.cu), K4-fwd (sdf_outgrad_fwd.cu, also K7-fwd) and K4-bwd
+// (sdf_outgrad_bwd.cu): the sweeps' 64-row tile product (mlp_tile.cuh, the GEMM
 // policy contract of `FfmaGemm::run`) on Hopper's asynchronous warpgroup
 // matrix multiply, with the weight slices brought in by bulk copies that
 // complete on mbarriers.
@@ -36,13 +37,18 @@
 //    them in registers, and keeps the slice's fragments (32 registers) live
 //    until the products that read them are done, so ptxas need not
 //    serialize the pipeline.
-//  * Ring: two stages of one slice (hi + lo, 64 KB at N = 256; 128 KB in
-//    all, as the FFMA GEMM's two 64 x 256 slices), each with a full mbarrier.
-//    Thread 0 arms a barrier with the slice's bytes and issues its bulk
-//    copy; all threads wait on the barrier's phase. After a slice's products
-//    are done a block barrier frees the stage, and thread 0 refills it with
-//    the slice two ahead. The barriers are initialized at each call and
-//    invalidated at its end.
+//  * Ring: kStages stages of one slice (hi + lo, 64 KB at N = 256), each
+//    with a full mbarrier. Thread 0 arms a barrier with the slice's bytes
+//    and issues its bulk copy; all threads wait on the barrier's phase
+//    (slice s: stage s % kStages, parity (s / kStages) & 1). After a
+//    slice's products are done a block barrier frees the stage, and thread
+//    0 refills it with the slice kStages ahead. The barriers are
+//    initialized at each call and invalidated at its end. Two stages (128
+//    KB, as the FFMA GEMM's two 64 x 256 slices) overlap a slice's copy
+//    with the previous slice's products: K2, K3 and K4-fwd. One stage (64
+//    KB) exposes each copy's latency but leaves room for K4-bwd's two
+//    activation buffers (two stages would need 287,040 bytes of the
+//    232,448 a block may have).
 //  * Accuracy: Hopper's tensor cores add into the accumulator with their
 //    own rounding; summed over K = 256 on them, 3xTF32 was 6-13x the FFMA
 //    error (PERF.md). Each group of kWgGroup k8 steps (small terms
@@ -66,9 +72,11 @@ constexpr int kWgStageFloats = 2 * kSliceCols * kWgSliceK;  // hi + lo at N = 25
 // error against f64 at K = 52 and 2 at 1.04-1.08x, for 2.7% of the GEMM's
 // time.
 constexpr int kWgGroup = 2;
-// Shared floats a WgGemm needs at w_s: two stages, 1024-byte alignment
-// slack and the two mbarriers.
-constexpr int kWgWsFloats = 2 * kWgStageFloats + 256 + 16;
+// Shared floats a ring of kStages stages needs at w_s: the stages,
+// 1024-byte alignment slack and the mbarriers.
+__host__ __device__ constexpr int wg_ws_floats(int stages) {
+  return stages * kWgStageFloats + 256 + 16;
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -209,8 +217,8 @@ __device__ __forceinline__ void wg_slice(float (&acc)[64], float (&d)[64],
 // with B as packed by `wg_pack_b` at Bp: the contract of `gemm<KS>`
 // (mlp_tile.cuh): a __syncthreads() precedes the first load of `in`, and
 // the epilogue runs after the last barrier, so `out` may be `in`. w_s holds
-// kWgWsFloats floats.
-template <TcVariant V, class Epi>
+// wg_ws_floats(kStages) floats.
+template <TcVariant V, int kStages, class Epi>
 __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
                                         const float* __restrict__ Bp, int N,
                                         float* __restrict__ w_s, Epi epi) {
@@ -224,16 +232,17 @@ __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
   const unsigned slice_floats = 2u * np * kWgSliceK;  // hi + lo
   float* ring = reinterpret_cast<float*>(
       (reinterpret_cast<unsigned long long>(w_s) + 1023) & ~1023ull);
-  unsigned long long* full = reinterpret_cast<unsigned long long*>(ring + 2 * kWgStageFloats);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + kStages * kWgStageFloats);
 
   if (tid == 0) {
-    mbar_init(&full[0], 1);
-    mbar_init(&full[1], 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
     fence_proxy_async();
   }
   __syncthreads();  // barriers initialized, writes made to `in` visible
   if (tid == 0) {
-    for (int s = 0; s < 2 && s < n_slices; ++s) {
+    for (int s = 0; s < kStages && s < n_slices; ++s) {
       mbar_expect_tx(&full[s], slice_floats * 4);
       bulk_g2s(ring + s * kWgStageFloats, Bp + (long long)s * slice_floats, slice_floats * 4,
                &full[s]);
@@ -244,7 +253,7 @@ __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
   for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.0f;
   const float* arow = in + (16 * q + g) * ld_in + 4 * t;
   for (int s = 0; s < n_slices; ++s) {
-    const int st = s & 1;
+    const int st = s % kStages;
     // This thread's A fragments of the slice: k8 step 2b + h takes columns
     // 4t + 2h, + 1 of the 16-column block b as its k = t, t + 4.
     unsigned ah[4][4], al[4][4];
@@ -267,19 +276,19 @@ __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
         split_tf32(v.w, ah[2 * b + 1][3], al[2 * b + 1][3]);
       }
     }
-    mbar_wait(&full[st], (s >> 1) & 1);
+    mbar_wait(&full[st], (s / kStages) & 1);
     const float* hi = ring + st * kWgStageFloats + n0 * kWgSliceK;
     if (active) wg_slice<V>(acc, d, ah, al, wg_desc(hi), wg_desc(hi + np * kWgSliceK));
     __syncthreads();  // every warpgroup is done with this stage
-    if (tid == 0 && s + 2 < n_slices) {
+    if (tid == 0 && s + kStages < n_slices) {
       mbar_expect_tx(&full[st], slice_floats * 4);
-      bulk_g2s(ring + st * kWgStageFloats, Bp + (long long)(s + 2) * slice_floats, slice_floats * 4,
-               &full[st]);
+      bulk_g2s(ring + st * kWgStageFloats, Bp + (long long)(s + kStages) * slice_floats,
+               slice_floats * 4, &full[st]);
     }
   }
   if (tid == 0) {
-    mbar_inval(&full[0]);
-    mbar_inval(&full[1]);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_inval(&full[s]);
   }
   if (!active) return;
   const int r0 = 16 * q + g;
@@ -295,11 +304,13 @@ __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
   }
 }
 
-// The GEMM policy of the sweeps (mlp_tile.cuh) for K2, K3-fwd and K3-bwd:
-// the hidden layers' weights as packed B (Offsets wp, wtp).
-struct WgGemm {
+// The GEMM policy of the sweeps (mlp_tile.cuh) on this core with a ring of
+// kStages stages: the hidden layers' weights as packed B (Offsets wp, wtp),
+// the SDF head's feature columns too (wfp, wftp).
+template <int kStages>
+struct WgGemmRing {
   static constexpr int kLd = kTcLd;
-  static constexpr int kWsFloats = kWgWsFloats;
+  static constexpr int kWsFloats = wg_ws_floats(kStages);
   static constexpr int kSliceK = kWgSliceK;  // the sweeps' KS with this policy
   __device__ static __forceinline__ const float* w(const float* P, const Offsets& off, int l) {
     return P + off.wp[l];
@@ -307,13 +318,22 @@ struct WgGemm {
   __device__ static __forceinline__ const float* wt(const float* P, const Offsets& off, int l) {
     return P + off.wtp[l];
   }
+  __device__ static __forceinline__ const float* wf(const float* P, const Offsets& off) {
+    return P + off.wfp;
+  }
+  __device__ static __forceinline__ const float* wft(const float* P, const Offsets& off) {
+    return P + off.wftp;
+  }
   template <int KS, class Epi>
   __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
                                              const float* __restrict__ Bp, int, int N,
                                              float* __restrict__ w_s, Epi epi) {
     static_assert(KS == kWgSliceK, "WgGemm streams kWgSliceK-deep slices");
-    wg_gemm<kTcVariant>(in, ld_in, K, Bp, N, w_s, epi);
+    wg_gemm<kTcVariant, kStages>(in, ld_in, K, Bp, N, w_s, epi);
   }
 };
+
+using WgGemm = WgGemmRing<2>;   // K2, K3, K4-fwd (and K7-fwd)
+using WgGemm1 = WgGemmRing<1>;  // K4-bwd
 
 }  // namespace copenerf

@@ -5,7 +5,8 @@
 
 Each ``csrc/*.cu`` is compiled by ``g++`` as C++ against ``HEADER``, which
 implements the CUDA subset the kernels use on host threads: one
-``std::thread`` per CUDA thread, the blocks of a launch in turn,
+``std::thread`` per CUDA thread of a block, walking the blocks of a launch
+in turn,
 ``std::barrier`` for ``__syncthreads`` and the warp shuffles, shared memory
 filled with NaN at each block's start (a read before a write shows), and
 ``cp.async`` as a synchronous copy (zero-filled past its source bytes). The
@@ -27,8 +28,9 @@ issued; ``wgmma.fence``, ``commit_group``, ``wait_group`` and
 try_wait.parity, inval) is a phase, a pending count and a transaction count
 under a mutex; ``cp.async.bulk`` copies at once and completes its bytes on
 the barrier. Shared memory is 1024-byte aligned, as the swizzle needs. A
-descriptor that disagrees across the warpgroup, a read past shared memory
-or a barrier used uninitialized makes the launch return an error. A copy
+descriptor that disagrees across the warpgroup, a read past shared memory,
+a barrier used uninitialized or a barrier wait that does not complete
+within a minute makes the launch return an error. A copy
 of the sources under ``_build/emulated/`` has the launch syntax and every
 ``asm`` rewritten. ``emulated()`` points the wrappers' ``build``
 module at that library and lets the launchers take CPU tensors, so the
@@ -64,6 +66,7 @@ HEADER = r"""
 #include <algorithm>
 #include <array>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstring>
 #include <functional>
@@ -160,19 +163,24 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, std::function<void()
   host_wg.assign(nt / 128, {});
   host_mbars.clear();
   const float nan = std::numeric_limits<float>::quiet_NaN();
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      for (auto& f : shared) f = float4{nan, nan, nan, nan};
-      std::vector<std::thread> threads;
-      for (int t = 0; t < nt; ++t)
-        threads.emplace_back([&, t, bx, by] {
-          threadIdx = {(unsigned)t, 0, 0};
+  // One thread per CUDA thread for the whole launch, walking the blocks in
+  // turn: thread 0 refills shared memory with NaN between two barriers.
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nt; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = {(unsigned)t, 0, 0};
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          if (t == 0)
+            for (auto& f : shared) f = float4{nan, nan, nan, nan};
+          bar.arrive_and_wait();
           host_wg_calls = 0;
           blockIdx = {bx, by, 0};
           fn();
-        });
-      for (auto& th : threads) th.join();
-    }
+          bar.arrive_and_wait();
+        }
+    });
+  for (auto& th : threads) th.join();
 }
 // cvt.rna.tf32.f32: nearest, ties away from zero, 10 explicit mantissa bits.
 inline unsigned host_tf32_rna(float x) {
@@ -290,6 +298,12 @@ inline void host_mbar_expect_tx(const void* bar, unsigned bytes) {
   b->pending -= 1;
   host_mbar_complete(*b);
 }
+// A wait that has not completed after kHostWaitSeconds (a phase that never
+// comes: a refill or an arrival out of order) ends with an error instead of
+// hanging the launch.
+constexpr int kHostWaitSeconds = 60;
+inline thread_local bool host_waiting;
+inline thread_local std::chrono::steady_clock::time_point host_wait_since;
 inline bool host_mbar_try_wait(const void* bar, unsigned parity) {
   bool done = true;
   {
@@ -297,8 +311,21 @@ inline bool host_mbar_try_wait(const void* bar, unsigned parity) {
     HostMbar* b = host_mbar_find(bar);
     if (b != nullptr) done = b->phase != (parity & 1u);
   }
-  if (!done) std::this_thread::yield();
-  return done;
+  if (done) {
+    host_waiting = false;
+    return true;
+  }
+  const auto now = std::chrono::steady_clock::now();
+  if (!host_waiting) {
+    host_waiting = true;
+    host_wait_since = now;
+  } else if (now - host_wait_since > std::chrono::seconds(kHostWaitSeconds)) {
+    host_error = 1;
+    host_waiting = false;
+    return true;
+  }
+  std::this_thread::yield();
+  return false;
 }
 // cp.async.bulk global -> shared, completing `bytes` on the barrier.
 inline void host_bulk_g2s(float* dst, const float* src, unsigned bytes, const void* bar) {

@@ -10,10 +10,12 @@ does outside its kernels (``sdf_kernels.py`` ``_prep``):
     ``wt[l]``: W_l^T (out, in) for the gradient and backward sweeps;
   * ``w_last0``, ``b_last0``: the last SDF layer's column 0 (hidden,) and
     its bias; ``w_feat``, ``b_feat``: its feature columns (hidden, d_feat)
-    and their bias; ``w_feat_t``: the feature columns as (d_feat, hidden),
-    for the backward;
-  * ``wp[l]``, ``wtp[l]`` (the value packs only): W_l and W_l^T as the
-    wgmma core's B operand (``wg_pack_b``), for K2, K3-fwd and K3-bwd;
+    (the render-core pack only) and their bias; ``w_feat_t``: the feature
+    columns as (d_feat, hidden), for the backward;
+  * ``wp[l]``, ``wtp[l]`` (the value and outgrad packs): W_l and W_l^T as
+    the wgmma core's B operand (``wg_pack_b``), for K2, K3, K4 and K7-fwd;
+    ``wfp``, ``wftp`` (the outgrad pack): the feature columns (hidden,
+    d_feat) and their transpose as wgmma B, for K4 and K7-fwd;
   * ``wc[l]``, ``bc[l]``: color layer l (in, out); layer 0 has its input
     rows permuted to [feature, x, PE(dirs), grad] and zero-padded to k0 (a
     multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
@@ -261,7 +263,10 @@ def effective_layers(net) -> list:
 
 def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wg: bool = False) -> None:
     if with_wg:       # the forward's B^T is W (out, in), the down-sweep's W^T
-        wg = iter(wg_pack_many([(w, t) for w, _ in layers[:-1] for t in (False, True)]))
+        mats = [(w, t) for w, _ in layers[:-1] for t in (False, True)]
+        if with_feature:          # the head's feature rows, both ways
+            mats += [(layers[-1][0][1:], t) for t in (False, True)]
+        wg = iter(wg_pack_many(mats))
     for w, b in layers[:-1]:                           # w (out, in)
         pk.add("w", w.t().contiguous())
         pk.add("b", b)
@@ -273,7 +278,11 @@ def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wg: bool = False) -> 
     pk.add("w_last0", w[0])
     pk.add("b_last0", b[:1])
     if with_feature:
-        pk.add("w_feat", w[1:].t().contiguous())
+        if with_wg:   # the wgmma kernels' forward head reads wfp instead
+            pk.add("wfp", next(wg))
+            pk.add("wftp", next(wg))
+        else:
+            pk.add("w_feat", w[1:].t().contiguous())
         pk.add("b_feat", b[1:])
         pk.add("w_feat_t", w[1:])
 
@@ -354,11 +363,12 @@ def pack_rendercore(sdf_net, color_net):
 
 
 def pack_outgrad_layers(sdf_layers):
-    """(params (P,), offsets by name) for the outgrad kernels (K4): the SDF
-    layers with W^T and the whole head (column 0, the feature columns both
-    ways)."""
+    """(params (P,), offsets by name) for the outgrad kernels (K4) and the
+    SDF output kernels (K7): the SDF layers and the whole head (column 0,
+    the feature columns), plain (W, W^T, W_feat^T) for K7-bwd and packed
+    for the wgmma core both ways (one gather) for K4 and K7-fwd."""
     pk = _Packer()
-    _add_sdf(pk, sdf_layers, with_feature=True)
+    _add_sdf(pk, sdf_layers, with_feature=True, with_wg=True)
     return pk.done()
 
 

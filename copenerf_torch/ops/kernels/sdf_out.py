@@ -49,8 +49,9 @@ def launch_out_fwd(cfg, packed, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, cfg.d_out), dtype=torch.float32, device=x.device)
     code = build.load_library().copenerf_sdf_out_fwd(
         x.data_ptr(), out.data_ptr(), params.data_ptr(),
-        build.offsets(offs["w"]), build.offsets(offs["b"]), offs["w_last0"],
-        offs["b_last0"], offs["w_feat"], offs["b_feat"], n, *sdf_geometry(cfg),
+        build.offsets(offs["w"]), build.offsets(offs["b"]),
+        build.offsets(offs["wp"]), offs["w_last0"], offs["b_last0"],
+        offs["wfp"], offs["b_feat"], n, *sdf_geometry(cfg),
         float(cfg.scale), cfg.d_out, build.n_blocks(x.device), build.stream(x))
     build.check(code, "sdf_out_fwd")
     FWD_COUNTER.launches += 1

@@ -1,7 +1,7 @@
 """The accuracy trial and card check of the tensor-core cores
 (``csrc/tc_check.cu`` over ``csrc/mma_tile.cuh`` and ``csrc/wgmma_tile.cuh``):
-the 64-row tile GEMM that K1 and K6 run on ``mma.sync`` and K2 and K3 on
-``wgmma``, in 3xTF32, and the weight-gradient reduction, on operands the
+the 64-row tile GEMM that K1 and K6 run on ``mma.sync`` and K2, K3 and K4
+on ``wgmma``, in 3xTF32, and the weight-gradient reduction, on operands the
 caller chooses, beside the f32 FFMA versions of the other kernels.
 
 Nothing of the main path calls these launchers; ``tests/test_torch_gpu.py``,
@@ -19,11 +19,12 @@ from .pack import tf32_rna, wg_pack_b
 # The C entry points' `mode`: 0 f32 FFMA, else mma_tile.cuh's TcVariant;
 # tile_gemm also takes PRESPLIT, 3xTF32 with the weights split on the host,
 # and WG_MODES, the wgmma core (the weights packed by pack.wg_pack_b): "wg"
-# as K2 and K3 ship it, and one TF32 product, the control that shows what
-# the split buys.
+# as K2, K3 and K4-fwd ship it (a two-stage ring), one TF32 product, the
+# control that shows what the split buys, and "wg_1stage" as K4-bwd ships
+# it (a one-stage ring).
 MODES = {"ffma": 0, "tf32": 1, "3xtf32": 2, "3xtf32_acc": 3}
 PRESPLIT = "3xtf32_presplit"
-WG_MODES = {"wg": 5, "wg_tf32": 6}
+WG_MODES = {"wg": 5, "wg_tf32": 6, "wg_1stage": 7}
 ROWS_PER_SPLIT = 1024        # wgrad.cu kRowsPerSplit
 
 

@@ -8,29 +8,33 @@ line; with ``--trial``, the accuracy trial of the tensor-core core instead.
 
 Times every launcher of K1-K7 on 131,072 rows (the train step's field
 queries; K2 on 65,536 and on 2,097,152, a render chunk's first sweep;
-K1-fwd also on 4,194,304, a render chunk's render core) of the
+K1-fwd and K4-fwd also on 4,194,304, a render chunk's render core) of the
 full-width nets of ``configs/default.yaml``, their geometric init perturbed
 with ``perturb_``, random inputs and cotangents from fixed seeds: the mean of
 ``REPS`` launches after a warm-up (CUDA events), then the same launches under
 ``torch.profiler`` (CUDA activity), whose device time per kernel name gives
 the split (K1-bwd, K3-bwd: the row kernel, ``wgrad_*partial_kernel`` and
 ``wgrad_final_kernel``; "not measured" where the profiler sees no device
-time); beside them one ``torch.mm`` of K3-bwd's weight reduction over the
-staged rows, every layer (``sdf_value_bwd_reduction_mm``, a yardstick the
-port never calls), and ``value_step_16384``: a K2 and a K3-fwd launch on
-16,384 rows each after a weight update, so with the weight packing a train
-step does for them. ``--root`` imports ``copenerf_torch`` (and builds its kernels) from
+time); beside them ``torch.mm`` of K3-bwd's and K4-bwd's weight reductions
+over the staged rows, one a layer (``sdf_value_bwd_reduction_mm``,
+``sdf_outgrad_bwd_reduction_mm``: yardsticks the port never calls), the
+registers and spill bytes of the tensor-core kernels (K1-K4, K6, the
+reduction) and any ptxas line about the wgmma pipeline, and
+``value_step_16384``: a K2 and a K3-fwd launch on 16,384 rows each after a
+weight update, so with the weight packing a train step does for them.
+``--root`` imports ``copenerf_torch`` (and builds its kernels) from
 another checkout, e.g. a parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists, so two versions compare on one card in
 one call, in turns: ``--root A``, ``--root B``, ``--root B``, ``--root A``.
 
-``--trial`` holds the tile GEMMs (K1 and K6 on ``mma.sync``, K2 and K3 on
-``wgmma``) and the weight-gradient reduction (``csrc/tc_check.cu``) against
-an f64 product at the shapes the kernels multiply (K = 52, 204, 256, 292),
-in every variant (f32 FFMA, 1xTF32, 3xTF32 as shipped, 3xTF32 summed on
-the tensor core; wgmma as shipped and in 1xTF32), and times each tile
-GEMM's slope (``mma.sync`` with the weights split in registers or on the
-host, ``wgmma`` with them packed by the host).
+``--trial`` holds the tile GEMMs (K1 and K6 on ``mma.sync``, K2, K3 and K4
+on ``wgmma``) and the weight-gradient reduction (``csrc/tc_check.cu``)
+against an f64 product at the shapes the kernels multiply (K = 52, 204,
+256, 292), in every variant (f32 FFMA, 1xTF32, 3xTF32 as shipped, 3xTF32
+summed on the tensor core; wgmma as shipped with a two-stage and a
+one-stage ring, and in 1xTF32), and times each tile GEMM's slope
+(``mma.sync`` with the weights split in registers or on the host,
+``wgmma`` with them packed by the host, through either ring).
 
 Needs a CUDA card; prints the card's ``nvidia-smi`` name and power limit
 first.
@@ -105,6 +109,28 @@ def registers(log):
     return out
 
 
+def reduction_pairs(scfg, n, gen, second_order=False):
+    """Random rows at the staged widths of a backward's weight reduction,
+    one (z, t) pair per SDF layer, for a ``torch.mm`` yardstick: K3-bwd's
+    (z_l: the layer's outputs, the head's column 0; t_l: its inputs) or,
+    with ``second_order``, K4-bwd's (a hidden layer's two pairs z^T T + u^T p
+    as one product over 2n rows; the whole head)."""
+    import torch
+    from copenerf_torch.models.fields import idr_layer_dims
+
+    n_lin = len(scfg.dims) - 1
+    pairs = []
+    for l in range(n_lin):
+        i, o = idr_layer_dims(scfg, l)
+        last = l == n_lin - 1
+        rows = 2 * n if second_order and not last else n
+        if last:
+            o = scfg.d_out if second_order else 1
+        pairs.append(tuple(torch.randn((rows, w), generator=gen, device=gen.device)
+                           for w in (o, i)))
+    return pairs
+
+
 def smi():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -153,11 +179,10 @@ def run_times(label, root):
         og, cl = pack.pack_outgrad(sdf), pack.pack_color(col)
         out, grad = OG.launch_outgrad_fwd(scfg, og, x)
     feat = out[:, 1:]
-    # K3-bwd's staged rows at their widths (z_l: the layer's outputs, the
-    # head's column 0; t_l: its inputs), for the torch.mm yardstick.
-    n_lin = len(scfg.dims) - 1
-    staged = [(rand(n, 1 if l == n_lin - 1 else F.idr_layer_dims(scfg, l)[1]),
-               rand(n, F.idr_layer_dims(scfg, l)[0])) for l in range(n_lin)]
+    # K3-bwd's and K4-bwd's staged rows at their widths, for the torch.mm
+    # yardsticks of their reductions.
+    staged = reduction_pairs(scfg, n, gen)
+    staged2 = reduction_pairs(scfg, n, gen, second_order=True)
     p0 = next(sdf.parameters())
 
     def value_step():
@@ -182,7 +207,9 @@ def run_times(label, root):
         "sdf_value_bwd": lambda: SVD.sdf_value_bwd_cuda(scfg, val, x, sbar[:, 0]),
         "sdf_value_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged],
         "sdf_outgrad_fwd": lambda: OG.launch_outgrad_fwd(scfg, og, x),
+        "sdf_outgrad_fwd_4194304": lambda: OG.launch_outgrad_fwd(scfg, og, xc),
         "sdf_outgrad_bwd": lambda: OG.outgrad_bwd_cuda(scfg, og, x, obar, gbar),
+        "sdf_outgrad_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged2],
         "color_fwd": lambda: CK.launch_color_fwd(ccfg, cl, x, d, grad, feat),
         "color_bwd": lambda: CK.color_bwd_cuda(ccfg, cl, x, d, grad, feat, cbar),
         "rendercore_cons_fwd": lambda: RCC.launch_cons_fwd(scfg, ccfg, rc, x, d, y),
@@ -194,15 +221,19 @@ def run_times(label, root):
     ms, split = {}, {}
     with torch.no_grad():
         for name, fn in fns.items():
-            reps = 3 if name in ("rendercore_fwd_4194304", "sdf_value_2097152") else REPS
+            reps = 3 if name in ("rendercore_fwd_4194304", "sdf_outgrad_fwd_4194304",
+                                 "sdf_value_2097152") else REPS
             ms[name] = event_ms(fn, reps)
             split[name] = kernel_split(fn, reps) or "not measured"
             torch.cuda.empty_cache()
-    regs = {k: v for k, v in registers(build.build_log()).items()
-            if re.search(r"rendercore|wgrad|sdf_value", k)}
+    log = build.build_log()
+    regs = {k: v for k, v in registers(log).items()
+            if re.search(r"rendercore|wgrad|sdf_value|sdf_outgrad", k)}
     print(json.dumps({"label": label, "root": root, "rows": n, "chunk_rows": CHUNK_ROWS,
                       "reps": REPS, "card": torch.cuda.get_device_name(0), "ms": ms,
-                      "kernel_ms": split, "registers_spill_st_ld": regs}), flush=True)
+                      "kernel_ms": split, "registers_spill_st_ld": regs,
+                      "wgmma_warnings": [ln.strip() for ln in log.splitlines()
+                                         if "wgmma" in ln]}), flush=True)
 
 
 def run_trial():

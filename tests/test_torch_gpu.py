@@ -561,9 +561,11 @@ def test_tc_accuracy_trial_on_card(shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,N", TILE_WIDTHS)
 def test_wg_tile_gemm_odd_widths_on_card(K, N):
-    """The wgmma core of K2 and K3 (csrc/wgmma_tile.cuh): as shipped within
-    2x the FFMA GEMM's error against f64; every variant exact on small
-    integers (the fragment layouts, the descriptor strides, the swizzle)."""
+    """The wgmma core of K2, K3 and K4 (csrc/wgmma_tile.cuh): as shipped,
+    with the two-stage ring (K2, K3, K4-fwd) and the one-stage ring (K4-bwd),
+    within 2x the FFMA GEMM's error against f64; every variant exact on
+    small integers (the fragment layouts, the descriptor strides, the
+    swizzle, the ring's barrier phases)."""
     from copenerf_torch.ops.kernels import tc_check as TC
 
     _require_cuda()
@@ -572,8 +574,9 @@ def test_wg_tile_gemm_odd_widths_on_card(K, N):
         w = _tc_inputs((K, N), seed=K + N) / K ** 0.5
         ref = a.double() @ w.double()
         e_ffma = TC.rel_err(TC.tile_gemm(a, w, "ffma"), ref)
-        e_wg = TC.rel_err(TC.tile_gemm(a, w, "wg"), ref)
-        assert e_wg <= 2 * e_ffma, (K, N, m, e_wg, e_ffma)
+        for mode in ("wg", "wg_1stage"):
+            e_wg = TC.rel_err(TC.tile_gemm(a, w, mode), ref)
+            assert e_wg <= 2 * e_ffma, (K, N, m, mode, e_wg, e_ffma)
     g = torch.Generator(device="cuda").manual_seed(K * N)
     a = torch.randint(-8, 9, (70, K), generator=g, device="cuda").float()
     w = torch.randint(-8, 9, (K, N), generator=g, device="cuda").float()
@@ -643,10 +646,11 @@ def test_value_kernels_match_plain_at_full_width_on_card(n):
 
 @pytest.mark.gpu
 def test_tensor_core_instructions_per_kernel_on_card():
-    """``cuobjdump -sass`` of the built library: K2 and K3-bwd issue TF32
-    HGMMA (wgmma); K1 and K6 (row kernels) and the tensor-core reduction
-    (K1, K3, K6, K7) issue TF32 HMMA (mma.sync); the kernels of K4, K5 and
-    K7, the FFMA reduction and the final sums issue neither."""
+    """``cuobjdump -sass`` of the built library: K2, K3-bwd, K4-fwd (and
+    K7-fwd, its other instantiation) and K4-bwd issue TF32 HGMMA (wgmma); K1
+    and K6 (row kernels) and the tensor-core reduction (K1, K3, K4, K6, K7)
+    issue TF32 HMMA (mma.sync); K5's kernels, K7-bwd's row kernel, the FFMA
+    reduction (K5's) and the final sums issue neither."""
     import re
     import shutil
     import subprocess
@@ -665,12 +669,12 @@ def test_tensor_core_instructions_per_kernel_on_card():
             continue
         key = m.group(1) + ("<1>" if "ILb1E" in name else "")
         funcs[key] = funcs.get(key, "") + body
-    wg = ["sdf_value_kernel", "sdf_value_bwd_kernel"]
+    wg = ["sdf_value_kernel", "sdf_value_bwd_kernel", "sdf_outgrad_fwd_kernel",
+          "sdf_outgrad_fwd_kernel<1>", "sdf_outgrad_bwd_kernel"]
     tc = ["rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
           "rendercore_bwd_kernel<1>", "wgrad_tc_partial_kernel"]
-    ffma = ["sdf_out_bwd_kernel", "sdf_outgrad_fwd_kernel", "sdf_outgrad_bwd_kernel",
-            "color_fwd_kernel", "color_bwd_kernel", "wgrad_partial_kernel",
-            "wgrad_final_kernel"]
+    ffma = ["sdf_out_bwd_kernel", "color_fwd_kernel", "color_bwd_kernel",
+            "wgrad_partial_kernel", "wgrad_final_kernel"]
     for k in wg:
         assert re.search(r"HGMMA\.[\w.]*TF32", funcs[k]), k
         assert "HMMA" not in funcs[k].replace("HGMMA", ""), k

@@ -132,7 +132,10 @@ def test_outgrad_grad_layout_round_trip(width):
 
 def test_outgrad_pack_layout(nets):
     """K4's pack: W (in, out), W^T and b per hidden layer, the head's
-    column 0 and its feature columns both ways."""
+    column 0 and its feature columns both ways: W_feat^T plain (K7-bwd), and
+    W_feat and W_feat^T as the wgmma core's B (``wfp``, ``wftp``; their
+    layout is held against the core's descriptor in
+    ``test_torch_wgmma_emulation.py``)."""
     _, tp = nets
     P, offs = pack.pack_outgrad(tp["sdf"])
     with torch.no_grad():
@@ -149,9 +152,10 @@ def test_outgrad_pack_layout(nets):
                                        b, rtol=0, atol=0)
         w, b = layers[-1]
         feat = w[1:]
-        torch.testing.assert_close(
-            P[offs["w_feat"]:offs["w_feat"] + feat.numel()].view(feat.t().shape),
-            feat.t(), rtol=0, atol=0)
+        for name, bt in (("wfp", feat), ("wftp", feat.t())):
+            packed = pack.wg_pack_b(bt)
+            torch.testing.assert_close(P[offs[name]:offs[name] + packed.numel()],
+                                       packed, rtol=0, atol=0)
         torch.testing.assert_close(
             P[offs["w_feat_t"]:offs["w_feat_t"] + feat.numel()].view(feat.shape),
             feat, rtol=0, atol=0)

@@ -1,4 +1,4 @@
-"""The wgmma core of K2 and K3 (``csrc/wgmma_tile.cuh``) as the host emulation
+"""The wgmma core of K2, K3 and K4 (``csrc/wgmma_tile.cuh``) as the host emulation
 runs it (``copenerf_torch/ops/kernels/emulate.py``: ``wgmma.mma_async``
 m64n128k8 TF32 with A from registers and B through a shared-memory
 descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
@@ -6,20 +6,26 @@ descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
 * the host packing of B (``pack.wg_pack_b``) read back through the
   descriptor's address arithmetic (the 128-byte swizzle, 1024-byte row
   groups, the k permutation), for B and for B^T, ragged K and N, split into
-  hi and lo: every element lands where the core reads it, and the padding
-  is zero;
+  hi and lo, and the SDF head's feature columns as the outgrad pack holds
+  them (``wfp``, ``wftp``): every element lands where the core reads it,
+  and the padding is zero;
 * small integers, exact in TF32 and in every partial sum, through the tile
-  GEMM of ``csrc/tc_check.cu`` in both wgmma modes at ragged K and N < 256:
+  GEMM of ``csrc/tc_check.cu`` in every wgmma mode at ragged K and N < 256:
   the fragment layouts, the descriptor strides and the swizzle must give the
   product exactly;
+* the one-stage ring of K4-bwd over 2, 5 and 8 slices (every refill waits
+  on the next phase of the one barrier): the two-stage ring's product bit
+  for bit;
 * one TF32 product against numpy's f64 product of the operands rounded to
   TF32: within 4e-7 relative (the f32 sums);
 * 3xTF32 as K2 and K3 ship it against f64: within 2x the f32 FFMA GEMM's
   error and within 1e-6 relative, at the widths K2 and K3 multiply (K = 52,
   204, 256) and ragged ones; one TF32 product is far from it;
-* K2 and K3-bwd through their own wrappers at a width whose layers are
-  wider than one warpgroup's 128 columns (the second warpgroup's ragged
-  columns), against their plain versions with ``chip_smoke.py``'s rules.
+* K2, K3-bwd, K4-fwd (out and grad), K4-bwd (per cotangent channel) and
+  K7-fwd through their own wrappers at a width whose layers, and K4's
+  feature head, are wider than one warpgroup's 128 columns (the second
+  warpgroup's ragged columns), against their plain versions with
+  ``chip_smoke.py``'s rules.
 
 Skips where there is no ``g++``."""
 
@@ -33,6 +39,8 @@ import torch
 from copenerf_torch.models import fields as F
 from copenerf_torch.models.mlp import perturb_
 from copenerf_torch.ops.kernels import emulate, pack
+from copenerf_torch.ops.kernels import outgrad as OG
+from copenerf_torch.ops.kernels import sdf_out as SO
 from copenerf_torch.ops.kernels import sdf_value as SV
 from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 from copenerf_torch.ops.kernels import tc_check as TC
@@ -76,16 +84,43 @@ def _read_packed(packed: np.ndarray, K: int, N: int) -> np.ndarray:
     return out
 
 
+def _feature_pack(name: str, hidden: int, d_feat: int):
+    """(B (K, N), its pack) for the outgrad pack's ``name`` of a perturbed
+    net: ``wfp`` is the forward head's B = W_feat (hidden, d_feat), ``wftp``
+    the backward's B = W_feat^T (d_feat, hidden)."""
+    cfg = F.SDFConfig(d_out=d_feat + 1, d_hidden=hidden, n_layers=3, skip_in=(),
+                      multires=2)
+    net = perturb_(F.SDFNetwork(cfg, torch.Generator().manual_seed(hidden)),
+                   torch.Generator().manual_seed(d_feat))
+    layers = pack.effective_layers(net)
+    params, offs = pack.pack_outgrad_layers(layers)
+    w_feat = layers[-1][0][1:].detach()              # (d_feat, hidden)
+    b = w_feat.t() if name == "wfp" else w_feat
+    K, N = b.shape
+    size = 2 * -(-N // 128) * 128 * -(-K // 32) * 32
+    return b.numpy(), params[offs[name]:offs[name] + size].numpy()
+
+
 @pytest.mark.parametrize("K,N,transposed", [(52, 204, False), (36, 136, True),
                                             (64, 28, True), (256, 52, False),
                                             (204, 256, True), (292, 256, False),
-                                            (4, 4, True), (32, 128, False)])
+                                            (4, 4, True), (32, 128, False),
+                                            (160, 160, "wfp"), (160, 160, "wftp"),
+                                            (256, 36, "wfp"), (36, 256, "wftp")])
 def test_wg_pack_b_layout_matches_the_descriptor(K, N, transposed):
-    rng = np.random.default_rng(K * N)
-    m = rng.standard_normal((N, K) if transposed else (K, N)).astype(np.float32)
-    b = m.T if transposed else m                       # B (K, N)
-    bt = torch.from_numpy(m) if transposed else torch.from_numpy(m).t()
-    got = _read_packed(pack.wg_pack_b(bt).numpy(), K, N)
+    """``transposed`` a name: the feature pack ``wfp`` (K = hidden, N =
+    d_feat) or ``wftp`` (K = d_feat, N = hidden) of ``pack_outgrad_layers``."""
+    if isinstance(transposed, str):
+        hidden, d_feat = (K, N) if transposed == "wfp" else (N, K)
+        b, packed = _feature_pack(transposed, hidden, d_feat)
+        assert b.shape == (K, N)
+    else:
+        rng = np.random.default_rng(K * N)
+        m = rng.standard_normal((N, K) if transposed else (K, N)).astype(np.float32)
+        b = m.T if transposed else m                   # B (K, N)
+        bt = torch.from_numpy(m) if transposed else torch.from_numpy(m).t()
+        packed = pack.wg_pack_b(bt).numpy()
+    got = _read_packed(packed, K, N)
     hi, lo = got[:, :K, :N]
     np.testing.assert_array_equal(hi, tf32_np(b))
     np.testing.assert_array_equal(lo, tf32_np(b - tf32_np(b)))
@@ -104,6 +139,24 @@ def test_emulated_wgmma_is_exact_on_integers(emu, K, N):
     for mode in TC.WG_MODES:
         got = TC.tile_gemm(torch.from_numpy(a), torch.from_numpy(w), mode).numpy()
         np.testing.assert_array_equal(got, a.astype(np.float64) @ w, err_msg=mode)
+
+
+@pytest.mark.parametrize("K", [52, 160, 256])
+def test_emulated_one_stage_ring_matches_two_stages(emu, K):
+    """K4-bwd's one-stage ring over K = 52, 160 and 256 (2, 5 and 8 slices
+    through one stage and one barrier, whose parity alternates): the same
+    products in the same order as the two-stage ring, so the same bits, and
+    exact on small integers."""
+    rng = np.random.default_rng(K)
+    a = rng.standard_normal((130, K)).astype(np.float32)
+    w = (rng.standard_normal((K, 256)) / np.sqrt(K)).astype(np.float32)
+    one, two = (TC.tile_gemm(torch.from_numpy(a), torch.from_numpy(w), m).numpy()
+                for m in ("wg_1stage", "wg"))
+    np.testing.assert_array_equal(one, two)
+    ai = rng.integers(-8, 9, size=(70, K)).astype(np.float32)
+    wi = rng.integers(-8, 9, size=(K, 160)).astype(np.float32)
+    got = TC.tile_gemm(torch.from_numpy(ai), torch.from_numpy(wi), "wg_1stage").numpy()
+    np.testing.assert_array_equal(got, ai.astype(np.float64) @ wi)
 
 
 def _mats(m, K, N, seed):
@@ -136,12 +189,28 @@ def test_emulated_wgmma_3xtf32_against_f64(emu, K, N):
 
 WIDE = F.SDFConfig(d_out=9, d_hidden=160, n_layers=4, skip_in=(2,), multires=3,
                    scale=1.3)
+# K4's and K7's nets: the feature head (d_feat = 160) past one warpgroup too;
+# at d_hidden 136 every GEMM, the head's both ways included, has a K tail.
+HEADS = {160: F.SDFConfig(d_out=161, d_hidden=160, n_layers=4, skip_in=(2,), multires=3,
+                          scale=1.3),
+         136: F.SDFConfig(d_out=137, d_hidden=136, n_layers=4, skip_in=(2,), multires=3,
+                          scale=1.3)}
+_HEAD_NETS = {}
+
+
+def head_net(hidden):
+    if hidden not in _HEAD_NETS:
+        _HEAD_NETS[hidden] = perturb_(
+            F.SDFNetwork(HEADS[hidden], torch.Generator().manual_seed(hidden)),
+            torch.Generator().manual_seed(4))
+    return _HEAD_NETS[hidden]
 
 
 @pytest.fixture(scope="module")
 def wide_net():
     return perturb_(F.SDFNetwork(WIDE, torch.Generator().manual_seed(0)),
                     torch.Generator().manual_seed(2))
+
 
 
 def _rows(n, seed):
@@ -175,6 +244,57 @@ def test_emulated_k3_bwd_past_one_warpgroup(emu, wide_net):
     plain = grads(lambda xx: SVD.sdf_value_diff_plain(wide_net, xx), wide_net, x, obar)
     r64 = grads(lambda xx: SVD.sdf_value_diff_plain(net64, xx), net64, x.double(),
                 obar.double())
+    _within_plain(got, plain, r64)
+
+
+def _within_plain(got, plain, r64):
+    """Each gradient tensor within 2x the plain f32 version's error against
+    f64, or 1e-5 of its norm."""
     for a, b, c in zip(got, plain, r64):
         dk, dp = (a.double() - c).norm().item(), (b.double() - c).norm().item()
         assert dk <= max(2 * dp, 1e-5 * c.norm().item()), (dk, dp)
+
+
+@pytest.mark.parametrize("hidden", [160, 136])
+def test_emulated_k4_fwd_and_k7_fwd_past_one_warpgroup(emu, hidden):
+    """K4-fwd's head and gradient and K7-fwd's head (the hidden layers, the
+    feature columns and the sweep on the wgmma core) against their plain
+    versions: 1e-4, the gradient 1e-4 of its largest entry."""
+    cfg, net = HEADS[hidden], head_net(hidden)
+    x = _rows(70, 8)
+    packed = pack.pack_outgrad(net)
+    with torch.no_grad():
+        out, grad = OG.launch_outgrad_fwd(cfg, packed, x)
+        ref_out, ref_grad = OG.sdf_outgrad_plain(net, x)
+        head = SO.launch_out_fwd(cfg, packed, x)
+    assert (out - ref_out).abs().max().item() <= 1e-4
+    assert (head - ref_out).abs().max().item() <= 1e-4
+    lim = 1e-4 * max(1.0, ref_grad.abs().max().item())
+    assert (grad - ref_grad).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("hidden,chan", [(160, "obar"), (160, "gbar"), (160, "both"),
+                                         (136, "both")])
+def test_emulated_k4_bwd_past_one_warpgroup(emu, hidden, chan):
+    """K4-bwd (every sweep on the one-stage wgmma ring, the tensor-core
+    reduction) per cotangent channel: x_bar and every weight gradient
+    within 2x the plain f32 version's error against f64, or 1e-5."""
+    cfg, net = HEADS[hidden], head_net(hidden)
+    x = _rows(70, 9)
+    rng = np.random.default_rng(10)
+    mo, mg = {"obar": (1, 0), "gbar": (0, 1), "both": (1, 1)}[chan]
+    obar = torch.from_numpy(rng.standard_normal((70, cfg.d_out)).astype(np.float32)) * mo
+    gbar = torch.from_numpy(rng.standard_normal((70, 4)).astype(np.float32)) * mg
+    net64 = copy.deepcopy(net).double()
+    ws, bs = zip(*pack.effective_layers(net))
+
+    def grads(fn, m, xx, cots):
+        xx = xx.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xx), [xx, *m.parameters()], cots, allow_unused=True)
+
+    got = grads(lambda xx: OG.SdfOutGrad.apply(cfg, xx, *ws, *bs), net, x, [obar, gbar])
+    plain = grads(lambda xx: OG.sdf_outgrad_plain(net, xx), net, x, [obar, gbar])
+    r64 = grads(lambda xx: OG.sdf_outgrad_plain(net64, xx), net64, x.double(),
+                [obar.double(), gbar.double()])
+    _within_plain(*([torch.zeros_like(t) if t is None else t for t in g]
+                    for g in (got, plain, r64)))

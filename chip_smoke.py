@@ -10,7 +10,7 @@ Phases, each printed on its own line, any failure exits non-zero:
             per source, in parallel); prints the build time and ptxas usage,
             then (``registers``) the registers and spill bytes of the
             tensor-core kernels: K1 and K6 (3xTF32 on ``mma.sync``,
-            ``csrc/mma_tile.cuh``), K2, K3 and K4 (3xTF32 on ``wgmma``,
+            ``csrc/mma_tile.cuh``), K2, K3, K4 and K5 (3xTF32 on ``wgmma``,
             ``csrc/wgmma_tile.cuh``) and their reduction, and any ptxas
             line about the wgmma pipeline (``wgmma_warnings``).
 3. kernels  each forward kernel against its plain PyTorch version on the card
@@ -41,7 +41,9 @@ Phases, each printed on its own line, any failure exits non-zero:
             at 262,144 and 1,000 rows (K4 for the head's column 0, its
             feature columns, gbar alone and all; K5 with the KINK_MARGIN
             rule); then CUDA-event times at the render chunk's shapes
-            (4,194,304 rows) and the train step's (131,072 rows).
+            (4,194,304 rows) and the train step's (131,072 rows), K4-bwd's
+            and K5-bwd's split into the row kernel and the reduction, each
+            reduction beside ``torch.mm`` of it as a yardstick.
 6. main     ``ImageRenderer.render_image`` renders 3 views (the requests) of
             the full-width model (plain geometric init: the centre ray must
             meet the init sphere) at 180x320, chunk 32768, with poses from
@@ -181,6 +183,20 @@ def reduction_mm_ms(scfg, n, second_order=False):
 
     pairs = reduction_pairs(scfg, n, torch.Generator(device=DEVICE).manual_seed(21),
                             second_order)
+    ms = cuda_ms(lambda: [torch.mm(z.t(), t) for z, t in pairs], reps=5)
+    del pairs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def color_reduction_mm_ms(ccfg, n):
+    """CUDA-event ms of K5-bwd's weight reduction done by torch.mm, one
+    product a color layer on random rows of the staged widths
+    (``kernel_times.color_reduction_pairs``). A yardstick, timed only."""
+    import torch
+    from kernel_times import color_reduction_pairs
+
+    pairs = color_reduction_pairs(ccfg, n, torch.Generator(device=DEVICE).manual_seed(22))
     ms = cuda_ms(lambda: [torch.mm(z.t(), t) for z, t in pairs], reps=5)
     del pairs
     torch.cuda.empty_cache()
@@ -390,13 +406,14 @@ def phase_build():
             usage.append(f"{name}: {ln.strip()}")
     log("build", seconds=round(time.perf_counter() - t0, 3),
         cached=build.BUILD_STATS["cached"], nvcc_seconds=nvcc_s, ptxas=usage)
-    # The tensor-core kernels (K1-K4, K6 and their reduction): registers and
+    # The tensor-core kernels (K1-K6 and their reduction): registers and
     # spill bytes (stores, loads).
     from kernel_times import registers
 
     tc = {k: dict(zip(("registers", "spill_stores", "spill_loads"), v))
           for k, v in registers(build.build_log()).items()
-          if k.startswith(("rendercore_", "wgrad_tc_", "sdf_value", "sdf_outgrad"))}
+          if k.startswith(("rendercore_", "wgrad_tc_", "sdf_value", "sdf_outgrad",
+                           "color_"))}
     log("registers", kernels=tc)
     # ptxas says when it serializes the wgmma pipeline (a performance loss).
     warn = [ln.strip() for ln in build.build_log().splitlines() if "wgmma" in ln]
@@ -908,8 +925,14 @@ def phase_composed_kernels(fields):
     del o
     bd = bounds(*k5_bwd_work(ccfg, n, color_net))
     load = smi_under_load(lambda: CK.color_bwd_cuda(ccfg, cl_pack, *ins, cbar), k_ms)
+    row_ms, red_ms, split = split_ms(lambda: CK.color_bwd_cuda(ccfg, cl_pack, *ins, cbar),
+                                     3, "color_bwd_kernel")
     log("time", kernel="color_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
-        plain_note="autograd.grad of the plain version", **bd,
+        plain_note="autograd.grad of the plain version", **bd, row_kernel_ms=row_ms,
+        reduction_ms=red_ms, kernel_split_ms=split,
+        reduction_mm_ms=color_reduction_mm_ms(ccfg, n),
+        reduction_mm_note="torch.mm of each layer's staged pair: the reduction's "
+                          "yardstick, not called by the port",
         sm_clock_power_under_kernel=load)
     results["color_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
     step_ms["color_bwd"] = k_ms

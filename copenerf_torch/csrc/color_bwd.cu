@@ -17,18 +17,29 @@
 // Bound on an H100: operations. ~1.6 MFLOP per row at the default config
 // (forward 0.54, backward 0.54, weight reductions 0.55) against 1,080 bytes
 // in and 1,068 out (feature row and its cotangent).
-// Design: the color part of K1-bwd (rendercore_bwd.cu), through the same
-// color_forward and color_backward (mlp_tile.cuh): 64-row tiles, one block
-// per tile, 32-deep weight slices; the layer inputs and output cotangents
-// (~8 KB a row) are staged per row in device memory and reduced by wgrad.cu's
-// deterministic split-row GEMM.
-#include "mlp_tile.cuh"
+// Design: the color part of K1-bwd (rendercore_bwd.cu) through the same
+// color_forward and color_backward (mlp_tile.cuh), every hidden layer's GEMM
+// both ways on the wgmma 3xTF32 core (wgmma_tile.cuh) with a one-stage ring
+// (WgGemm1): the activations (64 x 272) and the color input, which ends
+// holding h0_bar (64 x 292), stay apart, so two stages would need 280,640
+// bytes of the 232,448 a block may have; one takes 215,104 (the input's
+// stride stays 292: 304 measured equal, color_fwd.cu). h0_bar (N = 292) is
+// two passes, 256 columns and 36, each with its own packed B (pack.py
+// `pack_color`). The 3-wide head stays FFMA (a per-row dot forward, a
+// 3-term loop backward, on the plain W): as a wgmma B it would be padded to
+// N = 128, 42x its work. 64-row tiles, one block per tile; the layer inputs
+// and output cotangents (~8 KB a row) are staged per row in device memory
+// and reduced on the tensor cores in 3xTF32 by wgrad.cu's deterministic
+// split-row GEMM (`wgrad_tc_launch`, as K1, K3, K4 and K7; the strides
+// rounded to 4 floats, the head's O = 3 and layer 0's I = 292 zero-filled
+// past their widths).
+#include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace copenerf {
 namespace {
 
-constexpr int kSliceK = 32;
+using G = WgGemm1;
 
 // Staged per-row matrices of K5-bwd.
 struct ClStages {
@@ -44,8 +55,8 @@ color_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
                  const float* __restrict__ P, Offsets off, long long n, ColorGeom cg,
                  ClStages st) {
   extern __shared__ float4 smem4[];
-  float* h = reinterpret_cast<float*>(smem4);  // activations / zbar, row stride 256
-  float* cin = h + kRows * kSliceCols;         // color input, then h0_bar, stride cg.k0
+  float* h = reinterpret_cast<float*>(smem4);  // activations / zbar, row stride kLd
+  float* cin = h + kRows * G::kLd;             // color input, then h0_bar, stride cg.k0
   float* xr = cin + kRows * cg.k0;             // x
   float* dr = xr + kRows * 4;                  // dirs (3 used)
   float* gs = dr + kRows * 4;                  // grad
@@ -72,14 +83,14 @@ color_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
   __syncthreads();
 
   // ---- forward, every layer's input staged ----
-  color_forward<kSliceK, true>(
+  color_forward<G::kSliceK, true, G>(
       P, off, cg, cin, h, w_s, xr, dr, gs,
       [&](int l, int r, int c, float v) { stage_put(st.ci, l, row0 + r, n, c, v); },
       [&](int r, int c, float v) { cs[r * 4 + c] = v; });
   __syncthreads();
 
   // ---- backward: h0_bar into cin ----
-  color_backward<kSliceK>(
+  color_backward<G::kSliceK, G>(
       P, off, cg, cin, h, cs, w_s,
       [&](int r, int j) {
         const long long gr = row0 + r;
@@ -167,26 +178,31 @@ extern "C" int copenerf_color_bwd_workspace(long long n, int d_feat, int c_n_lin
 // x_bar (n, 4), dirs_bar (n, 3), grad_bar (n, 4), feat_bar (n, d_feat) and
 // the color weight gradients (into `grads` at off_gwc / off_gbc, pack.py
 // `color_grad_layout`) for the cotangent cbar (n, 3) of K5-fwd's color at
-// the same inputs. The weight offsets are K5-fwd's plus W (out, in) per
-// layer (off_wct). Returns the first CUDA error.
+// the same inputs. The weight offsets are K5-fwd's plus, per hidden layer,
+// W^T as wgmma B (off_wctp; layer 0's columns < 256), off_wct0tp (layer 0's
+// columns 256 .. c_k0 as wgmma B, 0 when c_k0 <= 256) and off_wct_last (the
+// head's W (3, hidden)). Returns the first CUDA error.
 extern "C" int copenerf_color_bwd(
     const float* x, const float* dirs, const float* grad, const float* feat, long long ld_feat,
     const float* cbar, float* xbar, float* dbar, float* gbar, float* fbar, const float* params,
-    const long long* off_wc, const long long* off_bc, const long long* off_wct, float* grads,
+    const long long* off_wcp, const long long* off_wctp, const long long* off_bc,
+    long long off_wct0tp, long long off_wc_last, long long off_wct_last, float* grads,
     const long long* off_gwc, const long long* off_gbc, float* stage, float* partial,
     long long n, int d_feat, int c_n_lin, int c_hidden, int c_multires, int c_k0, int squeeze,
     void* stream) {
   if (n <= 0) return 0;
   ColorGeom cg;
-  if (!cl_geometry(n, d_feat, c_n_lin, c_hidden, c_multires, c_k0, squeeze, ld_feat, cg))
+  if (!cl_geometry(n, d_feat, c_n_lin, c_hidden, c_multires, c_k0, squeeze, ld_feat, cg) ||
+      (c_k0 > kSliceCols && off_wct0tp == 0))
     return (int)cudaErrorInvalidValue;
   Offsets off;
-  if (!make_color_offsets(off, c_n_lin, off_wc, off_bc, off_wct))
+  if (!make_color_offsets(off, c_n_lin, off_wcp, off_wctp, off_wct0tp, off_bc, off_wc_last,
+                          off_wct_last))
     return (int)cudaErrorInvalidValue;
   ClStages st;
   cl_stage_layout(cg, n, stage, st);
-  const size_t smem = sizeof(float) * (kRows * kSliceCols + kRows * c_k0 + 4 * kRows * 4 +
-                                       2 * kSliceK * kSliceCols);
+  const size_t smem =
+      sizeof(float) * (kRows * G::kLd + kRows * c_k0 + 4 * kRows * 4 + G::kWsFloats);
   cudaError_t err = cudaFuncSetAttribute(color_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -199,5 +215,5 @@ extern "C" int copenerf_color_bwd(
   if (err != cudaSuccess) return (int)err;
   WgradJob jobs[kMaxWgradJobs];
   const int n_jobs = cl_jobs(cg, st, grads, off_gwc, off_gbc, jobs);
-  return (int)wgrad_launch(jobs, n_jobs, n, partial, s);
+  return (int)wgrad_tc_launch(jobs, n_jobs, n, partial, s);
 }

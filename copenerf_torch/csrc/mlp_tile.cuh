@@ -20,11 +20,12 @@
 // (no plain TF32, no bf16): the sharpened NeuS alpha cannot tolerate
 // bf16-level SDF error. The sweeps take the GEMM as a policy (`G`, default
 // FfmaGemm: `gemm` on rows of 256), which also says where each hidden
-// layer's weights are (`G::w`, `G::wt`) and the head's feature columns
-// (`G::wf`, `G::wft`); K1 and K6 pass mma_tile.cuh's 3xTF32 `mma.sync`
-// policy (TcGemm), K2, K3, K4-fwd (K7-fwd) and K4-bwd wgmma_tile.cuh's 3xTF32
-// `wgmma` policies (WgGemm, WgGemm1, weights pre-packed by the host); both
-// keep activation rows of 272 floats.
+// layer's weights are (`G::w`, `G::wt`), the head's feature columns
+// (`G::wf`, `G::wft`) and each hidden color layer's (`G::wc`, `G::wct`,
+// `G::wct0_tail`); K1 and K6 pass mma_tile.cuh's 3xTF32 `mma.sync` policy
+// (TcGemm), K2, K3, K4-fwd (K7-fwd), K4-bwd, K5-fwd and K5-bwd
+// wgmma_tile.cuh's 3xTF32 `wgmma` policies (WgGemm, WgGemm1, weights
+// pre-packed by the host); both keep activation rows of 272 floats.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +58,9 @@ struct Offsets {
   long long wtp[kMaxSdfHidden];    // W_l^T as wgmma B, for the down-sweep
   long long wfp;                   // feature columns as wgmma B (hidden x d_feat)
   long long wftp;                  // their transpose as wgmma B (d_feat x hidden)
+  long long wcp[kMaxColorLayers];  // hidden color layer l: W_l as wgmma B (in x out)
+  long long wctp[kMaxColorLayers]; // W_l^T as wgmma B (out x in; layer 0: in < 256)
+  long long wct0tp;                // W_0^T's columns 256 .. k0 as wgmma B
 };
 
 // Host: fill `off` from the entry point's named offsets of n_hidden SDF
@@ -85,16 +89,22 @@ inline bool make_offsets(Offsets& off, int n_hidden, const long long* w,
   return true;
 }
 
-// Host: fill `off` for the color MLP alone (n_color layers; wct may be null).
-inline bool make_color_offsets(Offsets& off, int n_color, const long long* wc,
-                               const long long* bc, const long long* wct) {
+// Host: fill `off` for the color MLP alone (K5): n_color layers' biases, the
+// hidden layers as wgmma B both ways (wctp may be null; wct0tp 0 when k0 <=
+// 256), the head plain (hidden x 3) and transposed (3 x hidden).
+inline bool make_color_offsets(Offsets& off, int n_color, const long long* wcp,
+                               const long long* wctp, long long wct0tp, const long long* bc,
+                               long long wc_last, long long wct_last) {
   if (n_color < 2 || n_color > kMaxColorLayers) return false;
   off = Offsets{};
-  for (int l = 0; l < n_color; ++l) {
-    off.wc[l] = wc[l];
-    off.bc[l] = bc[l];
-    if (wct) off.wct[l] = wct[l];
+  for (int l = 0; l < n_color; ++l) off.bc[l] = bc[l];
+  for (int l = 0; l + 1 < n_color; ++l) {
+    off.wcp[l] = wcp[l];
+    if (wctp) off.wctp[l] = wctp[l];
   }
+  off.wct0tp = wct0tp;
+  off.wc[n_color - 1] = wc_last;
+  off.wct[n_color - 1] = wct_last;
   return true;
 }
 
@@ -312,8 +322,8 @@ __device__ __forceinline__ void gemm(const float* in, int ld_in, int K,
 
 // The GEMM policy of the sweeps below (`G`): `gemm` on activation rows of
 // kLd floats, w_s of kWsFloats. K1 and K6 pass mma_tile.cuh's TcGemm, K2,
-// K3 and K4 wgmma_tile.cuh's WgGemm / WgGemm1; the other kernels take this
-// default.
+// K3, K4 and K5 wgmma_tile.cuh's WgGemm / WgGemm1; the other kernels take
+// this default.
 struct FfmaGemm {
   static constexpr int kLd = 256;
   static constexpr int kWsFloats = 2 * 64 * kSliceCols;  // two 64-deep slices
@@ -331,6 +341,17 @@ struct FfmaGemm {
   }
   __device__ static __forceinline__ const float* wft(const float* P, const Offsets& off) {
     return P + off.w_feat_t;
+  }
+  // Hidden color layer l's W (in, out) and W^T (out, in; row stride k0 for
+  // layer 0), and the B of h0_bar's columns 256 .. k0 (the second pass).
+  __device__ static __forceinline__ const float* wc(const float* P, const Offsets& off, int l) {
+    return P + off.wc[l];
+  }
+  __device__ static __forceinline__ const float* wct(const float* P, const Offsets& off, int l) {
+    return P + off.wct[l];
+  }
+  __device__ static __forceinline__ const float* wct0_tail(const float* P, const Offsets& off) {
+    return P + off.wct[0] + kSliceCols;
   }
   template <int KS, class Epi>
   __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
@@ -674,13 +695,15 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
 }
 
 // The IDR color MLP (color_kernels.py `_color_forward_tile`) on the kernel's
-// input order [feature, x, PE(dirs), grad, 0 pad] in cin (row stride cg.k0).
-// The feature columns must be in place; the rest are filled here from xr (x),
-// dr (dirs, 3 used) and gs (grad), 4 per row, which must be visible to every
-// thread (a barrier before the call). Hidden layers ReLU into h; with
-// kStaged, `put_ci(l, r, c, v)` sees every color layer's input (layer 0's
-// after a barrier). The head ends in `head(r, c, color)` for c < 3, the
-// sigmoid applied when cg.squeeze.
+// input order [feature, x, PE(dirs), grad, 0 pad] in cin (row stride
+// cg.k0). The feature columns must be in place; the rest are filled here
+// from xr (x), dr (dirs, 3 used) and gs (grad), 4 per row, which must be
+// visible to every thread (a barrier before the call). Hidden layers ReLU
+// into h, which may be cin (layer 0's epilogue runs after its last read of
+// cin); with kStaged, `put_ci(l, r, c, v)` sees every color layer's input
+// (layer 0's after a barrier). The head ends in `head(r, c, color)` for
+// c < 3, the sigmoid applied when cg.squeeze. The 3-wide head is a per-row
+// dot on the plain W (off.wc) with every policy.
 template <int KS, bool kStaged, class G = FfmaGemm, class PutCi, class Head>
 __device__ __forceinline__ void color_forward(const float* __restrict__ P, const Offsets& off,
                                               const ColorGeom& cg, float* cin, float* h,
@@ -710,7 +733,7 @@ __device__ __forceinline__ void color_forward(const float* __restrict__ P, const
   for (int l = 0; l < cg.n_lin - 1; ++l) {
     const float* bc = P + off.bc[l];
     G::template run<KS>(l == 0 ? cin : h, l == 0 ? cg.k0 : ld, l == 0 ? cg.k0 : cg.hidden,
-             P + off.wc[l], cg.hidden, cg.hidden, w_s, [&](int r, int c, float z) {
+             G::wc(P, off, l), cg.hidden, cg.hidden, w_s, [&](int r, int c, float z) {
                const float v = fmaxf(z + bc[c], 0.0f);
                h[r * ld + c] = v;
                put_ci(l + 1, r, c, v);
@@ -731,7 +754,8 @@ __device__ __forceinline__ void color_forward(const float* __restrict__ P, const
 // the ReLU layers: the layer-l cotangent of the input is masked by the sign
 // of color layer l's input (`in_at(l, r, c)`). `put_cz(l, r, c, v)` sees the
 // output cotangent of every color layer. h0_bar (k0 wide, the kernel's input
-// order) ends in cin after a GEMM epilogue.
+// order) ends in cin after a GEMM epilogue. The head's product stays a
+// 3-term FFMA loop on the plain W^T (off.wct) with every policy.
 template <int KS, class G = FfmaGemm, class Cbar, class In, class PutCz>
 __device__ __forceinline__ void color_backward(const float* __restrict__ P, const Offsets& off,
                                                const ColorGeom& cg, float* cin, float* h,
@@ -763,7 +787,7 @@ __device__ __forceinline__ void color_backward(const float* __restrict__ P, cons
     }
   }
   for (int l = cg.n_lin - 2; l >= 1; --l) {
-    G::template run<KS>(h, ld, cg.hidden, P + off.wct[l], cg.hidden, cg.hidden, w_s,
+    G::template run<KS>(h, ld, cg.hidden, G::wct(P, off, l), cg.hidden, cg.hidden, w_s,
              [&](int r, int c, float v) {
                v = in_at(l, r, c) > 0.0f ? v : 0.0f;
                h[r * ld + c] = v;
@@ -771,11 +795,12 @@ __device__ __forceinline__ void color_backward(const float* __restrict__ P, cons
              });
   }
   // h0_bar into cin, in passes of at most 256 columns.
-  G::template run<KS>(h, ld, cg.hidden, P + off.wct[0], cg.k0, cg.k0 < 256 ? cg.k0 : 256, w_s,
+  G::template run<KS>(h, ld, cg.hidden, G::wct(P, off, 0), cg.k0,
+           cg.k0 < kSliceCols ? cg.k0 : kSliceCols, w_s,
            [&](int r, int c, float v) { cin[r * cg.k0 + c] = v; });
-  if (cg.k0 > 256)
-    G::template run<KS>(h, ld, cg.hidden, P + off.wct[0] + 256, cg.k0, cg.k0 - 256, w_s,
-             [&](int r, int c, float v) { cin[r * cg.k0 + 256 + c] = v; });
+  if (cg.k0 > kSliceCols)
+    G::template run<KS>(h, ld, cg.hidden, G::wct0_tail(P, off), cg.k0, cg.k0 - kSliceCols, w_s,
+             [&](int r, int c, float v) { cin[r * cg.k0 + kSliceCols + c] = v; });
 }
 
 }  // namespace copenerf

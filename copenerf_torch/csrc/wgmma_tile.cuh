@@ -1,6 +1,7 @@
 // The wgmma 3xTF32 GEMM core of K2 (sdf_value.cu, also K3-fwd), K3-bwd
-// (sdf_value_bwd.cu), K4-fwd (sdf_outgrad_fwd.cu, also K7-fwd) and K4-bwd
-// (sdf_outgrad_bwd.cu): the sweeps' 64-row tile product (mlp_tile.cuh, the GEMM
+// (sdf_value_bwd.cu), K4-fwd (sdf_outgrad_fwd.cu, also K7-fwd), K4-bwd
+// (sdf_outgrad_bwd.cu), K5-fwd (color_fwd.cu) and K5-bwd (color_bwd.cu):
+// the sweeps' 64-row tile product (mlp_tile.cuh, the GEMM
 // policy contract of `FfmaGemm::run`) on Hopper's asynchronous warpgroup
 // matrix multiply, with the weight slices brought in by bulk copies that
 // complete on mbarriers.
@@ -45,10 +46,10 @@
 //    0 refills it with the slice kStages ahead. The barriers are
 //    initialized at each call and invalidated at its end. Two stages (128
 //    KB, as the FFMA GEMM's two 64 x 256 slices) overlap a slice's copy
-//    with the previous slice's products: K2, K3 and K4-fwd. One stage (64
-//    KB) exposes each copy's latency but leaves room for K4-bwd's two
-//    activation buffers (two stages would need 287,040 bytes of the
-//    232,448 a block may have).
+//    with the previous slice's products: K2, K3, K4-fwd and K5-fwd. One
+//    stage (64 KB) exposes each copy's latency but leaves room for the two
+//    activation buffers of K4-bwd and K5-bwd (two stages would need 287,040
+//    and 280,640 bytes of the 232,448 a block may have).
 //  * Accuracy: Hopper's tensor cores add into the accumulator with their
 //    own rounding; summed over K = 256 on them, 3xTF32 was 6-13x the FFMA
 //    error (PERF.md). Each group of kWgGroup k8 steps (small terms
@@ -306,7 +307,9 @@ __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
 
 // The GEMM policy of the sweeps (mlp_tile.cuh) on this core with a ring of
 // kStages stages: the hidden layers' weights as packed B (Offsets wp, wtp),
-// the SDF head's feature columns too (wfp, wftp).
+// the SDF head's feature columns too (wfp, wftp), and the hidden color
+// layers' (wcp, wctp; h0_bar's columns past 256 packed apart, wct0tp: an
+// offset into a packed B does not select its columns).
 template <int kStages>
 struct WgGemmRing {
   static constexpr int kLd = kTcLd;
@@ -324,6 +327,15 @@ struct WgGemmRing {
   __device__ static __forceinline__ const float* wft(const float* P, const Offsets& off) {
     return P + off.wftp;
   }
+  __device__ static __forceinline__ const float* wc(const float* P, const Offsets& off, int l) {
+    return P + off.wcp[l];
+  }
+  __device__ static __forceinline__ const float* wct(const float* P, const Offsets& off, int l) {
+    return P + off.wctp[l];
+  }
+  __device__ static __forceinline__ const float* wct0_tail(const float* P, const Offsets& off) {
+    return P + off.wct0tp;
+  }
   template <int KS, class Epi>
   __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
                                              const float* __restrict__ Bp, int, int N,
@@ -333,7 +345,7 @@ struct WgGemmRing {
   }
 };
 
-using WgGemm = WgGemmRing<2>;   // K2, K3, K4-fwd (and K7-fwd)
-using WgGemm1 = WgGemmRing<1>;  // K4-bwd
+using WgGemm = WgGemmRing<2>;   // K2, K3, K4-fwd (and K7-fwd), K5-fwd
+using WgGemm1 = WgGemmRing<1>;  // K4-bwd, K5-bwd
 
 }  // namespace copenerf

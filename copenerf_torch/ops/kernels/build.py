@@ -153,10 +153,10 @@ def load_library() -> ctypes.CDLL:
         [_P] * 9 + [_L] * 3 + [_P] * 3 + [_L] + [_P] * 3 + [_L] + [_I] * 5
         + [_F, _I, _I, _P])
     lib.copenerf_color_fwd.argtypes = (
-        [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_I] * 6 + [_P])
+        [_P] * 4 + [_L] + [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P])
     lib.copenerf_color_bwd_workspace.argtypes = [_L] + [_I] * 5 + [_P]
     lib.copenerf_color_bwd.argtypes = (
-        [_P] * 4 + [_L] + [_P] * 14 + [_L] + [_I] * 6 + [_P])
+        [_P] * 4 + [_L] + [_P] * 9 + [_L] * 3 + [_P] * 5 + [_L] + [_I] * 6 + [_P])
     lib.copenerf_rendercore_cons_fwd.argtypes = (
         [_P] * 11 + [_L] * 4 + [_P] * 3 + [_L] + [_I] * 5 + [_F] + [_I] * 7 + [_P])
     lib.copenerf_rendercore_cons_bwd_workspace.argtypes = (

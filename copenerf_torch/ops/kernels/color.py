@@ -88,7 +88,7 @@ def launch_color_fwd(ccfg, packed, x, dirs, grad, feat) -> torch.Tensor:
     code = build.load_library().copenerf_color_fwd(
         x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
         feat.stride(0), color.data_ptr(), params.data_ptr(),
-        build.offsets(offs["wc"]), build.offsets(offs["bc"]), n,
+        build.offsets(offs["wcp"]), build.offsets(offs["bc"]), offs["wc_last"], n,
         *color_geometry(ccfg), int(ccfg.squeeze_out), build.stream(x))
     build.check(code, "color_fwd")
     FWD_COUNTER.launches += 1
@@ -129,10 +129,11 @@ def color_bwd_cuda(ccfg, packed, x, dirs, grad, feat, cbar):
     code = lib.copenerf_color_bwd(
         x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
         feat.stride(0), cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(),
-        g_bar.data_ptr(), f_bar.data_ptr(), params.data_ptr(), O(offs["wc"]),
-        O(offs["bc"]), O(offs["wct"]), grads.data_ptr(), O(goffs["gwc"]),
-        O(goffs["gbc"]), stage.data_ptr(), partial.data_ptr(), n, *geom,
-        int(ccfg.squeeze_out), build.stream(x))
+        g_bar.data_ptr(), f_bar.data_ptr(), params.data_ptr(), O(offs["wcp"]),
+        O(offs["wctp"]), O(offs["bc"]), offs.get("wct0tp", 0), offs["wc_last"],
+        offs["wct_last"], grads.data_ptr(), O(goffs["gwc"]), O(goffs["gbc"]),
+        stage.data_ptr(), partial.data_ptr(), n, *geom, int(ccfg.squeeze_out),
+        build.stream(x))
     build.check(code, "color_bwd")
     BWD_COUNTER.launches += 1
     return x_bar, d_bar, g_bar, f_bar, unpack_color_grads(grads, goffs, ccfg)

@@ -19,7 +19,11 @@ does outside its kernels (``sdf_kernels.py`` ``_prep``):
   * ``wc[l]``, ``bc[l]``: color layer l (in, out); layer 0 has its input
     rows permuted to [feature, x, PE(dirs), grad] and zero-padded to k0 (a
     multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
-    backward.
+    backward (the render-core pack);
+  * ``wcp[l]``, ``wctp[l]`` (the color pack, hidden layers): W_l and W_l^T
+    as wgmma B, layer 0 in the kernel's input order (``wctp[0]`` its
+    columns < 256, ``wct0tp`` the rest when k0 > 256: h0_bar's second
+    pass); ``wc_last``, ``wct_last``: the 3-wide head both ways, plain.
 
 The render-core kernels (K1, and K6 with the consistency query folded in)
 take the SDF and the color parts in one buffer; the outgrad kernels (K4)
@@ -179,7 +183,7 @@ class _Packer:
         return torch.cat(self.parts).contiguous(), self.offs
 
 
-_PER_LAYER = ("w", "b", "wt", "wp", "wtp", "wc", "wct", "bc")
+_PER_LAYER = ("w", "b", "wt", "wp", "wtp", "wc", "wct", "bc", "wcp", "wctp")
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -336,13 +340,33 @@ def color_kernel_inputs(w: torch.Tensor, ccfg) -> torch.Tensor:
     return torch.cat([w, w.new_zeros((w.shape[0], pad))], 1) if pad else w
 
 
-def _add_color(pk: _Packer, color_layers, ccfg) -> None:
-    for l, (w, b) in enumerate(color_layers):          # w (out, in)
-        if l == 0:
-            w = color_kernel_inputs(w, ccfg)
-        pk.add("wc", w.t().contiguous())
-        pk.add("wct", w)
+def _add_color(pk: _Packer, color_layers, ccfg, with_wg: bool = False) -> None:
+    layers = [(color_kernel_inputs(w, ccfg) if l == 0 else w, b)    # w (out, in)
+              for l, (w, b) in enumerate(color_layers)]
+    if not with_wg:
+        for w, b in layers:
+            pk.add("wc", w.t().contiguous())
+            pk.add("wct", w)
+            pk.add("bc", b)
+        return
+    # The forward's B^T is W (out, in), the backward's W^T; h0_bar (N = k0)
+    # runs in passes of at most 256 columns, each with its own B.
+    w0 = layers[0][0]
+    mats = [(w0, False), (w0[:, :MAX_WIDTH], True)]
+    if w0.shape[1] > MAX_WIDTH:
+        mats.append((w0[:, MAX_WIDTH:], True))
+    mats += [(w, t) for w, _ in layers[1:-1] for t in (False, True)]
+    wg = iter(wg_pack_many(mats))
+    for l, (_, b) in enumerate(layers[:-1]):
+        pk.add("wcp", next(wg))
+        pk.add("wctp", next(wg))
+        if l == 0 and w0.shape[1] > MAX_WIDTH:
+            pk.add("wct0tp", next(wg))
         pk.add("bc", b)
+    w, b = layers[-1]                                  # (3, hidden)
+    pk.add("wc_last", w.t().contiguous())
+    pk.add("wct_last", w)
+    pk.add("bc", b)
 
 
 def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
@@ -379,10 +403,12 @@ def pack_outgrad(sdf_net):
 
 
 def pack_color_layers(color_layers, ccfg):
-    """(params (P,), offsets by name) for the color kernels (K5): ``wc``,
-    ``wct``, ``bc`` per layer, layer 0 in the kernel's input order."""
+    """(params (P,), offsets by name) for the color kernels (K5): each
+    hidden layer packed for the wgmma core both ways (one gather), layer 0
+    in the kernel's input order; the head plain both ways; ``bc`` per
+    layer."""
     pk = _Packer()
-    _add_color(pk, color_layers, ccfg)
+    _add_color(pk, color_layers, ccfg, with_wg=True)
     return pk.done()
 
 

@@ -8,20 +8,23 @@ line; with ``--trial``, the accuracy trial of the tensor-core core instead.
 
 Times every launcher of K1-K7 on 131,072 rows (the train step's field
 queries; K2 on 65,536 and on 2,097,152, a render chunk's first sweep;
-K1-fwd and K4-fwd also on 4,194,304, a render chunk's render core) of the
-full-width nets of ``configs/default.yaml``, their geometric init perturbed
+K1-fwd, K4-fwd and K5-fwd also on 4,194,304, a render chunk's render core)
+of the full-width nets of ``configs/default.yaml``, their geometric init perturbed
 with ``perturb_``, random inputs and cotangents from fixed seeds: the mean of
 ``REPS`` launches after a warm-up (CUDA events), then the same launches under
 ``torch.profiler`` (CUDA activity), whose device time per kernel name gives
 the split (K1-bwd, K3-bwd: the row kernel, ``wgrad_*partial_kernel`` and
 ``wgrad_final_kernel``; "not measured" where the profiler sees no device
-time); beside them ``torch.mm`` of K3-bwd's and K4-bwd's weight reductions
-over the staged rows, one a layer (``sdf_value_bwd_reduction_mm``,
-``sdf_outgrad_bwd_reduction_mm``: yardsticks the port never calls), the
-registers and spill bytes of the tensor-core kernels (K1-K4, K6, the
-reduction) and any ptxas line about the wgmma pipeline, and
+time); beside them ``torch.mm`` of K3-bwd's, K4-bwd's and K5-bwd's weight
+reductions over the staged rows, one a layer
+(``sdf_value_bwd_reduction_mm``, ``sdf_outgrad_bwd_reduction_mm``,
+``color_bwd_reduction_mm``: yardsticks the port never calls), the
+registers and spill bytes of the tensor-core kernels (K1-K6, the
+reduction) and any ptxas line about the wgmma pipeline,
 ``value_step_16384``: a K2 and a K3-fwd launch on 16,384 rows each after a
-weight update, so with the weight packing a train step does for them.
+weight update, so with the weight packing a train step does for them, and
+``color_pack``: the color pack ``ColorMLP`` builds on every call (its
+events' time is the host's, its profiler split the device's).
 ``--root`` imports ``copenerf_torch`` (and builds its kernels) from
 another checkout, e.g. a parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists, so two versions compare on one card in
@@ -131,6 +134,19 @@ def reduction_pairs(scfg, n, gen, second_order=False):
     return pairs
 
 
+def color_reduction_pairs(ccfg, n, gen):
+    """Random rows at K5-bwd's staged widths, one (z, t) pair per color
+    layer, for a ``torch.mm`` yardstick of its reduction: z_l the layer's
+    output cotangent, t_l its input (layer 0 k0 wide, the head's z 3)."""
+    import torch
+    from copenerf_torch.ops.kernels.pack import color_k0
+
+    dims = list(ccfg.dims)
+    dims[0] = color_k0(ccfg)
+    return [tuple(torch.randn((n, w), generator=gen, device=gen.device)
+                  for w in (dims[l + 1], dims[l])) for l in range(len(dims) - 1)]
+
+
 def smi():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -178,11 +194,14 @@ def run_times(label, root):
             val = pack.pack_sdf_value_layers(pack.effective_layers(sdf))
         og, cl = pack.pack_outgrad(sdf), pack.pack_color(col)
         out, grad = OG.launch_outgrad_fwd(scfg, og, x)
+        out_c, grad_c = OG.launch_outgrad_fwd(scfg, og, xc)
+        col_layers = pack.effective_layers(col)
     feat = out[:, 1:]
     # K3-bwd's and K4-bwd's staged rows at their widths, for the torch.mm
     # yardsticks of their reductions.
     staged = reduction_pairs(scfg, n, gen)
     staged2 = reduction_pairs(scfg, n, gen, second_order=True)
+    staged_c = color_reduction_pairs(ccfg, n, gen)
     p0 = next(sdf.parameters())
 
     def value_step():
@@ -211,7 +230,11 @@ def run_times(label, root):
         "sdf_outgrad_bwd": lambda: OG.outgrad_bwd_cuda(scfg, og, x, obar, gbar),
         "sdf_outgrad_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged2],
         "color_fwd": lambda: CK.launch_color_fwd(ccfg, cl, x, d, grad, feat),
+        "color_fwd_4194304": lambda: CK.launch_color_fwd(ccfg, cl, xc, dc, grad_c,
+                                                         out_c[:, 1:]),
         "color_bwd": lambda: CK.color_bwd_cuda(ccfg, cl, x, d, grad, feat, cbar),
+        "color_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged_c],
+        "color_pack": lambda: pack.pack_color_layers(col_layers, ccfg),
         "rendercore_cons_fwd": lambda: RCC.launch_cons_fwd(scfg, ccfg, rc, x, d, y),
         "rendercore_cons_bwd": lambda: RCC.rendercore_cons_bwd_cuda(
             scfg, ccfg, rc, x, d, y, sbar, gbar, cbar, swbar),
@@ -222,13 +245,13 @@ def run_times(label, root):
     with torch.no_grad():
         for name, fn in fns.items():
             reps = 3 if name in ("rendercore_fwd_4194304", "sdf_outgrad_fwd_4194304",
-                                 "sdf_value_2097152") else REPS
+                                 "color_fwd_4194304", "sdf_value_2097152") else REPS
             ms[name] = event_ms(fn, reps)
             split[name] = kernel_split(fn, reps) or "not measured"
             torch.cuda.empty_cache()
     log = build.build_log()
     regs = {k: v for k, v in registers(log).items()
-            if re.search(r"rendercore|wgrad|sdf_value|sdf_outgrad", k)}
+            if re.search(r"rendercore|wgrad|sdf_value|sdf_outgrad|color_", k)}
     print(json.dumps({"label": label, "root": root, "rows": n, "chunk_rows": CHUNK_ROWS,
                       "reps": REPS, "card": torch.cuda.get_device_name(0), "ms": ms,
                       "kernel_ms": split, "registers_spill_st_ld": regs,

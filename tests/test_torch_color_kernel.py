@@ -158,21 +158,30 @@ def test_color_grad_layout_round_trip(width):
 
 
 def test_color_pack_layout(nets):
-    """K5's pack: per layer W (in, out) and W (out, in) (layer 0 with its
-    inputs in the kernel's order, padded to k0) and b."""
+    """K5's pack: each hidden layer as the wgmma core's B both ways
+    (``wcp``: B = W^T, ``wctp``: B = W; layer 0 with its inputs in the
+    kernel's order, padded to k0), as ``pack.wg_pack_b`` packs one matrix
+    (``test_torch_wgmma_emulation.py`` reads that layout back through the
+    descriptor); the head W (in, out) and W (out, in); b per layer."""
     _, net = nets["positive"]
     P, offs = pack.pack_color(net)
     ccfg = net.cfg
-    k0 = pack.color_k0(ccfg)
+    layers = pack.effective_layers(net)
+    assert pack.color_k0(ccfg) <= 256 and "wct0tp" not in offs
     with torch.no_grad():
-        for l, (w, b) in enumerate(pack.effective_layers(net)):
+        for l, (w, b) in enumerate(layers):
             o, i = w.shape
-            width = k0 if l == 0 else i
             want = pack.color_kernel_inputs(w, ccfg) if l == 0 else w
-            wct = P[offs["wct"][l]:offs["wct"][l] + o * width].view(o, width)
-            wc = P[offs["wc"][l]:offs["wc"][l] + o * width].view(width, o)
-            torch.testing.assert_close(wct, want, rtol=0, atol=0)
-            torch.testing.assert_close(wc, want.t(), rtol=0, atol=0)
+            if l < len(layers) - 1:
+                for name, bt in (("wcp", want), ("wctp", want.t())):
+                    ref = pack.wg_pack_b(bt)
+                    got = P[offs[name][l]:offs[name][l] + ref.numel()]
+                    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+            else:
+                wct = P[offs["wct_last"]:offs["wct_last"] + o * i].view(o, i)
+                wc = P[offs["wc_last"]:offs["wc_last"] + o * i].view(i, o)
+                torch.testing.assert_close(wct, want, rtol=0, atol=0)
+                torch.testing.assert_close(wc, want.t(), rtol=0, atol=0)
             torch.testing.assert_close(P[offs["bc"][l]:offs["bc"][l] + o], b,
                                        rtol=0, atol=0)
 

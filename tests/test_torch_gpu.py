@@ -644,13 +644,58 @@ def test_value_kernels_match_plain_at_full_width_on_card(n):
     _check_vs_f64(got, ref, ref64, f"K3 at {n} rows")
 
 
+# K5 past one warpgroup (d_hidden 160), with a K tail in every hidden GEMM
+# (136), and with a color input past 256 columns (k0 = 268: layer 0's tail
+# slice and h0_bar's second pass), as the host emulation's cases.
+COLOR_WIDE = {
+    "hidden160": TF.ColorConfig(d_feature=64, d_hidden=160, n_layers=3, multires_view=2),
+    "hidden136": TF.ColorConfig(d_feature=64, d_hidden=136, n_layers=3, multires_view=2),
+    "k0_268": TF.ColorConfig(d_feature=232, d_hidden=64, n_layers=2, multires_view=4),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(COLOR_WIDE))
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_color_kernels_past_one_warpgroup_on_card(name, n):
+    """K5-fwd against its plain version to 1e-4 (the feature a column slice
+    of a wider head), and K5-bwd's gradient of every input and weight
+    against f64 within 2x the plain f32 version's error (or 1e-5 of its
+    norm), no color cotangent on rows within KINK_MARGIN of a ReLU's kink."""
+    _require_cuda()
+    cfg = COLOR_WIDE[name]
+    net = perturb_(TF.ColorNetwork(cfg, torch.Generator().manual_seed(cfg.d_hidden)),
+                   torch.Generator().manual_seed(5)).cuda()
+    x, d = _rows(n, seed=n + 17)
+    rng = np.random.default_rng(n)
+    g = torch.from_numpy(rng.normal(size=(n, 4)).astype(np.float32)).cuda()
+    head = torch.from_numpy(0.5 * rng.normal(size=(n, cfg.d_feature + 1))
+                            .astype(np.float32)).cuda()
+    with torch.no_grad():
+        torch.testing.assert_close(CK.color_fwd_cuda(net, x, d, g, head[:, 1:]),
+                                   CK.color_plain(net, x, d, g, head[:, 1:]),
+                                   rtol=0, atol=1e-4)
+    ins = (x, d, g, head[:, 1:].contiguous())
+    net64 = copy.deepcopy(net).double()
+    margin = CK.color_relu_margin(net64, *[t.double() for t in ins])
+    cbar = (torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).cuda()
+            * (margin >= KINK_MARGIN).float()[:, None])
+    cp, cp64 = list(net.parameters()), list(net64.parameters())
+    got = _grads(lambda *a: CK.color_mlp(net, *a), ins, cp, [cbar])
+    ref = _grads(lambda *a: CK.color_plain(net, *a), ins, cp, [cbar])
+    ref64 = _grads(lambda *a: CK.color_plain(net64, *a), [t.double() for t in ins],
+                   cp64, [cbar.double()])
+    _check_vs_f64(got, ref, ref64, f"K5 {name}")
+
+
 @pytest.mark.gpu
 def test_tensor_core_instructions_per_kernel_on_card():
     """``cuobjdump -sass`` of the built library: K2, K3-bwd, K4-fwd (and
-    K7-fwd, its other instantiation) and K4-bwd issue TF32 HGMMA (wgmma); K1
-    and K6 (row kernels) and the tensor-core reduction (K1, K3, K4, K6, K7)
-    issue TF32 HMMA (mma.sync); K5's kernels, K7-bwd's row kernel, the FFMA
-    reduction (K5's) and the final sums issue neither."""
+    K7-fwd, its other instantiation), K4-bwd, K5-fwd and K5-bwd issue TF32
+    HGMMA (wgmma); K1 and K6 (row kernels) and the tensor-core reduction
+    (K1, K3, K4, K5, K6, K7) issue TF32 HMMA (mma.sync); K7-bwd's row
+    kernel, the FFMA reduction (the accuracy trial's control) and the final
+    sums issue neither."""
     import re
     import shutil
     import subprocess
@@ -670,11 +715,11 @@ def test_tensor_core_instructions_per_kernel_on_card():
         key = m.group(1) + ("<1>" if "ILb1E" in name else "")
         funcs[key] = funcs.get(key, "") + body
     wg = ["sdf_value_kernel", "sdf_value_bwd_kernel", "sdf_outgrad_fwd_kernel",
-          "sdf_outgrad_fwd_kernel<1>", "sdf_outgrad_bwd_kernel"]
+          "sdf_outgrad_fwd_kernel<1>", "sdf_outgrad_bwd_kernel", "color_fwd_kernel",
+          "color_bwd_kernel"]
     tc = ["rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
           "rendercore_bwd_kernel<1>", "wgrad_tc_partial_kernel"]
-    ffma = ["sdf_out_bwd_kernel", "color_fwd_kernel", "color_bwd_kernel",
-            "wgrad_partial_kernel", "wgrad_final_kernel"]
+    ffma = ["sdf_out_bwd_kernel", "wgrad_partial_kernel", "wgrad_final_kernel"]
     for k in wg:
         assert re.search(r"HGMMA\.[\w.]*TF32", funcs[k]), k
         assert "HMMA" not in funcs[k].replace("HGMMA", ""), k

@@ -25,7 +25,13 @@ descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
   K7-fwd through their own wrappers at a width whose layers, and K4's
   feature head, are wider than one warpgroup's 128 columns (the second
   warpgroup's ragged columns), against their plain versions with
-  ``chip_smoke.py``'s rules.
+  ``chip_smoke.py``'s rules;
+* the color pack (``pack.pack_color_layers``: every hidden layer as wgmma B
+  both ways, layer 0 in the kernel's input order, h0_bar's columns past 256
+  apart) read back through the descriptor, and K5-fwd and K5-bwd through
+  their own wrappers with hidden layers past one warpgroup (d_hidden 160),
+  a K tail in every hidden GEMM (136), and a color input past 256 columns
+  with a K tail (k0 = 268: layer 0's tail slice, h0_bar's second pass).
 
 Skips where there is no ``g++``."""
 
@@ -38,6 +44,7 @@ import torch
 
 from copenerf_torch.models import fields as F
 from copenerf_torch.models.mlp import perturb_
+from copenerf_torch.ops.kernels import color as CK
 from copenerf_torch.ops.kernels import emulate, pack
 from copenerf_torch.ops.kernels import outgrad as OG
 from copenerf_torch.ops.kernels import sdf_out as SO
@@ -298,3 +305,112 @@ def test_emulated_k4_bwd_past_one_warpgroup(emu, hidden, chan):
                 [obar.double(), gbar.double()])
     _within_plain(*([torch.zeros_like(t) if t is None else t for t in g]
                     for g in (got, plain, r64)))
+
+
+# K5's nets: hidden layers past one warpgroup; a K tail in every hidden GEMM;
+# a color input of k0 = 268 (d_feature 232, multires_view 4): 8 slices and a
+# tail of 12 in layer 0, h0_bar in passes of 256 and 12 columns.
+COLOR_WIDE = {
+    "hidden160": F.ColorConfig(d_feature=64, d_hidden=160, n_layers=3, multires_view=2),
+    "hidden136": F.ColorConfig(d_feature=64, d_hidden=136, n_layers=3, multires_view=2),
+    "k0_268": F.ColorConfig(d_feature=232, d_hidden=64, n_layers=2, multires_view=4),
+}
+_COLOR_NETS = {}
+KINK_MARGIN = 2e-5   # chip_smoke.py's: no color cotangent within it of a ReLU kink
+
+
+def color_net(name):
+    if name not in _COLOR_NETS:
+        cfg = COLOR_WIDE[name]
+        _COLOR_NETS[name] = perturb_(
+            F.ColorNetwork(cfg, torch.Generator().manual_seed(cfg.d_hidden)),
+            torch.Generator().manual_seed(5))
+    return _COLOR_NETS[name]
+
+
+@pytest.mark.parametrize("name,key,layer", [
+    ("k0_268", "wcp", 0), ("k0_268", "wctp", 0), ("k0_268", "wct0tp", 0),
+    ("hidden160", "wcp", 0), ("hidden160", "wctp", 0), ("hidden160", "wcp", 1),
+    ("hidden136", "wcp", 2), ("hidden136", "wctp", 2)])
+def test_color_wg_pack_layout_matches_the_descriptor(name, key, layer):
+    """``wcp[l]`` is B = W_l^T (in x out), ``wctp[l]`` B = W_l (out x in;
+    layer 0: its first 256 input columns), ``wct0tp`` layer 0's columns
+    256 .. k0; layer 0's inputs in the kernel's order, zero past k0."""
+    cfg = COLOR_WIDE[name]
+    layers = pack.effective_layers(color_net(name))
+    params, offs = pack.pack_color_layers(layers, cfg)
+    w = layers[layer][0].detach()
+    if layer == 0:
+        w = pack.color_kernel_inputs(w, cfg)               # (hidden, k0)
+    b = {"wcp": w.t(), "wctp": w[:, :256], "wct0tp": w[:, 256:]}[key].numpy()
+    K, N = b.shape
+    off = offs[key] if key == "wct0tp" else offs[key][layer]
+    size = 2 * -(-N // 128) * 128 * -(-K // 32) * 32
+    got = _read_packed(params[off:off + size].numpy(), K, N)
+    hi, lo = got[:, :K, :N]
+    np.testing.assert_array_equal(hi, tf32_np(b))
+    np.testing.assert_array_equal(lo, tf32_np(b - tf32_np(b)))
+    pad = got.copy()
+    pad[:, :K, :N] = 0
+    assert not pad.any()
+
+
+def test_color_pack_holds_what_the_kernels_read():
+    """The hidden layers only as wgmma B (no plain copy), the head plain
+    both ways, h0_bar's tail only where k0 > 256."""
+    for name, cfg in COLOR_WIDE.items():
+        layers = pack.effective_layers(color_net(name))
+        _, offs = pack.pack_color_layers(layers, cfg)
+        tail = {"wct0tp"} if pack.color_k0(cfg) > 256 else set()
+        assert set(offs) == {"wcp", "wctp", "bc", "wc_last", "wct_last"} | tail, name
+        assert len(offs["wcp"]) == len(offs["wctp"]) == len(layers) - 1
+        assert len(offs["bc"]) == len(layers)
+
+
+def _color_rows(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    cols = [rng.uniform(-1.2, 1.2, size=(n, 4)), d / np.linalg.norm(d, axis=-1, keepdims=True),
+            rng.normal(size=(n, 4)), 0.5 * rng.normal(size=(n, cfg.d_feature))]
+    return [torch.from_numpy(c.astype(np.float32)) for c in cols]
+
+
+@pytest.mark.parametrize("name", sorted(COLOR_WIDE))
+def test_emulated_k5_fwd_past_one_warpgroup(emu, name):
+    """K5-fwd (every hidden layer on the two-stage wgmma ring, over the
+    color input it overwrites) against its plain version: 1e-4; the feature
+    a column slice of a wider head, as K4's."""
+    cfg, net = COLOR_WIDE[name], color_net(name)
+    x, d, g, f = _color_rows(cfg, 70, 11)
+    head = torch.cat([torch.zeros(70, 1), f], 1)
+    with torch.no_grad():
+        got = CK.launch_color_fwd(cfg, pack.pack_color(net), x, d, g, head[:, 1:])
+        ref = CK.color_plain(net, x, d, g, f)
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(COLOR_WIDE))
+def test_emulated_k5_bwd_past_one_warpgroup(emu, name):
+    """K5-bwd (the forward and the backward on the one-stage wgmma ring,
+    h0_bar in passes of 256 columns, the tensor-core reduction): every
+    input's and weight's gradient within 2x the plain f32 version's error
+    against f64, or 1e-5; no color cotangent on rows within KINK_MARGIN of a
+    ReLU's kink."""
+    cfg, net = COLOR_WIDE[name], color_net(name)
+    ins = _color_rows(cfg, 70, 12)
+    net64 = copy.deepcopy(net).double()
+    margin = CK.color_relu_margin(net64, *[t.double() for t in ins])
+    rng = np.random.default_rng(13)
+    cbar = (torch.from_numpy(rng.standard_normal((70, 3)).astype(np.float32))
+            * (margin >= KINK_MARGIN).float()[:, None])
+    ws, bs = zip(*pack.effective_layers(net))
+
+    def grads(fn, m, xs, cot):
+        xs = [t.clone().requires_grad_(True) for t in xs]
+        return torch.autograd.grad(fn(*xs), [*xs, *m.parameters()], cot)
+
+    got = grads(lambda *a: CK.ColorMLP.apply(cfg, *a, *ws, *bs), net, ins, cbar)
+    plain = grads(lambda *a: CK.color_plain(net, *a), net, ins, cbar)
+    r64 = grads(lambda *a: CK.color_plain(net64, *a), net64, [t.double() for t in ins],
+                cbar.double())
+    _within_plain(got, plain, r64)

@@ -10,9 +10,10 @@ Phases, each printed on its own line, any failure exits non-zero:
             per source, in parallel); prints the build time and ptxas usage,
             then (``registers``) the registers and spill bytes of the
             tensor-core kernels: K1 and K6 (3xTF32 on ``mma.sync``,
-            ``csrc/mma_tile.cuh``), K2, K3, K4 and K5 (3xTF32 on ``wgmma``,
-            ``csrc/wgmma_tile.cuh``) and their reduction, and any ptxas
-            line about the wgmma pipeline (``wgmma_warnings``).
+            ``csrc/mma_tile.cuh``), K2-K5 and K7 (3xTF32 on ``wgmma``,
+            ``csrc/wgmma_tile.cuh``) and the weight-gradient reduction
+            (``wgmma``, ``csrc/wgrad.cu``), and any ptxas line about the
+            wgmma pipeline (``wgmma_warnings``).
 3. kernels  each forward kernel against its plain PyTorch version on the card
             at the main path's widths (the full-width SDF + color net of
             configs/default.yaml, geometric init perturbed by ``perturb_`` so
@@ -29,8 +30,9 @@ Phases, each printed on its own line, any failure exits non-zero:
             then CUDA-event times at the train step's shapes (131,072 rows;
             the forward kernels too, for the step's kernels / glue split);
             K1-bwd's and K3-bwd's lines split them into the row kernel and
-            the weight-gradient reduction (``torch.profiler`` device times);
-            K3-bwd's also times ``torch.mm`` of its reduction as a yardstick;
+            the weight-gradient reduction (``torch.profiler`` device times)
+            and time ``torch.mm`` of the reduction's jobs as a yardstick
+            (``reduction_mm_ms``, as every backward's line does);
             the value pack a step builds once for K2 and K3 is timed too.
 5. composed_kernels  K4 (SDF outgrad) and K5 (color MLP), the kernels of
             the composed field path (``use_negative_ray_vector: true``), on
@@ -84,7 +86,8 @@ Phases, each printed on its own line, any failure exits non-zero:
 16. out_kernels  ``fields.sdf_output`` driven once (counters zeroed: 1 K7-fwd
             + 1 K7-bwd), then K7 against ``sdf_apply`` and f64 (column 0,
             the feature columns, all) at 262,144 and 1,000 rows; times at
-            131,072 rows.
+            131,072 rows, K7-bwd's split into its row kernel and the
+            reduction beside ``torch.mm`` of the reduction.
 17. the ``{"kernels": [...]}`` line (launches per path: render, train,
    render_composed, train_composed, train_fold, sdf_output), then the
    contract line ``{"ok": true, "device": {...}}`` last.
@@ -173,34 +176,23 @@ def k3_bwd_work(scfg, n, sdf_net):
     return 2 * macs * n, 36 * n + 2 * weight_bytes(sdf_net)
 
 
-def reduction_mm_ms(scfg, n, second_order=False):
-    """CUDA-event ms of a backward's weight reduction done by torch.mm, one
-    product a layer on random rows of the staged widths
-    (``kernel_times.reduction_pairs``): K3-bwd's, or K4-bwd's with
-    ``second_order``. A yardstick, timed only."""
+def reduction_mm_ms(kernel, scfg, ccfg, n):
+    """CUDA-event ms of a backward kernel's weight reduction done by
+    torch.mm, one product a job on random rows of the staged widths
+    (``kernel_times.reduction_pairs``). A yardstick, timed only."""
     import torch
     from kernel_times import reduction_pairs
 
-    pairs = reduction_pairs(scfg, n, torch.Generator(device=DEVICE).manual_seed(21),
-                            second_order)
+    pairs = reduction_pairs(kernel, scfg, ccfg, n,
+                            torch.Generator(device=DEVICE).manual_seed(21))
     ms = cuda_ms(lambda: [torch.mm(z.t(), t) for z, t in pairs], reps=5)
     del pairs
     torch.cuda.empty_cache()
     return ms
 
 
-def color_reduction_mm_ms(ccfg, n):
-    """CUDA-event ms of K5-bwd's weight reduction done by torch.mm, one
-    product a color layer on random rows of the staged widths
-    (``kernel_times.color_reduction_pairs``). A yardstick, timed only."""
-    import torch
-    from kernel_times import color_reduction_pairs
-
-    pairs = color_reduction_pairs(ccfg, n, torch.Generator(device=DEVICE).manual_seed(22))
-    ms = cuda_ms(lambda: [torch.mm(z.t(), t) for z, t in pairs], reps=5)
-    del pairs
-    torch.cuda.empty_cache()
-    return ms
+MM_NOTE = ("torch.mm of each reduction job's staged pairs (a job's pairs as one "
+           "product over their rows): the reduction's yardstick, not called by the port")
 
 
 def k1_bwd_work(scfg, ccfg, n, sdf_net, color_net):
@@ -412,7 +404,7 @@ def phase_build():
 
     tc = {k: dict(zip(("registers", "spill_stores", "spill_loads"), v))
           for k, v in registers(build.build_log()).items()
-          if k.startswith(("rendercore_", "wgrad_tc_", "sdf_value", "sdf_outgrad",
+          if k.startswith(("rendercore_", "wgrad_wg_", "sdf_value", "sdf_out",
                            "color_"))}
     log("registers", kernels=tc)
     # ptxas says when it serializes the wgmma pipeline (a performance loss).
@@ -698,7 +690,8 @@ def phase_train_kernels(fields):
         plain_note="autograd.grad of the plain version, 4 slices of 32768 rows",
         bound_ms=b, bound_by=by, tc_bound_ms=tc_bound_ms(*work),
         row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
-        sm_clock_power_under_kernel=load)
+        reduction_mm_ms=reduction_mm_ms("rendercore_bwd", scfg, ccfg, n),
+        reduction_mm_note=MM_NOTE, sm_clock_power_under_kernel=load)
     results["rendercore_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
                                       bound_ms=b, bound_by=by,
                                       tc_bound_ms=tc_bound_ms(*work))]
@@ -726,9 +719,8 @@ def phase_train_kernels(fields):
     log("time", kernel="sdf_value_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
         plain_note="autograd.grad of the plain version", **bd,
         row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
-        reduction_mm_ms=reduction_mm_ms(scfg, n),
-        reduction_mm_note="torch.mm of z_l^T t_l over the staged rows, every "
-                          "layer: the reduction's yardstick, not called by the port",
+        reduction_mm_ms=reduction_mm_ms("sdf_value_bwd", scfg, ccfg, n),
+        reduction_mm_note=MM_NOTE,
         sm_clock_power_under_kernel=load)
     results["sdf_value_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
 
@@ -908,10 +900,8 @@ def phase_composed_kernels(fields):
     log("time", kernel="sdf_outgrad_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
         plain_note="autograd.grad of the plain version, 4 slices of 32768 rows",
         **bd, row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
-        reduction_mm_ms=reduction_mm_ms(scfg, n, second_order=True),
-        reduction_mm_note="torch.mm of each layer's staged pairs (z^T T + u^T p "
-                          "as one product over 2n rows): the reduction's "
-                          "yardstick, not called by the port",
+        reduction_mm_ms=reduction_mm_ms("sdf_outgrad_bwd", scfg, ccfg, n),
+        reduction_mm_note=MM_NOTE,
         sm_clock_power_under_kernel=load)
     results["sdf_outgrad_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
     step_ms["sdf_outgrad_bwd"] = k_ms
@@ -930,9 +920,8 @@ def phase_composed_kernels(fields):
     log("time", kernel="color_bwd", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
         plain_note="autograd.grad of the plain version", **bd, row_kernel_ms=row_ms,
         reduction_ms=red_ms, kernel_split_ms=split,
-        reduction_mm_ms=color_reduction_mm_ms(ccfg, n),
-        reduction_mm_note="torch.mm of each layer's staged pair: the reduction's "
-                          "yardstick, not called by the port",
+        reduction_mm_ms=reduction_mm_ms("color_bwd", scfg, ccfg, n),
+        reduction_mm_note=MM_NOTE,
         sm_clock_power_under_kernel=load)
     results["color_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
     step_ms["color_bwd"] = k_ms
@@ -1091,7 +1080,9 @@ def phase_fold_kernels(fields):
     for name, t, p_ms, work, extra in (
             ("rendercore_cons_fwd", fwd, p_fwd, k6_fwd_work, {}),
             ("rendercore_cons_bwd", bwd, p_bwd, k6_bwd_work,
-             dict(row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split))):
+             dict(row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
+                  reduction_mm_ms=reduction_mm_ms("rendercore_cons_bwd", scfg, ccfg, n),
+                  reduction_mm_note=MM_NOTE))):
         wk = work(scfg, ccfg, n, sdf_net, color_net)
         b, by = bound_ms(*wk)
         log("time", kernel=name, rows=n, kernel_ms=t["fold"],
@@ -1183,12 +1174,18 @@ def phase_out_kernels(fields, counters):
     p_bwd = cuda_ms(lambda: torch.autograd.grad(out, [xs] + params, obar,
                                                 retain_graph=True), reps=3)
     del out
+    row_ms, red_ms, split = split_ms(lambda: SO.sdf_out_bwd_cuda(scfg, og_pack, x, obar), 3,
+                                     "sdf_out_bwd_kernel")
+    extra = {"sdf_out_fwd": {}, "sdf_out_bwd": dict(
+        row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split,
+        reduction_mm_ms=reduction_mm_ms("sdf_out_bwd", scfg, None, n),
+        reduction_mm_note=MM_NOTE)}
     results = {}
     for name, k_ms, p_ms, work in (("sdf_out_fwd", k_fwd, p_fwd, k7_fwd_work),
                                    ("sdf_out_bwd", k_bwd, p_bwd, k7_bwd_work)):
         bd = bounds(*work(scfg, n, sdf_net))
         log("time", kernel=name, rows=n, kernel_ms=k_ms, plain_ms=p_ms,
-            plain_note="the plain forward / autograd.grad of it", **bd)
+            plain_note="the plain forward / autograd.grad of it", **bd, **extra[name])
         results[name] = {"max_abs_err": errs[name], "times": [dict(
             rows=n, ms=k_ms, plain_ms=p_ms, **bd)]}
     del x, xs, obar

@@ -30,9 +30,9 @@
 // N = 128, 42x its work. 64-row tiles, one block per tile; the layer inputs
 // and output cotangents (~8 KB a row) are staged per row in device memory
 // and reduced on the tensor cores in 3xTF32 by wgrad.cu's deterministic
-// split-row GEMM (`wgrad_tc_launch`, as K1, K3, K4 and K7; the strides
-// rounded to 4 floats, the head's O = 3 and layer 0's I = 292 zero-filled
-// past their widths).
+// split-row GEMM on `wgmma` (`wgrad_tc_launch`, as K1, K3, K4 and K7; the
+// strides rounded to 4 floats, the head's O = 3 and layer 0's I = 292
+// zero-filled past their widths).
 #include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 

@@ -18,13 +18,13 @@
 // (L2-resident: a few MB in all) through a KS x 256 shared-memory slice.
 // Every value is f32 and every product at least as accurate as an f32 FFMA
 // (no plain TF32, no bf16): the sharpened NeuS alpha cannot tolerate
-// bf16-level SDF error. The sweeps take the GEMM as a policy (`G`, default
-// FfmaGemm: `gemm` on rows of 256), which also says where each hidden
+// bf16-level SDF error. The sweeps take the GEMM as a policy (`G`;
+// FfmaGemm is `gemm` on rows of 256), which also says where each hidden
 // layer's weights are (`G::w`, `G::wt`), the head's feature columns
 // (`G::wf`, `G::wft`) and each hidden color layer's (`G::wc`, `G::wct`,
 // `G::wct0_tail`); K1 and K6 pass mma_tile.cuh's 3xTF32 `mma.sync` policy
-// (TcGemm), K2, K3, K4-fwd (K7-fwd), K4-bwd, K5-fwd and K5-bwd
-// wgmma_tile.cuh's 3xTF32 `wgmma` policies (WgGemm, WgGemm1, weights
+// (TcGemm, which reads the weights where FfmaGemm does), K2, K3, K4, K5 and
+// K7 wgmma_tile.cuh's 3xTF32 `wgmma` policies (WgGemm, WgGemm1, weights
 // pre-packed by the host); both keep activation rows of 272 floats.
 #pragma once
 
@@ -64,8 +64,9 @@ struct Offsets {
 };
 
 // Host: fill `off` from the entry point's named offsets of n_hidden SDF
-// hidden layers (wt may be null) and n_color color layers (wc, bc may be
-// null). False when a count exceeds the struct.
+// hidden layers (w and wt may be null: the wgmma kernels read their packed
+// copies) and n_color color layers (wc, bc may be null). False when a count
+// exceeds the struct.
 inline bool make_offsets(Offsets& off, int n_hidden, const long long* w,
                          const long long* b, const long long* wt, long long w_last0,
                          long long b_last0, long long w_feat, long long b_feat,
@@ -74,7 +75,7 @@ inline bool make_offsets(Offsets& off, int n_hidden, const long long* w,
     return false;
   off = Offsets{};
   for (int l = 0; l < n_hidden; ++l) {
-    off.w[l] = w[l];
+    if (w) off.w[l] = w[l];
     off.b[l] = b[l];
     if (wt) off.wt[l] = wt[l];
   }
@@ -320,10 +321,10 @@ __device__ __forceinline__ void gemm(const float* in, int ld_in, int K,
     gemm_rows<1, KS>(in, ld_in, K, W, ldw, N, w_s, epi);
 }
 
-// The GEMM policy of the sweeps below (`G`): `gemm` on activation rows of
-// kLd floats, w_s of kWsFloats. K1 and K6 pass mma_tile.cuh's TcGemm, K2,
-// K3, K4 and K5 wgmma_tile.cuh's WgGemm / WgGemm1; the other kernels take
-// this default.
+// The GEMM policy contract of the sweeps below (`G`): `gemm` on activation
+// rows of kLd floats, w_s of kWsFloats. K1 and K6 pass mma_tile.cuh's
+// TcGemm, which derives from this one; K2-K5 and K7 wgmma_tile.cuh's
+// WgGemm / WgGemm1.
 struct FfmaGemm {
   static constexpr int kLd = 256;
   static constexpr int kWsFloats = 2 * 64 * kSliceCols;  // two 64-deep slices
@@ -411,7 +412,7 @@ __device__ __forceinline__ void load_and_encode(const float* __restrict__ x, lon
 // `keep(l, r, c, sig)` sees every sigmoid(100 z); `put(l, r, c, v)` sees
 // every value v written as column c of layer l's input (l >= 1: the
 // previous layer's output and the skip layer's scaled PE part).
-template <int KS, class G = FfmaGemm, class Keep, class Put>
+template <int KS, class G, class Keep, class Put>
 __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
                                                    const Offsets& off, const SdfGeom& g,
                                                    const float* e, float* h, float* w_s,
@@ -500,7 +501,7 @@ __device__ __forceinline__ float pe3_jac_t(const float* pb, const float* dirs, i
 // every u_l. With l_stop == 0 h ends holding ee = d(sdf)/d(PE) (d0 wide, the
 // skip's PE part added); with l_stop == 1 it ends at u_0, for a backward that
 // needs the u_l alone. Starts with a barrier.
-template <int KS, class G = FfmaGemm, class Sig, class PutU>
+template <int KS, class G, class Sig, class PutU>
 __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, const Offsets& off,
                                                const SdfGeom& g, float* h, float* e,
                                                float* w_s, int l_stop, Sig sig_at,
@@ -552,7 +553,7 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
 // p_0 .. p_L+1, where p_{L+1} (L the last hidden layer) is the term of row 0
 // of the last layer's W (`wlast_col0_bar`). gb_s and xs must be visible to
 // every thread (a barrier before the call); h and e are overwritten.
-template <int KS, class G = FfmaGemm, class Sig, class GetU, class Zb, class PutP>
+template <int KS, class G, class Sig, class GetU, class Zb, class PutP>
 __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,
                                                  float* w_s, const float* gb_s, const float* xs,
@@ -599,7 +600,7 @@ __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, co
 // with the skip's PE part into e, channel B hb = (hb W_l^T) * sig_{l-1} +
 // zB_{l-1}, down to layer 1 (its x-dependence is severed). h ends holding
 // e_hat = d(out)/d(PE) along channel A. fb may be hb. Starts with a barrier.
-template <int KS, class G = FfmaGemm, class Sig, class Zb, class PutZ>
+template <int KS, class G, class Sig, class Zb, class PutZ>
 __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, const Offsets& off,
                                                   const SdfGeom& g, int d_feat, float* h,
                                                   float* hb, float* e, float* w_s,
@@ -662,8 +663,8 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
 // Per hidden layer l from L down: `put_z(l, r, c, v)` sees z_l, then
 // h = (z_l W_l^T) * sig_{l-1}, split at the skip (h | e) / sqrt(2) with the
 // PE part into e. h ends holding e_hat = d(out)/d(PE) (d0 wide). Starts with
-// a barrier. Used by K3-bwd (on WgGemm), K6-bwd and K7-bwd.
-template <int KS, class G = FfmaGemm, class Sig, class PutZ>
+// a barrier. Used by K3-bwd and K7-bwd (on WgGemm) and K6-bwd.
+template <int KS, class G, class Sig, class PutZ>
 __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,
                                                  float* w_s, Sig sig_at, PutZ put_z) {
@@ -704,7 +705,7 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
 // (layer 0's after a barrier). The head ends in `head(r, c, color)` for
 // c < 3, the sigmoid applied when cg.squeeze. The 3-wide head is a per-row
 // dot on the plain W (off.wc) with every policy.
-template <int KS, bool kStaged, class G = FfmaGemm, class PutCi, class Head>
+template <int KS, bool kStaged, class G, class PutCi, class Head>
 __device__ __forceinline__ void color_forward(const float* __restrict__ P, const Offsets& off,
                                               const ColorGeom& cg, float* cin, float* h,
                                               float* w_s, const float* xr, const float* dr,
@@ -756,7 +757,7 @@ __device__ __forceinline__ void color_forward(const float* __restrict__ P, const
 // output cotangent of every color layer. h0_bar (k0 wide, the kernel's input
 // order) ends in cin after a GEMM epilogue. The head's product stays a
 // 3-term FFMA loop on the plain W^T (off.wct) with every policy.
-template <int KS, class G = FfmaGemm, class Cbar, class In, class PutCz>
+template <int KS, class G, class Cbar, class In, class PutCz>
 __device__ __forceinline__ void color_backward(const float* __restrict__ P, const Offsets& off,
                                                const ColorGeom& cg, float* cin, float* h,
                                                float* cs, float* w_s, Cbar cbar_at, In in_at,

@@ -1,8 +1,7 @@
 // The 3xTF32 tensor-core GEMM of the render-core kernels (K1 and K6): the
 // 64-row tile product of mlp_tile.cuh `gemm` on `mma.sync` m16n8k8 TF32,
-// and the helpers the weight-gradient reduction (wgrad.cu
-// `wgrad_tc_partial_kernel`, also K3-bwd's and K7-bwd's) and the wgmma core
-// (wgmma_tile.cuh) share with it.
+// and the helpers the wgmma core (wgmma_tile.cuh) and the weight-gradient
+// reduction (wgrad.cu `wgrad_wg_partial_kernel`) share with it.
 //
 // 3xTF32: each f32 operand x splits into hi = tf32(x) (cvt.rna: 10 explicit
 // mantissa bits, nearest, ties away) and lo = tf32(x - hi); a product is
@@ -54,7 +53,7 @@ namespace copenerf {
 constexpr int kTcLd = 272;  // activation row stride of the tensor-core kernels
 
 enum TcVariant { kTf32x1 = 1, kTf32x3 = 2, kTf32x3Acc = 3 };
-// What K1 and K6 (row kernels and reduction) run.
+// What the tensor-core kernels ship (K1, K6 on `mma.sync`; the wgmma core).
 constexpr TcVariant kTcVariant = kTf32x3;
 
 __device__ __forceinline__ unsigned tf32_rna(float x) {

@@ -50,11 +50,12 @@
 // grid). Every matrix the weight gradients need (T_l, z_A + z_B, u_l, p_l,
 // color inputs and zbar) is staged per row in device memory and reduced by
 // wgrad.cu's tensor-core split-row GEMM (`wgrad_tc_launch`: 128 x 128
-// output tiles, 32-row slices in a two-stage cp.async pipeline, 3xTF32,
-// the 1,024-row splits summed in order); rows past n are never staged, so
-// the ragged tail adds nothing. The sweeps are mlp_tile.cuh's, shared with
-// K4-bwd (sdf_outgrad_bwd.cu: all but the color parts) and K5-bwd
-// (color_bwd.cu: the color parts), which keep the FFMA GEMM and reduction.
+// output tiles on `wgmma` in 3xTF32, 32-row slices through a four-stage
+// cp.async ring, the 1,024-row splits summed in order); rows past n are
+// never staged, so the ragged tail adds nothing. The sweeps are
+// mlp_tile.cuh's, shared with K4-bwd (sdf_outgrad_bwd.cu: all but the color
+// parts) and K5-bwd (color_bwd.cu: the color parts), which run them on the
+// wgmma core.
 //
 // K6-bwd (kCons) adds, per row of y with the cotangent swbar of sdf_w, after
 // the x tile in the same block: K3-bwd's row kernel (sdf_value_bwd.cu) on

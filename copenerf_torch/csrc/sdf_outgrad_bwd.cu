@@ -33,8 +33,9 @@
 // with two, of 232,448), so each slice's bulk copy is exposed. T_l,
 // z_A + z_B, u_l, p_l and the row-0 term (~34 KB a row) are staged per row
 // in device memory and reduced on the tensor cores in 3xTF32 by wgrad.cu's
-// deterministic split-row GEMM (`wgrad_tc_launch`, as K1, K3 and K7); rows
-// past n are never staged, so the ragged tail adds nothing.
+// deterministic split-row GEMM on `wgmma` (`wgrad_tc_launch`, as K1, K3,
+// K5 and K7); rows past n are never staged, so the ragged tail adds
+// nothing.
 #include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 
@@ -226,23 +227,23 @@ extern "C" int copenerf_sdf_outgrad_bwd_workspace(long long n, int n_lin, int d_
 // x_bar (n, 4) and the SDF net's weight gradients (into `grads` at off_gw /
 // off_gb per layer and off_gw_last0, pack.py `outgrad_grad_layout`) for the
 // cotangents obar (n, d_out) and gbar (n, 4) of K4-fwd's outputs at x (n, 4).
-// The weight offsets are K4-fwd's (W, b, W and W^T as wgmma B per hidden
+// The weight offsets are K4-fwd's (b, W and W^T as wgmma B per hidden
 // layer, the last layer's column 0 and its bias) plus wftp, the feature
 // columns' transpose as wgmma B (pack.py `wg_pack_b`). Returns the first
 // CUDA error.
 extern "C" int copenerf_sdf_outgrad_bwd(
     const float* x, const float* obar, const float* gbar, float* xbar, const float* params,
-    const long long* off_w, const long long* off_b, const long long* off_wp,
-    const long long* off_wtp, long long off_w_last0, long long off_b_last0, long long off_wftp,
-    float* grads, const long long* off_gw, const long long* off_gb, long long off_gw_last0,
-    float* stage, float* partial, float* scratch, long long n, int n_lin, int d_in,
-    int multires, int hidden, int skip, float scale, int d_out, int n_blocks, void* stream) {
+    const long long* off_b, const long long* off_wp, const long long* off_wtp,
+    long long off_w_last0, long long off_b_last0, long long off_wftp, float* grads,
+    const long long* off_gw, const long long* off_gb, long long off_gw_last0, float* stage,
+    float* partial, float* scratch, long long n, int n_lin, int d_in, int multires, int hidden,
+    int skip, float scale, int d_out, int n_blocks, void* stream) {
   if (n <= 0) return 0;
   SdfGeom g;
   if (!og_geometry(n, n_lin, d_in, multires, hidden, skip, scale, d_out, g))
     return (int)cudaErrorInvalidValue;
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, off_w, off_b, nullptr, off_w_last0, off_b_last0, 0, 0, 0,
+  if (!make_offsets(off, n_lin - 1, nullptr, off_b, nullptr, off_w_last0, off_b_last0, 0, 0, 0,
                     nullptr, nullptr))
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < n_lin - 1; ++l) {

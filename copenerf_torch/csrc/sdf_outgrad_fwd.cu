@@ -98,7 +98,7 @@ sdf_outgrad_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 template <bool kWithGrad>
 int outgrad_fwd_run(const float* x, float* out, float* grad, const float* params,
-                    const long long* off_w, const long long* off_b, const long long* off_wp,
+                    const long long* off_b, const long long* off_wp,
                     const long long* off_wtp, long long off_w_last0, long long off_b_last0,
                     long long off_wfp, long long off_b_feat, float* scratch, long long n,
                     int n_lin, int d_in, int multires, int hidden, int skip, float scale,
@@ -107,7 +107,7 @@ int outgrad_fwd_run(const float* x, float* out, float* grad, const float* params
   if (d_in != 4 || d_out < 5 || (d_out - 1) % 4) return (int)cudaErrorInvalidValue;
   SdfGeom g{n_lin, d_in, multires, d_in * (1 + 2 * multires), hidden, skip, scale};
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, off_w, off_b, nullptr, off_w_last0, off_b_last0, 0,
+  if (!make_offsets(off, n_lin - 1, nullptr, off_b, nullptr, off_w_last0, off_b_last0, 0,
                     off_b_feat, 0, nullptr, nullptr))
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < n_lin - 1; ++l) {
@@ -133,18 +133,19 @@ int outgrad_fwd_run(const float* x, float* out, float* grad, const float* params
 using namespace copenerf;
 
 // out (n, d_out) = [sdf, feature] and grad (n, 4) = d(sdf)/dx of x (n, 4).
-// The off_* arguments are float offsets into `params`: per SDF hidden layer
-// (n_lin - 1 of them) W (in, out), b, W as wgmma B and W^T as wgmma B (the
-// sweep's; pack.py `wg_pack_b`); the last layer's column 0, its bias, its
-// feature columns (hidden, d_out - 1) as wgmma B and their bias. `scratch`
+// The off_* arguments are float offsets into `params` (the outgrad pack,
+// pack.py `pack_outgrad_layers`): per SDF hidden layer (n_lin - 1 of them)
+// b, W as wgmma B and W^T as wgmma B (the sweep's; pack.py `wg_pack_b`);
+// the last layer's column 0, its bias, its feature columns (hidden,
+// d_out - 1) as wgmma B and their bias. `scratch`
 // holds n_blocks * (n_lin - 1) * 64 * 256 floats. Returns cudaGetLastError().
 extern "C" int copenerf_sdf_outgrad_fwd(
-    const float* x, float* out, float* grad, const float* params, const long long* off_w,
-    const long long* off_b, const long long* off_wp, const long long* off_wtp,
-    long long off_w_last0, long long off_b_last0, long long off_wfp, long long off_b_feat,
+    const float* x, float* out, float* grad, const float* params, const long long* off_b,
+    const long long* off_wp, const long long* off_wtp, long long off_w_last0,
+    long long off_b_last0, long long off_wfp, long long off_b_feat,
     float* scratch, long long n, int n_lin, int d_in, int multires, int hidden, int skip,
     float scale, int d_out, int n_blocks, void* stream) {
-  return outgrad_fwd_run<true>(x, out, grad, params, off_w, off_b, off_wp, off_wtp, off_w_last0,
+  return outgrad_fwd_run<true>(x, out, grad, params, off_b, off_wp, off_wtp, off_w_last0,
                                off_b_last0, off_wfp, off_b_feat, scratch, n, n_lin, d_in,
                                multires, hidden, skip, scale, d_out, n_blocks, stream);
 }
@@ -153,13 +154,12 @@ extern "C" int copenerf_sdf_outgrad_fwd(
 // copenerf_sdf_outgrad_fwd without the sweep's W^T; no scratch. Returns
 // cudaGetLastError().
 extern "C" int copenerf_sdf_out_fwd(const float* x, float* out, const float* params,
-                                    const long long* off_w, const long long* off_b,
-                                    const long long* off_wp, long long off_w_last0,
-                                    long long off_b_last0, long long off_wfp,
-                                    long long off_b_feat, long long n, int n_lin, int d_in,
-                                    int multires, int hidden, int skip, float scale, int d_out,
-                                    int n_blocks, void* stream) {
-  return outgrad_fwd_run<false>(x, out, nullptr, params, off_w, off_b, off_wp, nullptr,
+                                    const long long* off_b, const long long* off_wp,
+                                    long long off_w_last0, long long off_b_last0,
+                                    long long off_wfp, long long off_b_feat, long long n,
+                                    int n_lin, int d_in, int multires, int hidden, int skip,
+                                    float scale, int d_out, int n_blocks, void* stream) {
+  return outgrad_fwd_run<false>(x, out, nullptr, params, off_b, off_wp, nullptr,
                                 off_w_last0, off_b_last0, off_wfp, off_b_feat, nullptr, n, n_lin,
                                 d_in, multires, hidden, skip, scale, d_out, n_blocks, stream);
 }

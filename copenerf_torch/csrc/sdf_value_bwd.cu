@@ -31,25 +31,23 @@
 // Design: the row kernel is sdf_value.cu's tile (64 rows, activations in
 // shared memory) run forward, then backward over W^T in place in the same
 // buffer; the sigmoids go to a per-block scratch in device memory
-// (persistent grid, one block per SM). K3-bwd runs its GEMMs (the forward
-// recompute and the channel-A down-sweep) on K2's wgmma 3xTF32 core
-// (wgmma_tile.cuh WgGemm, the weights packed both ways by the host); K7-bwd
-// keeps the FFMA GEMM. Both reduce the weight gradients on the tensor cores
-// in 3xTF32 (wgrad.cu `wgrad_tc_partial_kernel`, K1's reduction): the FFMA
-// reduction was 35-37% of their time and 1.8x slower than autograd's cuBLAS
-// products. K7's feature cotangent is read into the activation buffer once
-// the forward has staged it, and the head's GEMM writes z_L over it, so K7
-// needs no more shared memory than K3. Rows past n are never staged, so the
-// ragged tail adds nothing to the weight gradients.
+// (persistent grid, one block per SM). Both run their GEMMs (the forward
+// recompute, K7's feature product and the channel-A down-sweep) on K2's
+// wgmma 3xTF32 core (wgmma_tile.cuh WgGemm, two stages, the weights packed
+// both ways by the host: 216,384 of the 232,448 shared bytes a block may
+// have), and reduce the weight gradients on the tensor cores in 3xTF32
+// (wgrad.cu `wgrad_wg_partial_kernel`). K7's feature cotangent is read into
+// the activation buffer once the forward has staged it, and the head's GEMM
+// (over W_feat^T, the outgrad pack's `wftp`) writes z_L over it after its
+// last slice, so K7 needs no more shared memory than K3. Rows past n are
+// never staged, so the ragged tail adds nothing to the weight gradients.
 #include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace copenerf {
 namespace {
 
-constexpr int kSliceK = 64;  // K7-bwd's FFMA slices
-
-using G3 = WgGemm;  // K3-bwd's GEMM policy
+using G3 = WgGemm;  // the GEMM policy of both row kernels
 
 __global__ void __launch_bounds__(kThreads, 1)
 sdf_value_bwd_kernel(const float* __restrict__ x, const float* __restrict__ obar,
@@ -124,9 +122,10 @@ sdf_out_bwd_kernel(const float* __restrict__ x, const float* __restrict__ obar,
                    float* __restrict__ xbar, const float* __restrict__ P, Offsets off,
                    float* __restrict__ scratch, long long n, SdfGeom g, int d_out,
                    StageSet st_t, StageSet st_z) {
+  constexpr int ld = G3::kLd;
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);
-  float* e = h + kRows * kSliceCols;
+  float* e = h + kRows * ld;
   float* xs = e + kRows * g.d0;
   float* zs = xs + kRows * 4;
   float* w_s = zs + kRows;
@@ -149,7 +148,7 @@ sdf_out_bwd_kernel(const float* __restrict__ x, const float* __restrict__ obar,
     }
 
     // ---- forward: layer inputs to the stage, sigmoids to the scratch ----
-    sdf_hidden_forward<kSliceK>(
+    sdf_hidden_forward<G3::kSliceK, G3>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) {
           sig_s[((long long)l * kRows + r) * 256 + c] = sig;
@@ -168,26 +167,27 @@ sdf_out_bwd_kernel(const float* __restrict__ x, const float* __restrict__ obar,
     for (int i = threadIdx.x; i < kRows * d_feat; i += kThreads) {
       const int r = i / d_feat, c = i - r * d_feat;
       const long long gr = row0 + r;
-      h[r * 256 + c] = gr < n ? obar[gr * d_out + 1 + c] : 0.0f;
+      h[r * ld + c] = gr < n ? obar[gr * d_out + 1 + c] : 0.0f;
     }
     {
       const float* w0 = P + off.w_last0;
-      gemm<kSliceK>(h, 256, d_feat, P + off.w_feat_t, g.hidden, g.hidden, w_s,
-                    [&](int r, int c, float v) {
-                      h[r * 256 + c] = fmaf(zs[r], w0[c], v) * sig_at(lh, r, c);
-                    });
+      G3::run<G3::kSliceK>(h, ld, d_feat, G3::wft(P, off), g.hidden, g.hidden, w_s,
+                           [&](int r, int c, float v) {
+                             h[r * ld + c] = fmaf(zs[r], w0[c], v) * sig_at(lh, r, c);
+                           });
     }
 
     // ---- down-sweep: stage z_l, then z_l @ W_l (over W^T) ----
-    sdf_down_sweep_a<kSliceK>(P, off, g, h, e, w_s, sig_at, [&](int l, int r, int c, float v) {
-      stage_put(st_z, l, row0 + r, n, c, v);
-    });
+    sdf_down_sweep_a<G3::kSliceK, G3>(P, off, g, h, e, w_s, sig_at,
+                                      [&](int l, int r, int c, float v) {
+                                        stage_put(st_z, l, row0 + r, n, c, v);
+                                      });
     // h now holds e_hat (d0 wide): x_bar = J_pe^T e_hat * scale.
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
       const long long gr = row0 + r;
-      if (gr < n) xbar[gr * 4 + j] = pe4_jac_t(h + r * 256, xs + r * 4, g.multires, j) * g.scale;
+      if (gr < n) xbar[gr * 4 + j] = pe4_jac_t(h + r * ld, xs + r * 4, g.multires, j) * g.scale;
     }
   }
 }
@@ -254,7 +254,7 @@ int value_bwd_workspace(long long n, int n_lin, int d_in, int multires, int hidd
 }
 
 // The row kernel and the reduction of K3-bwd (kFullHead false, d_out 1) or
-// K7-bwd (sdf_out_bwd_kernel); off.w_feat_t is read by K7 alone.
+// K7-bwd (sdf_out_bwd_kernel); off.wftp is read by K7 alone.
 template <bool kFullHead>
 int value_bwd_run(const float* x, const float* obar, float* xbar, const float* params,
                   const Offsets& off, float* grads, const long long* off_gw,
@@ -262,7 +262,7 @@ int value_bwd_run(const float* x, const float* obar, float* xbar, const float* p
                   long long n, const SdfGeom& g, int d_out, int n_blocks, void* stream) {
   StageSet t, z;
   value_stage_layout(g, d_out, n, stage, t, z);
-  const size_t smem = kFullHead ? value_bwd_smem<FfmaGemm>(g) : value_bwd_smem<G3>(g);
+  const size_t smem = value_bwd_smem<G3>(g);
   const long long tiles = (n + kRows - 1) / kRows;
   const int grid = (int)(tiles < n_blocks ? tiles : n_blocks);
   cudaStream_t s = (cudaStream_t)stream;
@@ -340,12 +340,14 @@ extern "C" int copenerf_sdf_out_bwd_workspace(long long n, int n_lin, int d_in, 
 // x_bar (n, 4) and the weight gradients (into `grads` at off_gw / off_gb
 // per layer, the last layer whole: pack.py `sdf_out_grad_layout`) of the
 // head out = [sdf, feature] (n, d_out) of x (n, 4) for the cotangent obar
-// (n, d_out). The weight offsets are copenerf_sdf_value_bwd's plus w_feat_t,
-// the feature columns as (d_out - 1, hidden). Returns the first CUDA error.
+// (n, d_out). The weight offsets index the outgrad pack (pack.py
+// `pack_outgrad_layers`): per hidden layer b, W and W^T as wgmma B, the
+// last layer's column 0 and its bias, and wftp, the feature columns' W_feat
+// (d_out - 1, hidden) as wgmma B. Returns the first CUDA error.
 extern "C" int copenerf_sdf_out_bwd(
     const float* x, const float* obar, float* xbar, const float* params,
-    const long long* off_w, const long long* off_b, const long long* off_wt,
-    long long off_w_last0, long long off_b_last0, long long off_w_feat_t, float* grads,
+    const long long* off_b, const long long* off_wp, const long long* off_wtp,
+    long long off_w_last0, long long off_b_last0, long long off_wftp, float* grads,
     const long long* off_gw, const long long* off_gb, float* stage, float* partial,
     float* scratch, long long n, int n_lin, int d_in, int multires, int hidden, int skip,
     float scale, int d_out, int n_blocks, void* stream) {
@@ -353,10 +355,14 @@ extern "C" int copenerf_sdf_out_bwd(
   SdfGeom g;
   Offsets off;
   if (d_out < 5 || !value_geometry(n_lin, d_in, multires, hidden, skip, scale, d_out, g) ||
-      !make_offsets(off, n_lin - 1, off_w, off_b, off_wt, off_w_last0, off_b_last0, 0, 0, 0,
+      !make_offsets(off, n_lin - 1, nullptr, off_b, nullptr, off_w_last0, off_b_last0, 0, 0, 0,
                     nullptr, nullptr))
     return (int)cudaErrorInvalidValue;
-  off.w_feat_t = off_w_feat_t;
+  for (int l = 0; l < n_lin - 1; ++l) {
+    off.wp[l] = off_wp[l];
+    off.wtp[l] = off_wtp[l];
+  }
+  off.wftp = off_wftp;
   return value_bwd_run<true>(x, obar, xbar, params, off, grads, off_gw, off_gb, stage, partial,
                              scratch, n, g, d_out, n_blocks, stream);
 }

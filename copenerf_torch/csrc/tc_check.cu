@@ -1,8 +1,9 @@
 // The accuracy trial and card check of the tensor-core cores: the 64-row
-// tile GEMM of K1 and K6 (mma_tile.cuh, `mma.sync`) and of K2, K3 and K4
-// (wgmma_tile.cuh, `wgmma`), and the weight-gradient reduction, on operands
-// the caller chooses, beside the f32 FFMA versions the other kernels run. Nothing of the main path calls these entry points; the
-// tests and PERF.md's trial hold their results against an f64 product
+// tile GEMM of K1 and K6 (mma_tile.cuh, `mma.sync`) and of K2-K5 and K7
+// (wgmma_tile.cuh, `wgmma`), and the weight-gradient reduction (wgrad.cu,
+// `wgmma`), on operands the caller chooses, beside f32 FFMA versions.
+// Nothing of the main path calls these entry points; the tests and
+// PERF.md's trial hold their results against an f64 product
 // (ops/kernels/tc_check.py).
 #include "wgmma_tile.cuh"
 #include "wgrad.cuh"
@@ -193,22 +194,28 @@ extern "C" int copenerf_tile_gemm_check(const float* A, const float* W, const fl
   }
 }
 
-// w_out (O, I) = z^T t and b_out (O,) = the column sums of z over n rows
-// (z row stride ldz, t row stride ldt: the staged rows' layout) through the
-// weight-gradient reduction: mode 0 the FFMA `wgrad_launch`, else
-// `wgrad_tc_launch` in that TcVariant. `partial` holds
-// (O * I + O) * ceil(n / 1024) floats.
-extern "C" int copenerf_wgrad_check(const float* z, const float* t, float* w_out, float* b_out,
-                                    float* partial, long long n, int O, int I, int ldz,
-                                    int ldt, int mode, void* stream) {
-  if (ldz % 4 || ldt % 4 || ldz < O || ldt < I || mode < 0 || mode > 3)
+// w_out (O, I) = sum over pairs of z_p^T t_p and b_out (O,) = the column
+// sums of z_0 through the weight-gradient reduction: mode 0 the FFMA
+// `wgrad_launch`, else the `wgmma` one every backward kernel runs
+// (`wgrad_tc_launch`) in that TcVariant: kTf32x3 as shipped, kTf32x1 its
+// one-product control. n_pairs (1 or 2) pairs of n rows, both with row
+// strides ldz and ldt (the staged rows' layout); z_p null: ones; rows_p:
+// pair p stops at that row (0: all n). `partial` holds (O * I + O) *
+// ceil(n / 1024) floats.
+extern "C" int copenerf_wgrad_check(const float* z0, const float* t0, long long rows0,
+                                    const float* z1, const float* t1, long long rows1,
+                                    int n_pairs, float* w_out, float* b_out, float* partial,
+                                    long long n, int O, int I, int ldz, int ldt, int mode,
+                                    void* stream) {
+  if (ldz % 4 || ldt % 4 || ldz < O || ldt < I || n_pairs < 1 || n_pairs > 2 ||
+      (mode != 0 && mode != kTf32x3 && mode != kTf32x1))
     return (int)cudaErrorInvalidValue;
   WgradJob job;
   job.O = O;
   job.I = I;
-  job.n_pairs = 1;
-  job.p[0] = WgradPair{z, t, ldz, ldt, 0};
-  job.p[1] = WgradPair{nullptr, nullptr, 0, 0, 0};
+  job.n_pairs = n_pairs;
+  job.p[0] = WgradPair{z0, t0, ldz, ldt, rows0};
+  job.p[1] = WgradPair{z1, t1, ldz, ldt, rows1};
   job.w_out = w_out;
   job.b_out = b_out;
   cudaStream_t s = (cudaStream_t)stream;

@@ -182,36 +182,51 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const unsigned (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// Issue the products of k8 steps J0 .. J0 + kWgGroup - 1 of a slice for
+// this thread's warpgroup into the partial d (the first overwrites it;
+// small terms first: lo hi, hi lo, hi hi), a (ah, al) times b (hi at dh,
+// lo at dl), and commit them as one group; V = kTf32x1 (the trial's
+// control) takes a's and b's hi parts alone.
+template <TcVariant V, int J0>
+__device__ __forceinline__ void wg_group(float (&d)[64], const unsigned (&ah)[4][4],
+                                         const unsigned (&al)[4][4], unsigned long long dh,
+                                         unsigned long long dl) {
+  wg_fence();
+#pragma unroll
+  for (int j = J0; j < J0 + kWgGroup; ++j) {
+    // step j reads bytes 32 j .. 32 j + 31 of each 128-byte row
+    const unsigned long long oh = dh + 2 * j, ol = dl + 2 * j;
+    if constexpr (V == kTf32x1) {
+      wgmma_tf32(d, ah[j], oh, j > J0);
+    } else {
+      wgmma_tf32(d, al[j], oh, j > J0);
+      wgmma_tf32(d, ah[j], ol, 1);
+      wgmma_tf32(d, ah[j], oh, 1);
+    }
+  }
+  wg_commit();
+}
+
+// Wait for the committed products and add the partial d to the f32 sum by
+// FADD.
+__device__ __forceinline__ void wg_group_add(float (&acc)[64], float (&d)[64]) {
+  wg_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    fence_operand(d[i]);
+    acc[i] += d[i];
+  }
+}
+
 // One slice's products for this thread's warpgroup, kWgGroup k8 steps to a
-// partial: acc += sum over the slice of a (ah, al) b (hi at dh, lo at dl);
-// V = kTf32x1 (the trial's control) takes a's and b's hi parts alone.
-template <TcVariant V>
+// partial: acc += sum over the slice of a b.
+template <TcVariant V, int J0 = 0>
 __device__ __forceinline__ void wg_slice(float (&acc)[64], float (&d)[64],
                                          const unsigned (&ah)[4][4], const unsigned (&al)[4][4],
                                          unsigned long long dh, unsigned long long dl) {
-#pragma unroll
-  for (int j0 = 0; j0 < 4; j0 += kWgGroup) {
-    wg_fence();
-#pragma unroll
-    for (int j = j0; j < j0 + kWgGroup; ++j) {
-      // step j reads bytes 32 j .. 32 j + 31 of each 128-byte row
-      const unsigned long long oh = dh + 2 * j, ol = dl + 2 * j;
-      if constexpr (V == kTf32x1) {
-        wgmma_tf32(d, ah[j], oh, j > j0);
-      } else {
-        wgmma_tf32(d, al[j], oh, j > j0);
-        wgmma_tf32(d, ah[j], ol, 1);
-        wgmma_tf32(d, ah[j], oh, 1);
-      }
-    }
-    wg_commit();
-    wg_wait<0>();
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      fence_operand(d[i]);
-      acc[i] += d[i];
-    }
-  }
+  wg_group<V, J0>(d, ah, al, dh, dl);
+  wg_group_add(acc, d);
+  if constexpr (J0 + kWgGroup < 4) wg_slice<V, J0 + kWgGroup>(acc, d, ah, al, dh, dl);
 }
 
 // out[r][c] = epi(r, c, sum_k in[r][k] * B[k][c]) for r < 64, c < N <= 256,

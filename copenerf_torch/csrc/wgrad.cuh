@@ -1,5 +1,6 @@
 // Weight gradients summed over rows, for the backward kernels
-// (sdf_value_bwd.cu, rendercore_bwd.cu).
+// (rendercore_bwd.cuh: K1, K6; sdf_value_bwd.cu: K3, K7; sdf_outgrad_bwd.cu:
+// K4; color_bwd.cu: K5).
 //
 // Replaces what the TPU backward kernels do inside their bodies
 // (copenerf_tpu/ops/pallas/sdf_kernels.py `_outer_acc` + the `pl.when(i > 0)`
@@ -10,10 +11,10 @@
 // the backward row kernels stage each layer's input activations T and output
 // cotangents Z per row in device memory, and these two passes reduce them:
 //
-//   1. partial: block (job, row split, 64 x 64 output tile) computes
-//      sum over its rows of Z[r][o] * T[r][i] (one or two (Z, T) pairs per
-//      job), and for the tiles of the first input column also sum Z[r][o] of
-//      pair 0 (the bias gradient), into its own slot of a partial buffer;
+//   1. partial: block (job, row split, output tile) computes sum over its
+//      rows of Z[r][o] * T[r][i] (one or two (Z, T) pairs per job), and for
+//      the tiles of the first input column also sum Z[r][o] of pair 0 (the
+//      bias gradient), into its own slot of a partial buffer;
 //   2. final: each output element sums its split slots in split order.
 //
 // A pair may cover fewer rows than the launch (`rows`): the folded
@@ -23,9 +24,10 @@
 //
 // Deterministic: the order of every sum is fixed by the shapes. Against an
 // autograd sum over all rows the result differs by f32 reassociation.
-// Bound: operations (f32 FFMA, 2 FLOP per row and output element; 3xTF32
-// on the tensor cores for K1 and K6) or, for narrow layers, the bytes of
-// the staged rows.
+// Bound: operations (~0.9 MFLOP a row at K3's widths, in 3xTF32 on the
+// tensor cores: 495 / 3 TFLOP/s of f32 products) or, for narrow layers,
+// the bytes of the staged rows. The partial sums are the design's own
+// traffic: (O I + O) floats a job per 1024 rows, written once, read once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,9 +59,10 @@ long long wgrad_partial_floats(const WgradJob* jobs, int n_jobs, long long n);
 cudaError_t wgrad_launch(const WgradJob* jobs, int n_jobs, long long n, float* partial,
                          cudaStream_t stream);
 
-// The same with pass 1 on the tensor cores (K1-bwd, K6-bwd; the same
-// partial buffer), in mma_tile.cuh's TcVariant `variant` (0: kTcVariant,
-// 3xTF32; the others for the accuracy trial of tc_check.cu).
+// The same with pass 1 on the tensor cores (wgrad.cu
+// `wgrad_wg_partial_kernel`, `wgmma` m64n128k8; the same partial buffer):
+// what every backward kernel runs. variant 0 is mma_tile.cuh's kTcVariant
+// (3xTF32), kTf32x1 one TF32 product (the accuracy trial's control).
 cudaError_t wgrad_tc_launch(const WgradJob* jobs, int n_jobs, long long n, float* partial,
                             cudaStream_t stream, int variant = 0);
 

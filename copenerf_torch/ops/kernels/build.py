@@ -147,10 +147,10 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L,
         _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.copenerf_sdf_outgrad_fwd.argtypes = (
-        [_P] * 8 + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P])
+        [_P] * 7 + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P])
     lib.copenerf_sdf_outgrad_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
     lib.copenerf_sdf_outgrad_bwd.argtypes = (
-        [_P] * 9 + [_L] * 3 + [_P] * 3 + [_L] + [_P] * 3 + [_L] + [_I] * 5
+        [_P] * 8 + [_L] * 3 + [_P] * 3 + [_L] + [_P] * 3 + [_L] + [_I] * 5
         + [_F, _I, _I, _P])
     lib.copenerf_color_fwd.argtypes = (
         [_P] * 4 + [_L] + [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P])
@@ -165,12 +165,13 @@ def load_library() -> ctypes.CDLL:
         [_P] * 14 + [_L] * 5 + [_P] * 6 + [_L] + [_P] * 5 + [_L] + [_I] * 5
         + [_F] + [_I] * 7 + [_P])
     lib.copenerf_sdf_out_fwd.argtypes = (
-        [_P] * 6 + [_L] * 5 + [_I] * 5 + [_F, _I, _I, _P])
+        [_P] * 5 + [_L] * 5 + [_I] * 5 + [_F, _I, _I, _P])
     lib.copenerf_sdf_out_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
     lib.copenerf_sdf_out_bwd.argtypes = (
         [_P] * 7 + [_L] * 3 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _I, _P])
     lib.copenerf_tile_gemm_check.argtypes = [_P] * 4 + [_L] + [_I] * 4 + [_P] * 2
-    lib.copenerf_wgrad_check.argtypes = [_P] * 5 + [_L] + [_I] * 5 + [_P]
+    lib.copenerf_wgrad_check.argtypes = (
+        [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _L] + [_I] * 5 + [_P])
     for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,
                lib.copenerf_sdf_value_bwd_workspace, lib.copenerf_sdf_value_bwd,
                lib.copenerf_rendercore_bwd_workspace,

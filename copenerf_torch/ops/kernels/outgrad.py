@@ -58,7 +58,7 @@ def launch_outgrad_fwd(cfg, packed, x: torch.Tensor):
     O = build.offsets
     code = build.load_library().copenerf_sdf_outgrad_fwd(
         x.data_ptr(), out.data_ptr(), grad.data_ptr(), params.data_ptr(),
-        O(offs["w"]), O(offs["b"]), O(offs["wp"]), O(offs["wtp"]),
+        O(offs["b"]), O(offs["wp"]), O(offs["wtp"]),
         offs["w_last0"], offs["b_last0"], offs["wfp"], offs["b_feat"],
         scratch.data_ptr(), n,
         *geom, float(cfg.scale), cfg.d_out, blocks, build.stream(x))
@@ -100,7 +100,7 @@ def outgrad_bwd_cuda(cfg, packed, x, obar, gbar):
     O = build.offsets
     code = lib.copenerf_sdf_outgrad_bwd(
         x.data_ptr(), obar.data_ptr(), gbar.data_ptr(), x_bar.data_ptr(),
-        params.data_ptr(), O(offs["w"]), O(offs["b"]), O(offs["wp"]),
+        params.data_ptr(), O(offs["b"]), O(offs["wp"]),
         O(offs["wtp"]), offs["w_last0"], offs["b_last0"], offs["wftp"],
         grads.data_ptr(),
         O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], stage.data_ptr(),

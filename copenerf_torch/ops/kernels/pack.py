@@ -7,15 +7,16 @@ Weight norm is materialized here (``effective_layers``), as the JAX package
 does outside its kernels (``sdf_kernels.py`` ``_prep``):
 
   * ``w[l]``, ``b[l]``: SDF hidden layer l, W_l (in, out) and b_l;
-    ``wt[l]``: W_l^T (out, in) for the gradient and backward sweeps;
+    ``wt[l]``: W_l^T (out, in) for the gradient and backward sweeps (the
+    render-core and value packs);
   * ``w_last0``, ``b_last0``: the last SDF layer's column 0 (hidden,) and
     its bias; ``w_feat``, ``b_feat``: its feature columns (hidden, d_feat)
-    (the render-core pack only) and their bias; ``w_feat_t``: the feature
-    columns as (d_feat, hidden), for the backward;
+    and their bias; ``w_feat_t``: the feature columns as (d_feat, hidden),
+    for the backward (``w_feat`` and ``w_feat_t`` the render-core pack's);
   * ``wp[l]``, ``wtp[l]`` (the value and outgrad packs): W_l and W_l^T as
-    the wgmma core's B operand (``wg_pack_b``), for K2, K3, K4 and K7-fwd;
+    the wgmma core's B operand (``wg_pack_b``), for K2, K3, K4 and K7;
     ``wfp``, ``wftp`` (the outgrad pack): the feature columns (hidden,
-    d_feat) and their transpose as wgmma B, for K4 and K7-fwd;
+    d_feat) and their transpose as wgmma B, for K4 and K7;
   * ``wc[l]``, ``bc[l]``: color layer l (in, out); layer 0 has its input
     rows permuted to [feature, x, PE(dirs), grad] and zero-padded to k0 (a
     multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
@@ -265,16 +266,23 @@ def effective_layers(net) -> list:
                           for l in range(len(net.cfg.dims) - 1))]
 
 
-def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wg: bool = False) -> None:
+def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wg: bool = False,
+             plain: bool = True) -> None:
+    """The SDF part of a pack: per hidden layer b, with ``plain`` W and W^T
+    as they are, with ``with_wg`` both as wgmma B; the head's column 0 and
+    its bias; with ``with_feature`` the feature columns' bias and their
+    matrix both ways, plain or as wgmma B."""
     if with_wg:       # the forward's B^T is W (out, in), the down-sweep's W^T
         mats = [(w, t) for w, _ in layers[:-1] for t in (False, True)]
         if with_feature:          # the head's feature rows, both ways
             mats += [(layers[-1][0][1:], t) for t in (False, True)]
         wg = iter(wg_pack_many(mats))
     for w, b in layers[:-1]:                           # w (out, in)
-        pk.add("w", w.t().contiguous())
+        if plain:
+            pk.add("w", w.t().contiguous())
         pk.add("b", b)
-        pk.add("wt", w)
+        if plain:
+            pk.add("wt", w)
         if with_wg:
             pk.add("wp", next(wg))
             pk.add("wtp", next(wg))
@@ -282,13 +290,14 @@ def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wg: bool = False) -> 
     pk.add("w_last0", w[0])
     pk.add("b_last0", b[:1])
     if with_feature:
-        if with_wg:   # the wgmma kernels' forward head reads wfp instead
+        if with_wg:
             pk.add("wfp", next(wg))
             pk.add("wftp", next(wg))
         else:
             pk.add("w_feat", w[1:].t().contiguous())
         pk.add("b_feat", b[1:])
-        pk.add("w_feat_t", w[1:])
+        if not with_wg:
+            pk.add("w_feat_t", w[1:])
 
 
 def _cached(owner, name: str, nets, make):
@@ -389,10 +398,10 @@ def pack_rendercore(sdf_net, color_net):
 def pack_outgrad_layers(sdf_layers):
     """(params (P,), offsets by name) for the outgrad kernels (K4) and the
     SDF output kernels (K7): the SDF layers and the whole head (column 0,
-    the feature columns), plain (W, W^T, W_feat^T) for K7-bwd and packed
-    for the wgmma core both ways (one gather) for K4 and K7-fwd."""
+    the feature columns), the matrices only as the wgmma core's B both ways
+    (one gather): no kernel of K4 or K7 reads a plain copy."""
     pk = _Packer()
-    _add_sdf(pk, sdf_layers, with_feature=True, with_wg=True)
+    _add_sdf(pk, sdf_layers, with_feature=True, with_wg=True, plain=False)
     return pk.done()
 
 

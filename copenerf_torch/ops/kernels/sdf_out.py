@@ -2,7 +2,8 @@
 kernel without its gradient sweep (``csrc/sdf_outgrad_fwd.cu``,
 ``kWithGrad = false``), K7-bwd the value backward over the whole head
 (``csrc/sdf_value_bwd.cu`` ``sdf_out_bwd_kernel``, launched with
-``kFullHead = true``).
+``kFullHead = true``), both on the wgmma 3xTF32 core with the outgrad pack's
+weights.
 
 Replaces ``copenerf_tpu/ops/pallas/sdf_kernels.py`` ``make_fwd_kernel`` /
 ``make_bwd_kernel`` with ``with_grad=False`` / ``second_order=False``
@@ -49,8 +50,8 @@ def launch_out_fwd(cfg, packed, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, cfg.d_out), dtype=torch.float32, device=x.device)
     code = build.load_library().copenerf_sdf_out_fwd(
         x.data_ptr(), out.data_ptr(), params.data_ptr(),
-        build.offsets(offs["w"]), build.offsets(offs["b"]),
-        build.offsets(offs["wp"]), offs["w_last0"], offs["b_last0"],
+        build.offsets(offs["b"]), build.offsets(offs["wp"]),
+        offs["w_last0"], offs["b_last0"],
         offs["wfp"], offs["b_feat"], n, *sdf_geometry(cfg),
         float(cfg.scale), cfg.d_out, build.n_blocks(x.device), build.stream(x))
     build.check(code, "sdf_out_fwd")
@@ -82,8 +83,8 @@ def sdf_out_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     O = build.offsets
     code = lib.copenerf_sdf_out_bwd(
         x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
-        O(offs["w"]), O(offs["b"]), O(offs["wt"]), offs["w_last0"],
-        offs["b_last0"], offs["w_feat_t"], grads.data_ptr(), O(goffs["gw"]),
+        O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
+        offs["b_last0"], offs["wftp"], grads.data_ptr(), O(goffs["gw"]),
         O(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
         scratch.data_ptr(), n, *geom, float(cfg.scale), cfg.d_out, blocks,
         build.stream(x))

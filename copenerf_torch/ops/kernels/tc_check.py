@@ -1,8 +1,9 @@
 """The accuracy trial and card check of the tensor-core cores
-(``csrc/tc_check.cu`` over ``csrc/mma_tile.cuh`` and ``csrc/wgmma_tile.cuh``):
-the 64-row tile GEMM that K1 and K6 run on ``mma.sync`` and K2, K3 and K4
-on ``wgmma``, in 3xTF32, and the weight-gradient reduction, on operands the
-caller chooses, beside the f32 FFMA versions of the other kernels.
+(``csrc/tc_check.cu`` over ``csrc/mma_tile.cuh``, ``csrc/wgmma_tile.cuh``
+and ``csrc/wgrad.cu``): the 64-row tile GEMM that K1 and K6 run on
+``mma.sync`` and K2-K5 and K7 on ``wgmma``, in 3xTF32, and the
+weight-gradient reduction every backward kernel runs on ``wgmma``, on
+operands the caller chooses, beside f32 FFMA versions.
 
 Nothing of the main path calls these launchers; ``tests/test_torch_gpu.py``,
 ``tests/test_torch_mma_emulation.py`` (through the host emulation) and
@@ -16,15 +17,18 @@ import torch
 from . import build
 from .pack import tf32_rna, wg_pack_b
 
-# The C entry points' `mode`: 0 f32 FFMA, else mma_tile.cuh's TcVariant;
-# tile_gemm also takes PRESPLIT, 3xTF32 with the weights split on the host,
-# and WG_MODES, the wgmma core (the weights packed by pack.wg_pack_b): "wg"
-# as K2, K3 and K4-fwd ship it (a two-stage ring), one TF32 product, the
-# control that shows what the split buys, and "wg_1stage" as K4-bwd ships
-# it (a one-stage ring).
+# tile_gemm's `mode`: 0 f32 FFMA, else mma_tile.cuh's TcVariant on
+# `mma.sync` (K1's core); PRESPLIT, 3xTF32 with the weights split on the
+# host; and WG_MODES, the wgmma core (the weights packed by
+# pack.wg_pack_b): "wg" as K2, K3, K4-fwd, K5-fwd and K7 ship it (a
+# two-stage ring), one TF32 product, the control that shows what the split
+# buys, and "wg_1stage" as K4-bwd and K5-bwd ship it (a one-stage ring).
 MODES = {"ffma": 0, "tf32": 1, "3xtf32": 2, "3xtf32_acc": 3}
 PRESPLIT = "3xtf32_presplit"
 WG_MODES = {"wg": 5, "wg_tf32": 6, "wg_1stage": 7}
+# row_reduce's `mode`: the FFMA reduction (the trial's control), the wgmma
+# one every backward kernel runs ("wg", 3xTF32) and its one-product control.
+REDUCE_MODES = {"ffma": 0, "wg": 2, "wg_tf32": 1}
 ROWS_PER_SPLIT = 1024        # wgrad.cu kRowsPerSplit
 
 
@@ -65,23 +69,39 @@ def tile_gemm(a: torch.Tensor, w: torch.Tensor, mode: str = "3xtf32", reps: int 
     return c
 
 
-def row_reduce(z: torch.Tensor, t: torch.Tensor, O: int, I: int,
-               mode: str = "3xtf32"):
-    """(z[:, :O]^T t[:, :I] (O, I), z[:, :O].sum(0)) through the
-    weight-gradient reduction, z and t staged as the backward kernels stage
-    them: row strides z.shape[1], t.shape[1] (multiples of 4, at least O and
-    I); the columns past O and I are never read."""
-    _mat(z, "z")
+def row_reduce(z, t: torch.Tensor, O: int, I: int, mode: str = "wg",
+               rows: int = 0, pair2=None):
+    """(sum over pairs of z[:, :O]^T t[:, :I] (O, I), z[:, :O].sum(0) of the
+    first pair) through the weight-gradient reduction in ``REDUCE_MODES``,
+    z and t staged as the backward kernels stage them: row strides
+    z.shape[1], t.shape[1] (multiples of 4, at least O and I); the columns
+    past O and I are never read. z None: ones (stride O rounded up to 4);
+    ``rows``: the pair stops at that row (0: all); ``pair2`` = (z2, t2,
+    rows2): a second pair of the same shapes, as the render-core backward
+    adds the gradient sweep's rows to a hidden layer's."""
     _mat(t, "t")
-    n = z.shape[0]
-    f32 = dict(dtype=torch.float32, device=z.device)
+    if z is not None:
+        _mat(z, "z")
+    n, ldz = t.shape[0], z.shape[1] if z is not None else -(-O // 4) * 4
+    z2, t2, rows2 = pair2 if pair2 is not None else (None, None, 0)
+    for m, name, ld in ((z2, "z2", ldz), (t2, "t2", t.shape[1])):
+        if m is not None:
+            _mat(m, name)
+            if m.shape != (n, ld):
+                raise ValueError(f"{name} is {tuple(m.shape)}, expected {(n, ld)}")
+    f32 = dict(dtype=torch.float32, device=t.device)
     w_out = torch.empty((O, I), **f32)
     b_out = torch.empty((O,), **f32)
     partial = torch.empty((O * I + O) * -(-n // ROWS_PER_SPLIT), **f32)
+
+    def ptr(m):
+        return m.data_ptr() if m is not None else None
+
     code = build.load_library().copenerf_wgrad_check(
-        z.data_ptr(), t.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        partial.data_ptr(), n, O, I, z.shape[1], t.shape[1], MODES[mode],
-        build.stream(z))
+        ptr(z), t.data_ptr(), rows, ptr(z2), ptr(t2), rows2,
+        2 if pair2 is not None else 1, w_out.data_ptr(), b_out.data_ptr(),
+        partial.data_ptr(), n, O, I, ldz, t.shape[1], REDUCE_MODES[mode],
+        build.stream(t))
     build.check(code, f"wgrad_check {mode}")
     return w_out, b_out
 

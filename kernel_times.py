@@ -13,14 +13,14 @@ of the full-width nets of ``configs/default.yaml``, their geometric init perturb
 with ``perturb_``, random inputs and cotangents from fixed seeds: the mean of
 ``REPS`` launches after a warm-up (CUDA events), then the same launches under
 ``torch.profiler`` (CUDA activity), whose device time per kernel name gives
-the split (K1-bwd, K3-bwd: the row kernel, ``wgrad_*partial_kernel`` and
+the split (each backward: its row kernel, ``wgrad_wg_partial_kernel`` and
 ``wgrad_final_kernel``; "not measured" where the profiler sees no device
-time); beside them ``torch.mm`` of K3-bwd's, K4-bwd's and K5-bwd's weight
-reductions over the staged rows, one a layer
-(``sdf_value_bwd_reduction_mm``, ``sdf_outgrad_bwd_reduction_mm``,
-``color_bwd_reduction_mm``: yardsticks the port never calls), the
-registers and spill bytes of the tensor-core kernels (K1-K6, the
-reduction) and any ptxas line about the wgmma pipeline,
+time); beside them ``torch.mm`` of every backward's weight reduction over
+random rows of its staged widths, one product a job
+(``<launcher>_reduction_mm`` for K1, K3-K7: yardsticks the port never
+calls) and the reductions' bounds (3xTF32 products; staged bytes), the
+registers and spill bytes of the tensor-core kernels (K1-K7,
+the reduction) and any ptxas line about the wgmma pipeline,
 ``value_step_16384``: a K2 and a K3-fwd launch on 16,384 rows each after a
 weight update, so with the weight packing a train step does for them, and
 ``color_pack``: the color pack ``ColorMLP`` builds on every call (its
@@ -30,14 +30,15 @@ another checkout, e.g. a parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists, so two versions compare on one card in
 one call, in turns: ``--root A``, ``--root B``, ``--root B``, ``--root A``.
 
-``--trial`` holds the tile GEMMs (K1 and K6 on ``mma.sync``, K2, K3 and K4
+``--trial`` holds the tile GEMMs (K1 and K6 on ``mma.sync``, K2-K5 and K7
 on ``wgmma``) and the weight-gradient reduction (``csrc/tc_check.cu``)
 against an f64 product at the shapes the kernels multiply (K = 52, 204,
 256, 292), in every variant (f32 FFMA, 1xTF32, 3xTF32 as shipped, 3xTF32
 summed on the tensor core; wgmma as shipped with a two-stage and a
-one-stage ring, and in 1xTF32), and times each tile GEMM's slope
-(``mma.sync`` with the weights split in registers or on the host,
-``wgmma`` with them packed by the host, through either ring).
+one-stage ring, and in 1xTF32; the reduction in FFMA, as shipped on wgmma
+and in 1xTF32), and times each tile GEMM's slope (``mma.sync`` with the
+weights split in registers or on the host, ``wgmma`` with them packed by
+the host, through either ring).
 
 Needs a CUDA card; prints the card's ``nvidia-smi`` name and power limit
 first.
@@ -112,39 +113,65 @@ def registers(log):
     return out
 
 
-def reduction_pairs(scfg, n, gen, second_order=False):
-    """Random rows at the staged widths of a backward's weight reduction,
-    one (z, t) pair per SDF layer, for a ``torch.mm`` yardstick: K3-bwd's
-    (z_l: the layer's outputs, the head's column 0; t_l: its inputs) or,
-    with ``second_order``, K4-bwd's (a hidden layer's two pairs z^T T + u^T p
-    as one product over 2n rows; the whole head)."""
-    import torch
+def reduction_shapes(kernel, scfg, ccfg, n):
+    """[(rows, O, I)], one a job (a job's pairs as one product over their
+    rows), of a backward kernel's weight reduction:
+
+    * ``sdf_value_bwd`` (K3): each SDF layer on n rows, the head's column 0;
+    * ``sdf_out_bwd`` (K7): the same with the whole head;
+    * ``sdf_outgrad_bwd`` (K4): each hidden layer's two pairs (2n rows), the
+      whole head, and the head's row-0 extra (ones over the last hidden
+      layer's output, as the kernel stages it);
+    * ``rendercore_bwd`` (K1): K4's jobs and the color layers';
+    * ``rendercore_cons_bwd`` (K6): K1's, the hidden layers' first pair and
+      the head also over the y rows (3n and 2n rows);
+    * ``color_bwd`` (K5): the color layers' (layer 0 k0 wide, the head 3).
+    """
     from copenerf_torch.models.fields import idr_layer_dims
-
-    n_lin = len(scfg.dims) - 1
-    pairs = []
-    for l in range(n_lin):
-        i, o = idr_layer_dims(scfg, l)
-        last = l == n_lin - 1
-        rows = 2 * n if second_order and not last else n
-        if last:
-            o = scfg.d_out if second_order else 1
-        pairs.append(tuple(torch.randn((rows, w), generator=gen, device=gen.device)
-                           for w in (o, i)))
-    return pairs
-
-
-def color_reduction_pairs(ccfg, n, gen):
-    """Random rows at K5-bwd's staged widths, one (z, t) pair per color
-    layer, for a ``torch.mm`` yardstick of its reduction: z_l the layer's
-    output cotangent, t_l its input (layer 0 k0 wide, the head's z 3)."""
-    import torch
     from copenerf_torch.ops.kernels.pack import color_k0
 
-    dims = list(ccfg.dims)
-    dims[0] = color_k0(ccfg)
-    return [tuple(torch.randn((n, w), generator=gen, device=gen.device)
-                  for w in (dims[l + 1], dims[l])) for l in range(len(dims) - 1)]
+    sdf_kinds = {"sdf_value_bwd": (1, 1), "sdf_out_bwd": (1, 1), "sdf_outgrad_bwd": (2, 1),
+                 "rendercore_bwd": (2, 1), "rendercore_cons_bwd": (3, 2)}
+    shapes = []
+    if kernel in sdf_kinds:
+        hidden_rows, head_rows = sdf_kinds[kernel]
+        for l in range(len(scfg.dims) - 2):
+            i, o = idr_layer_dims(scfg, l)
+            shapes.append((hidden_rows * n, o, i))
+        head = 1 if kernel == "sdf_value_bwd" else scfg.d_out
+        shapes.append((head_rows * n, head, scfg.d_hidden))
+        if hidden_rows > 1:        # the head's row-0 extra
+            shapes.append((n, 1, scfg.d_hidden))
+    if kernel in ("rendercore_bwd", "rendercore_cons_bwd", "color_bwd"):
+        dims = list(ccfg.dims)
+        dims[0] = color_k0(ccfg)
+        shapes += [(n, dims[l + 1], dims[l]) for l in range(len(dims) - 1)]
+    return shapes
+
+
+def reduction_pairs(kernel, scfg, ccfg, n, gen):
+    """Random (z (rows, O), t (rows, I)) pairs of ``reduction_shapes``, for
+    a ``torch.mm`` yardstick of the reduction."""
+    import torch
+
+    return [tuple(torch.randn((r, w), generator=gen, device=gen.device) for w in (o, i))
+            for r, o, i in reduction_shapes(kernel, scfg, ccfg, n)]
+
+
+def reduction_bounds(kernel, scfg, ccfg, n):
+    """The least time of a backward's weight reduction on an H100 SXM
+    (NVIDIA data sheet): its products in 3xTF32 (3 x 2 rows O I FLOP at 495
+    TFLOP/s), and the staged rows read once and the gradients written once
+    at 3.35 TB/s (the partial sums, the design's own traffic, left out)."""
+    shapes = reduction_shapes(kernel, scfg, ccfg, n)
+    flop = sum(2 * r * o * i for r, o, i in shapes)
+    nbytes = 4 * sum(r * (o + i) + o * i + o for r, o, i in shapes)
+    return {"tc_bound_ms": 1e3 * 3 * flop / 495e12, "bytes_bound_ms": 1e3 * nbytes / 3.35e12}
+
+
+# The backward launchers with a torch.mm yardstick of their reduction.
+REDUCTION_MM = ("rendercore_bwd", "rendercore_cons_bwd", "sdf_value_bwd", "sdf_outgrad_bwd",
+                "color_bwd", "sdf_out_bwd")
 
 
 def smi():
@@ -197,11 +224,6 @@ def run_times(label, root):
         out_c, grad_c = OG.launch_outgrad_fwd(scfg, og, xc)
         col_layers = pack.effective_layers(col)
     feat = out[:, 1:]
-    # K3-bwd's and K4-bwd's staged rows at their widths, for the torch.mm
-    # yardsticks of their reductions.
-    staged = reduction_pairs(scfg, n, gen)
-    staged2 = reduction_pairs(scfg, n, gen, second_order=True)
-    staged_c = color_reduction_pairs(ccfg, n, gen)
     p0 = next(sdf.parameters())
 
     def value_step():
@@ -224,16 +246,13 @@ def run_times(label, root):
                                                          gbar, cbar),
         "sdf_value_diff_fwd": lambda: SVD.launch_value(scfg, val, x, SVD.FWD_COUNTER),
         "sdf_value_bwd": lambda: SVD.sdf_value_bwd_cuda(scfg, val, x, sbar[:, 0]),
-        "sdf_value_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged],
         "sdf_outgrad_fwd": lambda: OG.launch_outgrad_fwd(scfg, og, x),
         "sdf_outgrad_fwd_4194304": lambda: OG.launch_outgrad_fwd(scfg, og, xc),
         "sdf_outgrad_bwd": lambda: OG.outgrad_bwd_cuda(scfg, og, x, obar, gbar),
-        "sdf_outgrad_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged2],
         "color_fwd": lambda: CK.launch_color_fwd(ccfg, cl, x, d, grad, feat),
         "color_fwd_4194304": lambda: CK.launch_color_fwd(ccfg, cl, xc, dc, grad_c,
                                                          out_c[:, 1:]),
         "color_bwd": lambda: CK.color_bwd_cuda(ccfg, cl, x, d, grad, feat, cbar),
-        "color_bwd_reduction_mm": lambda: [torch.mm(z.t(), t) for z, t in staged_c],
         "color_pack": lambda: pack.pack_color_layers(col_layers, ccfg),
         "rendercore_cons_fwd": lambda: RCC.launch_cons_fwd(scfg, ccfg, rc, x, d, y),
         "rendercore_cons_bwd": lambda: RCC.rendercore_cons_bwd_cuda(
@@ -241,20 +260,31 @@ def run_times(label, root):
         "sdf_out_fwd": lambda: SO.launch_out_fwd(scfg, og, x),
         "sdf_out_bwd": lambda: SO.sdf_out_bwd_cuda(scfg, og, x, obar),
     }
+    # Each backward's reduction as torch.mm of its staged pairs (made just
+    # before they are timed, freed after).
+    for k in REDUCTION_MM:
+        fns[k + "_reduction_mm"] = k
     ms, split = {}, {}
     with torch.no_grad():
         for name, fn in fns.items():
+            pairs = None
+            if isinstance(fn, str):
+                pairs = reduction_pairs(fn, scfg, ccfg, n, gen)
+                fn = lambda: [torch.mm(z.t(), t) for z, t in pairs]    # noqa: E731
             reps = 3 if name in ("rendercore_fwd_4194304", "sdf_outgrad_fwd_4194304",
                                  "color_fwd_4194304", "sdf_value_2097152") else REPS
             ms[name] = event_ms(fn, reps)
             split[name] = kernel_split(fn, reps) or "not measured"
+            del pairs
             torch.cuda.empty_cache()
     log = build.build_log()
     regs = {k: v for k, v in registers(log).items()
-            if re.search(r"rendercore|wgrad|sdf_value|sdf_outgrad|color_", k)}
+            if re.search(r"rendercore|wgrad|sdf_value|sdf_out|color_", k)}
     print(json.dumps({"label": label, "root": root, "rows": n, "chunk_rows": CHUNK_ROWS,
                       "reps": REPS, "card": torch.cuda.get_device_name(0), "ms": ms,
-                      "kernel_ms": split, "registers_spill_st_ld": regs,
+                      "kernel_ms": split, "reduction_bounds": {
+                          k: reduction_bounds(k, scfg, ccfg, n) for k in REDUCTION_MM},
+                      "registers_spill_st_ld": regs,
                       "wgmma_warnings": [ln.strip() for ln in log.splitlines()
                                          if "wgmma" in ln]}), flush=True)
 
@@ -290,7 +320,7 @@ def run_trial():
             ref = z.double().T @ t.double()
             res["reduction"][f"{n}x{O}x{I} {kind}"] = {
                 mode: TC.rel_err(TC.row_reduce(z, t, O, I, mode)[0], ref)
-                for mode in TC.MODES}
+                for mode in TC.REDUCE_MODES}
     # The tile GEMM alone: each block repeats it, so the slope over the
     # repeats is one 64 x 256 x 256 GEMM per tile of ROWS rows, without and
     # with the epilogue's load-after-store chain.

@@ -480,8 +480,8 @@ def test_fold_switch_and_sdf_output_route_to_k6_and_k7_on_card(monkeypatch):
 # The tile GEMM's activation columns past K hold NaN, so a read past K shows.
 TILE_WIDTHS = [(52, 256), (256, 204), (204, 256), (292, 256), (256, 52),
                (256, 36), (28, 64), (64, 28), (64, 48), (48, 32)]
-REDUCE_WIDTHS = [(257, 256), (256, 292), (256, 52), (204, 256), (3, 256),
-                 (1, 256), (33, 64), (64, 28), (48, 56)]
+REDUCE_WIDTHS = [(257, 256), (257, 52), (256, 292), (160, 292), (256, 52), (204, 256),
+                 (3, 256), (3, 268), (1, 256), (33, 64), (64, 28), (48, 56)]
 
 
 TC_PRODUCT_TOL = 2.0 ** -21      # a 3xTF32 product's own relative error
@@ -511,10 +511,12 @@ def test_tc_tile_gemm_odd_widths_on_card(K, N):
 @pytest.mark.gpu
 @pytest.mark.parametrize("O,I", REDUCE_WIDTHS)
 def test_tc_row_reduction_odd_widths_on_card(O, I):
-    """The reduction of K1-bwd and K6-bwd on staged rows whose padding
-    columns hold NaN (never read): weights and bias against f64, within 2x
-    the FFMA reduction's error or TC_PRODUCT_TOL (at one row each output is
-    one product, which f32 rounds once and 3xTF32 leaves lo * lo out of)."""
+    """The reduction every backward kernel runs (wgmma, 3xTF32) on staged
+    rows whose padding columns hold NaN (never read), at widths past one
+    128 x 128 tile and the heads' O = 257 and O = 3: weights and bias against
+    f64, within 2x the FFMA reduction's error or TC_PRODUCT_TOL (at one row
+    each output is one product, which f32 rounds once and 3xTF32 leaves
+    lo * lo out of)."""
     from copenerf_torch.ops.kernels import tc_check as TC
 
     _require_cuda()
@@ -526,9 +528,40 @@ def test_tc_row_reduction_odd_widths_on_card(O, I):
         ref = z[:, :O].double().T @ t[:, :I].double()
         ref_b = z[:, :O].double().sum(0)
         w_f, b_f = TC.row_reduce(z, t, O, I, "ffma")
-        w_t, b_t = TC.row_reduce(z, t, O, I, "3xtf32")
+        w_t, b_t = TC.row_reduce(z, t, O, I, "wg")
         assert TC.rel_err(w_t, ref) <= max(2 * TC.rel_err(w_f, ref), TC_PRODUCT_TOL), (O, I, n)
         assert TC.rel_err(b_t, ref_b) <= 2 * TC.rel_err(b_f, ref_b) + 1e-7, (O, I, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("O,I", [(257, 52), (160, 292), (3, 268)])
+def test_tc_row_reduction_pairs_exact_on_card(O, I):
+    """The reduction on small integers (exact in TF32 and in every sum) over
+    2,500 rows: a second pair that stops at row 1,300 (the render-core
+    backward's sweep rows; its later rows hold values no sum may read), and
+    ones for z stopping at row 700 (its row-0 job)."""
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    _require_cuda()
+    n = 2500
+    g = torch.Generator(device="cuda").manual_seed(O + I)
+
+    def ints(width):
+        out = torch.full((n, -(-width // 4) * 4), float("nan"), device="cuda")
+        out[:, :width] = torch.randint(-8, 9, (n, width), generator=g,
+                                       device="cuda").float()
+        return out
+
+    z, t, z2, t2 = ints(O), ints(I), ints(O), ints(I)
+    w, b = TC.row_reduce(z, t, O, I, pair2=(z2, t2, 1300))
+    ref = (z[:, :O].double().T @ t[:, :I].double()
+           + z2[:1300, :O].double().T @ t2[:1300, :I].double())
+    assert torch.equal(w.double(), ref), (O, I)
+    assert torch.equal(b.double(), z[:, :O].double().sum(0)), (O, I)
+    w, b = TC.row_reduce(None, t, O, I, rows=700)
+    ref = t[:700, :I].double().sum(0).expand(O, I)
+    assert torch.equal(w.double(), ref), (O, I)
+    assert torch.equal(b, torch.full((O,), 700.0, device="cuda")), (O, I)
 
 
 @pytest.mark.gpu
@@ -548,7 +581,7 @@ def test_tc_accuracy_trial_on_card(shape):
             t = _tc_inputs((1024, 256), seed=2, nonneg=nonneg)
             ref = z.double().T @ t.double()
             errs = [TC.rel_err(TC.row_reduce(z, t, 256, 256, m)[0], ref)
-                    for m in ("ffma", "3xtf32")]
+                    for m in ("ffma", "wg")]
         else:
             _, K, N = (int(v) for v in shape.split("x"))
             a = _tc_inputs((64 * 528, K), seed=K, nonneg=nonneg)
@@ -583,6 +616,37 @@ def test_wg_tile_gemm_odd_widths_on_card(K, N):
     ref = a.double() @ w.double()
     for mode in TC.WG_MODES:
         assert torch.equal(TC.tile_gemm(a, w, mode).double(), ref), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("O,I", [(257, 52), (160, 292), (3, 268)])
+def test_tc_row_reduction_pairs_exact_on_card(O, I):
+    """The reduction on small integers (exact in TF32 and in every sum) over
+    2,500 rows: a second pair that stops at row 1,300 (the render-core
+    backward's sweep rows; its later rows hold values no sum may read), and
+    ones for z stopping at row 700 (its row-0 job)."""
+    from copenerf_torch.ops.kernels import tc_check as TC
+
+    _require_cuda()
+    n = 2500
+    g = torch.Generator(device="cuda").manual_seed(O + I)
+
+    def ints(width):
+        out = torch.full((n, -(-width // 4) * 4), float("nan"), device="cuda")
+        out[:, :width] = torch.randint(-8, 9, (n, width), generator=g,
+                                       device="cuda").float()
+        return out
+
+    z, t, z2, t2 = ints(O), ints(I), ints(O), ints(I)
+    w, b = TC.row_reduce(z, t, O, I, pair2=(z2, t2, 1300))
+    ref = (z[:, :O].double().T @ t[:, :I].double()
+           + z2[:1300, :O].double().T @ t2[:1300, :I].double())
+    assert torch.equal(w.double(), ref), (O, I)
+    assert torch.equal(b.double(), z[:, :O].double().sum(0)), (O, I)
+    w, b = TC.row_reduce(None, t, O, I, rows=700)
+    ref = t[:700, :I].double().sum(0).expand(O, I)
+    assert torch.equal(w.double(), ref), (O, I)
+    assert torch.equal(b, torch.full((O,), 700.0, device="cuda")), (O, I)
 
 
 @pytest.mark.gpu
@@ -691,11 +755,11 @@ def test_color_kernels_past_one_warpgroup_on_card(name, n):
 @pytest.mark.gpu
 def test_tensor_core_instructions_per_kernel_on_card():
     """``cuobjdump -sass`` of the built library: K2, K3-bwd, K4-fwd (and
-    K7-fwd, its other instantiation), K4-bwd, K5-fwd and K5-bwd issue TF32
-    HGMMA (wgmma); K1 and K6 (row kernels) and the tensor-core reduction
-    (K1, K3, K4, K5, K6, K7) issue TF32 HMMA (mma.sync); K7-bwd's row
-    kernel, the FFMA reduction (the accuracy trial's control) and the final
-    sums issue neither."""
+    K7-fwd, its other instantiation), K4-bwd, K5-fwd, K5-bwd, K7-bwd and the
+    weight-gradient reduction of every backward kernel issue TF32 HGMMA
+    (wgmma) and no HMMA; K1 and K6 (row kernels) issue TF32 HMMA
+    (mma.sync); the FFMA reduction (the accuracy trial's control) and the
+    final sums issue neither."""
     import re
     import shutil
     import subprocess
@@ -716,10 +780,10 @@ def test_tensor_core_instructions_per_kernel_on_card():
         funcs[key] = funcs.get(key, "") + body
     wg = ["sdf_value_kernel", "sdf_value_bwd_kernel", "sdf_outgrad_fwd_kernel",
           "sdf_outgrad_fwd_kernel<1>", "sdf_outgrad_bwd_kernel", "color_fwd_kernel",
-          "color_bwd_kernel"]
+          "color_bwd_kernel", "sdf_out_bwd_kernel", "wgrad_wg_partial_kernel"]
     tc = ["rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
-          "rendercore_bwd_kernel<1>", "wgrad_tc_partial_kernel"]
-    ffma = ["sdf_out_bwd_kernel", "wgrad_partial_kernel", "wgrad_final_kernel"]
+          "rendercore_bwd_kernel<1>"]
+    ffma = ["wgrad_partial_kernel", "wgrad_final_kernel"]
     for k in wg:
         assert re.search(r"HGMMA\.[\w.]*TF32", funcs[k]), k
         assert "HMMA" not in funcs[k].replace("HGMMA", ""), k

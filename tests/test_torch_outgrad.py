@@ -131,23 +131,22 @@ def test_outgrad_grad_layout_round_trip(width):
 
 
 def test_outgrad_pack_layout(nets):
-    """K4's pack: W (in, out), W^T and b per hidden layer, the head's
-    column 0 and its feature columns both ways: W_feat^T plain (K7-bwd), and
-    W_feat and W_feat^T as the wgmma core's B (``wfp``, ``wftp``; their
-    layout is held against the core's descriptor in
-    ``test_torch_wgmma_emulation.py``)."""
+    """K4's and K7's pack: b per hidden layer, W and W^T as the wgmma core's
+    B (``wp``, ``wtp``), the head's column 0 and its feature columns both
+    ways as wgmma B (``wfp``, ``wftp``; their layout is held against the
+    core's descriptor in ``test_torch_wgmma_emulation.py``), and no plain
+    matrix: every kernel of K4 and K7 reads the packed copies."""
     _, tp = nets
     P, offs = pack.pack_outgrad(tp["sdf"])
+    assert not {"w", "wt", "w_feat", "w_feat_t"} & set(offs)
     with torch.no_grad():
         layers = pack.effective_layers(tp["sdf"])
         for l, (w, b) in enumerate(layers[:-1]):
-            n = w.numel()
-            torch.testing.assert_close(
-                P[offs["w"][l]:offs["w"][l] + n].view(w.t().shape), w.t(),
-                rtol=0, atol=0)
-            torch.testing.assert_close(
-                P[offs["wt"][l]:offs["wt"][l] + n].view(w.shape), w, rtol=0,
-                atol=0)
+            for name, bt in (("wp", w), ("wtp", w.t())):
+                packed = pack.wg_pack_b(bt)
+                torch.testing.assert_close(
+                    P[offs[name][l]:offs[name][l] + packed.numel()], packed,
+                    rtol=0, atol=0)
             torch.testing.assert_close(P[offs["b"][l]:offs["b"][l] + b.numel()],
                                        b, rtol=0, atol=0)
         w, b = layers[-1]
@@ -156,9 +155,6 @@ def test_outgrad_pack_layout(nets):
             packed = pack.wg_pack_b(bt)
             torch.testing.assert_close(P[offs[name]:offs[name] + packed.numel()],
                                        packed, rtol=0, atol=0)
-        torch.testing.assert_close(
-            P[offs["w_feat_t"]:offs["w_feat_t"] + feat.numel()].view(feat.shape),
-            feat, rtol=0, atol=0)
         torch.testing.assert_close(P[offs["w_last0"]:offs["w_last0"] + w.shape[1]],
                                    w[0], rtol=0, atol=0)
         torch.testing.assert_close(P[offs["b_feat"]:offs["b_feat"] + feat.shape[0]],

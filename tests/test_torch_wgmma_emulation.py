@@ -1,5 +1,6 @@
-"""The wgmma core of K2, K3 and K4 (``csrc/wgmma_tile.cuh``) as the host emulation
-runs it (``copenerf_torch/ops/kernels/emulate.py``: ``wgmma.mma_async``
+"""The wgmma core of K2-K5 and K7 (``csrc/wgmma_tile.cuh``) and the
+weight-gradient reduction (``csrc/wgrad.cu``) as the host emulation runs
+them (``copenerf_torch/ops/kernels/emulate.py``: ``wgmma.mma_async``
 m64n128k8 TF32 with A from registers and B through a shared-memory
 descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
 
@@ -21,11 +22,18 @@ descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
 * 3xTF32 as K2 and K3 ship it against f64: within 2x the f32 FFMA GEMM's
   error and within 1e-6 relative, at the widths K2 and K3 multiply (K = 52,
   204, 256) and ragged ones; one TF32 product is far from it;
-* K2, K3-bwd, K4-fwd (out and grad), K4-bwd (per cotangent channel) and
-  K7-fwd through their own wrappers at a width whose layers, and K4's
-  feature head, are wider than one warpgroup's 128 columns (the second
-  warpgroup's ragged columns), against their plain versions with
+* K2, K3-bwd, K4-fwd (out and grad), K4-bwd (per cotangent channel),
+  K7-fwd and K7-bwd (per cotangent channel) through their own wrappers at
+  a width whose layers, and the feature head, are wider than one
+  warpgroup's 128 columns (the second warpgroup's ragged columns), and at
+  one with a K tail in every GEMM, against their plain versions with
   ``chip_smoke.py``'s rules;
+* the weight-gradient reduction every backward kernel runs (``wgmma`` with
+  A = Z^T from registers and B = T transposed and split by the block's
+  threads) at widths past one 128 x 128 tile: against f64 within 2x the
+  FFMA reduction's error or 1e-6 (on one row and on a split with a ragged
+  tail; staged padding NaN), and exact on small integers with a second
+  pair that stops early and with ones for z;
 * the color pack (``pack.pack_color_layers``: every hidden layer as wgmma B
   both ways, layer 0 in the kernel's input order, h0_bar's columns past 256
   apart) read back through the descriptor, and K5-fwd and K5-bwd through
@@ -305,6 +313,105 @@ def test_emulated_k4_bwd_past_one_warpgroup(emu, hidden, chan):
                 [obar.double(), gbar.double()])
     _within_plain(*([torch.zeros_like(t) if t is None else t for t in g]
                     for g in (got, plain, r64)))
+
+
+@pytest.mark.parametrize("hidden,chan", [(160, "sbar"), (160, "feat"), (160, "all"),
+                                         (136, "all")])
+def test_emulated_k7_bwd_past_one_warpgroup(emu, hidden, chan):
+    """K7-bwd (the forward, the feature product over ``wftp`` and the
+    down-sweep on the two-stage wgmma ring, the wgmma reduction with the
+    head's 161 or 137 rows) per cotangent channel: the head's column 0, its
+    feature columns, all; x_bar and every weight gradient within 2x the
+    plain f32 version's error against f64, or 1e-5."""
+    cfg, net = HEADS[hidden], head_net(hidden)
+    x = _rows(70, 14)
+    obar = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (70, cfg.d_out)).astype(np.float32))
+    mask = torch.zeros(cfg.d_out)
+    mask[{"sbar": slice(0, 1), "feat": slice(1, None), "all": slice(None)}[chan]] = 1
+    obar = obar * mask
+    net64 = copy.deepcopy(net).double()
+    ws, bs = zip(*pack.effective_layers(net))
+
+    def grads(fn, m, xx, cot):
+        xx = xx.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xx), [xx, *m.parameters()], cot)
+
+    got = grads(lambda xx: SO.SdfOut.apply(cfg, xx, *ws, *bs), net, x, obar)
+    plain = grads(lambda xx: SO.sdf_out_plain(net, xx), net, x, obar)
+    r64 = grads(lambda xx: SO.sdf_out_plain(net64, xx), net64, x.double(), obar.double())
+    _within_plain(got, plain, r64)
+
+
+# The reduction's widths past one 128 x 128 tile, with ragged edges: K7's
+# head (O = 257) over layer 0's input (I = 52), a hidden layer of 160 over
+# K1's color input (I = 292), K5's head (O = 3, one warpgroup idle).
+REDUCE_SHAPES = [(257, 52), (160, 292), (3, 268)]
+
+
+def _staged(rng, n, width, nonneg=False, integers=False):
+    """(n, width rounded up to 4) f32 rows as the backward kernels stage
+    them: the columns past width hold NaN, which no sum may read."""
+    out = np.full((n, -(-width // 4) * 4), np.nan, np.float32)
+    if integers:
+        out[:, :width] = rng.integers(-8, 9, size=(n, width))
+    else:
+        v = rng.standard_normal((n, width))
+        out[:, :width] = np.abs(v) if nonneg else v
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 1100])
+@pytest.mark.parametrize("O,I", REDUCE_SHAPES)
+def test_emulated_wg_reduction_against_f64(emu, O, I, n):
+    """The wgmma reduction (3xTF32) against f64 at widths past one tile,
+    on one row (each output one product) and on a split and a ragged tail
+    (1100 = 1024 + 76 rows: two slices and 12 rows): within 2x the FFMA
+    reduction's error, or 1e-6; the bias sums within 1e-4. One TF32 product
+    is far from it."""
+    rng = np.random.default_rng(O * I + n)
+    z, t = _staged(rng, n, O), _staged(rng, n, I, nonneg=True)
+    ref = z[:, :O].T.astype(np.float64) @ t[:, :I]
+    err = {}
+    for m in ("ffma", "wg", "wg_tf32"):
+        w_out, b_out = TC.row_reduce(torch.from_numpy(z), torch.from_numpy(t), O, I, m)
+        err[m] = np.linalg.norm(w_out.numpy() - ref) / np.linalg.norm(ref)
+        np.testing.assert_allclose(b_out.numpy(), z[:, :O].sum(0), rtol=0, atol=1e-4)
+    assert err["wg"] <= max(2 * err["ffma"], 1e-6), err
+    assert err["wg_tf32"] > 1e-5, err                # the split is what buys it
+
+
+@pytest.mark.parametrize("kind", ["one pair", "second pair stops early",
+                                  "ones, stopping early"])
+@pytest.mark.parametrize("O,I", REDUCE_SHAPES)
+def test_emulated_wg_reduction_is_exact_on_integers(emu, O, I, kind):
+    """Small integers on 1100 rows, exact in TF32 and in every sum, so the
+    fragment layout, the B transpose and its swizzle, the tile edges, the
+    row tails and the pairs' row limits must give the sums exactly: one
+    pair; a second pair that stops at row 517 (the render-core backward's
+    sweep rows; its rows past 517 hold values no sum may read); ones for z
+    stopping at row 700 (the render core's row-0 job)."""
+    rng = np.random.default_rng(O + I)
+    n = 1100
+    z, t = _staged(rng, n, O, integers=True), _staged(rng, n, I, integers=True)
+    zt, tt = torch.from_numpy(z), torch.from_numpy(t)
+    if kind == "one pair":
+        got = TC.row_reduce(zt, tt, O, I)
+        ref = z[:, :O].T.astype(np.float64) @ t[:, :I]
+        ref_b = z[:, :O].sum(0)
+    elif kind == "second pair stops early":
+        z2, t2 = _staged(rng, n, O, integers=True), _staged(rng, n, I, integers=True)
+        got = TC.row_reduce(zt, tt, O, I, pair2=(torch.from_numpy(z2), torch.from_numpy(t2),
+                                                 517))
+        ref = (z[:, :O].T.astype(np.float64) @ t[:, :I]
+               + z2[:517, :O].T.astype(np.float64) @ t2[:517, :I])
+        ref_b = z[:, :O].sum(0)
+    else:
+        got = TC.row_reduce(None, tt, O, I, rows=700)
+        ref = np.repeat(t[:700, :I].astype(np.float64).sum(0)[None], O, 0)
+        ref_b = np.full(O, 700.0)
+    np.testing.assert_array_equal(got[0].numpy(), ref)
+    np.testing.assert_array_equal(got[1].numpy(), ref_b)
 
 
 # K5's nets: hidden layers past one warpgroup; a K tail in every hidden GEMM;

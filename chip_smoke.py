@@ -88,9 +88,26 @@ Phases, each printed on its own line, any failure exits non-zero:
             the feature columns, all) at 262,144 and 1,000 rows; times at
             131,072 rows, K7-bwd's split into its row kernel and the
             reduction beside ``torch.mm`` of the reduction.
-17. the ``{"kernels": [...]}`` line (launches per path: render, train,
-   render_composed, train_composed, train_fold, sdf_output), then the
-   contract line ``{"ok": true, "device": {...}}`` last.
+17. trainer  ``Trainer(cfg).train(max_epochs=2)`` of the port's
+            ``training/trainer.py`` on a Co3D-convention synthetic scene
+            written by the port's ``data/synthetic.py`` (12 frames at
+            270x480, 11 train views), the full-width nets of
+            configs/default.yaml, 1024 rays as 64 4x4 patches, 64 + 64
+            samples (every override of defaults.yaml printed as a cut); a
+            second ``Trainer`` resumes from the epoch-1 checkpoint and trains
+            one more epoch. Launch counters zeroed before and read after (per
+            step 4 K2 + 1 K1-fwd + 1 K1-bwd + 1 K3-fwd + 1 K3-bwd, per
+            visualization chunk 4 K2 + 1 K1-fwd, no K4-K7); finite epoch
+            losses, the last epoch's mean below the first's; the resumed state
+            equal to the saved one; the checkpoint's flat Adam moments as long
+            as the JAX layout's; finite ATE / RPE; 2 train views rendered.
+            Prints the Trainer's ms per iteration (host clock, a device sync at
+            the loop's ends) beside the train phase's bare step, the
+            device-busy share of a 5-iteration ``torch.profiler`` window and
+            the peak device memory.
+18. the ``{"kernels": [...]}`` line (launches per path: render, train,
+   render_composed, train_composed, train_fold, sdf_output, trainer), then
+   the contract line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -117,6 +134,9 @@ TRAIN_STEPS = 30
 STEP_ROWS = 1024 * 128  # rows of the field queries in one train step
 CAM_DIST = 1.0          # train camera to the init sphere (radius 0.5): it fills the view
 CHECK_ROWS = (262144, 1000)
+TRAINER_RES = (270, 480)  # the trainer phase's scene: 12 Co3D-style frames
+TRAINER_FRAMES = 12
+STEP_MEAN_MS = {}         # each train phase's bare step mean, by phase
 
 
 def fail(msg):
@@ -1480,6 +1500,7 @@ def phase_train(cfg, fields, counters, step_ms, per_step, steps=TRAIN_STEPS,
                  + 3 * step_ms[f"sdf_value_{STEP_ROWS // 8}"]
                  + sum(step_ms[k] * count for k, count in per_step.items()
                        if k != "sdf_value"))
+    STEP_MEAN_MS[phase] = mean_ms
     log(phase, steps=steps, rays=s.n_points, resolution=list(TRAIN_RES),
         launches=launches, expected=want, mean_step_ms=mean_ms,
         mean_step_ms_note=f"steps 1..{steps - 1} (step 0 allocates)",
@@ -1574,6 +1595,171 @@ def phase_train_card_vs_cpu(fields, checked, train, phase="train_card_vs_cpu",
         if bad_m or bad_g:
             fail(f"{phase} ({nets} nets): metrics {bad_m}, "
                  f"gradients {bad_g[:6]}")
+
+
+# ---------------------------------------------------------------------------
+# The Trainer: scene on disk -> stage-1 epochs -> checkpoint -> resume
+# ---------------------------------------------------------------------------
+
+def trainer_config(scene, out_dir):
+    """(cfg, cuts): configs/default.yaml (SDF 52->256x8->257, color
+    291->256x4->3, 1024 rays as 64 4x4 patches, 64 + 64 samples) with the
+    phase's overrides of it, each a cut."""
+    from copenerf_torch.config.loader import load_config
+
+    cuts = {
+        "dataloading.path": scene[0], "dataloading.scene": [scene[1]],
+        "training.out_dir": out_dir,
+        "training.original_resolution": list(TRAINER_RES),
+        "training.resolution": list(TRAINER_RES),
+        "training.nb_warm_up_it": 10,
+        "training.depth_bound_update_every_milestones": [5, 5, 5],
+        "training.eval_pose_every": 1, "training.checkpoint_every": 1,
+        "training.pretrained_sdf_path": None,
+        "training.start_query_world_epoch": 100,
+        # A torch.profiler window over iterations 16-20 (the port's Trainer
+        # traces 5 iterations from there).
+        "training.profile_trace_at_it": 16,
+    }
+    cfg = load_config(os.path.join(REPO, "configs", "default.yaml"))
+    for key, value in cuts.items():
+        section, name = key.split(".")
+        cfg[section][name] = value
+    return cfg, cuts
+
+
+def phase_trainer(counters):
+    """``Trainer(cfg).train(max_epochs=2)`` on a Co3D-convention synthetic
+    scene written by the port's ``data/synthetic.py`` (12 frames at
+    270x480: 11 train views, 22 iterations), then a second ``Trainer`` on
+    the same out_dir resumes from the epoch-1 checkpoint and trains 1 more
+    epoch. Gates: finite epoch losses, the last epoch's mean below the
+    first's; launch counters zeroed before the first ``train`` and read after
+    the second (per step 4 K2 + 1 K1-fwd + 1 K1-bwd + 1 K3-fwd + 1 K3-bwd,
+    per visualization chunk 4 K2 + 1 K1-fwd, no K4-K7); every visualization
+    wrote its images; the resumed state equals the saved one; the
+    checkpoint's flat Adam moments have the JAX layout's lengths; finite
+    pose metrics; a 2-view ``render_train_views`` with finite depths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from copenerf_torch.data.synthetic import make_scene
+    from copenerf_torch.training import step as TS
+    from copenerf_torch.training.checkpoints import _flatten
+    from copenerf_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = make_scene(os.path.join(tmp, "scene"), n_frames=TRAINER_FRAMES,
+                           h=TRAINER_RES[0], w=TRAINER_RES[1])
+        out_dir = os.path.join(tmp, "out")
+        cfg, cuts = trainer_config(scene, out_dir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        first = Trainer(copy.deepcopy(cfg), verbose=False)
+        first.train(max_epochs=2)
+        saved = _flatten(TS.train_state_to_jax(first.state))
+        second = Trainer(copy.deepcopy(cfg), verbose=False)
+        resumed_it = second.it
+        resumed = _flatten(TS.train_state_to_jax(second.state))
+        second.train(max_epochs=1)
+        launches = {c.name: c.launches for c in counters}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        its = second.it + 1
+        n_vis = sum(1 for it in range(its) if it % 5 == 0)
+        r = second.image_renderer
+        h, w = cfg["training"]["vis_resolution"]
+        chunk = r.min_chunk
+        while chunk < h * w and chunk < r.chunk:
+            chunk *= 2
+        vis_chunks = n_vis * -(-(h * w) // chunk)
+        per_step = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
+                    "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
+        per_chunk = {"sdf_value": 4, "rendercore_fwd": 1}
+        want = {c.name: per_step.get(c.name, 0) * its
+                + per_chunk.get(c.name, 0) * vis_chunks for c in counters}
+        vis_dirs = [d for d in os.listdir(os.path.join(out_dir, "rendering"))
+                    if d.endswith("_vis")
+                    and len(os.listdir(os.path.join(out_dir, "rendering", d))) == 5]
+
+        logs = os.path.join(out_dir, "logs")
+        scalars = [json.loads(ln) for ln in open(os.path.join(logs, "scalars.jsonl"))]
+        epoch_loss = {d["step"]: d["value"] for d in scalars
+                      if d["tag"] == "loss_epoch/loss"}
+        journal = [json.loads(ln) for ln in open(os.path.join(logs, "throughput.jsonl"))]
+        epochs = {d["epoch"]: d for d in journal if "epoch" in d}
+        with np.load(os.path.join(out_dir, "models", "weights", "model.ckpt.npz")) as ck:
+            moments = {k: (ck[f"{k}/#1"].size, ck[f"{k}/#2"].size)
+                       for k in TS.OPTIMIZER_NETS}
+        n_params = {k: sum(p.numel() for n in nets
+                           for p in second.state["fields"][n].parameters())
+                    for k, nets in TS.OPTIMIZER_NETS.items()}
+        _, rpe_t, rpe_r, ate = second.pose_evaluation()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        depths = second.render_train_views(views=[0, 1])
+        views_ms = 1e3 * (time.perf_counter() - t0)
+        prof = first.profile_summary or {}
+        same = (set(saved) == set(resumed)
+                and all(np.array_equal(v, resumed[k]) for k, v in saved.items()))
+
+    log("trainer", cuts=cuts, frames=TRAINER_FRAMES, train_views=second.train_field.N_imgs,
+        iterations=its, saved_at_it=first.it, resumed_at_it=resumed_it,
+        epoch_loss=epoch_loss,
+        launches=launches, expected=want, visualizations=n_vis,
+        vis_chunks=vis_chunks, vis_dirs_complete=len(vis_dirs),
+        resumed_state_equal=same, adam_moments=moments, param_counts=n_params,
+        ate=ate, rpe_trans=rpe_t, rpe_rot=rpe_r,
+        render_train_views_ms=views_ms, depth_shape=list(depths.shape),
+        phase_s=time.perf_counter() - t_phase)
+    last = epochs.get(2, {})
+    log("trainer_time", trainer_ms_per_it=last.get("ms_per_it"),
+        trainer_ms_per_it_steps=last.get("ms_per_it_steps"),
+        vis_ms=last.get("vis_ms"),
+        note=("epoch 2 (the resumed Trainer: 11 iterations, visualizations at 25 "
+              "and 30), host clock with a device sync at the loop's ends; _steps "
+              "without the visualizations (each timed from a device sync)"),
+        by_epoch={e: {k: d[k] for k in ("ms_per_it", "ms_per_it_steps", "vis_ms")}
+                  for e, d in epochs.items()},
+        bare_step_ms=STEP_MEAN_MS.get("train"),
+        bare_step_ms_note="the train phase's mean step (one fixed batch, 540x960 video)")
+    log("trainer_busy", iters=prof.get("iters"), first_it=prof.get("first_it"),
+        wall_ms=prof.get("wall_ms"), device_busy_ms=prof.get("device_busy_ms"),
+        busy_share=prof.get("busy_share"), ms_per_it_profiled=prof.get("ms_per_it"),
+        wall_ms_outside_vis=prof.get("wall_ms_outside"),
+        device_busy_ms_outside_vis=prof.get("device_busy_ms_outside"),
+        busy_share_outside_vis=prof.get("busy_share_outside"),
+        note=("torch.profiler over iterations 16-20 of the first Trainer (one "
+              "visualization, at 20): the union of kernel, copy and memset "
+              "intervals over the window's wall time; _outside_vis without the "
+              "visualization's record_function range"))
+    log("trainer_memory", peak_gb=peak_gb)
+    losses = [epoch_loss.get(e, float("nan")) for e in range(3)]
+    if not np.all(np.isfinite(losses)):
+        fail(f"trainer: non-finite epoch losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"trainer: the last epoch's mean loss {losses[-1]} is not below "
+             f"the first's {losses[0]}")
+    if launches != want:
+        fail(f"trainer launch counts {launches} != {want}")
+    if len(vis_dirs) != n_vis:
+        fail(f"trainer: {len(vis_dirs)} complete visualizations of {n_vis}")
+    if not (same and resumed_it == first.it):
+        fail("trainer: the resumed Trainer's state differs from the saved one")
+    if moments != {k: (n, n) for k, n in n_params.items()}:
+        fail(f"trainer: Adam moments {moments} != parameter counts {n_params}")
+    if not np.all(np.isfinite([ate, rpe_t, rpe_r])):
+        fail(f"trainer: pose metrics ate {ate}, rpe {rpe_t}, {rpe_r}")
+    if depths.shape != (2,) + TRAINER_RES or not np.all(np.isfinite(depths)):
+        fail(f"trainer: render_train_views depths {depths.shape}, finite "
+             f"{bool(np.all(np.isfinite(depths)))}")
+    if not (prof.get("busy_share") is not None and prof.get("iters") == 5):
+        fail(f"trainer: no profiler window {prof}")
+    return launches
 
 
 KERNELS = {
@@ -1694,6 +1880,7 @@ def main():
             os.environ["COPENERF_FOLD_CONS"] = saved
     ores, launches["sdf_output"] = phase_out_kernels(checked, counters)
     kres.update(ores)
+    launches["trainer"] = phase_trainer(counters)
 
     rows = []
     for name, meta in KERNELS.items():

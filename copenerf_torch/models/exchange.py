@@ -66,21 +66,26 @@ def params_from_jax(tree: dict, configs: dict,
     return load_jax_params(nn.ModuleDict(nets).to(dev), tree)
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    # A copy: on the CPU .numpy() would share the parameter's memory.
+    return np.array(t.detach().cpu().numpy())
+
+
 def params_to_jax(fields: nn.ModuleDict) -> dict:
-    """The JAX params tree (numpy f32 leaves) of the port's networks."""
+    """The JAX params tree (numpy f32 leaves, copies) of the port's
+    networks."""
     tree = {}
     for name, net in fields.items():
         if isinstance(net, VarianceNetwork):
-            tree[name] = {"variance": net.variance.detach().cpu().numpy()}
+            tree[name] = {"variance": _numpy(net.variance)}
             continue
         sub = {}
         for lname, layer in net.layers.items():
             if hasattr(layer, "v"):
-                sub[lname] = {"v": layer.v.detach().cpu().numpy().T.copy(),
-                              "g": layer.g.detach().cpu().numpy(),
-                              "b": layer.b.detach().cpu().numpy()}
+                sub[lname] = {"v": _numpy(layer.v).T.copy(),
+                              "g": _numpy(layer.g), "b": _numpy(layer.b)}
             else:
-                sub[lname] = {"w": layer.w.detach().cpu().numpy().T.copy(),
-                              "b": layer.b.detach().cpu().numpy()}
+                sub[lname] = {"w": _numpy(layer.w).T.copy(),
+                              "b": _numpy(layer.b)}
         tree[name] = sub
     return tree

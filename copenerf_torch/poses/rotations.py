@@ -31,6 +31,42 @@ def euler_angles_to_matrix(euler: torch.Tensor, convention: str = "XYZ"):
     return mats[0] @ mats[1] @ mats[2]
 
 
+def _index_from_letter(letter: str) -> int:
+    return {"X": 0, "Y": 1, "Z": 2}[letter]
+
+
+def _angle_from_tan(axis, other_axis, data, horizontal, tait_bryan):
+    i1, i2 = {"X": (2, 1), "Y": (0, 2), "Z": (1, 0)}[axis]
+    if horizontal:
+        i2, i1 = i1, i2
+    even = (axis + other_axis) in ["XY", "YZ", "ZX"]
+    if horizontal == even:
+        return torch.atan2(data[..., i1], data[..., i2])
+    if tait_bryan:
+        return torch.atan2(-data[..., i2], data[..., i1])
+    return torch.atan2(data[..., i2], -data[..., i1])
+
+
+def matrix_to_euler_angles(matrix: torch.Tensor, convention: str = "XYZ"):
+    """(..., 3, 3) -> (..., 3) Euler angles (PyTorch3D semantics)."""
+    i0 = _index_from_letter(convention[0])
+    i2 = _index_from_letter(convention[2])
+    tait_bryan = i0 != i2
+    if tait_bryan:
+        central = torch.asin(matrix[..., i0, i2]
+                             * (-1.0 if i0 - i2 in [-1, 2] else 1.0))
+    else:
+        central = torch.acos(matrix[..., i0, i0])
+    o = (
+        _angle_from_tan(convention[0], convention[1], matrix[..., i2], False,
+                        tait_bryan),
+        central,
+        _angle_from_tan(convention[2], convention[1], matrix[..., i0, :], True,
+                        tait_bryan),
+    )
+    return torch.stack(o, dim=-1)
+
+
 def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) -> (..., 4) quaternion (w, x, y, z)."""
     m = matrix

@@ -18,11 +18,14 @@ sdf-consistency value query and its backward (K3-fwd, K3-bwd). Passing
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
+import numpy as np
 import torch
 
-from ..models.fields import motion_apply
+from ..models.exchange import params_from_jax, params_to_jax
+from ..models.fields import VarianceNetwork, motion_apply
 from ..ops.interp import warp_pixels
 from ..ops.rays import rays_from_pixels
 from ..ops.renderer import RendererConfig, render
@@ -32,6 +35,8 @@ from .losses import (edge_aware_smoothness_loss, eikonal_loss, rgb_l1_loss,
                      sdf_flow_loss, smoothness_loss)
 
 FIELD_NETS = ("sdf", "color", "variance")
+# The networks each optimizer covers, by its key in the train state.
+OPTIMIZER_NETS = {"opt_fields": FIELD_NETS, "opt_motion": ("motion",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,3 +283,120 @@ def build_train_step(rcfg: RendererConfig, static: StepStatic):
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# The train state in the JAX package's layout
+# ---------------------------------------------------------------------------
+
+# optax's ``scale_by_adam`` state; a checkpoint stores it as a 3-tuple.
+AdamState = collections.namedtuple("ScaleByAdamState", ["count", "mu", "nu"])
+
+
+def _jax_order(fields, nets):
+    """[(parameter, transposed)] in the order ``ravel_pytree`` flattens the
+    JAX tree ``{net: params}``: dict keys sorted at every level (the nets;
+    the layers by name as strings, so ``lin10`` before ``lin2``; the leaves
+    ``b, g, v`` or ``b, w``). A JAX (in, out) matrix is the port's (out, in)
+    one transposed, and is raveled row-major."""
+    out = []
+    for name in sorted(nets):
+        net = fields[name]
+        if isinstance(net, VarianceNetwork):
+            out.append((net.variance, False))
+            continue
+        for lname in sorted(net.layers.keys()):
+            layer = net.layers[lname]
+            for leaf in sorted(n for n, _ in layer.named_parameters()):
+                out.append((getattr(layer, leaf), leaf in ("v", "w")))
+    return out
+
+
+def _adam_to_jax(opt, fields, nets) -> AdamState:
+    """One optimizer's moments as the JAX package's flat ``mu`` / ``nu`` and
+    its ``count`` (torch's ``step``; 0 and zero moments before a step)."""
+    counts, mu, nu = set(), [], []
+    for p, transposed in _jax_order(fields, nets):
+        st = opt.state.get(p)
+        if st:
+            counts.add(int(st["step"]))
+            m, v = st["exp_avg"].detach().cpu(), st["exp_avg_sq"].detach().cpu()
+        else:
+            counts.add(0)
+            m = v = torch.zeros(p.shape, dtype=torch.float32)
+        for flat, t in ((mu, m), (nu, v)):
+            flat.append((t.T if transposed else t).reshape(-1).numpy())
+    if len(counts) > 1:
+        raise ValueError(f"parameters of {nets} took different numbers of "
+                         f"Adam steps: {sorted(counts)}")
+    return AdamState(np.asarray(counts.pop(), np.int32),
+                     np.concatenate(mu).astype(np.float32),
+                     np.concatenate(nu).astype(np.float32))
+
+
+def _adam_from_jax(opt, fields, nets, adam_state) -> None:
+    count, mu, nu = adam_state
+    order = _jax_order(fields, nets)
+    size = sum(p.numel() for p, _ in order)
+    if np.size(mu) != size or np.size(nu) != size:
+        raise ValueError(f"Adam moments of {nets} hold {np.size(mu)} / "
+                         f"{np.size(nu)} entries, the parameters {size}")
+    off = 0
+    for p, transposed in order:
+        n = p.numel()
+        shape = (p.shape[1], p.shape[0]) if transposed else tuple(p.shape)
+
+        def moment(flat):
+            t = torch.from_numpy(np.array(flat[off:off + n], np.float32))
+            t = t.reshape(shape)
+            return (t.T if transposed else t).contiguous().to(p.device)
+
+        opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                        "exp_avg": moment(np.ravel(mu)),
+                        "exp_avg_sq": moment(np.ravel(nu))}
+        off += n
+
+
+def train_state_to_jax(state: dict) -> dict:
+    """The JAX package's train state (``init_train_state`` after
+    ``jax.device_get``) of the port's: ``{"params", "opt_fields",
+    "opt_motion"}`` with numpy leaves, each optimizer one flat ``mu`` and
+    ``nu`` over its networks and an int32 ``count``."""
+    fields = state["fields"]
+    tree = {"params": params_to_jax(fields)}
+    for key, nets in OPTIMIZER_NETS.items():
+        tree[key] = _adam_to_jax(state[key], fields, nets)
+    return tree
+
+
+def train_state_from_jax(tree: dict, configs: dict, device="cuda") -> dict:
+    """The port's train state (``init_train_state``) holding a JAX train
+    state tree: the networks' weights and both optimizers' moments and step
+    counts, so the next step continues where the JAX one would."""
+    order = ("sdf", "motion", "color", "nerf", "variance")
+    params = {k: tree["params"][k] for k in order if k in tree["params"]}
+    state = init_train_state(params_from_jax(params, configs, device))
+    for key, nets in OPTIMIZER_NETS.items():
+        _adam_from_jax(state[key], state["fields"], nets, tree[key])
+    return state
+
+
+def _ravel_tree(tree) -> np.ndarray:
+    if isinstance(tree, dict):
+        return np.concatenate([_ravel_tree(tree[k]) for k in sorted(tree)])
+    return np.asarray(tree).reshape(-1)
+
+
+def migrate_train_state(state: dict) -> dict:
+    """Upgrade a loaded checkpoint's optimizer states in place.
+
+    Checkpoints written before the JAX package kept one flat vector per
+    optimizer stored the Adam moments as per-leaf trees with the structure
+    of the params subtree; raveling them with sorted keys gives the flat
+    layout elementwise. Flat states pass through untouched."""
+    for key in OPTIMIZER_NETS:
+        st = state.get(key)
+        if (isinstance(st, (tuple, list)) and len(st) == 3
+                and isinstance(st[1], dict)):
+            state[key] = (st[0], _ravel_tree(st[1]), _ravel_tree(st[2]))
+    return state

@@ -792,3 +792,57 @@ def test_tensor_core_instructions_per_kernel_on_card():
         assert "HGMMA" not in funcs[k], k
     for k in ffma:
         assert "HMMA" not in funcs[k] and "HGMMA" not in funcs[k], k
+
+
+@pytest.mark.gpu
+def test_trainer_steps_and_checkpoint_round_trip_on_card(tmp_path):
+    """A tiny-config ``Trainer`` on the card: 2 stage-1 iterations on a
+    2-frame synthetic scene, each through 2 K2 (``up_sample_steps`` 2) + 1
+    K1-fwd + 1 K1-bwd + 1 K3-fwd + 1 K3-bwd launches; its checkpoint resumes
+    in a second ``Trainer`` with the same iteration, weights and Adam
+    states."""
+    _require_cuda()
+    from copenerf_torch.config.loader import load_config
+    from copenerf_torch.data.synthetic import make_scene
+    from copenerf_torch.training.trainer import Trainer
+
+    path, name = make_scene(str(tmp_path / "scene"), n_frames=2, h=24, w=32)
+    cfg = load_config(None)
+    cfg["dataloading"].update({"path": path, "scene": [name]})
+    cfg["rendering"]["depth_range"] = [0.5, 3.5]
+    cfg["training"].update({
+        "out_dir": str(tmp_path / "out"), "original_resolution": [24, 32],
+        "resolution": [24, 32], "n_training_points": 64,
+        "start_query_world_epoch": 100, "pretrained_sdf_path": None,
+        "depth_bound_update_every_milestones": [0, 0, 0]})
+    cfg["neus_sdf_network"].update({"d_hidden": 64, "n_layers": 4,
+                                    "skip_in": [2], "d_out": 33})
+    cfg["neus_rendering_network"].update({"d_feature": 32, "d_hidden": 32,
+                                          "n_layers": 2})
+    cfg["motion_network"].update({"d_hidden": 32, "n_layers": 2,
+                                  "skip_in": [1]})
+    cfg["neus_nerf"].update({"D": 2, "W": 32})
+    cfg["neus_renderer"].update({"n_samples": 16, "n_importance": 16,
+                                 "up_sample_steps": 2})
+    counters = {"sdf_value": SV.COUNTER, "rendercore_fwd": RC.COUNTER,
+                "rendercore_bwd": RC.BWD_COUNTER,
+                "sdf_value_diff_fwd": SVD.FWD_COUNTER,
+                "sdf_value_bwd": SVD.BWD_COUNTER}
+    for c in counters.values():
+        c.launches = 0
+    first = Trainer(cfg, verbose=False)
+    first.train(max_epochs=1)
+    got = {k: c.launches for k, c in counters.items()}
+    assert first.it == 1
+    assert got == {"sdf_value": 4, "rendercore_fwd": 2, "rendercore_bwd": 2,
+                   "sdf_value_diff_fwd": 2, "sdf_value_bwd": 2}
+    first.save_checkpoint()
+    second = Trainer(cfg, verbose=False)
+    assert second.it == first.it and second.checkpoint_loaded
+    from copenerf_torch.training.checkpoints import _flatten
+
+    a = _flatten(TS.train_state_to_jax(first.state))
+    b = _flatten(TS.train_state_to_jax(second.state))
+    assert int(a["opt_fields/#0"]) == 2 and set(a) == set(b)
+    for k, v in a.items():
+        np.testing.assert_array_equal(v, b[k], err_msg=k)

@@ -56,7 +56,17 @@ def test_import_leaves_jax_unloaded():
             "copenerf_torch.ops.kernels.emulate, "
             "copenerf_torch.poses.motion, copenerf_torch.poses.retriever, "
             "copenerf_torch.training.checkpoints, "
-            "copenerf_torch.training.step; "
+            "copenerf_torch.training.step, "
+            "copenerf_torch.data, copenerf_torch.data.colmap, "
+            "copenerf_torch.data.fields, copenerf_torch.data.dataloading, "
+            "copenerf_torch.data.synthetic, "
+            "copenerf_torch.evaluation.metrics_pose, "
+            "copenerf_torch.models.torch_io, "
+            "copenerf_torch.training.schedules, "
+            "copenerf_torch.training.logging_utils, "
+            "copenerf_torch.training.depth_metrics, "
+            "copenerf_torch.training.trainer, "
+            "copenerf_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,0 +1,560 @@
+"""Port parity for the stage-1 ``Trainer`` and the train state it checkpoints:
+the port's ``training/trainer.py`` against the JAX package's on one
+Co3D-convention synthetic scene at small widths (the nets of
+``test_trainer_e2e.py``), both started from one JAX initial state written as
+a checkpoint at ``it = -1``.
+
+Sampling is injected (each package's ``Trainer`` subclassed with a
+``_get_step`` that adds ``ray_idx`` / ``t_rand`` drawn from numpy by ``it``),
+so both runs see the same rays; the view permutations come from the shared
+``np.random`` seeding. The JAX step is compiled once for the module.
+
+Tolerances, f32 on both sides:
+  * checkpoints: a state written by one package and read by the other is
+    compared exactly (parameters, Adam moments, counts);
+  * a port run interrupted and resumed repeats the uninterrupted one
+    exactly (same process, same CPU kernels);
+  * loss curves, port against JAX: the first Adam steps move every
+    parameter by about lr sign(g), and where a gradient entry is near zero
+    its sign differs between the packages (the step tests' bounds), so the
+    two trajectories drift apart by O(lr) in a few entries each step:
+    LOSS_RTOL relative per iteration over 10 iterations (lr warming up to
+    1e-3); the drift measured 4e-5 at most;
+  * the Adam layout: the port's update of a loaded state equals optax's
+    formula on the JAX layout to float32 rounding (1e-6 relative), and the
+    moments after one step of each package differ by (1 - b) times the
+    gradient bounds of ``test_torch_step.py`` (1e-3 of each tensor's largest
+    gradient entry + 1e-6).
+"""
+
+import dataclasses
+import json
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from copenerf_tpu.config.loader import load_config as j_load_config
+from copenerf_tpu.data.synthetic import make_scene
+from copenerf_tpu.models import fields as JF
+from copenerf_tpu.models import torch_io as JIO
+from copenerf_tpu.training import checkpoints as JCK
+from copenerf_tpu.training import step as JS
+from copenerf_tpu.training import trainer as JT
+from copenerf_torch.models import exchange as X
+from copenerf_torch.models import fields as TF
+from copenerf_torch.models import torch_io as TIO
+from copenerf_torch.training import checkpoints as TCK
+from copenerf_torch.training import step as TS
+from copenerf_torch.training import trainer as TT
+from copenerf_torch.utils import profiling as TP
+from test_torch_step import grads_as_jax
+
+H, W = 24, 32
+N_FRAMES = 6          # i_test = [4]: 5 train views, 5 iterations an epoch
+N_SAMPLES = 16
+LOSS_RTOL = 3e-4
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def tiny_cfg(scene, out_dir, **training):
+    path, name = scene
+    cfg = j_load_config(None)
+    cfg["dataloading"].update({"path": path, "scene": [name]})
+    cfg["rendering"]["depth_range"] = [0.5, 3.5]
+    cfg["training"].update({
+        "out_dir": out_dir, "original_resolution": [H, W],
+        "resolution": [H, W], "vis_resolution": [12, 16],
+        "n_training_points": 64, "patch_size": 4, "n_devices": 1,
+        "scheduling_start": 5, "scheduling_epoch": 3,
+        "start_query_world_epoch": 100, "end_smooth_epoch": 100,
+        "nb_warm_up_it": 10, "pretrained_sdf_path": None,
+        "checkpoint_every": 100, "eval_pose_every": 1, "print_every": 5,
+        "depth_bound_update_every_milestones": [0, 0, 0], **training})
+    cfg["neus_sdf_network"].update({"d_hidden": 64, "n_layers": 4,
+                                    "skip_in": [2], "d_out": 33})
+    cfg["neus_rendering_network"].update({"d_feature": 32, "d_hidden": 32,
+                                          "n_layers": 2})
+    cfg["motion_network"].update({"d_hidden": 32, "n_layers": 2,
+                                  "skip_in": [1]})
+    cfg["neus_nerf"].update({"D": 2, "W": 32})
+    cfg["neus_renderer"].update({"n_samples": N_SAMPLES, "n_importance": 16,
+                                 "up_sample_steps": 2})
+    return cfg
+
+
+def sampling(it):
+    """Iteration ``it``'s rays (4 whole 4x4 patches) and jitter."""
+    rng = np.random.default_rng(1000 + it)
+    w_adj = W - 3
+    corners = rng.choice((H - 3) * w_adj, 4, replace=False)
+    off = np.arange(4)
+    offsets = (off[None, :] + off[:, None] * W).reshape(-1)
+    start = (corners // w_adj) * W + corners % w_adj
+    idx = (start[:, None] + offsets[None, :]).reshape(-1)
+    return idx, rng.uniform(size=(64, N_SAMPLES)).astype(np.float32)
+
+
+_JAX_STEPS = {}
+
+
+class JaxTrainer(JT.Trainer):
+    """The JAX ``Trainer`` with injected sampling; records each loss."""
+
+    def _get_step(self, stage1, train_motion):
+        static = JS.StepStatic(
+            h=self.h, w=self.w, patch_size=self.patch_size,
+            n_points=self.rays_per_step, stage1=stage1,
+            n_images=self.total_nb_images,
+            nb_sample_timestep=self.nb_sample_timestep, n_ref=self.n_ref,
+            train_motion=train_motion,
+            sdf_cons_pose_grad=self.tr["sdf_consistency_enable_pose_grad"],
+            use_flow_rgb=True, use_sdf_consistency=True,
+            smooth_scale=self.s, inject_sampling=True)
+        if static not in _JAX_STEPS:
+            _JAX_STEPS[static] = JS.build_train_step(self.field_cfgs,
+                                                     self.rcfg, static)
+        jstep = _JAX_STEPS[static]
+        self.losses = getattr(self, "losses", [])
+
+        def step(state, batch, key):
+            idx, t_rand = sampling(self.it)
+            batch = dict(batch, ray_idx=jnp.asarray(idx, jnp.int32),
+                         t_rand=jnp.asarray(t_rand))
+            state, metrics = jstep(state, batch, key)
+            self.losses.append(float(metrics["loss"]))
+            return state, metrics
+
+        return step
+
+
+class PortTrainer(TT.Trainer):
+    """The port's ``Trainer`` with the same injected sampling."""
+
+    def _get_step(self, stage1, train_motion):
+        static = TS.StepStatic(
+            h=self.h, w=self.w, patch_size=self.patch_size,
+            n_points=self.rays_per_step, stage1=stage1,
+            n_images=self.total_nb_images,
+            nb_sample_timestep=self.nb_sample_timestep, n_ref=self.n_ref,
+            train_motion=train_motion,
+            sdf_cons_pose_grad=self.tr["sdf_consistency_enable_pose_grad"],
+            use_flow_rgb=True, use_sdf_consistency=True,
+            smooth_scale=self.s, inject_sampling=True)
+        tstep = TS.build_train_step(self.rcfg, static)
+        self.losses = getattr(self, "losses", [])
+
+        def step(state, batch, generator):
+            idx, t_rand = sampling(self.it)
+            batch = dict(batch, ray_idx=torch.from_numpy(idx),
+                         t_rand=torch.from_numpy(t_rand))
+            metrics = tstep(state, batch, generator)
+            self.losses.append(float(metrics["loss"]))
+            return metrics
+
+        return step
+
+
+def port_trainer(cfg, cls=PortTrainer):
+    return cls(cfg, device="cpu", verbose=False)
+
+
+def flat_state(tree) -> dict:
+    return TCK._flatten(jax.device_get(tree))
+
+
+def assert_states_equal(got, ref):
+    got, ref = flat_state(got), flat_state(ref)
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        assert got[k].dtype == r.dtype and got[k].shape == r.shape, k
+        np.testing.assert_array_equal(got[k], r, err_msg=k)
+
+
+def write_init(scene, out_dir, seed=0):
+    """The JAX initial train state as a checkpoint at it = -1."""
+    cfg = tiny_cfg(scene, out_dir)
+    params = JF.init_all_fields(jax.random.PRNGKey(seed),
+                                JF.configs_from_cfg(cfg))
+    JCK.save_checkpoint(out_dir, JS.init_train_state(params),
+                        {"epoch_it": -1, "it": -1, "depth_range": [0.5, 3.5]})
+
+
+def fork(src, dst):
+    """A new run directory holding ``src``'s latest checkpoint."""
+    os.makedirs(dst)
+    shutil.copytree(os.path.join(src, "models", "weights"),
+                    os.path.join(dst, "models", "weights"))
+    return dst
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    return make_scene(str(tmp_path_factory.mktemp("scene")),
+                      n_frames=N_FRAMES, h=H, w=W)
+
+
+@pytest.fixture(scope="module")
+def runs(scene, tmp_path_factory):
+    """Every run of the cross-package and resume tests, once. Each Trainer
+    is built and trained before the next one is built: every construction
+    seeds the process's ``np.random``, as a new process would."""
+    root = tmp_path_factory.mktemp("runs")
+    init = str(root / "init")
+    write_init(scene, init)
+    r, loaded, pose_eval = {}, {}, {}
+
+    def run(name, src, epochs, package, save=False):
+        out = fork(src, str(root / name))
+        if package == "jax":
+            t = JaxTrainer(tiny_cfg(scene, out), verbose=False)
+            loaded[name] = jax.device_get(t.state)
+        else:
+            t = port_trainer(tiny_cfg(scene, out))
+            loaded[name] = TS.train_state_to_jax(t.state)
+        pose_eval[name] = t.pose_evaluation()
+        t.train(max_epochs=epochs)
+        if save:
+            t.save_checkpoint()
+        r[name] = t
+
+    run("J2", init, 2, "jax")
+    run("P2", init, 2, "port")
+    run("J1", init, 1, "jax", save=True)
+    run("P1", init, 1, "port", save=True)
+    # Each package's epoch-0 checkpoint resumed in both packages.
+    for src in ("J1", "P1"):
+        run(f"P_from_{src}", r[src].out_dir, 1, "port")
+        run(f"J_from_{src}", r[src].out_dir, 1, "jax")
+    r["loaded"], r["pose_eval"] = loaded, pose_eval
+    return r
+
+
+def test_loss_curves_match_jax(runs):
+    """Two epochs (10 iterations, across the epoch boundary) from one
+    state: the port's losses against the JAX package's."""
+    got, ref = np.asarray(runs["P2"].losses), np.asarray(runs["J2"].losses)
+    assert len(got) == len(ref) == 10
+    np.testing.assert_allclose(got, ref, rtol=LOSS_RTOL, atol=0)
+    assert runs["P2"].it == runs["J2"].it == 9
+
+
+def test_jax_checkpoint_resumes_in_port(runs):
+    """The port loads the JAX run's epoch-0 checkpoint bit for bit, replays
+    the epoch's view permutation, and its next epoch follows the JAX
+    package's uninterrupted second epoch."""
+    assert_states_equal(runs["loaded"]["P_from_J1"],
+                        jax.device_get(runs["J1"].state))
+    assert int(runs["loaded"]["P_from_J1"]["opt_fields"].count) == 5
+    np.testing.assert_allclose(runs["P_from_J1"].losses, runs["J2"].losses[5:],
+                               rtol=LOSS_RTOL, atol=0)
+
+
+def test_port_checkpoint_resumes_in_jax(runs):
+    """The JAX package loads the port's epoch-0 checkpoint bit for bit; its
+    next epoch follows the one it trains from its own checkpoint."""
+    assert_states_equal(runs["loaded"]["J_from_P1"],
+                        TS.train_state_to_jax(runs["P1"].state))
+    np.testing.assert_allclose(runs["J_from_P1"].losses,
+                               runs["J_from_J1"].losses, rtol=LOSS_RTOL,
+                               atol=0)
+
+
+def test_port_resume_equals_uninterrupted(runs):
+    """1 epoch, save, resume, 1 epoch == 2 epochs: losses, iteration count
+    and the final train state, exactly."""
+    assert_states_equal(runs["loaded"]["P_from_P1"],
+                        TS.train_state_to_jax(runs["P1"].state))
+    assert runs["P1"].losses + runs["P_from_P1"].losses == runs["P2"].losses
+    assert runs["P_from_P1"].it == runs["P2"].it
+    assert_states_equal(TS.train_state_to_jax(runs["P_from_P1"].state),
+                        TS.train_state_to_jax(runs["P2"].state))
+    assert runs["P_from_P1"].depth_range == runs["P2"].depth_range
+
+
+def test_pose_evaluation_matches_jax(runs):
+    """ATE and RPE of the same motion net (the port's epoch-0 state, read by
+    the JAX package): the motion chains agree to f32 rounding."""
+    got = runs["pose_eval"]["P_from_P1"]
+    ref = runs["pose_eval"]["J_from_P1"]
+    np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[1:], ref[1:], rtol=1e-4, atol=1e-7)
+    assert np.isfinite(got[1:]).all()
+
+
+def test_sampled_run_resumes_exactly(scene, tmp_path):
+    """The port's own sampling (a device generator seeded from (seed, it)):
+    2 epochs equal 1 epoch, save, resume, 1 epoch, exactly; the loss log
+    and the throughput journal are written."""
+    init = str(tmp_path / "init")
+    write_init(scene, init)
+    full = port_trainer(tiny_cfg(scene, fork(init, str(tmp_path / "a"))),
+                        TT.Trainer)
+    full.train(max_epochs=2)
+    half = port_trainer(tiny_cfg(scene, fork(init, str(tmp_path / "b"))),
+                        TT.Trainer)
+    half.train(max_epochs=1)
+    half.save_checkpoint()
+    rest = port_trainer(tiny_cfg(scene, half.out_dir), TT.Trainer)
+    rest.train(max_epochs=1)
+    assert_states_equal(TS.train_state_to_jax(rest.state),
+                        TS.train_state_to_jax(full.state))
+
+    def epoch_losses(out_dir):
+        lines = [json.loads(s) for s in
+                 open(os.path.join(out_dir, "logs", "scalars.jsonl"))]
+        return [(d["step"], d["value"]) for d in lines
+                if d["tag"] == "loss_epoch/loss"]
+
+    assert epoch_losses(full.out_dir) == epoch_losses(half.out_dir)
+    assert np.isfinite([v for _, v in epoch_losses(full.out_dir)]).all()
+    journal = [json.loads(s) for s in
+               open(os.path.join(full.out_dir, "logs", "throughput.jsonl"))]
+    assert [d["epoch"] for d in journal] == [0, 1]
+    assert all(d["ms_per_it"] > 0 for d in journal)
+
+
+def test_stage2_and_plain_mode_raise(scene, tmp_path):
+    """Stage 2 is refused in the open: at the epoch that reaches
+    start_query_world_epoch, and on a resume past it; so is
+    ``fused_kernels: off`` (YAML reads a bare off as False)."""
+    t = port_trainer(tiny_cfg(scene, str(tmp_path / "a"),
+                              start_query_world_epoch=1), TT.Trainer)
+    with pytest.raises(NotImplementedError, match="stage 2"):
+        t.train(max_epochs=2)
+    assert t.it == 4 and t.epoch_it == 0
+    out = str(tmp_path / "b")
+    write_init(scene, out)
+    meta = os.path.join(out, "models", "weights", "meta.json")
+    json.dump({"epoch_it": 3, "it": 19, "depth_range": [0.5, 3.5]},
+              open(meta, "w"))
+    t = port_trainer(tiny_cfg(scene, out, start_query_world_epoch=2),
+                     TT.Trainer)
+    with pytest.raises(NotImplementedError, match="stage 2"):
+        t.train(max_epochs=1)
+    for mode in ("off", False):
+        with pytest.raises(ValueError, match="fused_kernels"):
+            port_trainer(tiny_cfg(scene, str(tmp_path / "c"),
+                                  fused_kernels=mode), TT.Trainer)
+
+
+def test_visualize_and_render_train_views(scene, tmp_path):
+    """The port's visualization (images, flow, depth metrics, the adaptive
+    depth range) and the train-view render on the CPU."""
+    out = str(tmp_path / "v")
+    t = port_trainer(tiny_cfg(scene, out, depth_bound_lr=[0.5, 0.5, 0.5]),
+                     TT.Trainer)
+    t.it = 0
+    res = t.visualize(1, 0)
+    for k in ("color", "depth", "weighted_z", "normal", "depth_highest"):
+        assert np.isfinite(res[k]).all(), k
+    assert res["color"].shape == (12, 16, 3)
+    target = int(t.train_field.i_train[1])
+    files = os.listdir(os.path.join(out, "rendering", "0000_vis"))
+    for suffix in ("img", "disparity", "normal", "flow",
+                   "disparity_highest_weight"):
+        assert f"{target:04d}_{suffix}.png" in files, suffix
+    expect = 3.5 * 0.5 + float(res["weighted_z"].max()) * 1.1 * 0.5
+    assert t.depth_range[1] == pytest.approx(expect)
+    t.logger.flush()
+    tags = {json.loads(s)["tag"] for s in
+            open(os.path.join(out, "logs", "scalars.jsonl"))}
+    assert "depth_eval/abs_rel" in tags
+    depths = t.render_train_views(views=[0, 2])
+    assert depths.shape == (2, H, W) and np.isfinite(depths).all()
+    assert len(os.listdir(os.path.join(out, "extraction_stage1",
+                                       "depths"))) == 2
+
+
+# ---------------------------------------------------------------------------
+# The train state in the JAX layout
+# ---------------------------------------------------------------------------
+
+def _jax_state_with_moments(cfg, seed=1, count=3):
+    params = JF.init_all_fields(jax.random.PRNGKey(seed),
+                                JF.configs_from_cfg(cfg))
+    state = jax.device_get(JS.init_train_state(params))
+    rng = np.random.default_rng(seed)
+    for key in ("opt_fields", "opt_motion"):
+        st = state[key]
+        n = st.mu.shape[0]
+        state[key] = st._replace(
+            count=np.asarray(count, np.int32),
+            mu=rng.normal(size=n).astype(np.float32) * 1e-2,
+            nu=rng.uniform(size=n).astype(np.float32) * 1e-4)
+    return state
+
+
+def test_train_state_round_trip(scene, tmp_path):
+    """``train_state_to_jax(train_state_from_jax(s))`` is ``s`` leaf for
+    leaf, and through a checkpoint file of either package."""
+    cfg = tiny_cfg(scene, str(tmp_path))
+    ref = _jax_state_with_moments(cfg)
+    tcfgs = TF.configs_from_cfg(cfg)
+    state = TS.train_state_from_jax(ref, tcfgs, device="cpu")
+    got = TS.train_state_to_jax(state)
+    assert_states_equal(got, ref)
+    assert jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(np.asarray, got["opt_fields"]._asdict())) == \
+        jax.tree_util.tree_structure(ref["opt_fields"]._asdict())
+    sizes = {k: sum(p.numel() for n in nets for p in state["fields"][n]
+                    .parameters()) for k, nets in TS.OPTIMIZER_NETS.items()}
+    assert got["opt_fields"].mu.shape == (sizes["opt_fields"],)
+    assert got["opt_motion"].nu.shape == (sizes["opt_motion"],)
+    # A port checkpoint read by the JAX package, and the reverse.
+    TCK.save_checkpoint(str(tmp_path / "p"), got, {"it": 3})
+    jstate, scalars = JCK.load_checkpoint(str(tmp_path / "p"))
+    assert scalars == {"it": 3}
+    assert_states_equal(jstate, ref)
+    JCK.save_checkpoint(str(tmp_path / "j"), ref, {"it": 3})
+    tstate, _ = TCK.load_checkpoint(str(tmp_path / "j"))
+    assert_states_equal(TS.train_state_to_jax(
+        TS.train_state_from_jax(tstate, tcfgs, device="cpu")), ref)
+
+
+def test_fresh_optimizer_is_jax_init_state(scene, tmp_path):
+    """Before its first step torch's Adam holds no state: it converts to
+    the JAX package's ``init_train_state`` (count 0, zero moments)."""
+    cfg = tiny_cfg(scene, str(tmp_path))
+    params = jax.device_get(JF.init_all_fields(jax.random.PRNGKey(2),
+                                               JF.configs_from_cfg(cfg)))
+    fields = X.params_from_jax(params, TF.configs_from_cfg(cfg), "cpu")
+    assert_states_equal(TS.train_state_to_jax(TS.init_train_state(fields)),
+                        jax.device_get(JS.init_train_state(params)))
+
+
+def test_exchanged_step_matches_jax(scene, tmp_path):
+    """One step of each package from the same loaded state (moments and
+    count 3) and the same injected batch. The port's update equals optax's
+    formula applied in the JAX layout to the port's own gradients; its
+    moments are within the step tests' gradient bounds of the JAX ones."""
+    cfg = tiny_cfg(scene, str(tmp_path))
+    ref = _jax_state_with_moments(cfg)
+    jt = JaxTrainer(cfg, verbose=False)
+    pt = port_trainer(tiny_cfg(scene, str(tmp_path)))
+    jt.state = jax.tree_util.tree_map(jnp.asarray, ref)
+    pt.state = TS.train_state_from_jax(ref, pt.field_cfgs, device="cpu")
+    jt.it = pt.it = 4
+    lr, motion_lr = 1e-3, 5e-4
+    jstate, _ = jt._get_step(True, True)(jt.state, jt._make_batch(1, lr,
+                                                                   motion_lr),
+                                         jax.random.PRNGKey(0))
+    pt._get_step(True, True)(pt.state, pt._make_batch(1, lr, motion_lr),
+                             pt.generator)
+    got = TS.train_state_to_jax(pt.state)
+    jstate = jax.device_get(jstate)
+    fields = pt.state["fields"]
+    for key, nets in TS.OPTIMIZER_NETS.items():
+        step_lr = lr if key == "opt_fields" else motion_lr
+        old, new, jnew = ref[key], got[key], jstate[key]
+        assert int(new.count) == int(jnew.count) == 4
+        grads = {n: grads_as_jax(fields[n]) for n in nets}
+        g = ravel_pytree(grads)[0]
+        mu = B1 * old.mu + (1 - B1) * g
+        nu = B2 * old.nu + (1 - B2) * g * g
+        # Rounding of the two terms (torch lerps, optax scales and adds).
+        assert np.all(np.abs(new.mu - mu) <= 1e-6 * (
+            B1 * np.abs(old.mu) + (1 - B1) * np.abs(g)) + 1e-12)
+        assert np.all(np.abs(new.nu - nu) <= 1e-6 * (
+            B2 * old.nu + (1 - B2) * g * g) + 1e-15)
+        p_old = ravel_pytree({n: ref["params"][n] for n in nets})[0]
+        p_new = ravel_pytree({n: got["params"][n] for n in nets})[0]
+        upd = (mu / (1 - B1 ** 4)) / (np.sqrt(nu / (1 - B2 ** 4)) + EPS)
+        np.testing.assert_allclose(p_new, p_old - step_lr * upd, rtol=0,
+                                   atol=1e-6 * step_lr + 1e-7)
+        # Moments against the JAX step: (1 - b1) times the gradient bound
+        # of each tensor (1e-3 of its largest entry + 1e-6).
+        bound = np.concatenate([
+            np.full(np.size(leaf), 1e-3 * np.abs(leaf).max() + 1e-6)
+            for leaf in jax.tree_util.tree_leaves(grads)])
+        assert np.all(np.abs(new.mu - jnew.mu) <= (1 - B1) * bound)
+
+
+def test_migrate_train_state_matches_jax(scene, tmp_path):
+    """A checkpoint with per-leaf Adam moments migrates to the flat layout
+    as the JAX package migrates it."""
+    cfg = tiny_cfg(scene, str(tmp_path))
+    params = jax.device_get(JF.init_all_fields(jax.random.PRNGKey(3),
+                                               JF.configs_from_cfg(cfg)))
+    rng = np.random.default_rng(5)
+    old = {"params": params}
+    for key, nets in TS.OPTIMIZER_NETS.items():
+        sub = {n: params[n] for n in nets}
+        moments = [jax.tree_util.tree_map(
+            lambda x: rng.normal(size=np.shape(x)).astype(np.float32), sub)
+            for _ in range(2)]
+        old[key] = (np.asarray(2, np.int32), *moments)
+    got = TS.migrate_train_state({k: v for k, v in old.items()})
+    ref = JS.migrate_train_state({k: v for k, v in old.items()})
+    for key in TS.OPTIMIZER_NETS:
+        for a, b in zip(got[key], ref[key]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    flat = (np.asarray(1, np.int32), np.zeros(3, np.float32),
+            np.ones(3, np.float32))
+    assert TS.migrate_train_state({"opt_fields": flat})["opt_fields"] is flat
+
+
+@pytest.mark.parametrize("tree", [
+    {"a": {"b": np.arange(3.0), "c": (np.int32(1), [np.ones(2), None])}},
+    {"x": [], "y": (np.zeros((2, 2), np.float32),)},
+])
+def test_flatten_matches_jax(tree, tmp_path):
+    """The npz key layout of ``_flatten`` and ``save_pytree`` /
+    ``load_pytree`` across the packages."""
+    got, ref = TCK._flatten(tree), JCK._flatten(tree)
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k])
+    TCK.save_pytree(str(tmp_path / "t.npz"), tree)
+    back = JCK.load_pytree(str(tmp_path / "t.npz"))
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(tree)
+    JCK.save_pytree(str(tmp_path / "j.npz"), tree)
+    for a, b in zip(jax.tree_util.tree_leaves(TCK.load_pytree(
+            str(tmp_path / "j.npz"))), jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_load_pretrained_sdf_matches_jax(tmp_path):
+    """A reference-style SDF state dict (``lin{l}.weight_v`` (out, in),
+    ``weight_g`` (out, 1), ``bias``) loads into the port's SDF net as the
+    JAX loader's tree does through the weight exchange."""
+    cfg = JF.SDFConfig(d_hidden=64, n_layers=4, skip_in=(2,), d_out=33)
+    g = torch.Generator().manual_seed(6)
+    sd = {}
+    for l in range(cfg.n_layers + 1):
+        d_in, d_out = TF.idr_layer_dims(cfg, l)
+        sd[f"lin{l}.weight_v"] = torch.randn((d_out, d_in), generator=g)
+        sd[f"lin{l}.weight_g"] = torch.rand((d_out, 1), generator=g) + 0.5
+        sd[f"lin{l}.bias"] = torch.randn((d_out,), generator=g)
+    path = str(tmp_path / "model.pt")
+    torch.save(sd, path)
+    tcfg = TF.SDFConfig(**dataclasses.asdict(cfg))
+    net = TIO.load_pretrained_sdf(TF.SDFNetwork(tcfg), path)
+    ref = X.params_from_jax(
+        {"sdf": jax.device_get(JIO.load_pretrained_sdf(path, cfg.n_layers))},
+        {"sdf": tcfg}, device="cpu")["sdf"]
+    for (k, a), (_, b) in zip(net.state_dict().items(),
+                              ref.state_dict().items()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
+
+
+def test_step_timer_and_trace_on_cpu(tmp_path):
+    """The JSONL journal of ``StepTimer``; a CPU ``trace`` writes its
+    Chrome trace and reports no device time."""
+    timer = TP.StepTimer(window=2, log_path=str(tmp_path / "t.jsonl"))
+    for _ in range(4):
+        timer.tick(n_items=3, sync="cpu")
+    assert timer.items_per_sec > 0 and len(timer.times) == 2
+    timer.log(7, epoch=1)
+    line = json.loads(open(tmp_path / "t.jsonl").read())
+    assert line["step"] == 7 and line["epoch"] == 1
+    with TP.trace(str(tmp_path / "plugins"), "cpu") as summary:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert os.path.isfile(summary["trace"])
+    assert summary["wall_ms"] > 0 and summary["device_busy_ms"] == 0.0

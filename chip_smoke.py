@@ -65,30 +65,35 @@ Phases, each printed on its own line, any failure exits non-zero:
 9. train_card_vs_cpu  one step with injected ray_idx (64 rays) and t_rand on
             the card and on the CPU, main-path and perturbed nets: every
             metric and both optimizer groups' gradients.
-10. composed_main  one view as in ``main`` under the negative-ray config:
+10. train_stage2_card_vs_cpu  the same on a stage-2 step (StepStatic
+            stage1=False, train_motion=False: no flow-rgb or sdf-consistency
+            term, so no K3), the query at the world camera's time through a
+            world_mat rotated 0.1 rad besides its shift, stage-2 loss
+            weights; the same bounds.
+11. composed_main  one view as in ``main`` under the negative-ray config:
             4 K2 + 1 K4-fwd + 1 K5-fwd per chunk, no K1.
-11. composed_train  10 steps as in ``train`` under that config: 4 K2, 1
+12. composed_train  10 steps as in ``train`` under that config: 4 K2, 1
             K4-fwd, 1 K4-bwd, 1 K5-fwd, 1 K5-bwd, 1 K3-fwd, 1 K3-bwd per
             step, no K1; the loss finite, its last-3 mean below its first-3.
-12. composed_card_vs_cpu  ``train_card_vs_cpu`` under that config.
-13. fold_kernels  K6 (K1 with the K3 query at y folded into its launches,
+13. composed_card_vs_cpu  ``train_card_vs_cpu`` under that config.
+14. fold_kernels  K6 (K1 with the K3 query at y folded into its launches,
             the JAX package's COPENERF_FOLD_CONS=1) on the perturbed idr
             nets: K6-fwd against ``rendercore_cons_plain``, K6-bwd against
             autograd of it and f64 for sbar, gbar, cbar (KINK_MARGIN), swbar
             alone and all four, at 262,144 and 1,000 rows; times at 131,072
             rows beside K1 + K3 timed in turns in the same call.
-14. fold_train  10 steps as in ``composed_train`` with COPENERF_FOLD_CONS=1
+15. fold_train  10 steps as in ``composed_train`` with COPENERF_FOLD_CONS=1
             set in this process (restored after): 4 K2 + 1 K6-fwd + 1 K6-bwd
             per step, no K1 or K3.
-15. fold_card_vs_cpu  ``train_card_vs_cpu`` with the fold and the
+16. fold_card_vs_cpu  ``train_card_vs_cpu`` with the fold and the
             sdf-consistency pose gradient on (K6's y_bar reaches the motion
             net).
-16. out_kernels  ``fields.sdf_output`` driven once (counters zeroed: 1 K7-fwd
+17. out_kernels  ``fields.sdf_output`` driven once (counters zeroed: 1 K7-fwd
             + 1 K7-bwd), then K7 against ``sdf_apply`` and f64 (column 0,
             the feature columns, all) at 262,144 and 1,000 rows; times at
             131,072 rows, K7-bwd's split into its row kernel and the
             reduction beside ``torch.mm`` of the reduction.
-17. trainer  ``Trainer(cfg).train(max_epochs=2)`` of the port's
+18. trainer  ``Trainer(cfg).train(max_epochs=2)`` of the port's
             ``training/trainer.py`` on a Co3D-convention synthetic scene
             written by the port's ``data/synthetic.py`` (12 frames at
             270x480, 11 train views), the full-width nets of
@@ -105,9 +110,32 @@ Phases, each printed on its own line, any failure exits non-zero:
             the loop's ends) beside the train phase's bare step, the
             device-busy share of a 5-iteration ``torch.profiler`` window and
             the peak device memory.
-18. the ``{"kernels": [...]}`` line (launches per path: render, train,
-   render_composed, train_composed, train_fold, sdf_output, trainer), then
-   the contract line ``{"ok": true, "device": {...}}`` last.
+19. trainer_stage2  ``Trainer(cfg).train(max_epochs=2)`` across the
+            stage-1 -> stage-2 transition on the trainer phase's scene and
+            nets (``start_query_world_epoch`` 1, ``pose_refine_epochs`` 60,
+            the refinement started from the motion field's poses): the
+            transition renders the 11 train views (4 chunks each), refines
+            the poses and writes ``refine_pose.npz``; a second ``Trainer``
+            resumes from the transition epoch's checkpoint on the refined
+            poses for a third epoch. Launch counters zeroed before and read
+            after (per stage-1 step as in ``trainer``, per stage-2 step 4 K2
+            + 1 K1-fwd + 1 K1-bwd, per render chunk 4 K2 + 1 K1-fwd); gates:
+            finite epoch losses, no fallback, the refinement's loss falling,
+            the poses' shape and world view, the resumed table equal, the
+            motion Adam count frozen, 5 files a stage-1 visualization and 4 a
+            stage-2 one. Prints the transition's split (render, refinement),
+            the refinement's ms an epoch with and without the host pose
+            metrics, stage 2's ms an iteration with and without
+            visualizations, its busy share and the peak memory.
+20. pose_refine_shape  ``run_pose_refinement`` at configs/Co3D/bench.yaml's
+            stage-2 size (712x1266, 34 synthetic views, 33 pairs in batches
+            of 16, 16, 1): ms an epoch without and with the host pose
+            metrics, the device's busy ms an epoch, peak memory, and the
+            default 2,000 epochs projected. No gate on speed.
+21. the ``{"kernels": [...]}`` line (launches per path: render, train,
+   render_composed, train_composed, train_fold, sdf_output, trainer,
+   trainer_stage2), then the contract line ``{"ok": true, "device":
+   {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1597,6 +1625,34 @@ def phase_train_card_vs_cpu(fields, checked, train, phase="train_card_vs_cpu",
                  f"gradients {bad_g[:6]}")
 
 
+def stage2_setup(cfg, train):
+    """The train phase's (StepStatic, RendererConfig, batch) as a stage-2
+    step: no flow-rgb or sdf-consistency terms (so no K3), the motion net
+    frozen, the query at the world camera's time through a world_mat that
+    rotates the camera 0.1 rad about y besides its shift, and the stage-2
+    loss weights of the config."""
+    import math
+
+    import torch
+    from copenerf_torch.training import step as TS
+
+    s, rcfg, batch = train
+    tc = cfg["training"]
+    c, sn = math.cos(0.1), math.sin(0.1)
+    rot = torch.tensor([[c, 0, sn, 0], [0, 1, 0, 0], [-sn, 0, c, 0],
+                        [0, 0, 0, 1]], device=DEVICE)
+    batch = dict(
+        batch, world_mat=rot @ batch["world_mat"],
+        query_time_step=batch["world_time_step"],
+        loss_weights=TS.make_loss_weights(
+            *(tc[k][1] for k in ("rgb_weight", "eikonal_weight", "sdf_weight",
+                                 "flow_rgb_weight", "sdf_consistency_weight",
+                                 "edge_aware_smoothness_weight",
+                                 "smoothness_weight"))))
+    s = TS.StepStatic(**{**s.__dict__, "stage1": False, "train_motion": False})
+    return s, rcfg, batch
+
+
 # ---------------------------------------------------------------------------
 # The Trainer: scene on disk -> stage-1 epochs -> checkpoint -> resume
 # ---------------------------------------------------------------------------
@@ -1626,6 +1682,14 @@ def trainer_config(scene, out_dir):
         section, name = key.split(".")
         cfg[section][name] = value
     return cfg, cuts
+
+
+def render_chunks(renderer, h, w):
+    """The chunks ``render_image`` splits an (h, w) view into."""
+    chunk = renderer.min_chunk
+    while chunk < h * w and chunk < renderer.chunk:
+        chunk *= 2
+    return -(-(h * w) // chunk)
 
 
 def phase_trainer(counters):
@@ -1671,12 +1735,8 @@ def phase_trainer(counters):
 
         its = second.it + 1
         n_vis = sum(1 for it in range(its) if it % 5 == 0)
-        r = second.image_renderer
-        h, w = cfg["training"]["vis_resolution"]
-        chunk = r.min_chunk
-        while chunk < h * w and chunk < r.chunk:
-            chunk *= 2
-        vis_chunks = n_vis * -(-(h * w) // chunk)
+        vis_chunks = n_vis * render_chunks(second.image_renderer,
+                                           *cfg["training"]["vis_resolution"])
         per_step = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
                     "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
         per_chunk = {"sdf_value": 4, "rendercore_fwd": 1}
@@ -1760,6 +1820,299 @@ def phase_trainer(counters):
     if not (prof.get("busy_share") is not None and prof.get("iters") == 5):
         fail(f"trainer: no profiler window {prof}")
     return launches
+
+
+def refine_pose_epochs(out_dir):
+    """The refinement's per-epoch scalars from the Trainer's log, by tag."""
+    rows = [json.loads(ln) for ln in
+            open(os.path.join(out_dir, "logs", "scalars.jsonl"))]
+    out = {}
+    for d in rows:
+        if d["tag"].startswith("poseRefine/"):
+            out.setdefault(d["tag"].split("/")[1], []).append(d["value"])
+    return out
+
+
+class _Sink:
+    """A logger that drops what it is given (the refinement's scalars)."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+
+def refine_ms_per_epoch(images, depths, k33, epochs, gt_poses=None):
+    """Host-clock ms an epoch of ``run_pose_refinement`` on the card (the
+    call ends in a host copy of the poses), with the host pose metrics when
+    ``gt_poses`` is given."""
+    import numpy as np
+    import torch
+    from copenerf_torch.evaluation.metrics_pose import pose_error_report
+    from copenerf_torch.training.pose_refinement import run_pose_refinement
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses = run_pose_refinement(
+        images, depths, k33, epochs=epochs, logger=_Sink(), gt_poses=gt_poses,
+        pose_error_fn=pose_error_report, device=DEVICE)
+    ms = 1e3 * (time.perf_counter() - t0) / epochs
+    if not np.all(np.isfinite(poses)):
+        fail("pose refinement: non-finite poses")
+    return ms
+
+
+def adam_counts(state):
+    """Each optimizer's step count, as the JAX layout stores it."""
+    from copenerf_torch.training import step as TS
+
+    tree = TS.train_state_to_jax(state)
+    return {k: int(tree[k].count) for k in TS.OPTIMIZER_NETS}
+
+
+def phase_trainer_stage2(counters):
+    """``Trainer(cfg).train(max_epochs=2)`` across the stage-1 -> stage-2
+    transition on the ``trainer`` phase's scene and nets
+    (``start_query_world_epoch`` 1, ``pose_refine_epochs`` 60, so the lr
+    milestones at 30, 40 and 50 fire; ``refine_from_scratch`` false: after
+    11 stage-1 iterations the field still renders every depth at the near
+    plane, and from the identity, where a refinement from scratch starts,
+    every pose move raises the warp loss, so only a start from the motion
+    field's poses gives the refinement a descent to show): epoch 0 in stage
+    1, then the
+    transition (every train view rendered, the refinement, the refined
+    poses written) and a stage-2 epoch, saved; a second ``Trainer`` resumes
+    from that transition-epoch checkpoint on the refined poses and trains
+    one more stage-2 epoch. Gates: finite epoch losses; no fallback; the
+    refinement's loss falls from its first epoch to its last;
+    ``refine_pose.npz`` (11, 4, 4), the world view the identity within
+    1e-5; the resumed Trainer's world_mat table equal to the first's; the
+    motion Adam count standing still in stage 2; 5 files a stage-1
+    visualization, 4 a stage-2 one; launch counters zeroed before the first
+    ``train`` and read after the second: per stage-1 step 4 K2 + 1 K1-fwd
+    + 1 K1-bwd + 1 K3-fwd + 1 K3-bwd, per stage-2 step 4 K2 + 1 K1-fwd + 1
+    K1-bwd, per render chunk (the transition's 11 views x 4 chunks and the
+    visualizations) 4 K2 + 1 K1-fwd, no K4-K7."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from copenerf_torch.data.synthetic import make_scene
+    from copenerf_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = make_scene(os.path.join(tmp, "scene"), n_frames=TRAINER_FRAMES,
+                           h=TRAINER_RES[0], w=TRAINER_RES[1])
+        out_dir = os.path.join(tmp, "out")
+        cfg, cuts = trainer_config(scene, out_dir)
+        stage2 = {"training.start_query_world_epoch": 1,
+                  "training.pose_refine_epochs": 60,
+                  "training.refine_from_scratch": False}
+        for key, value in stage2.items():
+            cfg["training"][key.split(".")[1]] = value
+        cuts.update(stage2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        first = Trainer(copy.deepcopy(cfg), verbose=False)
+        first.train(max_epochs=2)
+        counts_first = adam_counts(first.state)
+        second = Trainer(copy.deepcopy(cfg), verbose=False)
+        resumed_it = second.it
+        second.train(max_epochs=1)
+        launches = {c.name: c.launches for c in counters}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts_second = adam_counts(second.state)
+
+        n_views = second.train_field.N_imgs
+        its = second.it + 1
+        stage1_its = n_views
+        r = second.image_renderer
+        vis_its = [it for it in range(its) if it % 5 == 0]
+        vis_chunks = len(vis_its) * render_chunks(
+            r, *cfg["training"]["vis_resolution"])
+        views_chunks = n_views * render_chunks(r, *TRAINER_RES)
+        per_step1 = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
+                     "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
+        per_step2 = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1}
+        per_chunk = {"sdf_value": 4, "rendercore_fwd": 1}
+        want = {c.name: per_step1.get(c.name, 0) * stage1_its
+                + per_step2.get(c.name, 0) * (its - stage1_its)
+                + per_chunk.get(c.name, 0) * (vis_chunks + views_chunks)
+                for c in counters}
+        vis_files = {int(d.split("_")[0]): len(os.listdir(
+            os.path.join(out_dir, "rendering", d)))
+            for d in os.listdir(os.path.join(out_dir, "rendering"))
+            if d.endswith("_vis")}
+        want_files = {it: 5 if it < stage1_its else 4 for it in vis_its}
+
+        logs = os.path.join(out_dir, "logs")
+        scalars = [json.loads(ln) for ln in open(os.path.join(logs, "scalars.jsonl"))]
+        epoch_loss = {d["step"]: d["value"] for d in scalars
+                      if d["tag"] == "loss_epoch/loss"}
+        journal = [json.loads(ln) for ln in open(os.path.join(logs, "throughput.jsonl"))]
+        epochs = {d["epoch"]: d for d in journal if "epoch" in d}
+        refine = refine_pose_epochs(out_dir)
+        poses = np.load(os.path.join(out_dir, "models", "refine_pose.npz"))["init_c2w"]
+        world_pos = list(second.train_field.i_train).index(second.world_cam_idx)
+        table_first = first._world_mat_dev.cpu().numpy()
+        table_second = second._world_mat_dev.cpu().numpy()
+        summary = first.transition_summary or {}
+        prof = first.profile_summary or {}
+
+        # The refinement again on the transition's own inputs (the depths
+        # it wrote), with and without the host pose metrics.
+        depth_dir = os.path.join(out_dir, "extraction_stage1", "depths")
+        depths = np.stack([np.load(os.path.join(depth_dir, f"depth_{int(t):06d}.npz"))["pred"]
+                           for t in second.train_field.i_train])
+        k33 = second.train_field.K[second.train_field.i_train][:, :3, :3]
+        n_refine = len(refine.get("_loss", []))
+        ms_metrics = refine_ms_per_epoch(second.train_field.imgs, depths, k33,
+                                         n_refine, second.gt_poses)
+        ms_plain = refine_ms_per_epoch(second.train_field.imgs, depths, k33,
+                                       n_refine)
+
+    phase_s = time.perf_counter() - t_phase
+    log("trainer_stage2", cuts=cuts, frames=TRAINER_FRAMES, train_views=n_views,
+        iterations=its, stage1_iterations=stage1_its, saved_at_it=first.it,
+        resumed_at_it=resumed_it, epoch_loss=epoch_loss, launches=launches,
+        expected=want, visualizations=len(vis_its), vis_files=vis_files,
+        render_chunks={"visualizations": vis_chunks, "train_views": views_chunks},
+        adam_counts={"after_first": counts_first, "after_second": counts_second},
+        fell_back=first.pose_refine_fell_back,
+        refine_pose_shape=list(poses.shape),
+        world_view_max_dev_from_eye=float(np.abs(poses[world_pos] - np.eye(4)).max()),
+        tables_equal=bool(np.array_equal(table_first, table_second)),
+        phase_s=phase_s)
+    log("trainer_stage2_time",
+        transition_ms=summary.get("render_train_views_ms", 0.0)
+        + summary.get("pose_refine_ms", 0.0),
+        render_train_views_ms=summary.get("render_train_views_ms"),
+        pose_refine_ms=summary.get("pose_refine_ms"),
+        pose_refine_epochs=n_refine,
+        pose_refine_ms_per_epoch_in_transition=(
+            summary.get("pose_refine_ms", float("nan")) / max(n_refine, 1)),
+        pose_refine_ms_per_epoch_with_metrics=ms_metrics,
+        pose_refine_ms_per_epoch_without_metrics=ms_plain,
+        refine_loss_first_last=[refine["_loss"][0], refine["_loss"][-1]] if n_refine else None,
+        refine_ate_first_last=[refine["ate"][0], refine["ate"][-1]] if refine.get("ate") else None,
+        stage2_ms_per_it=epochs.get(2, {}).get("ms_per_it"),
+        stage2_ms_per_it_steps=epochs.get(2, {}).get("ms_per_it_steps"),
+        stage2_vis_ms=epochs.get(2, {}).get("vis_ms"),
+        by_epoch={e: {k: d[k] for k in ("ms_per_it", "ms_per_it_steps", "vis_ms")}
+                  for e, d in epochs.items()},
+        busy_share=prof.get("busy_share"),
+        busy_share_outside_vis=prof.get("busy_share_outside"),
+        peak_gb=peak_gb,
+        note=("epoch 2 is the resumed Trainer's stage-2 epoch (11 iterations, "
+              "visualizations at 25 and 30); ms_per_it_steps without them; the "
+              "transition's times are host clock around calls that end in host "
+              "copies; the profiler window covers iterations 16-20 (stage 2, one "
+              "visualization at 20)"))
+    losses = [epoch_loss.get(e, float("nan")) for e in range(3)]
+    if not np.all(np.isfinite(losses)):
+        fail(f"trainer_stage2: non-finite epoch losses {losses}")
+    if first.pose_refine_fell_back or not summary or summary.get("fell_back"):
+        fail(f"trainer_stage2: the transition fell back {summary}")
+    if not (n_refine > 1 and refine["_loss"][-1] < refine["_loss"][0]):
+        fail(f"trainer_stage2: the refinement's loss did not fall {refine.get('_loss')}")
+    if poses.shape != (n_views, 4, 4) or not np.allclose(poses[world_pos], np.eye(4),
+                                                         rtol=0, atol=1e-5):
+        fail(f"trainer_stage2: refine_pose.npz {poses.shape}, world view "
+             f"{poses[world_pos] if len(poses) > world_pos else None}")
+    if not (np.array_equal(table_first, table_second)
+            and np.array_equal(np.delete(table_second, world_pos, 0),
+                               np.delete(poses, world_pos, 0))
+            and np.array_equal(table_second[world_pos], np.eye(4))):
+        fail("trainer_stage2: the resumed Trainer's world_mat table is not the saved poses")
+    if resumed_it != first.it or first.epoch_it != 1:
+        fail(f"trainer_stage2: resumed at it {resumed_it}, saved at {first.it}")
+    if not (counts_first == {"opt_fields": 2 * n_views, "opt_motion": stage1_its}
+            and counts_second == {"opt_fields": 3 * n_views, "opt_motion": stage1_its}):
+        fail(f"trainer_stage2: Adam counts {counts_first}, {counts_second}")
+    if vis_files != want_files:
+        fail(f"trainer_stage2: visualization files {vis_files} != {want_files}")
+    if launches != want:
+        fail(f"trainer_stage2 launch counts {launches} != {want}")
+    return launches
+
+
+def phase_pose_refine_shape(seed=0, epochs=6, views=34, res=(712, 1266)):
+    """``run_pose_refinement`` at a repo config's stage-2 size:
+    configs/Co3D/bench.yaml's 712x1266 (scale 1 from epoch 401), 34
+    synthetic views from numpy with ``seed`` (smooth images whose pattern
+    moves from view to view, smooth positive depths, NDC intrinsics,
+    ground-truth poses along a curve): 33 pairs in batches of 16, 16 and 1.
+    A warm-up epoch, then ``epochs`` epochs without and with the host pose
+    metrics (host clock: the call ends in a host copy), 3 epochs without
+    them under ``torch.profiler`` for the device's busy time and 2 for its
+    kernels' self times; peak memory; the default ``pose_refine_epochs``
+    2000 projected from both."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from copenerf_torch.training.pose_refinement import run_pose_refinement
+    from copenerf_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    m, (h, w) = views, res
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    freq = rng.uniform(0.005, 0.02, size=(3, 2)).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, size=3).astype(np.float32)
+    images = np.empty((m, 3, h, w), np.float32)
+    depths = np.empty((m, h, w), np.float32)
+    for v in range(m):
+        for c in range(3):
+            images[v, c] = 0.5 + 0.4 * np.sin(freq[c, 0] * (xs + 4.0 * v)
+                                              + freq[c, 1] * ys + phase[c])
+        depths[v] = 2.0 + np.sin(0.004 * xs + 0.003 * ys + 0.05 * v)
+    focal = 0.8 * w
+    k33 = np.tile(np.array([[2 * focal / w, 0, 0], [0, -2 * focal / h, 0],
+                            [0, 0, -1]], np.float32), (m, 1, 1))
+    gt = np.tile(np.eye(4, dtype=np.float32), (m, 1, 1))
+    gt[:, 0, 3] = 0.02 * np.arange(m)
+    gt[:, 2, 3] = 0.001 * np.arange(m) ** 2
+    gen_s = time.perf_counter() - t_phase
+
+    refine_ms_per_epoch(images, depths, k33, 1)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_plain = refine_ms_per_epoch(images, depths, k33, epochs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_metrics = refine_ms_per_epoch(images, depths, k33, epochs, gt)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, DEVICE) as prof:
+            run_pose_refinement(images, depths, k33, epochs=3, device=DEVICE)
+    device_ms = prof["device_busy_ms"] / 3
+    # Where the device time goes: the kernels of 2 epochs by their time
+    # (device events only: an operator's device time repeats its kernels').
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as kp:
+        run_pose_refinement(images, depths, k33, epochs=2, device=DEVICE)
+    by_kernel = sorted(((e.key[:90], e.self_device_time_total / 2e3)
+                        for e in kp.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0),
+                       key=lambda kv: -kv[1])
+    log("pose_refine_shape", views=m, pairs=m - 1,
+        batches=[min(16, m - 1 - i) for i in range(0, m - 1, 16)],
+        resolution=[h, w], source="configs/Co3D/bench.yaml (scale 1 from epoch 401)",
+        input_gb=(images.nbytes + depths.nbytes) / 1e9, epochs=epochs,
+        ms_per_epoch_without_metrics=ms_plain, ms_per_epoch_with_metrics=ms_metrics,
+        host_metrics_ms_per_epoch=ms_metrics - ms_plain,
+        device_busy_ms_per_epoch=device_ms,
+        busy_share_without_metrics=prof["busy_share"],
+        top_kernels_ms_per_epoch=dict(by_kernel[:8]),
+        kernels_ms_per_epoch=sum(ms for _, ms in by_kernel),
+        projected_s_2000_epochs_with_metrics=2000 * ms_metrics / 1e3,
+        projected_s_2000_epochs_without_metrics=2000 * ms_plain / 1e3,
+        peak_gb=peak_gb, data_gen_s=gen_s, phase_s=time.perf_counter() - t_phase)
+    if not (np.isfinite(ms_plain) and np.isfinite(ms_metrics) and device_ms > 0):
+        fail(f"pose_refine_shape: times {ms_plain}, {ms_metrics}, {device_ms}")
 
 
 KERNELS = {
@@ -1848,6 +2201,8 @@ def main():
         {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
          "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1})
     phase_train_card_vs_cpu(fields, checked, train)
+    phase_train_card_vs_cpu(fields, checked, stage2_setup(cfg, train),
+                            phase="train_stage2_card_vs_cpu")
     # The composed path (use_negative_ray_vector): K4 + K5 in place of K1.
     launches["render_composed"], _ = phase_main(
         ncfg, nfields, counters,
@@ -1881,6 +2236,8 @@ def main():
     ores, launches["sdf_output"] = phase_out_kernels(checked, counters)
     kres.update(ores)
     launches["trainer"] = phase_trainer(counters)
+    launches["trainer_stage2"] = phase_trainer_stage2(counters)
+    phase_pose_refine_shape()
 
     rows = []
     for name, meta in KERNELS.items():

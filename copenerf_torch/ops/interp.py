@@ -23,17 +23,25 @@ def _clip(v: torch.Tensor, hi: float) -> torch.Tensor:
 def grid_sample_bilinear(image: torch.Tensor, coords: torch.Tensor):
     """Sample ``image`` (C, H, W) at ``coords`` (N, 2) in [-1, 1] (x, y).
     Returns (N, C)."""
-    c, h, w = image.shape
-    x = _clip((coords[:, 0] + 1.0) * 0.5 * (w - 1), w - 1)
-    y = _clip((coords[:, 1] + 1.0) * 0.5 * (h - 1), h - 1)
+    return grid_sample_bilinear_batched(image[None], coords[None])[0].T
+
+
+def grid_sample_bilinear_batched(images: torch.Tensor,
+                                 coords: torch.Tensor) -> torch.Tensor:
+    """``grid_sample_bilinear`` over a batch: ``images`` (B, C, H, W) each
+    sampled at its own ``coords`` (B, N, 2). Returns (B, C, N); each corner
+    is one gather over the (B, C, H * W) images."""
+    b, c, h, w = images.shape
+    x = _clip((coords[..., 0] + 1.0) * 0.5 * (w - 1), w - 1)
+    y = _clip((coords[..., 1] + 1.0) * 0.5 * (h - 1), h - 1)
     x0 = torch.clamp(torch.floor(x).long(), 0, w - 2)
     y0 = torch.clamp(torch.floor(y).long(), 0, h - 2)
     wx = (x - x0)[:, None]
     wy = (y - y0)[:, None]
-    flat = image.reshape(c, h * w)
+    flat = images.reshape(b, c, h * w)
 
     def gather(yy, xx):
-        return flat[:, yy * w + xx].T                      # (N, C)
+        return torch.gather(flat, 2, (yy * w + xx)[:, None].expand(b, c, -1))
 
     top = gather(y0, x0) * (1 - wx) + gather(y0, x0 + 1) * wx
     bot = gather(y0 + 1, x0) * (1 - wx) + gather(y0 + 1, x0 + 1) * wx

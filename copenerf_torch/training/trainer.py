@@ -1,4 +1,5 @@
-"""Training orchestration, stage 1 (port of ``copenerf_tpu/training/trainer.py``).
+"""Training orchestration, both stages (port of
+``copenerf_tpu/training/trainer.py``).
 
 Host-side mirror of the reference training script's epoch loop: coarse-to-fine
 resolution schedule, loss-weight annealing, lr warmup / drops / MultiStep
@@ -7,22 +8,28 @@ adaptive depth range, and checkpoint / resume in the JAX package's flat-npz
 layout (``step.train_state_to_jax``), so a run started in either package
 resumes in the other.
 
+At ``start_query_world_epoch`` the stage-1 -> stage-2 transition renders
+every train view's depth, refines the relative poses of consecutive views
+by a photometric warp (``pose_refinement.py``), re-anchors them on the world
+camera and writes them to ``models/refine_pose.npz`` (the JAX package's
+layout). Stage 2 queries the field at the world camera's time through each
+view's refined pose, kept on the device as one (M, 4, 4) table, with the
+motion net frozen for ``freeze_camera_pose_period`` epochs.
+
 Every iteration is one call of the port's train step (``step.py``): on a
 CUDA device four value sweeps (K2), the render-core forward and backward
-(K1) and the sdf-consistency query and its backward (K3). The loop adds no
-host synchronization per step: the scene and the per-view tensors stay on
-the device, the step's metrics stay there until one copy per epoch, and a
-Python float is taken only on ``print_every`` iterations.
+(K1) and, in stage 1, the sdf-consistency query and its backward (K3). The
+loop adds no host synchronization per step: the scene and the per-view
+tensors stay on the device, the step's metrics stay there until one copy
+per epoch, and a Python float is taken only on ``print_every`` iterations.
 
 Randomness: ``np.random`` is seeded once and draws one view permutation per
 epoch (a resume replays the draws of the epochs already trained); each
 iteration's patches and jitter come from a device generator seeded from
 ``(seed, it)``. A resumed port run therefore repeats an uninterrupted one.
 
-Stage 2 (canonical-space queries, pose refinement, ``extract_geometry``) is
-not ported yet: reaching ``start_query_world_epoch``, or resuming past it,
-raises ``NotImplementedError``. Multi-GPU training is not ported either;
-``io_primary`` gates every file write for it.
+Not ported yet: ``extract_geometry`` (the mesher) and multi-GPU training;
+``io_primary`` gates every file write for the latter.
 """
 
 from __future__ import annotations
@@ -43,9 +50,12 @@ from ..models.fields import configs_from_cfg, init_all_fields, motion_apply
 from ..models.torch_io import load_pretrained_sdf
 from ..ops.renderer import RendererConfig
 from ..poses.motion import full_video_w2c
+from ..poses.retriever import pose_retriever_all, pose_retriever_init
 from ..utils.profiling import StepTimer, synchronize, trace
-from .checkpoints import load_checkpoint, save_checkpoint
+from .checkpoints import (load_checkpoint, load_pytree, save_checkpoint,
+                          save_pytree)
 from .logging_utils import ScalarLogger
+from .pose_refinement import motion_init_relative_poses, run_pose_refinement
 from .schedules import LRState, cos_anneal_ratio, scalar_annealing
 from .step import (StepStatic, build_train_step, init_train_state,
                    make_loss_weights, migrate_train_state,
@@ -57,8 +67,6 @@ EPOCH_METRICS = ("loss", "loss_rgb", "loss_eikonal", "l2_mean", "loss_sdf",
                  "edge_aware_smoothness_loss", "smoothness_loss")
 # Iterations of the torch.profiler window that starts at profile_trace_at_it.
 TRACE_ITERS = 5
-STAGE2 = ("stage 2 (canonical-space queries after pose refinement) is not "
-          "ported yet; set training.start_query_world_epoch beyond the run")
 
 
 class Trainer:
@@ -196,6 +204,12 @@ class Trainer:
             self.rcfg, chunk=tr.get("render_chunk", 32768), device=self.device)
         self._steps = {}
         self.query_in_canonical_space = False
+        # Stage 2: each train view's refined pose, (M, 4, 4) on the device
+        # (the world camera's row the identity); whether the transition fell
+        # back to the motion-integrated poses; the transition's times.
+        self._world_mat_dev = None
+        self.pose_refine_fell_back = False
+        self.transition_summary = None
 
     # ------------------------------------------------------------------
     def _log(self, msg):
@@ -286,8 +300,13 @@ class Trainer:
                 tr["sdf_weight"][0], tr["sdf_weight"][1])
 
     def _make_batch(self, pos: int, lr: float, motion_lr: float):
-        """The stage-1 batch of train view ``pos``: device tensors (views of
-        the per-view tables) and host scalars."""
+        """The batch of train view ``pos``: device tensors (views of the
+        per-view tables) and host scalars. Stage 2 queries at the world
+        camera's time through the view's refined pose."""
+        if self.query_in_canonical_space:
+            world_mat, query_t = self._world_mat_dev[pos], self._world_time_dev
+        else:
+            world_mat, query_t = self._eye, self._time_dev[pos]
         return {
             "images_all": self.images_all_dev,
             "K_all": self.K_all_dev,
@@ -295,8 +314,8 @@ class Trainer:
             "ref_in_list": self._ref_in_list_dev[pos],
             "ref_valid_flow": self._ref_valid_flow_dev[pos],
             "scale_mat": self._eye,
-            "world_mat": self._eye,
-            "query_time_step": self._time_dev[pos],
+            "world_mat": world_mat,
+            "query_time_step": query_t,
             "world_time_step": self._world_time_dev,
             "image_idx": self._image_idx_dev[pos],
             "world_cam_idx": self._world_cam_dev,
@@ -365,26 +384,125 @@ class Trainer:
         cv2.imwrite(path, img)
 
     # ------------------------------------------------------------------
+    def stage2_transition(self, epoch_it: int):
+        """Switch to canonical-space queries; refine and freeze the poses
+        (reference train.py:360-399)."""
+        self.query_in_canonical_space = True
+        self.lr_state.on_epoch_start(epoch_it, stage2_starts_now=True)
+        i_train = self.train_field.i_train
+        pred_poses = None
+        summary = {"epoch": epoch_it}
+        if self.tr["do_refine_pose"]:
+            # A resource failure mid-refinement (out of device or host
+            # memory, IO) must not abort training at the stage boundary: it
+            # falls back to the motion-integrated poses (the do_refine_pose
+            # = false path), the information the refinement would have
+            # started from. Nothing else is caught: a kernel's build or
+            # launch error is a RuntimeError and propagates.
+            try:
+                self._log("Rendering train-view depths for pose refinement")
+                t0 = time.perf_counter()
+                depths = self.render_train_views()
+                t1 = time.perf_counter()
+                init_c2w = None
+                if not self.tr["refine_from_scratch"]:
+                    init_c2w = motion_init_relative_poses(
+                        self.state["fields"]["motion"], i_train,
+                        self.total_nb_images, self.nb_sample_timestep)
+                self._log("Performing pose refinement")
+                pred_poses = run_pose_refinement(
+                    self.train_field.imgs, depths,
+                    self.train_field.K[i_train][:, :3, :3],
+                    init_c2w=init_c2w, lr=self.tr["pose_refine_lr"],
+                    epochs=self.tr["pose_refine_epochs"], logger=self.logger,
+                    gt_poses=self.gt_poses, pose_error_fn=pose_error_report,
+                    device=self.device)
+                # Both calls end in host copies: the host clock is the
+                # device's too.
+                summary.update(
+                    render_train_views_ms=1e3 * (t1 - t0),
+                    pose_refine_ms=1e3 * (time.perf_counter() - t1))
+            except (torch.OutOfMemoryError, OSError, MemoryError) as exc:
+                self._log(f"WARNING: pose refinement failed ({exc!r}); "
+                          "falling back to motion-integrated poses")
+                self.pose_refine_fell_back = True
+                pred_poses = None
+        if pred_poses is None:
+            with torch.no_grad():
+                w2c = full_video_w2c(self.state["fields"]["motion"],
+                                     self.total_nb_images,
+                                     self.nb_sample_timestep).cpu().numpy()
+            pred_poses = np.linalg.inv(w2c[i_train])
+
+        # Re-anchor on the world camera (train.py:395).
+        world_pos = list(i_train).index(self.world_cam_idx)
+        pred_poses = (np.linalg.inv(pred_poses) @
+                      pred_poses[world_pos][None]).astype(np.float32)
+        self._set_world_mats(pred_poses)
+        if self.io_primary:
+            save_pytree(self._refine_pose_path(), {"init_c2w": pred_poses})
+        self.transition_summary = {**summary,
+                                   "fell_back": self.pose_refine_fell_back}
+        self.step_timer.log(self.it, transition=self.transition_summary)
+        self._log(f"Start querying in canonical space at epoch {epoch_it}")
+
+    def _refine_pose_path(self):
+        return os.path.join(self.out_dir, "models", "refine_pose.npz")
+
+    def _set_world_mats(self, init_c2w: np.ndarray):
+        """The stage-2 ``world_mat`` table: the pose retriever's poses of
+        every train view (its corrections are never trained), the world
+        camera's row exactly the identity."""
+        params_r, init = pose_retriever_init(len(init_c2w), init_c2w,
+                                             device=self.device)
+        with torch.no_grad():
+            table = pose_retriever_all(params_r, init)
+        table[list(self.train_field.i_train).index(self.world_cam_idx)] = \
+            self._eye
+        self._world_mat_dev = table
+
+    def _load_refine_pose(self):
+        """The refined poses of a run past its transition, from
+        ``models/refine_pose.npz``; raises when the file is absent."""
+        path = self._refine_pose_path()
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"{path}: resuming at epoch {self.current_epoch}, past "
+                f"start_query_world_epoch={self.start_query_world_epoch}, "
+                "needs the poses the stage-2 transition wrote")
+        self._set_world_mats(
+            np.asarray(load_pytree(path)["init_c2w"], np.float32))
+
+    # ------------------------------------------------------------------
     def visualize(self, pos: int, epoch_it: int):
         """Periodic visualization + adaptive depth-range update
-        (reference render_visdata, model/training.py:157-374)."""
+        (reference render_visdata, model/training.py:157-374). Stage 2
+        renders at the world camera's time through the view's refined pose,
+        and draws no flow."""
         target = int(self.train_field.i_train[pos])
         vis_res = self.tr["vis_resolution"]
+        world_mat = np.eye(4, dtype=np.float32)
+        query_t = self.time_of(target)
+        if self.query_in_canonical_space and target != self.world_cam_idx:
+            world_mat = self._world_mat_dev[pos].cpu().numpy()
+            query_t = self.world_time_step
+        want_flow = not self.query_in_canonical_space
         res = self.image_renderer.render_image(
-            self.state["fields"], self.train_field.K[target],
-            np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32),
-            self.time_of(target), vis_res, self.depth_range,
-            cos_anneal_ratio(self.it, self.anneal_end), want_pts=True)
+            self.state["fields"], self.train_field.K[target], world_mat,
+            np.eye(4, dtype=np.float32), query_t, vis_res, self.depth_range,
+            cos_anneal_ratio(self.it, self.anneal_end), want_pts=want_flow)
 
         if self.io_primary:
             out_dir = os.path.join(self.render_path, f"{self.it:04d}_vis")
             os.makedirs(out_dir, exist_ok=True)
-            try:
-                flow_img = self._flow_visualization(res, target, vis_res)
-                self._save_image(
-                    os.path.join(out_dir, f"{target:04d}_flow.png"), flow_img)
-            except Exception as e:
-                self._log(f"flow vis failed: {e}")
+            if want_flow:
+                try:
+                    flow_img = self._flow_visualization(res, target, vis_res)
+                    self._save_image(
+                        os.path.join(out_dir, f"{target:04d}_flow.png"),
+                        flow_img)
+                except Exception as e:
+                    self._log(f"flow vis failed: {e}")
             disp = 1.0 / np.maximum(res["depth"], 1e-6)
             disp = disp / max(disp.max(), 1e-6)
             self._save_image(os.path.join(out_dir, f"{target:04d}_img.png"),
@@ -501,11 +619,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def prepare_training(self):
         self.current_epoch = self.epoch_it + 1 if self.epoch_it != -1 else 0
-        if self.current_epoch > self.start_query_world_epoch:
-            raise NotImplementedError(
-                f"resuming at epoch {self.current_epoch}, past "
-                f"start_query_world_epoch={self.start_query_world_epoch}: "
-                + STAGE2)
+        self.query_in_canonical_space = (
+            self.current_epoch >= self.start_query_world_epoch)
         s = self._scale_for_epoch(self.current_epoch)
         if s != 1 or self.resolution != [self.original_resolution[0] // s,
                                          self.original_resolution[1] // s]:
@@ -517,19 +632,28 @@ class Trainer:
             self.w_smooth = self.tr["smoothness_weight"][1]
             self.w_edge = self.tr["edge_aware_smoothness_weight"][1]
             self.patch_size = 1
+        # A resume past the transition trains on the refined poses, also
+        # from a checkpoint saved in the transition epoch (the JAX package
+        # loads them only from the epoch after that one, and trains that
+        # one on the identity).
+        if self.current_epoch > self.start_query_world_epoch:
+            self._log("Loading pre-computed camera poses")
+            self._load_refine_pose()
         # Rebuild the group-lr mutation sequence on resume (decays, drops,
-        # warmup overwrites; order matters, see LRState) and replay the
-        # view permutations the trained epochs drew.
+        # warmup overwrites, the stage-2 reset; order matters, see LRState)
+        # and replay the view permutations the trained epochs drew.
         for e in range(0, self.current_epoch):
-            self.lr_state.replay_epoch(e, self.train_field.N_imgs,
-                                       stage2_starts_now=False)
+            self.lr_state.replay_epoch(
+                e, self.train_field.N_imgs,
+                stage2_starts_now=(e == self.start_query_world_epoch))
             np.random.permutation(self.train_field.N_imgs)
         return self.resolution
 
     def train(self, max_epochs: int | None = None):
         self.prepare_training()
+        stage = "2 (world)" if self.query_in_canonical_space else "1 (local)"
         self._log(f"Continue at epoch={self.current_epoch}, it={self.it}; "
-                  f"resolution={self.resolution}; stage=1 (local)")
+                  f"resolution={self.resolution}; stage={stage}")
 
         end_epoch = self.scheduling_start + self.scheduling_epoch
         if max_epochs is not None:
@@ -539,10 +663,6 @@ class Trainer:
         window = None
         try:
             for epoch_it in range(self.current_epoch, end_epoch):
-                if epoch_it == self.start_query_world_epoch:
-                    raise NotImplementedError(
-                        f"epoch {epoch_it} reaches start_query_world_epoch: "
-                        + STAGE2)
                 self.epoch_it = epoch_it
                 self.lr_state.on_epoch_start(epoch_it, stage2_starts_now=False)
 
@@ -556,13 +676,23 @@ class Trainer:
                              self.original_resolution[1] // s])
                         self._log(f"Resolution -> {self.resolution}")
 
+                if epoch_it == self.start_query_world_epoch:
+                    self.stage2_transition(epoch_it)
+
                 if epoch_it == self.end_smooth_epoch:
                     self.w_smooth = self.tr["smoothness_weight"][1]
                     self.w_edge = self.tr["edge_aware_smoothness_weight"][1]
                     self.patch_size = 1
                     self._log(f"epoch {epoch_it}: smoothness off, patch_size=1")
 
-                step = self._get_step(stage1=True, train_motion=True)
+                # The motion net is frozen for freeze_camera_pose_period
+                # epochs from the transition: its Adam count stands still.
+                freeze_pose = (self.start_query_world_epoch <= epoch_it <=
+                               self.start_query_world_epoch +
+                               self.freeze_camera_pose_period)
+                step = self._get_step(
+                    stage1=not self.query_in_canonical_space,
+                    train_motion=not freeze_pose)
                 perm = np.random.permutation(self.train_field.N_imgs)
                 epoch_metrics = []
                 vis_ms = 0.0
@@ -661,7 +791,8 @@ class Trainer:
                     ms_per_it=loop_ms / len(perm), vis_ms=vis_ms,
                     ms_per_it_steps=(loop_ms - vis_ms) / len(perm))
 
-                if epoch_it % self.eval_pose_every == 0:
+                if (epoch_it % self.eval_pose_every == 0 and
+                        not self.query_in_canonical_space):
                     try:
                         aligned, _, _, _ = self.pose_evaluation()
                         self.vis_pose_2d(aligned)

@@ -175,12 +175,12 @@ def test_backward_kernels_match_plain_on_card(width, n):
     _check_vs_f64(got, ref, ref64, "K3")
 
 
-@pytest.mark.gpu
-def test_train_step_card_matches_cpu():
-    """One stage-1 step at a small width, 64 rays, injected ray_idx and
-    t_rand, on the card (kernels) and on the CPU (plain versions): every
-    metric within 1e-4 relative + 1e-5, every parameter gradient within
-    1e-3 of its tensor's largest entry."""
+def _step_card_and_cpu(stage1: bool):
+    """One step at a small width, 64 rays, injected ray_idx and t_rand, on
+    the card (kernels) and on the CPU (plain versions): every metric within
+    1e-4 relative + 1e-5, every parameter gradient within 1e-3 of its
+    tensor's largest entry. Stage 2 queries at the world camera's time
+    through a world_mat with a rotation, the motion net frozen."""
     _require_cuda()
     h = w = 24
     f = 60.0
@@ -188,6 +188,9 @@ def test_train_step_card_matches_cpu():
                       [0, 0, -1, 0], [0, 0, 0, 1]])
     world = torch.eye(4)
     world[2, 3] = -2.5
+    if not stage1:
+        c, s_ = np.cos(0.1), np.sin(0.1)
+        world[:3, :3] = torch.tensor([[c, 0, s_], [0, 1, 0], [-s_, 0, c]])
     yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
     imgs = torch.stack([torch.stack([0.5 + 0.4 * torch.sin(0.25 * xx + 0.2 * (c + 1) * yy
                                                            + 0.3 * t + c)
@@ -196,9 +199,9 @@ def test_train_step_card_matches_cpu():
     idx = TS.sample_patch_indices(g, h, w, 4, 64, device="cpu")
     t_rand = torch.rand((64, 16), generator=g)
     scfg, ccfg = WIDTHS["small"]
-    s = TS.StepStatic(h=h, w=w, patch_size=4, n_points=64, stage1=True,
+    s = TS.StepStatic(h=h, w=w, patch_size=4, n_points=64, stage1=stage1,
                       n_images=7, nb_sample_timestep=4, n_ref=3,
-                      train_motion=True, sdf_cons_pose_grad=True,
+                      train_motion=stage1, sdf_cons_pose_grad=True,
                       use_flow_rgb=True, use_sdf_consistency=True)
     res = {}
     for dev in ("cuda", "cpu"):
@@ -215,7 +218,8 @@ def test_train_step_card_matches_cpu():
             "ref_in_list": torch.ones(3, device=dev),
             "ref_valid_flow": torch.tensor([1.0, 1.0, 0.0], device=dev),
             "scale_mat": torch.eye(4, device=dev), "world_mat": world.to(dev),
-            "query_time_step": torch.tensor(-0.2, device=dev),
+            "query_time_step": torch.tensor(-0.2 if stage1 else 0.0,
+                                            device=dev),
             "world_time_step": torch.tensor(0.0, device=dev),
             "image_idx": torch.tensor(2, device=dev),
             "world_cam_idx": torch.tensor(3, device=dev),
@@ -228,12 +232,82 @@ def test_train_step_card_matches_cpu():
             idx.to(dev), t_rand=t_rand.to(dev))
         total.backward()
         res[dev] = ({k: v.item() for k, v in metrics.items()},
-                    [p.grad.cpu() for k in ("sdf", "color", "variance", "motion")
+                    [p.grad.cpu() if p.grad is not None else torch.zeros_like(p).cpu()
+                     for k in ("sdf", "color", "variance", "motion")
                      for p in fields[k].parameters()])
     for k, v in res["cpu"][0].items():
         assert abs(res["cuda"][0][k] - v) <= 1e-4 * abs(v) + 1e-5, (k, v)
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item() + 1e-6
+    return res
+
+
+@pytest.mark.gpu
+def test_train_step_card_matches_cpu():
+    """A stage-1 step on the card against the CPU (``_step_card_and_cpu``)."""
+    _step_card_and_cpu(stage1=True)
+
+
+@pytest.mark.gpu
+def test_stage2_train_step_card_matches_cpu():
+    """A stage-2 step (no sdf-consistency query: no K3; a rotated
+    world_mat) on the card against the CPU; the launches are 2 K2 + 1
+    K1-fwd + 1 K1-bwd (``up_sample_steps`` 2)."""
+    counters = {"sdf_value": SV.COUNTER, "rendercore_fwd": RC.COUNTER,
+                "rendercore_bwd": RC.BWD_COUNTER,
+                "sdf_value_diff_fwd": SVD.FWD_COUNTER,
+                "sdf_value_bwd": SVD.BWD_COUNTER}
+    for c in counters.values():
+        c.launches = 0
+    res = _step_card_and_cpu(stage1=False)
+    assert {k: c.launches for k, c in counters.items()} == {
+        "sdf_value": 2, "rendercore_fwd": 1, "rendercore_bwd": 1,
+        "sdf_value_diff_fwd": 0, "sdf_value_bwd": 0}
+    assert all(np.isfinite(v) for v in res["cuda"][0].values())
+
+
+@pytest.mark.gpu
+def test_pose_refinement_card_matches_cpu():
+    """``run_pose_refinement`` on the card against the same call on the CPU
+    for 12 epochs (6 views at 48x64, batches of 4 and 1 pairs): the poses
+    within 1e-4 absolute (the bound the CPU tests hold the port to against
+    the JAX package, for the same reason), the loss trace's first epoch
+    within 1e-5 relative and the trace within 5e-4."""
+    _require_cuda()
+    from copenerf_torch.training.pose_refinement import run_pose_refinement
+
+    rng = np.random.default_rng(0)
+    m, h, w = 6, 48, 64
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    freq = rng.uniform(0.05, 0.15, size=(3, 2))
+    images = np.stack([np.stack([
+        0.5 + 0.4 * np.sin(freq[c, 0] * (xs + 1.5 * v) + freq[c, 1] * ys + c)
+        for c in range(3)]) for v in range(m)]).astype(np.float32)
+    depths = np.stack([2.0 + np.sin(0.07 * xs + 0.05 * ys + 0.3 * v)
+                       for v in range(m)]).astype(np.float32)
+    k33 = np.tile(np.array([[2.0, 0, 0], [0, -2.0, 0], [0, 0, -1]],
+                           np.float32), (m, 1, 1))
+
+    class Recorder:
+        def __init__(self):
+            self.loss = []
+
+        def add_scalar(self, tag, value, step):
+            if tag.endswith("/_loss"):
+                self.loss.append(value)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        log = Recorder()
+        poses = run_pose_refinement(images, depths, k33, epochs=12,
+                                    batch_size=4, logger=log, device=dev)
+        out[dev] = (poses, np.asarray(log.loss))
+    (pc, lc), (pp, lp) = out["cuda"], out["cpu"]
+    assert pc.shape == (m, 4, 4) and np.isfinite(pc).all()
+    np.testing.assert_allclose(pc, pp, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(lc[0], lp[0], rtol=1e-5)
+    np.testing.assert_allclose(lc, lp, rtol=5e-4)
+    assert lc[-1] < lc[0]
 
 
 @pytest.mark.gpu

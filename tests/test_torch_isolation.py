@@ -66,6 +66,7 @@ def test_import_leaves_jax_unloaded():
             "copenerf_torch.training.logging_utils, "
             "copenerf_torch.training.depth_metrics, "
             "copenerf_torch.training.trainer, "
+            "copenerf_torch.training.pose_refinement, "
             "copenerf_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")

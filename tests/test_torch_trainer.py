@@ -1,8 +1,10 @@
-"""Port parity for the stage-1 ``Trainer`` and the train state it checkpoints:
-the port's ``training/trainer.py`` against the JAX package's on one
+"""Port parity for the ``Trainer`` and the train state it checkpoints: the
+port's ``training/trainer.py`` against the JAX package's on one
 Co3D-convention synthetic scene at small widths (the nets of
 ``test_trainer_e2e.py``), both started from one JAX initial state written as
-a checkpoint at ``it = -1``.
+a checkpoint at ``it = -1``: stage 1, and runs across the stage-1 -> stage-2
+transition (pose refinement, ``refine_pose.npz``, canonical-space steps with
+the motion net frozen).
 
 Sampling is injected (each package's ``Trainer`` subclassed with a
 ``_get_step`` that adds ``ray_idx`` / ``t_rand`` drawn from numpy by ``it``),
@@ -19,7 +21,13 @@ Tolerances, f32 on both sides:
     its sign differs between the packages (the step tests' bounds), so the
     two trajectories drift apart by O(lr) in a few entries each step:
     LOSS_RTOL relative per iteration over 10 iterations (lr warming up to
-    1e-3); the drift measured 4e-5 at most;
+    1e-3); the drift measured 4e-5 at most; the same bound over 15
+    iterations across the transition;
+  * refined poses (``refine_pose.npz``), port against JAX: POSE_ATOL, the
+    bound of ``test_torch_pose_refinement.py`` (the depths come from each
+    package's own render of its own fields); the motion-integrated poses
+    of ``do_refine_pose: false``: 1e-5 absolute (the motion chains agree to
+    f32 rounding);
   * the Adam layout: the port's update of a loaded state equals optax's
     formula on the JAX layout to float32 rounding (1e-6 relative), and the
     moments after one step of each package differ by (1 - b) times the
@@ -59,6 +67,7 @@ H, W = 24, 32
 N_FRAMES = 6          # i_test = [4]: 5 train views, 5 iterations an epoch
 N_SAMPLES = 16
 LOSS_RTOL = 3e-4
+POSE_ATOL = 1e-4
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -185,11 +194,15 @@ def write_init(scene, out_dir, seed=0):
                         {"epoch_it": -1, "it": -1, "depth_range": [0.5, 3.5]})
 
 
-def fork(src, dst):
-    """A new run directory holding ``src``'s latest checkpoint."""
+def fork(src, dst, sub="weights", refine_pose=True):
+    """A new run directory holding ``src``'s checkpoint ``sub`` (the latest
+    by default) as its latest, and its ``refine_pose.npz`` if it has one."""
     os.makedirs(dst)
-    shutil.copytree(os.path.join(src, "models", "weights"),
+    shutil.copytree(os.path.join(src, "models", sub),
                     os.path.join(dst, "models", "weights"))
+    pose = os.path.join(src, "models", "refine_pose.npz")
+    if refine_pose and os.path.isfile(pose):
+        shutil.copy(pose, os.path.join(dst, "models"))
     return dst
 
 
@@ -319,24 +332,9 @@ def test_sampled_run_resumes_exactly(scene, tmp_path):
     assert all(d["ms_per_it"] > 0 for d in journal)
 
 
-def test_stage2_and_plain_mode_raise(scene, tmp_path):
-    """Stage 2 is refused in the open: at the epoch that reaches
-    start_query_world_epoch, and on a resume past it; so is
-    ``fused_kernels: off`` (YAML reads a bare off as False)."""
-    t = port_trainer(tiny_cfg(scene, str(tmp_path / "a"),
-                              start_query_world_epoch=1), TT.Trainer)
-    with pytest.raises(NotImplementedError, match="stage 2"):
-        t.train(max_epochs=2)
-    assert t.it == 4 and t.epoch_it == 0
-    out = str(tmp_path / "b")
-    write_init(scene, out)
-    meta = os.path.join(out, "models", "weights", "meta.json")
-    json.dump({"epoch_it": 3, "it": 19, "depth_range": [0.5, 3.5]},
-              open(meta, "w"))
-    t = port_trainer(tiny_cfg(scene, out, start_query_world_epoch=2),
-                     TT.Trainer)
-    with pytest.raises(NotImplementedError, match="stage 2"):
-        t.train(max_epochs=1)
+def test_plain_mode_raises(scene, tmp_path):
+    """``fused_kernels: off`` is refused in the open (YAML reads a bare off
+    as False)."""
     for mode in ("off", False):
         with pytest.raises(ValueError, match="fused_kernels"):
             port_trainer(tiny_cfg(scene, str(tmp_path / "c"),
@@ -369,6 +367,195 @@ def test_visualize_and_render_train_views(scene, tmp_path):
     assert depths.shape == (2, H, W) and np.isfinite(depths).all()
     assert len(os.listdir(os.path.join(out, "extraction_stage1",
                                        "depths"))) == 2
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: the transition, the refined poses, canonical-space epochs
+# ---------------------------------------------------------------------------
+
+def stage2_cfg(scene, out_dir, **training):
+    """Epoch 0 in stage 1, the transition at epoch 1 (20 refinement
+    epochs), a checkpoint every epoch; the motion net frozen from there."""
+    return tiny_cfg(scene, out_dir, start_query_world_epoch=1,
+                    pose_refine_epochs=20, checkpoint_every=1, **training)
+
+
+def refine_pose(t):
+    return np.load(os.path.join(t.out_dir, "models",
+                                "refine_pose.npz"))["init_c2w"]
+
+
+def adam_counts(state):
+    return {k: int(state[k].count) for k in ("opt_fields", "opt_motion")}
+
+
+@pytest.fixture(scope="module")
+def stage2_runs(scene, tmp_path_factory):
+    """Epochs across the transition: 4 in the JAX package, 3 in the port;
+    each package's epoch-2 checkpoint resumed for 1 epoch (the JAX one in
+    both packages, the port's in the JAX package), and the port's
+    transition-epoch checkpoint resumed in the port. Built and trained one
+    at a time, as ``runs`` does."""
+    root = tmp_path_factory.mktemp("stage2")
+    init = str(root / "init")
+    write_init(scene, init)
+    r = {}
+
+    def run(name, src, epochs, package, sub="weights"):
+        out = fork(src, str(root / name), sub)
+        if package == "jax":
+            t = JaxTrainer(stage2_cfg(scene, out), verbose=False)
+        else:
+            t = port_trainer(stage2_cfg(scene, out))
+        t.train(max_epochs=epochs)
+        r[name] = t
+
+    run("J4", init, 4, "jax")
+    run("P3", init, 3, "port")
+    run("J_from_J4e2", r["J4"].out_dir, 1, "jax", sub="weights_2")
+    run("P_from_J4e2", r["J4"].out_dir, 1, "port", sub="weights_2")
+    run("J_from_P3", r["P3"].out_dir, 1, "jax")
+    run("P_from_P3_e1", r["P3"].out_dir, 1, "port", sub="weights_1")
+    return r
+
+
+def test_stage2_loss_curves_match_jax(stage2_runs):
+    """15 iterations across the transition (5 in stage 1, 10 in stage 2):
+    the losses, the refined poses the transition wrote, and both Adam
+    counts (the motion count stands still in stage 2)."""
+    got, ref = stage2_runs["P3"], stage2_runs["J4"]
+    assert len(got.losses) == 15 and len(ref.losses) == 20
+    np.testing.assert_allclose(got.losses, ref.losses[:15], rtol=LOSS_RTOL,
+                               atol=0)
+    assert got.query_in_canonical_space and ref.query_in_canonical_space
+    assert not got.pose_refine_fell_back
+    poses = refine_pose(got)
+    assert poses.shape == (5, 4, 4) and poses.dtype == np.float32
+    np.testing.assert_allclose(poses, refine_pose(ref), rtol=0,
+                               atol=POSE_ATOL)
+    world = list(got.train_field.i_train).index(got.world_cam_idx)
+    np.testing.assert_allclose(poses[world], np.eye(4), rtol=0, atol=1e-6)
+    assert np.abs(np.delete(poses, world, 0) - np.eye(4)).max() > 1e-3
+    assert adam_counts(TS.train_state_to_jax(got.state)) == {
+        "opt_fields": 15, "opt_motion": 5}
+    assert adam_counts(ref.state) == {"opt_fields": 20, "opt_motion": 5}
+    summary = got.transition_summary
+    assert summary["epoch"] == 1 and not summary["fell_back"]
+    assert summary["render_train_views_ms"] > 0 < summary["pose_refine_ms"]
+    refine_losses = [json.loads(s)["value"] for s in open(os.path.join(
+        got.out_dir, "logs", "scalars.jsonl")) if '"poseRefine/_loss"' in s]
+    assert len(refine_losses) == 20
+
+
+def test_jax_stage2_checkpoint_resumes_in_port(stage2_runs):
+    """The JAX run's epoch-2 checkpoint and ``refine_pose.npz`` resumed in
+    the port: its table holds the JAX poses, and its epoch (the replayed
+    view permutation) follows the JAX run's uninterrupted fourth epoch."""
+    pt = stage2_runs["P_from_J4e2"]
+    poses = refine_pose(stage2_runs["J4"])
+    table = pt._world_mat_dev.numpy()
+    world = list(pt.train_field.i_train).index(pt.world_cam_idx)
+    np.testing.assert_array_equal(np.delete(table, world, 0),
+                                  np.delete(poses, world, 0))
+    np.testing.assert_array_equal(table[world], np.eye(4))
+    np.testing.assert_allclose(pt.losses, stage2_runs["J4"].losses[15:],
+                               rtol=LOSS_RTOL, atol=0)
+    assert adam_counts(TS.train_state_to_jax(pt.state)) == {
+        "opt_fields": 20, "opt_motion": 5}
+
+
+def test_port_stage2_checkpoint_resumes_in_jax(stage2_runs):
+    """The port's epoch-2 checkpoint and ``refine_pose.npz`` resumed in the
+    JAX package: it reads the port's poses, and its epoch follows the one it
+    trains from its own epoch-2 checkpoint."""
+    jt = stage2_runs["J_from_P3"]
+    np.testing.assert_array_equal(np.asarray(jt.pose_retriever[1]),
+                                  refine_pose(stage2_runs["P3"]))
+    assert len(jt.losses) == 5
+    np.testing.assert_allclose(jt.losses, stage2_runs["J_from_J4e2"].losses,
+                               rtol=LOSS_RTOL, atol=0)
+
+
+def test_transition_epoch_checkpoint_resumes_on_refined_poses(
+        stage2_runs, scene, tmp_path):
+    """The checkpoint saved in the transition epoch resumes in the port on
+    the refined poses: its next epoch repeats the uninterrupted run's
+    exactly (the JAX package trains that epoch on the identity). Without
+    ``refine_pose.npz`` the resume raises, naming the file."""
+    full, resumed = stage2_runs["P3"], stage2_runs["P_from_P3_e1"]
+    assert resumed.losses == full.losses[10:]
+    assert_states_equal(TS.train_state_to_jax(resumed.state),
+                        TS.train_state_to_jax(full.state))
+    np.testing.assert_array_equal(resumed._world_mat_dev.numpy(),
+                                  full._world_mat_dev.numpy())
+    out = fork(full.out_dir, str(tmp_path / "no_poses"), "weights_1",
+               refine_pose=False)
+    t = port_trainer(stage2_cfg(scene, out))
+    with pytest.raises(FileNotFoundError, match="refine_pose.npz"):
+        t.train(max_epochs=1)
+    assert t.it == 9
+
+
+@pytest.fixture
+def transition_init(scene, tmp_path):
+    """A run directory holding the JAX initial state."""
+    out = str(tmp_path / "t")
+    write_init(scene, out)
+    return out
+
+
+@pytest.mark.parametrize("planted", [RuntimeError, torch.OutOfMemoryError,
+                                     OSError, MemoryError])
+def test_transition_falls_back_only_on_memory_and_io(scene, transition_init,
+                                                     planted):
+    """An error from the renderer inside the transition: a RuntimeError (a
+    kernel's failed build or launch) propagates; out of memory and IO fall
+    back to the motion-integrated poses, those of ``do_refine_pose:
+    false``."""
+    t = port_trainer(stage2_cfg(scene, transition_init), TT.Trainer)
+
+    def render_image(*args, **kwargs):
+        raise planted("planted")
+
+    t.image_renderer.render_image = render_image
+    if planted is RuntimeError:
+        with pytest.raises(RuntimeError, match="planted"):
+            t.stage2_transition(1)
+        assert not os.path.isfile(t._refine_pose_path())
+        return
+    t.stage2_transition(1)
+    assert t.pose_refine_fell_back and t.transition_summary["fell_back"]
+    fell_back = refine_pose(t)
+    os.remove(t._refine_pose_path())
+    t = port_trainer(stage2_cfg(scene, transition_init,
+                                do_refine_pose=False), TT.Trainer)
+    t.stage2_transition(1)
+    assert not t.pose_refine_fell_back
+    np.testing.assert_array_equal(fell_back, refine_pose(t))
+
+
+def test_no_pose_refinement_matches_jax(scene, transition_init, tmp_path):
+    """``do_refine_pose: false``: both packages take the motion-integrated
+    poses re-anchored on the world camera; the port's stage-2 visualization
+    renders them and draws no flow (4 files)."""
+    cfg = stage2_cfg(scene, transition_init, do_refine_pose=False)
+    jt = JaxTrainer(cfg, verbose=False)
+    jt.stage2_transition(1)
+    ref = refine_pose(jt)
+    os.remove(os.path.join(transition_init, "models", "refine_pose.npz"))
+    pt = port_trainer(stage2_cfg(scene, transition_init,
+                                 do_refine_pose=False), TT.Trainer)
+    pt.stage2_transition(1)
+    np.testing.assert_allclose(refine_pose(pt), ref, rtol=0, atol=1e-5)
+    assert pt.lr_state.cur_motion_lr == 0.0
+    pt.it = 0
+    res = pt.visualize(1, 1)
+    assert np.isfinite(res["color"]).all() and "pts_flat" not in res
+    target = int(pt.train_field.i_train[1])
+    files = sorted(os.listdir(os.path.join(transition_init, "rendering",
+                                           "0000_vis")))
+    assert files == sorted(f"{target:04d}_{k}.png" for k in (
+        "img", "disparity", "normal", "disparity_highest_weight"))
 
 
 # ---------------------------------------------------------------------------

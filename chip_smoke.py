@@ -70,30 +70,41 @@ Phases, each printed on its own line, any failure exits non-zero:
             term, so no K3), the query at the world camera's time through a
             world_mat rotated 0.1 rad besides its shift, stage-2 loss
             weights; the same bounds.
-11. composed_main  one view as in ``main`` under the negative-ray config:
+11. eval_pose_card_vs_cpu  one test-time pose step
+            (``evaluator.pose_loss``, the fields frozen) on the card and on
+            the CPU: 64 rays of the train batch's image, the pose a rotated
+            camera plus a non-zero (r, t); main-path and perturbed nets; the
+            loss, l2 and r / t gradients within the stage-2 step's bounds.
+12. composed_main  one view as in ``main`` under the negative-ray config:
             4 K2 + 1 K4-fwd + 1 K5-fwd per chunk, no K1.
-12. composed_train  10 steps as in ``train`` under that config: 4 K2, 1
+13. composed_train  10 steps as in ``train`` under that config: 4 K2, 1
             K4-fwd, 1 K4-bwd, 1 K5-fwd, 1 K5-bwd, 1 K3-fwd, 1 K3-bwd per
             step, no K1; the loss finite, its last-3 mean below its first-3.
-13. composed_card_vs_cpu  ``train_card_vs_cpu`` under that config.
-14. fold_kernels  K6 (K1 with the K3 query at y folded into its launches,
+14. composed_card_vs_cpu  ``train_card_vs_cpu`` under that config.
+15. fold_kernels  K6 (K1 with the K3 query at y folded into its launches,
             the JAX package's COPENERF_FOLD_CONS=1) on the perturbed idr
             nets: K6-fwd against ``rendercore_cons_plain``, K6-bwd against
             autograd of it and f64 for sbar, gbar, cbar (KINK_MARGIN), swbar
             alone and all four, at 262,144 and 1,000 rows; times at 131,072
             rows beside K1 + K3 timed in turns in the same call.
-15. fold_train  10 steps as in ``composed_train`` with COPENERF_FOLD_CONS=1
+16. fold_train  10 steps as in ``composed_train`` with COPENERF_FOLD_CONS=1
             set in this process (restored after): 4 K2 + 1 K6-fwd + 1 K6-bwd
             per step, no K1 or K3.
-16. fold_card_vs_cpu  ``train_card_vs_cpu`` with the fold and the
+17. fold_card_vs_cpu  ``train_card_vs_cpu`` with the fold and the
             sdf-consistency pose gradient on (K6's y_bar reaches the motion
             net).
-17. out_kernels  ``fields.sdf_output`` driven once (counters zeroed: 1 K7-fwd
+18. out_kernels  ``fields.sdf_output`` driven once (counters zeroed: 1 K7-fwd
             + 1 K7-bwd), then K7 against ``sdf_apply`` and f64 (column 0,
             the feature columns, all) at 262,144 and 1,000 rows; times at
             131,072 rows, K7-bwd's split into its row kernel and the
             reduction beside ``torch.mm`` of the reduction.
-18. trainer  ``Trainer(cfg).train(max_epochs=2)`` of the port's
+19. metrics_f32  SSIM and LPIPS (random He-scaled VGG16 weights) of a
+            270x480 pair on the card with cuDNN's TF32 switched on (PyTorch's
+            default) for the phase, against float64 on the CPU: SSIM within
+            1e-6, LPIPS within 1e-5 relative (the metrics force f32
+            themselves); readings of the same metrics unguarded in TF32 and
+            of an SSIM through cuDNN; times of PSNR, SSIM, LPIPS.
+20. trainer  ``Trainer(cfg).train(max_epochs=2)`` of the port's
             ``training/trainer.py`` on a Co3D-convention synthetic scene
             written by the port's ``data/synthetic.py`` (12 frames at
             270x480, 11 train views), the full-width nets of
@@ -110,7 +121,7 @@ Phases, each printed on its own line, any failure exits non-zero:
             the loop's ends) beside the train phase's bare step, the
             device-busy share of a 5-iteration ``torch.profiler`` window and
             the peak device memory.
-19. trainer_stage2  ``Trainer(cfg).train(max_epochs=2)`` across the
+21. trainer_stage2  ``Trainer(cfg).train(max_epochs=2)`` across the
             stage-1 -> stage-2 transition on the trainer phase's scene and
             nets (``start_query_world_epoch`` 1, ``pose_refine_epochs`` 60,
             the refinement started from the motion field's poses): the
@@ -127,14 +138,26 @@ Phases, each printed on its own line, any failure exits non-zero:
             the refinement's ms an epoch with and without the host pose
             metrics, stage 2's ms an iteration with and without
             visualizations, its busy share and the peak memory.
-20. pose_refine_shape  ``run_pose_refinement`` at configs/Co3D/bench.yaml's
+22. evaluator  ``Evaluator(cfg).eval()`` of the port's
+            ``evaluation/evaluator.py`` on ``trainer_stage2``'s run (1 test
+            view, frame 4; ``eval_pose_epoch`` 300 pose steps of 1,024 rays;
+            the view rendered in 4 chunks; PSNR / SSIM / LPIPS, 7 depth
+            metrics, ATE / RPE, ``results.txt`` and six extraction folders).
+            Launch counters zeroed before and read after (per pose step 4 K2
+            + 1 K1-fwd + 1 K1-bwd, per render chunk 4 K2 + 1 K1-fwd, no
+            K3-K7); finite metrics, LPIPS NaN with its warning without a
+            weight pack, one file per folder, the field weights unchanged; a
+            second ``Evaluator`` reuses the pose cache (no K1-bwd) with the
+            same metrics. Prints pose-step ms, render ms a view, metric ms,
+            peak memory and the l2 of the first and last epoch.
+23. pose_refine_shape  ``run_pose_refinement`` at configs/Co3D/bench.yaml's
             stage-2 size (712x1266, 34 synthetic views, 33 pairs in batches
             of 16, 16, 1): ms an epoch without and with the host pose
             metrics, the device's busy ms an epoch, peak memory, and the
             default 2,000 epochs projected. No gate on speed.
-21. the ``{"kernels": [...]}`` line (launches per path: render, train,
+24. the ``{"kernels": [...]}`` line (launches per path: render, train,
    render_composed, train_composed, train_fold, sdf_output, trainer,
-   trainer_stage2), then the contract line ``{"ok": true, "device":
+   trainer_stage2, evaluate), then the contract line ``{"ok": true, "device":
    {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
@@ -1868,7 +1891,7 @@ def adam_counts(state):
     return {k: int(tree[k].count) for k in TS.OPTIMIZER_NETS}
 
 
-def phase_trainer_stage2(counters):
+def phase_trainer_stage2(counters, tmp):
     """``Trainer(cfg).train(max_epochs=2)`` across the stage-1 -> stage-2
     transition on the ``trainer`` phase's scene and nets
     (``start_query_world_epoch`` 1, ``pose_refine_epochs`` 60, so the lr
@@ -1890,87 +1913,85 @@ def phase_trainer_stage2(counters):
     ``train`` and read after the second: per stage-1 step 4 K2 + 1 K1-fwd
     + 1 K1-bwd + 1 K3-fwd + 1 K3-bwd, per stage-2 step 4 K2 + 1 K1-fwd + 1
     K1-bwd, per render chunk (the transition's 11 views x 4 chunks and the
-    visualizations) 4 K2 + 1 K1-fwd, no K4-K7."""
-    import tempfile
-
+    visualizations) 4 K2 + 1 K1-fwd, no K4-K7. The run stays in ``tmp``
+    for the evaluator; returns (launches, cfg, out_dir)."""
     import numpy as np
     import torch
     from copenerf_torch.data.synthetic import make_scene
     from copenerf_torch.training.trainer import Trainer
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        scene = make_scene(os.path.join(tmp, "scene"), n_frames=TRAINER_FRAMES,
-                           h=TRAINER_RES[0], w=TRAINER_RES[1])
-        out_dir = os.path.join(tmp, "out")
-        cfg, cuts = trainer_config(scene, out_dir)
-        stage2 = {"training.start_query_world_epoch": 1,
-                  "training.pose_refine_epochs": 60,
-                  "training.refine_from_scratch": False}
-        for key, value in stage2.items():
-            cfg["training"][key.split(".")[1]] = value
-        cuts.update(stage2)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            c.launches = 0
-        first = Trainer(copy.deepcopy(cfg), verbose=False)
-        first.train(max_epochs=2)
-        counts_first = adam_counts(first.state)
-        second = Trainer(copy.deepcopy(cfg), verbose=False)
-        resumed_it = second.it
-        second.train(max_epochs=1)
-        launches = {c.name: c.launches for c in counters}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        counts_second = adam_counts(second.state)
+    scene = make_scene(os.path.join(tmp, "scene"), n_frames=TRAINER_FRAMES,
+                       h=TRAINER_RES[0], w=TRAINER_RES[1])
+    out_dir = os.path.join(tmp, "out")
+    cfg, cuts = trainer_config(scene, out_dir)
+    stage2 = {"training.start_query_world_epoch": 1,
+              "training.pose_refine_epochs": 60,
+              "training.refine_from_scratch": False}
+    for key, value in stage2.items():
+        cfg["training"][key.split(".")[1]] = value
+    cuts.update(stage2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    first = Trainer(copy.deepcopy(cfg), verbose=False)
+    first.train(max_epochs=2)
+    counts_first = adam_counts(first.state)
+    second = Trainer(copy.deepcopy(cfg), verbose=False)
+    resumed_it = second.it
+    second.train(max_epochs=1)
+    launches = {c.name: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts_second = adam_counts(second.state)
 
-        n_views = second.train_field.N_imgs
-        its = second.it + 1
-        stage1_its = n_views
-        r = second.image_renderer
-        vis_its = [it for it in range(its) if it % 5 == 0]
-        vis_chunks = len(vis_its) * render_chunks(
-            r, *cfg["training"]["vis_resolution"])
-        views_chunks = n_views * render_chunks(r, *TRAINER_RES)
-        per_step1 = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
-                     "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
-        per_step2 = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1}
-        per_chunk = {"sdf_value": 4, "rendercore_fwd": 1}
-        want = {c.name: per_step1.get(c.name, 0) * stage1_its
-                + per_step2.get(c.name, 0) * (its - stage1_its)
-                + per_chunk.get(c.name, 0) * (vis_chunks + views_chunks)
-                for c in counters}
-        vis_files = {int(d.split("_")[0]): len(os.listdir(
-            os.path.join(out_dir, "rendering", d)))
-            for d in os.listdir(os.path.join(out_dir, "rendering"))
-            if d.endswith("_vis")}
-        want_files = {it: 5 if it < stage1_its else 4 for it in vis_its}
+    n_views = second.train_field.N_imgs
+    its = second.it + 1
+    stage1_its = n_views
+    r = second.image_renderer
+    vis_its = [it for it in range(its) if it % 5 == 0]
+    vis_chunks = len(vis_its) * render_chunks(
+        r, *cfg["training"]["vis_resolution"])
+    views_chunks = n_views * render_chunks(r, *TRAINER_RES)
+    per_step1 = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
+                 "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
+    per_step2 = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1}
+    per_chunk = {"sdf_value": 4, "rendercore_fwd": 1}
+    want = {c.name: per_step1.get(c.name, 0) * stage1_its
+            + per_step2.get(c.name, 0) * (its - stage1_its)
+            + per_chunk.get(c.name, 0) * (vis_chunks + views_chunks)
+            for c in counters}
+    vis_files = {int(d.split("_")[0]): len(os.listdir(
+        os.path.join(out_dir, "rendering", d)))
+        for d in os.listdir(os.path.join(out_dir, "rendering"))
+        if d.endswith("_vis")}
+    want_files = {it: 5 if it < stage1_its else 4 for it in vis_its}
 
-        logs = os.path.join(out_dir, "logs")
-        scalars = [json.loads(ln) for ln in open(os.path.join(logs, "scalars.jsonl"))]
-        epoch_loss = {d["step"]: d["value"] for d in scalars
-                      if d["tag"] == "loss_epoch/loss"}
-        journal = [json.loads(ln) for ln in open(os.path.join(logs, "throughput.jsonl"))]
-        epochs = {d["epoch"]: d for d in journal if "epoch" in d}
-        refine = refine_pose_epochs(out_dir)
-        poses = np.load(os.path.join(out_dir, "models", "refine_pose.npz"))["init_c2w"]
-        world_pos = list(second.train_field.i_train).index(second.world_cam_idx)
-        table_first = first._world_mat_dev.cpu().numpy()
-        table_second = second._world_mat_dev.cpu().numpy()
-        summary = first.transition_summary or {}
-        prof = first.profile_summary or {}
+    logs = os.path.join(out_dir, "logs")
+    scalars = [json.loads(ln) for ln in open(os.path.join(logs, "scalars.jsonl"))]
+    epoch_loss = {d["step"]: d["value"] for d in scalars
+                  if d["tag"] == "loss_epoch/loss"}
+    journal = [json.loads(ln) for ln in open(os.path.join(logs, "throughput.jsonl"))]
+    epochs = {d["epoch"]: d for d in journal if "epoch" in d}
+    refine = refine_pose_epochs(out_dir)
+    poses = np.load(os.path.join(out_dir, "models", "refine_pose.npz"))["init_c2w"]
+    world_pos = list(second.train_field.i_train).index(second.world_cam_idx)
+    table_first = first._world_mat_dev.cpu().numpy()
+    table_second = second._world_mat_dev.cpu().numpy()
+    summary = first.transition_summary or {}
+    prof = first.profile_summary or {}
 
-        # The refinement again on the transition's own inputs (the depths
-        # it wrote), with and without the host pose metrics.
-        depth_dir = os.path.join(out_dir, "extraction_stage1", "depths")
-        depths = np.stack([np.load(os.path.join(depth_dir, f"depth_{int(t):06d}.npz"))["pred"]
-                           for t in second.train_field.i_train])
-        k33 = second.train_field.K[second.train_field.i_train][:, :3, :3]
-        n_refine = len(refine.get("_loss", []))
-        ms_metrics = refine_ms_per_epoch(second.train_field.imgs, depths, k33,
-                                         n_refine, second.gt_poses)
-        ms_plain = refine_ms_per_epoch(second.train_field.imgs, depths, k33,
-                                       n_refine)
+    # The refinement again on the transition's own inputs (the depths
+    # it wrote), with and without the host pose metrics.
+    depth_dir = os.path.join(out_dir, "extraction_stage1", "depths")
+    depths = np.stack([np.load(os.path.join(depth_dir, f"depth_{int(t):06d}.npz"))["pred"]
+                       for t in second.train_field.i_train])
+    k33 = second.train_field.K[second.train_field.i_train][:, :3, :3]
+    n_refine = len(refine.get("_loss", []))
+    ms_metrics = refine_ms_per_epoch(second.train_field.imgs, depths, k33,
+                                     n_refine, second.gt_poses)
+    ms_plain = refine_ms_per_epoch(second.train_field.imgs, depths, k33,
+                                   n_refine)
 
     phase_s = time.perf_counter() - t_phase
     log("trainer_stage2", cuts=cuts, frames=TRAINER_FRAMES, train_views=n_views,
@@ -2034,7 +2055,7 @@ def phase_trainer_stage2(counters):
         fail(f"trainer_stage2: visualization files {vis_files} != {want_files}")
     if launches != want:
         fail(f"trainer_stage2 launch counts {launches} != {want}")
-    return launches
+    return launches, cfg, out_dir
 
 
 def phase_pose_refine_shape(seed=0, epochs=6, views=34, res=(712, 1266)):
@@ -2115,6 +2136,324 @@ def phase_pose_refine_shape(seed=0, epochs=6, views=34, res=(712, 1266)):
         fail(f"pose_refine_shape: times {ms_plain}, {ms_metrics}, {device_ms}")
 
 
+# ---------------------------------------------------------------------------
+# Evaluation: test-time pose optimization, the metrics, the Evaluator
+# ---------------------------------------------------------------------------
+
+def phase_eval_pose_card_vs_cpu(fields, checked, train):
+    """One test-time pose step (``evaluator.pose_loss``, the fields frozen)
+    on the card (kernels) and on the CPU (plain versions): view 1 of whole
+    (2, 3) ``r``, ``t`` (non-zero, off exp's Taylor branch) on the train
+    phase's image 16, 64 of its rays and their jitter, the pose starting
+    from the train batch's camera rotated 0.1 rad about y, at the world
+    camera's time. The bounds of ``train_stage2_card_vs_cpu``: the loss and
+    l2 within 1e-4 relative + 1e-6 on the main-path nets, 1e-3 + 1e-5 on
+    the perturbed ones; the r and t gradients within ||d|| / ||ref|| 1e-3
+    and 1e-2; the unsampled view's rows zero; no gradient on a field
+    weight."""
+    import math
+
+    import torch
+    from copenerf_torch.evaluation.evaluator import frozen, pose_loss
+
+    _, rcfg, batch = train
+    c, sn = math.cos(0.1), math.sin(0.1)
+    rot = torch.tensor([[c, 0, sn, 0], [0, 1, 0, 0], [-sn, 0, c, 0],
+                        [0, 0, 0, 1]], device=DEVICE)
+    inputs = {
+        "init": rot @ batch["world_mat"],
+        "image": batch["images_all"][batch["image_idx"]].float() / 255.0,
+        "K": batch["K_all"][batch["image_idx"]],
+        "idx": batch["ray_idx"][:64], "t_rand": batch["t_rand"][:64],
+        "time": batch["world_time_step"],
+        "near": torch.full((64, 1), batch["near"], device=DEVICE),
+        "far": torch.full((64, 1), batch["far"], device=DEVICE)}
+    r0 = [[0.0, 0.0, 0.0], [0.02, -0.03, 0.01]]
+    t0 = [[0.0, 0.0, 0.0], [0.01, 0.02, -0.015]]
+    for nets, f in (("main", fields), ("perturbed", checked)):
+        out = {}
+        for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+            fd = copy.deepcopy(f).to(dev)
+            x = {k: v.to(dev) for k, v in inputs.items()}
+            r = torch.tensor(r0, device=dev, requires_grad=True)
+            t = torch.tensor(t0, device=dev, requires_grad=True)
+            t_start = time.perf_counter()
+            with frozen(fd):
+                loss, l2 = pose_loss(fd, rcfg, r[1], t[1], x["init"], x["image"],
+                                     x["K"], x["idx"], x["time"], x["near"],
+                                     x["far"], t_rand=x["t_rand"])
+                loss.backward()
+            ms = 1e3 * (time.perf_counter() - t_start)
+            weight_grads = sum(p.grad is not None for p in fd.parameters())
+            out[side] = (loss.item(), l2.item(), r.grad.cpu(), t.grad.cpu(),
+                         weight_grads, ms)
+        (lc, l2c, rc, tc, wc, ms_c), (lp, l2p, rp, tp, wp, ms_p) = out["card"], out["cpu"]
+        g_err = {"r": rel_norm(rc, rp), "t": rel_norm(tc, tp)}
+        log("eval_pose_card_vs_cpu", nets=nets, rays=64, loss_card=lc, loss_cpu=lp,
+            l2_card=l2c, l2_cpu=l2p, grad_rel_norm=g_err,
+            r_grad_cpu=rp[1].tolist(), t_grad_cpu=tp[1].tolist(),
+            weight_grads=[wc, wp], card_ms=ms_c, cpu_ms=ms_p)
+        rtol, atol = (1e-4, 1e-6) if nets == "main" else (1e-3, 1e-5)
+        g_tol = 1e-3 if nets == "main" else 1e-2
+        bad = [k for k, (a, b) in {"loss": (lc, lp), "l2": (l2c, l2p)}.items()
+               if not abs(a - b) <= rtol * abs(b) + atol]
+        bad += [k for k, e in g_err.items() if not e <= g_tol]
+        if bad or wc or wp:
+            fail(f"eval_pose_card_vs_cpu ({nets} nets): {bad}, weight grads {wc}, {wp}")
+        if not (torch.all(rc[0] == 0) and torch.all(tc[0] == 0)
+                and rp[1].abs().max() > 0 and tp[1].abs().max() > 0):
+            fail(f"eval_pose_card_vs_cpu ({nets} nets): gradient rows {rc}, {tc}")
+
+
+def random_vgg(rng, dtype):
+    """LPIPS weights in the torchvision shapes, He-scaled from ``rng``:
+    ``{"stages", "heads"}`` of CPU tensors of ``dtype``."""
+    import numpy as np
+    import torch
+    from copenerf_torch.evaluation import lpips_torch
+
+    params, c_in = {"stages": [], "heads": []}, 3
+    for idxs, c_out in zip(lpips_torch._VGG16_STAGES, lpips_torch.STAGE_CHANNELS):
+        stage = []
+        for _ in idxs:
+            stage.append({
+                "w": torch.from_numpy(rng.normal(scale=np.sqrt(2.0 / (9 * c_in)),
+                                                 size=(c_out, c_in, 3, 3))).to(dtype),
+                "b": torch.from_numpy(rng.normal(scale=0.05, size=c_out)).to(dtype)})
+            c_in = c_out
+        params["stages"].append(stage)
+        params["heads"].append(torch.from_numpy(
+            np.abs(rng.normal(size=(1, c_out, 1, 1)))).to(dtype))
+    return params
+
+
+def ssim_dense_conv(img1, img2, window_size=11):
+    """SSIM whose five moment maps of the C channels go through one dense
+    ``F.conv2d`` (5C channels in and out, the window on the diagonal, zeros
+    elsewhere: exact in f32), under whatever TF32 setting is in force. A
+    dense convolution is cuDNN's (the metric's depthwise form takes
+    PyTorch's own kernel), so this is the form of the trap the metrics
+    close."""
+    import torch
+    import torch.nn.functional as F
+    from copenerf_torch.evaluation.metrics_image import gaussian_window
+
+    c = img1.shape[0]
+    x = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2])
+    weight = torch.zeros((5 * c, 5 * c, window_size, window_size)).to(img1)
+    win = torch.from_numpy(gaussian_window(window_size)).to(img1)
+    for i in range(5 * c):
+        weight[i, i] = win
+    mu1, mu2, e11, e22, e12 = F.conv2d(x[None], weight,
+                                       padding=window_size // 2)[0].split(c)
+    s1, s2, s12 = e11 - mu1 ** 2, e22 - mu2 ** 2, e12 - mu1 * mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    return torch.mean(((2 * mu1 * mu2 + c1) * (2 * s12 + c2))
+                      / ((mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2)))
+
+
+def phase_metrics_f32(seed=0, res=TRAINER_RES):
+    """SSIM and LPIPS (random He-scaled VGG16 and heads from ``seed``) of a
+    render-like pair at ``res`` on the card, with cuDNN's TF32 switched on
+    for the phase (PyTorch's default; the device phase turned it off) and
+    restored after, against float64 on the CPU. Gates: SSIM within 1e-6,
+    LPIPS within 1e-5 relative, the caller's flag untouched. Readings: the
+    same metrics with their f32 guard removed, and an SSIM whose
+    convolutions go through cuDNN (``ssim_dense_conv``), in TF32; CUDA-
+    event times of PSNR, SSIM and LPIPS."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from copenerf_torch.evaluation import lpips_torch
+    from copenerf_torch.evaluation import metrics_image as MI
+
+    rng = np.random.default_rng(seed)
+    h, w = res
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    a = np.stack([0.5 + 0.3 * np.sin(0.05 * xs + 0.03 * (c + 1) * ys + c)
+                  for c in range(3)]) + 0.1 * rng.uniform(-1, 1, (3, h, w))
+    a = np.clip(a, 0, 1)
+    b = np.clip(a + rng.normal(scale=0.05, size=a.shape), 0, 1)
+    p64 = random_vgg(rng, torch.float64)
+    p32 = {"stages": [[{k: v.float().to(DEVICE) for k, v in layer.items()}
+                       for layer in stage] for stage in p64["stages"]],
+           "heads": [hd.float().to(DEVICE) for hd in p64["heads"]]}
+    a64, b64 = torch.from_numpy(a), torch.from_numpy(b)
+    ac, bc = a64.float().to(DEVICE), b64.float().to(DEVICE)
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        s_card = MI.ssim(ac, bc).item()
+        l_card = lpips_torch.lpips(p32, ac, bc).item()
+        flag_kept = torch.backends.cudnn.allow_tf32 is True
+        times = {"psnr_ms": cuda_ms(lambda: MI.psnr(ac, bc), 20),
+                 "ssim_ms": cuda_ms(lambda: MI.ssim(ac, bc), 20),
+                 "lpips_ms": cuda_ms(lambda: lpips_torch.lpips(p32, ac, bc), 10)}
+        # The same metrics without their guard, and SSIM through cuDNN.
+        guards = (MI.exact_f32, lpips_torch.exact_f32)
+        MI.exact_f32 = lpips_torch.exact_f32 = contextlib.nullcontext
+        try:
+            raw = {"ssim_unguarded": MI.ssim(ac, bc).item(),
+                   "lpips_unguarded": lpips_torch.lpips(p32, ac, bc).item(),
+                   "ssim_cudnn_tf32": ssim_dense_conv(ac, bc).item()}
+        finally:
+            MI.exact_f32, lpips_torch.exact_f32 = guards
+        with MI.exact_f32():
+            ssim_cudnn_f32 = ssim_dense_conv(ac, bc).item()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    s_ref = MI.ssim(a64, b64).item()
+    l_ref = lpips_torch.lpips(p64, a64, b64).item()
+    s_err, l_rel = abs(s_card - s_ref), abs(l_card - l_ref) / abs(l_ref)
+    log("metrics_f32", resolution=list(res), cudnn_allow_tf32_during_phase=True,
+        ssim_card=s_card, ssim_f64=s_ref, ssim_abs_err=s_err,
+        lpips_card=l_card, lpips_f64=l_ref, lpips_rel_err=l_rel,
+        ssim_gate=1e-6, lpips_rel_gate=1e-5, flag_kept=flag_kept,
+        reading_tf32={"ssim_unguarded_abs_err": abs(raw["ssim_unguarded"] - s_ref),
+                      "ssim_cudnn_tf32_abs_err": abs(raw["ssim_cudnn_tf32"] - s_ref),
+                      "ssim_cudnn_f32_abs_err": abs(ssim_cudnn_f32 - s_ref),
+                      "lpips_unguarded_rel_err": abs(raw["lpips_unguarded"] - l_ref)
+                      / abs(l_ref)},
+        **times)
+    if not (s_err <= 1e-6 and l_rel <= 1e-5 and flag_kept
+            and torch.backends.cudnn.allow_tf32 == saved):
+        fail(f"metrics_f32: ssim err {s_err}, lpips rel err {l_rel}, "
+             f"flag kept {flag_kept}")
+    return times
+
+
+EVAL_PER_STEP = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1}
+EVAL_PER_CHUNK = {"sdf_value": 4, "rendercore_fwd": 1}
+
+
+def run_evaluator(cfg, counters):
+    """``Evaluator(cfg).eval()`` with its stages timed (a device sync at
+    each end) and the launch counters zeroed before and read after:
+    (evaluator, result, stage ms, launches, LPIPS warnings)."""
+    import warnings
+
+    import torch
+    from copenerf_torch.evaluation.evaluator import Evaluator
+
+    ev = Evaluator(copy.deepcopy(cfg), verbose=False)
+    stage_ms = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_ms[name] = 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    for name in ("eval_optimization", "render_eval", "image_eval",
+                 "depth_eval", "pose_eval"):
+        setattr(ev, name, timed(name, getattr(ev, name)))
+    for c in counters:
+        c.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        result = ev.eval()
+    launches = {c.name: c.launches for c in counters}
+    lpips_warned = any("LPIPS unavailable" in str(w.message) for w in caught)
+    return ev, result, stage_ms, launches, lpips_warned
+
+
+def phase_evaluator(counters, cfg, out_dir):
+    """``Evaluator(cfg).eval()`` on ``trainer_stage2``'s run (12 frames at
+    270x480, 1 test view, frame 4; the full-width nets; the checkpoint and
+    ``refine_pose.npz`` it wrote): ``eval_pose_epoch`` pose steps of 1,024
+    rays, then the view rendered (4 chunks), PSNR / SSIM / LPIPS, the 7
+    depth metrics, ATE / RPE, ``results.txt`` and the extraction folders.
+    Launch counters zeroed before and read after: per pose step 4 K2 + 1
+    K1-fwd + 1 K1-bwd, per render chunk 4 K2 + 1 K1-fwd, no K3-K7. Gates:
+    finite PSNR, SSIM in [-1, 1], finite ATE, RPE and depth metrics; LPIPS
+    NaN with the warning where no weight pack is found (finite where one
+    is); the results file and six folders of one file each; the field
+    weights unchanged. A second ``Evaluator`` reuses the pose cache: no
+    K1-bwd launch, the render's launches only, and the same metrics."""
+    import numpy as np
+    import torch
+    from copenerf_torch.evaluation.evaluator import DEPTH_METRICS, EXTRACTION_DIRS
+    from copenerf_torch.evaluation.lpips_torch import default_weight_paths
+    from copenerf_torch.training.checkpoints import load_fields
+
+    t_phase = time.perf_counter()
+    cfg = copy.deepcopy(cfg)
+    cuts = {"eval.eval_pose_epoch": cfg["eval"]["eval_pose_epoch"]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev, result, stage_ms, launches, warned = run_evaluator(cfg, counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_test = len(ev.test_field.i_test)
+    steps = int(cfg["eval"]["eval_pose_epoch"]) * n_test
+    chunks = n_test * render_chunks(ev.image_renderer, ev.h, ev.w)
+    want = {c.name: EVAL_PER_STEP.get(c.name, 0) * steps
+            + EVAL_PER_CHUNK.get(c.name, 0) * chunks for c in counters}
+    saved = dict(load_fields(out_dir, ev.field_cfgs, DEVICE).named_parameters())
+    unchanged = all(torch.equal(p, saved[k])
+                    for k, p in ev.state["fields"].named_parameters())
+    no_grads = all(p.grad is None for p in ev.state["fields"].parameters())
+    files = {sub: len(os.listdir(os.path.join(out_dir, "extraction", sub)))
+             for sub in EXTRACTION_DIRS}
+    has_results = os.path.isfile(os.path.join(out_dir, "results.txt"))
+    l2 = ev.eval_l2_trace
+
+    ev2, result2, stage_ms2, launches2, _ = run_evaluator(cfg, counters)
+    want2 = {c.name: EVAL_PER_CHUNK.get(c.name, 0) * chunks for c in counters}
+    pack = all(default_weight_paths())
+    phase_s = time.perf_counter() - t_phase
+    log("evaluator", cuts=cuts, test_views=n_test, test_frames=list(map(int, ev.test_field.i_test)),
+        pose_steps=steps, render_chunks=chunks, result=result, launches=launches,
+        expected=want, lpips_pack_found=pack, lpips_warned=warned,
+        extraction_files=files, results_txt=has_results,
+        fields_unchanged=unchanged, field_grads_none=no_grads,
+        second={"result": result2, "launches": launches2, "expected": want2,
+                "l2_trace": None if ev2.eval_l2_trace is None else len(ev2.eval_l2_trace)},
+        phase_s=phase_s)
+    log("evaluator_time",
+        pose_step_ms=stage_ms["eval_optimization"] / max(steps, 1),
+        eval_optimization_ms=stage_ms["eval_optimization"],
+        render_ms_per_view=stage_ms["render_eval"] / n_test,
+        metric_ms={k: stage_ms[k] for k in ("image_eval", "depth_eval", "pose_eval")},
+        second_evaluator_ms=stage_ms2, peak_gb=peak_gb,
+        l2_first_epoch=float(np.mean(l2[:n_test])), l2_last_epoch=float(np.mean(l2[-n_test:])),
+        l2_first_30_steps=float(np.mean(l2[:30])), l2_last_30_steps=float(np.mean(l2[-30:])),
+        note=("host clock with a device sync at each stage's ends; pose_step_ms "
+              "is eval_optimization over its steps (the cache write included); "
+              "image_eval is PSNR + SSIM (+ LPIPS where a pack is found) on the card"))
+    bad = []
+    if launches != want:
+        bad.append(f"launch counts {launches} != {want}")
+    if launches2 != want2 or ev2.eval_l2_trace is not None:
+        bad.append(f"cache not reused: launches {launches2} != {want2}")
+    if not np.isfinite(result["PSNR"]) or not -1 <= result["SSIM"] <= 1:
+        bad.append(f"PSNR {result['PSNR']}, SSIM {result['SSIM']}")
+    nums = [result[k] for k in ("ate", "rpe_trans", "rpe_rot", *DEPTH_METRICS)
+            if k in result]
+    if len(nums) != 10 or not np.all(np.isfinite(nums)):
+        bad.append(f"pose / depth metrics {nums}")
+    if pack != np.isfinite(result["LPIPS"]) or (not pack and not warned):
+        bad.append(f"LPIPS {result['LPIPS']}, pack {pack}, warned {warned}")
+    if not (has_results and files == {sub: n_test for sub in EXTRACTION_DIRS}):
+        bad.append(f"results.txt {has_results}, extraction {files}")
+    if not (unchanged and no_grads):
+        bad.append(f"field weights unchanged {unchanged}, no grads {no_grads}")
+    if not np.all(np.isfinite(l2)) or len(l2) != steps:
+        bad.append(f"l2 trace of {len(l2)} values, finite {np.all(np.isfinite(l2))}")
+    same = {k: (result[k] == result2[k] or (np.isnan(result[k]) and np.isnan(result2[k])))
+            for k in result}
+    if not all(same.values()):
+        bad.append(f"second Evaluator's metrics differ {same}")
+    if bad:
+        fail("evaluator: " + "; ".join(bad))
+    return launches
+
+
 KERNELS = {
     "sdf_value": dict(source="copenerf_torch/csrc/sdf_value.cu",
                       replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:450"),
@@ -2166,6 +2505,8 @@ def print_contract_line():
 
 
 def main():
+    import tempfile
+
     import torch
 
     # The port must be beside this script: fail before printing anything.
@@ -2203,6 +2544,7 @@ def main():
     phase_train_card_vs_cpu(fields, checked, train)
     phase_train_card_vs_cpu(fields, checked, stage2_setup(cfg, train),
                             phase="train_stage2_card_vs_cpu")
+    phase_eval_pose_card_vs_cpu(fields, checked, train)
     # The composed path (use_negative_ray_vector): K4 + K5 in place of K1.
     launches["render_composed"], _ = phase_main(
         ncfg, nfields, counters,
@@ -2235,8 +2577,12 @@ def main():
             os.environ["COPENERF_FOLD_CONS"] = saved
     ores, launches["sdf_output"] = phase_out_kernels(checked, counters)
     kres.update(ores)
+    phase_metrics_f32()
     launches["trainer"] = phase_trainer(counters)
-    launches["trainer_stage2"] = phase_trainer_stage2(counters)
+    # The evaluator reads the stage-2 run: its checkpoint and refined poses.
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["trainer_stage2"], s2cfg, s2dir = phase_trainer_stage2(counters, tmp)
+        launches["evaluate"] = phase_evaluator(counters, s2cfg, s2dir)
     phase_pose_refine_shape()
 
     rows = []

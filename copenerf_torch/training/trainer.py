@@ -208,6 +208,10 @@ class Trainer:
         # (the world camera's row the identity); whether the transition fell
         # back to the motion-integrated poses; the transition's times.
         self._world_mat_dev = None
+        # The same poses on the host as refine_pose.npz holds them, the
+        # world camera's row re-anchored to the identity only to rounding:
+        # the evaluator's train poses, as the JAX package reads them.
+        self.refined_c2w = None
         self.pose_refine_fell_back = False
         self.transition_summary = None
 
@@ -439,6 +443,7 @@ class Trainer:
         pred_poses = (np.linalg.inv(pred_poses) @
                       pred_poses[world_pos][None]).astype(np.float32)
         self._set_world_mats(pred_poses)
+        self.refined_c2w = pred_poses
         if self.io_primary:
             save_pytree(self._refine_pose_path(), {"init_c2w": pred_poses})
         self.transition_summary = {**summary,
@@ -467,11 +472,12 @@ class Trainer:
         path = self._refine_pose_path()
         if not os.path.isfile(path):
             raise FileNotFoundError(
-                f"{path}: resuming at epoch {self.current_epoch}, past "
-                f"start_query_world_epoch={self.start_query_world_epoch}, "
-                "needs the poses the stage-2 transition wrote")
-        self._set_world_mats(
-            np.asarray(load_pytree(path)["init_c2w"], np.float32))
+                f"{path}: a run past start_query_world_epoch="
+                f"{self.start_query_world_epoch} needs the poses the stage-2 "
+                "transition wrote")
+        self.refined_c2w = np.asarray(load_pytree(path)["init_c2w"],
+                                      np.float32)
+        self._set_world_mats(self.refined_c2w)
 
     # ------------------------------------------------------------------
     def visualize(self, pos: int, epoch_it: int):

@@ -920,3 +920,113 @@ def test_trainer_steps_and_checkpoint_round_trip_on_card(tmp_path):
     assert int(a["opt_fields/#0"]) == 2 and set(a) == set(b)
     for k, v in a.items():
         np.testing.assert_array_equal(v, b[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_image_metrics_exact_f32_on_card():
+    """SSIM and LPIPS on the card with cuDNN's TF32 switched on by the test
+    (PyTorch's default), against float64 on the CPU: SSIM within 1e-6,
+    LPIPS within 1e-5 relative; the metrics force f32 themselves and leave
+    the caller's setting as it was."""
+    _require_cuda()
+    from copenerf_torch.evaluation import lpips_torch
+    from copenerf_torch.evaluation.metrics_image import ssim
+
+    rng = np.random.default_rng(0)
+    h, w = 64, 96
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    a = np.stack([0.5 + 0.3 * np.sin(0.15 * xs + 0.1 * (c + 1) * ys + c)
+                  for c in range(3)]) + 0.1 * rng.uniform(-1, 1, (3, h, w))
+    a = np.clip(a, 0, 1)
+    b = np.clip(a + rng.normal(scale=0.05, size=a.shape), 0, 1)
+    params64 = {"stages": [], "heads": []}
+    c_in = 3
+    for idxs, c_out in zip(lpips_torch._VGG16_STAGES,
+                           lpips_torch.STAGE_CHANNELS):
+        params64["stages"].append([
+            {"w": torch.from_numpy(rng.normal(
+                scale=np.sqrt(2.0 / (9 * (c_in if k == 0 else c_out))),
+                size=(c_out, c_in if k == 0 else c_out, 3, 3))),
+             "b": torch.from_numpy(rng.normal(scale=0.05, size=c_out))}
+            for k in range(len(idxs))])
+        params64["heads"].append(torch.from_numpy(
+            np.abs(rng.normal(size=(1, c_out, 1, 1)))))
+        c_in = c_out
+    params32 = {"stages": [[{k: v.float().cuda() for k, v in layer.items()}
+                            for layer in stage]
+                           for stage in params64["stages"]],
+                "heads": [hd.float().cuda() for hd in params64["heads"]]}
+    a64, b64 = torch.from_numpy(a), torch.from_numpy(b)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        s_card = float(ssim(a64.float().cuda(), b64.float().cuda()))
+        l_card = float(lpips_torch.lpips(params32, a64.float().cuda(),
+                                         b64.float().cuda()))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    s_ref = float(ssim(a64, b64))
+    l_ref = float(lpips_torch.lpips(params64, a64, b64))
+    assert abs(s_card - s_ref) <= 1e-6, (s_card, s_ref)
+    assert abs(l_card - l_ref) <= 1e-5 * abs(l_ref), (l_card, l_ref)
+
+
+@pytest.mark.gpu
+def test_eval_pose_step_card_matches_cpu():
+    """One test-time pose step (``evaluator.pose_loss``, the fields frozen)
+    for view 1 of a whole (2, 3) ``r``, ``t`` on the card against the CPU:
+    the loss within 1e-4 relative, each gradient within 1e-3 of its
+    largest entry (the stage-2 step's bounds), the other view's rows zero;
+    2 K2 + 1 K1-fwd + 1 K1-bwd launches (``up_sample_steps`` 2) and no
+    gradient on any field weight."""
+    _require_cuda()
+    from copenerf_torch.evaluation.evaluator import frozen, pose_loss
+
+    h = w = 24
+    f = 60.0
+    K = torch.tensor([[2 * f / w, 0, 0, 0], [0, -2 * f / h, 0, 0],
+                      [0, 0, -1, 0], [0, 0, 0, 1]])
+    init = torch.eye(4).expand(2, 4, 4).clone()
+    init[:, 2, 3] = -2.5
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    image = torch.stack([0.5 + 0.4 * torch.sin(0.25 * xx + 0.2 * (c + 1) * yy + c)
+                         for c in range(3)])
+    g = torch.Generator().manual_seed(0)
+    idx = TS.sample_patch_indices(g, h, w, 1, 64, device="cpu")
+    t_rand = torch.rand((64, 16), generator=g)
+    rcfg = RendererConfig(n_samples=16, n_importance=16, up_sample_steps=2)
+    counters = {"sdf_value": SV.COUNTER, "rendercore_fwd": RC.COUNTER,
+                "rendercore_bwd": RC.BWD_COUNTER}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sdf_net, color_net = _nets("small", dev)
+        fields = torch.nn.ModuleDict({
+            "sdf": sdf_net, "color": color_net,
+            "variance": TF.VarianceNetwork(TF.VarianceConfig()).to(dev)})
+        r = torch.tensor([[0.0, 0.0, 0.0], [0.02, -0.03, 0.01]],
+                         device=dev, requires_grad=True)
+        t = torch.tensor([[0.0, 0.0, 0.0], [0.01, 0.02, -0.015]],
+                         device=dev, requires_grad=True)
+        for c in counters.values():
+            c.launches = 0
+        with frozen(fields):
+            loss, l2 = pose_loss(fields, rcfg, r[1], t[1], init[1].to(dev),
+                                 image.to(dev), K.to(dev), idx.to(dev),
+                                 torch.tensor(0.0, device=dev),
+                                 torch.full((64, 1), 1.0, device=dev),
+                                 torch.full((64, 1), 4.0, device=dev),
+                                 t_rand=t_rand.to(dev))
+            loss.backward()
+        assert all(p.grad is None and p.requires_grad
+                   for p in fields.parameters())
+        res[dev] = (loss.item(), l2.item(), r.grad.cpu(), t.grad.cpu(),
+                    {k: c.launches for k, c in counters.items()})
+    (lc, l2c, rc, tc, nc), (lp, l2p, rp, tp, _) = res["cuda"], res["cpu"]
+    assert nc == {"sdf_value": 2, "rendercore_fwd": 1, "rendercore_bwd": 1}
+    assert abs(lc - lp) <= 1e-4 * abs(lp) + 1e-6
+    assert abs(l2c - l2p) <= 1e-4 * abs(l2p) + 1e-6
+    for got, ref in ((rc, rp), (tc, tp)):
+        assert torch.all(ref[0] == 0) and torch.all(got[0] == 0)
+        assert ref[1].abs().max() > 0
+        assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()

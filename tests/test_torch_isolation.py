@@ -67,7 +67,12 @@ def test_import_leaves_jax_unloaded():
             "copenerf_torch.training.depth_metrics, "
             "copenerf_torch.training.trainer, "
             "copenerf_torch.training.pose_refinement, "
+            "copenerf_torch.evaluation.evaluator, "
+            "copenerf_torch.evaluation.metrics_image, "
+            "copenerf_torch.evaluation.lpips_torch, "
+            "copenerf_torch.evaluation.lpips_export, "
             "copenerf_torch.utils.profiling; "
+            "copenerf_torch.evaluation.Evaluator; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)

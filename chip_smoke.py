@@ -150,15 +150,36 @@ Phases, each printed on its own line, any failure exits non-zero:
             second ``Evaluator`` reuses the pose cache (no K1-bwd) with the
             same metrics. Prints pose-step ms, render ms a view, metric ms,
             peak memory and the l2 of the first and last epoch.
-23. pose_refine_shape  ``run_pose_refinement`` at configs/Co3D/bench.yaml's
+23. mesh     ``cli.extract_mesh_main([cfg, "--resolution", "256"])`` on
+            ``trainer_stage2``'s run: 16,777,216 grid points in 64 batches,
+            each one K2 launch (``Trainer.sdf_grid``), then the port's mesher
+            and the PLY. Launch counters zeroed before and read after
+            (exactly 64 K2, no other kernel); 65,536 of the grid's values
+            against the plain version on the CPU (1e-4); at resolution 64 a
+            card mesh and a CPU mesh of the same checkpoint (the same
+            triangle count, every vertex within 1e-3 voxel widths). Prints
+            the mesher's path, the mesh's size, the grid query's ms (CUDA
+            events), the K2 launches' alone, the marching's, the PLY
+            write's and the peak memory.
+24. cli      the mains through argv in this process, on the card by default:
+            ``train_main --max-epochs 1`` on the trainer phase's scene (a
+            fresh out_dir; the checkpoint, the config copy and ``backup/``
+            without ``_build``), ``extract_mesh_main --resolution 64`` on
+            it, and ``eval_main --no-store`` on a copy of the stage-2 run
+            without its pose cache, ``eval_pose_epoch`` cut to 30 (K1-bwd
+            30 x the test views); each main's ms and launch counts.
+25. bench    ``python3 -m copenerf_torch.bench`` in a subprocess: its JSON
+            line parsed, the contract's keys, a finite positive
+            ``train_rays_per_sec`` at 1,024 rays, its launch counts.
+26. pose_refine_shape  ``run_pose_refinement`` at configs/Co3D/bench.yaml's
             stage-2 size (712x1266, 34 synthetic views, 33 pairs in batches
             of 16, 16, 1): ms an epoch without and with the host pose
             metrics, the device's busy ms an epoch, peak memory, and the
             default 2,000 epochs projected. No gate on speed.
-24. the ``{"kernels": [...]}`` line (launches per path: render, train,
+27. the ``{"kernels": [...]}`` line (launches per path: render, train,
    render_composed, train_composed, train_fold, sdf_output, trainer,
-   trainer_stage2, evaluate), then the contract line ``{"ok": true, "device":
-   {...}}`` last.
+   trainer_stage2, evaluate, mesh, cli, bench), then the contract line
+   ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2454,6 +2475,317 @@ def phase_evaluator(counters, cfg, out_dir):
     return launches
 
 
+MESH_RES = 256            # the CLI's default resolution: 64 K2 launches
+MESH_CHECK_RES = 64       # card mesh against CPU mesh
+MESH_CHECK_POINTS = 65536
+CLI_EVAL_POSE_EPOCH = 30  # the cli phase's cut of eval_pose_epoch (300)
+
+
+def write_config(cfg, path):
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def capture_self(cls, name, store):
+    """Wrap ``cls.name`` to keep the instance it runs on in ``store``;
+    returns the original for the caller to restore."""
+    orig = getattr(cls, name)
+
+    def run(self, *args, **kwargs):
+        store[name] = self
+        return orig(self, *args, **kwargs)
+
+    setattr(cls, name, run)
+    return orig
+
+
+def phase_mesh(counters, cfg, tmp):
+    """``extract_mesh_main([cfg, "--resolution", "256"])`` on
+    ``trainer_stage2``'s run (the CLI's default resolution: 16,777,216 grid
+    points, 64 batches of 262,144, each one K2 launch). Launch counters
+    zeroed before the call and read after: 64 K2, no other kernel. The
+    grid query (CUDA events around ``Trainer.sdf_grid``, its host copy
+    included), the marching and the PLY write (host clocks) are timed inside
+    the main; the K2 launches alone are 64 x one grid batch timed by CUDA
+    events after it. Gates: the launches; 65,536 of the grid's values, from
+    a seed, against the plain version on the CPU within K2's forward gate
+    (1e-4); at resolution 64 a card mesh and a CPU mesh of the same
+    checkpoint with the same triangle count and every vertex within 1e-3
+    voxel widths of its counterpart; a non-empty mesh in the PLY."""
+    import numpy as np
+    import torch
+    from copenerf_torch import cli
+    from copenerf_torch.mesher import marching_cubes as MC
+    from copenerf_torch.models.fields import sdf_value_nograd
+    from copenerf_torch.ops.kernels import sdf_value as SV
+    from copenerf_torch.training import trainer as TT
+
+    t_phase = time.perf_counter()
+    cfg_path = write_config(cfg, os.path.join(tmp, "mesh.yaml"))
+    ply = os.path.join(cfg["training"]["out_dir"], "mesh.ply")
+    seen = {}
+    sdf_grid, march, save = TT.Trainer.sdf_grid, MC.marching_cubes, MC.save_ply
+
+    def timed_grid(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        grid = sdf_grid(self, *args, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        seen.update(trainer=self, grid=grid, grid_query_ms=start.elapsed_time(end))
+        return grid
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seen[name] = 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    TT.Trainer.sdf_grid = timed_grid
+    MC.marching_cubes = timed("marching_ms", march)
+    MC.save_ply = timed("ply_write_ms", save)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        cli.extract_mesh_main([cfg_path, "--resolution", str(MESH_RES)])
+        main_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {c.name: c.launches for c in counters}
+    finally:
+        TT.Trainer.sdf_grid, MC.marching_cubes, MC.save_ply = sdf_grid, march, save
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    path = MC.last_path
+    with open(ply, "rb") as f:
+        header = f.read(4096).split(b"end_header\n")[0].decode("ascii")
+    n_verts, n_faces = (int(re.search(rf"element {k} (\d+)", header).group(1))
+                        for k in ("vertex", "face"))
+    batches = -(-MESH_RES ** 3 // TT.MESH_BATCH)
+    want = {c.name: batches if c.name == "sdf_value" else 0 for c in counters}
+
+    trainer, grid = seen["trainer"], seen["grid"]
+    net = trainer.state["fields"]["sdf"]
+    t = trainer.world_time_step
+    axes = [torch.from_numpy(a).to(DEVICE)
+            for a in MC.grid_axes((-1.2,) * 3, (1.2,) * 3, MESH_RES)]
+
+    def grid_points(flat):
+        r = MESH_RES
+        return torch.stack([axes[0][flat // (r * r)], axes[1][(flat // r) % r],
+                            axes[2][flat % r],
+                            torch.full(flat.shape, t, device=flat.device)], -1)
+
+    # The K2 launches alone: one grid batch (the middle one), 64 times.
+    start = min(TT.MESH_BATCH * (batches // 2), MESH_RES ** 3 - TT.MESH_BATCH)
+    mid = torch.arange(TT.MESH_BATCH, device=DEVICE) + start
+    batch_pts = grid_points(mid)
+    with torch.no_grad():
+        k2_ms = cuda_ms(lambda: SV.sdf_value(net, batch_pts), 20)
+    # 65,536 of the main's grid values against the plain version on the CPU.
+    flat = torch.from_numpy(np.random.default_rng(0).choice(
+        MESH_RES ** 3, MESH_CHECK_POINTS, replace=False)).to(DEVICE)
+    cpu_net = copy.deepcopy(net).cpu()
+    plain = -sdf_value_nograd(cpu_net, grid_points(flat).cpu()).numpy()
+    card = grid.reshape(-1)[flat.cpu().numpy()]
+    query_err = float(np.abs(card - plain).max())
+    # Resolution 64: the card's mesh against a CPU Trainer's of the same run.
+    card_v, card_t = trainer.extract_geometry(resolution=MESH_CHECK_RES)
+    cpu_trainer = TT.Trainer(copy.deepcopy(cfg), device="cpu", verbose=False)
+    t0 = time.perf_counter()
+    cpu_v, cpu_t = cpu_trainer.extract_geometry(resolution=MESH_CHECK_RES)
+    cpu_mesh_ms = 1e3 * (time.perf_counter() - t0)
+    voxel = 2.4 / (MESH_CHECK_RES - 1)
+    same_shape = card_v.shape == cpu_v.shape and card_t.shape == cpu_t.shape
+    vert_err = float(np.abs(card_v - cpu_v).max() / voxel) if same_shape else None
+    tris_equal = same_shape and bool(np.array_equal(card_t, cpu_t))
+
+    log("mesh", resolution=MESH_RES, mesher_path=path, vertices=n_verts,
+        faces=n_faces, launches=launches, expected=want,
+        grid_query_ms=seen["grid_query_ms"], k2_ms=k2_ms * batches,
+        k2_ms_per_launch=k2_ms, marching_ms=seen["marching_ms"],
+        ply_write_ms=seen["ply_write_ms"], main_ms=main_ms, peak_gb=peak_gb,
+        query_max_abs_err=query_err, query_points=MESH_CHECK_POINTS,
+        check_resolution=MESH_CHECK_RES,
+        check={"card_faces": len(card_t), "cpu_faces": len(cpu_t),
+               "card_vertices": len(card_v), "cpu_vertices": len(cpu_v),
+               "max_vertex_err_voxels": vert_err, "triangles_equal": tris_equal,
+               "cpu_mesh_ms": cpu_mesh_ms},
+        note=("grid_query_ms: CUDA events around Trainer.sdf_grid (index "
+              "arithmetic, 64 K2 launches, the host copy); k2_ms: 64 x one "
+              "262,144-point batch timed alone (CUDA events); marching_ms "
+              "and ply_write_ms: host clocks inside the main"),
+        phase_s=time.perf_counter() - t_phase)
+    bad = []
+    if launches != want:
+        bad.append(f"launch counts {launches} != {want}")
+    if not query_err <= 1e-4:
+        bad.append(f"grid values {query_err} from the plain version")
+    if not (same_shape and len(card_t) == len(cpu_t) and vert_err <= 1e-3):
+        bad.append(f"card mesh {card_v.shape} / {card_t.shape} against CPU "
+                   f"{cpu_v.shape} / {cpu_t.shape}, vertex err {vert_err} voxels")
+    if not (n_verts > 0 and n_faces > 0 and len(card_t) > 0):
+        bad.append(f"empty mesh: {n_verts} vertices, {n_faces} faces")
+    if bad:
+        fail("mesh: " + "; ".join(bad))
+    return launches
+
+
+def phase_cli(counters, s2cfg, s2dir, tmp):
+    """The mains in this process through argv, on the card by default, each
+    timed (host clock, a device sync at its ends) with its launch counts:
+    ``train_main --max-epochs 1`` on the trainer phase's scene (the
+    ``trainer`` phase's config without visualizations, a fresh out_dir):
+    per step 4 K2 + K1-fwd + K1-bwd + K3-fwd + K3-bwd; it
+    writes the checkpoint, the config copy and ``backup/`` without
+    ``_build``. ``extract_mesh_main --resolution 64`` on that run: 1 K2.
+    ``eval_main --no-store`` on a copy of ``trainer_stage2``'s run without
+    its pose cache (``model_eval_pose.npz``) or the evaluator phase's
+    outputs, ``eval_pose_epoch`` cut to 30: K1-bwd 30 x the test views, no
+    extraction folder, ``results.txt`` written."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from copenerf_torch import cli
+    from copenerf_torch.evaluation.evaluator import Evaluator
+    from copenerf_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    seen, times, launches = {}, {}, {}
+
+    def run(name, main, argv):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        times[name] = 1e3 * (time.perf_counter() - t0)
+        launches[name] = {c.name: c.launches for c in counters}
+
+    # train_main, then extract_mesh_main on its checkpoint.
+    scene = (s2cfg["dataloading"]["path"], s2cfg["dataloading"]["scene"][0])
+    out_dir = os.path.join(tmp, "cli_train")
+    train_cfg, cuts = trainer_config(scene, out_dir)
+    # The trainer phase shows the visualizations; here they would double
+    # the main's time.
+    train_cfg["training"]["depth_bound_update_every_milestones"] = [0, 0, 0]
+    cuts["training.depth_bound_update_every_milestones"] = [0, 0, 0]
+    train_path = write_config(train_cfg, os.path.join(tmp, "cli_train.yaml"))
+    orig = capture_self(Trainer, "train", seen)
+    try:
+        run("train", cli.train_main, [train_path, "--max-epochs", "1"])
+    finally:
+        Trainer.train = orig
+    its = seen["train"].it + 1
+    per_step = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
+                "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
+    want = {"train": {c.name: per_step.get(c.name, 0) * its for c in counters}}
+    backup = os.path.join(out_dir, "backup", "copenerf_torch")
+    wrote = {
+        "checkpoint": os.path.isfile(os.path.join(out_dir, "models", "weights",
+                                                  "model.ckpt.npz")),
+        "config_copy": os.path.isfile(os.path.join(out_dir, "cli_train.yaml")),
+        "backup_cu": os.path.isfile(os.path.join(backup, "csrc", "rendercore_bwd.cu")),
+        "backup_without_build": not os.path.exists(os.path.join(backup, "_build")),
+    }
+    run("extract_mesh", cli.extract_mesh_main, [train_path, "--resolution", "64"])
+    want["extract_mesh"] = {c.name: int(c.name == "sdf_value") for c in counters}
+    wrote["mesh"] = os.path.getsize(os.path.join(out_dir, "mesh.ply")) > 0
+
+    # eval_main on a copy of the stage-2 run without its pose cache.
+    eval_dir = os.path.join(tmp, "cli_eval")
+    shutil.copytree(s2dir, eval_dir, ignore=shutil.ignore_patterns(
+        "model_eval_pose.npz", "extraction", "results.txt"))
+    eval_cfg = copy.deepcopy(s2cfg)
+    eval_cfg["training"]["out_dir"] = eval_dir
+    eval_cfg["eval"]["eval_pose_epoch"] = CLI_EVAL_POSE_EPOCH
+    eval_path = write_config(eval_cfg, os.path.join(tmp, "cli_eval.yaml"))
+    orig = capture_self(Evaluator, "eval", seen)
+    try:
+        run("eval", cli.eval_main, [eval_path, "--no-store"])
+    finally:
+        Evaluator.eval = orig
+    ev = seen["eval"]
+    n_test = len(ev.test_field.i_test)
+    steps = CLI_EVAL_POSE_EPOCH * n_test
+    chunks = n_test * render_chunks(ev.image_renderer, ev.h, ev.w)
+    want["eval"] = {c.name: EVAL_PER_STEP.get(c.name, 0) * steps
+                    + EVAL_PER_CHUNK.get(c.name, 0) * chunks for c in counters}
+    wrote["eval_results"] = os.path.isfile(os.path.join(eval_dir, "results.txt"))
+    wrote["eval_pose_cache"] = os.path.isfile(os.path.join(
+        eval_dir, "models", "weights", "model_eval_pose.npz"))
+    wrote["eval_no_extraction"] = not os.path.exists(os.path.join(eval_dir, "extraction"))
+    results = {}
+    with open(os.path.join(eval_dir, "results.txt")) as f:
+        for ln in f:
+            k, v = ln.split(": ")
+            results[k] = float(v)
+
+    log("cli", cuts={"train": cuts, "eval": {"eval.eval_pose_epoch": CLI_EVAL_POSE_EPOCH}},
+        train_iterations=its,
+        eval_test_views=n_test, eval_pose_steps=steps, eval_render_chunks=chunks,
+        main_ms=times, launches=launches, expected=want, wrote=wrote,
+        eval_results=results, phase_s=time.perf_counter() - t_phase)
+    bad = [f"{k} launches {launches[k]} != {v}" for k, v in want.items()
+           if launches[k] != v]
+    bad += [k for k, ok in wrote.items() if not ok]
+    if not (np.isfinite(results.get("PSNR", np.nan)) and np.isfinite(results.get("ate", np.nan))):
+        bad.append(f"eval results {results}")
+    if bad:
+        fail("cli: " + "; ".join(bad))
+    return {name: sum(launches[k][name] for k in launches) for name in launches["train"]}
+
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "rays_per_step",
+              "baseline", "device")
+
+
+def phase_bench():
+    """``python3 -m copenerf_torch.bench`` in a subprocess: its last line
+    parsed as JSON, the contract's keys, ``train_rays_per_sec`` finite and
+    positive at 1,024 rays, and its launch counts (23 steps of 4 K2 +
+    K1-fwd + K1-bwd + K3-fwd + K3-bwd)."""
+    import math
+
+    import torch
+    from copenerf_torch import bench
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, "-m", "copenerf_torch.bench"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"bench: exit {res.returncode}: {res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    launches = line.get("launches", {})
+    steps = bench.WARMUP + bench.ITERS
+    want = {"sdf_value": 4 * steps, "rendercore_fwd": steps, "rendercore_bwd": steps,
+            "sdf_value_diff_fwd": steps, "sdf_value_bwd": steps}
+    log("bench", line=line, stdout_lines=len(lines), phase_s=time.perf_counter() - t_phase)
+    bad = [k for k in BENCH_KEYS if k not in line]
+    if len(lines) != 1:
+        bad.append(f"{len(lines)} lines of output")
+    if not (line.get("metric") == "train_rays_per_sec" and line.get("unit") == "rays/s"
+            and line.get("rays_per_step") == 1024
+            and isinstance(line.get("value"), (int, float))
+            and math.isfinite(line["value"]) and line["value"] > 0):
+        bad.append(f"line {line}")
+    if {k: v for k, v in launches.items() if v} != want:
+        bad.append(f"launches {launches} != {want}")
+    if bad:
+        fail("bench: " + "; ".join(bad))
+    return launches
+
+
 KERNELS = {
     "sdf_value": dict(source="copenerf_torch/csrc/sdf_value.cu",
                       replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:450"),
@@ -2583,13 +2915,16 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches["trainer_stage2"], s2cfg, s2dir = phase_trainer_stage2(counters, tmp)
         launches["evaluate"] = phase_evaluator(counters, s2cfg, s2dir)
+        launches["mesh"] = phase_mesh(counters, s2cfg, tmp)
+        launches["cli"] = phase_cli(counters, s2cfg, s2dir, tmp)
+    launches["bench"] = phase_bench()
     phase_pose_refine_shape()
 
     rows = []
     for name, meta in KERNELS.items():
         # The time line is the main path's largest shape for each kernel.
         t = kres[name]["times"][0]
-        by_path = {path: counts[name] for path, counts in launches.items()}
+        by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
         rows.append({"name": name, "route": "cuda", "source": meta["source"],
                      "replaces": meta["replaces"],
                      "launches": sum(by_path.values()),

@@ -31,11 +31,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 class KernelCounter:
     """Plain-integer launch count of one kernel; its wrapper adds one where
-    it launches the kernel and nowhere else."""
+    it launches the kernel and nowhere else. Every counter made is in
+    ``COUNTERS`` (those of the kernel modules imported so far)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        COUNTERS.append(self)
+
+
+COUNTERS = []
 
 
 def _nvcc() -> str:

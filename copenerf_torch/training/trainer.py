@@ -28,8 +28,10 @@ epoch (a resume replays the draws of the epochs already trained); each
 iteration's patches and jitter come from a device generator seeded from
 ``(seed, it)``. A resumed port run therefore repeats an uninterrupted one.
 
-Not ported yet: ``extract_geometry`` (the mesher) and multi-GPU training;
-``io_primary`` gates every file write for the latter.
+``extract_geometry`` meshes the SDF's zero level set: the grid query is
+K2 on a CUDA device (``sdf_grid``), the marching the port's mesher on the
+host. Not ported yet: multi-GPU training; ``io_primary`` gates every file
+write for it.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ from ..data.fields import get_data_fields
 from ..device import resolve_device
 from ..evaluation.metrics_pose import pose_error_report
 from ..evaluation.render import ImageRenderer
-from ..models.fields import configs_from_cfg, init_all_fields, motion_apply
+from ..mesher.marching_cubes import grid_axes, mesh_grid
+from ..models.fields import (configs_from_cfg, init_all_fields, motion_apply,
+                             sdf_value_nograd)
 from ..models.torch_io import load_pretrained_sdf
 from ..ops.renderer import RendererConfig
 from ..poses.motion import full_video_w2c
@@ -67,6 +71,8 @@ EPOCH_METRICS = ("loss", "loss_rgb", "loss_eikonal", "l2_mean", "loss_sdf",
                  "edge_aware_smoothness_loss", "smoothness_loss")
 # Iterations of the torch.profiler window that starts at profile_trace_at_it.
 TRACE_ITERS = 5
+# Grid points a mesh query sends to the SDF at once (the JAX mesher's batch).
+MESH_BATCH = 64 ** 3
 
 
 class Trainer:
@@ -621,6 +627,45 @@ class Trainer:
         plt.savefig(os.path.join(vis_dir, f"{self.epoch_it}.jpg"),
                     bbox_inches="tight")
         plt.close(fig)
+
+    def sdf_grid(self, bound_min, bound_max, resolution: int,
+                 time_step: float) -> np.ndarray:
+        """``-sdf(x, y, z, t)`` on the (resolution,)^3 grid of
+        ``mesher.grid_axes`` -> a host (res, res, res) f32 array.
+
+        Each batch of points is built on the device by index arithmetic from
+        the three f32 axes (the JAX package's points bit for bit, without a
+        host grid) and goes through ``fields.sdf_value_nograd``: on a CUDA
+        device one K2 launch per MESH_BATCH points. The values come to the
+        host once."""
+        axes = [torch.from_numpy(a).to(self.device)
+                for a in grid_axes(bound_min, bound_max, resolution)]
+        net = self.state["fields"]["sdf"]
+        n = resolution ** 3
+        vals = torch.empty(n, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            for i in range(0, n, MESH_BATCH):
+                idx = torch.arange(i, min(i + MESH_BATCH, n),
+                                   device=self.device)
+                pts = torch.stack([
+                    axes[0][idx // (resolution * resolution)],
+                    axes[1][(idx // resolution) % resolution],
+                    axes[2][idx % resolution],
+                    torch.full_like(axes[0][:1], time_step).expand(len(idx))],
+                    dim=-1)
+                vals[i:i + len(idx)] = -sdf_value_nograd(net, pts)
+        return vals.cpu().numpy().reshape((resolution,) * 3)
+
+    def extract_geometry(self, bound_min=(-1.2, -1.2, -1.2),
+                         bound_max=(1.2, 1.2, 1.2), resolution: int = 128,
+                         threshold: float = 0.0, time_step: float = None):
+        """Marching mesh of the SDF zero level set at ``time_step`` (None:
+        the world camera's time) -> (vertices (V, 3) f32 world coordinates,
+        triangles (T, 3) int64) (reference neus_renderer.py:586-591 via
+        mcubes; here the port's mesher)."""
+        t = self.world_time_step if time_step is None else time_step
+        grid = self.sdf_grid(bound_min, bound_max, resolution, t)
+        return mesh_grid(grid, bound_min, bound_max, threshold)
 
     # ------------------------------------------------------------------
     def prepare_training(self):

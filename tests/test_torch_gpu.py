@@ -868,17 +868,10 @@ def test_tensor_core_instructions_per_kernel_on_card():
         assert "HMMA" not in funcs[k] and "HGMMA" not in funcs[k], k
 
 
-@pytest.mark.gpu
-def test_trainer_steps_and_checkpoint_round_trip_on_card(tmp_path):
-    """A tiny-config ``Trainer`` on the card: 2 stage-1 iterations on a
-    2-frame synthetic scene, each through 2 K2 (``up_sample_steps`` 2) + 1
-    K1-fwd + 1 K1-bwd + 1 K3-fwd + 1 K3-bwd launches; its checkpoint resumes
-    in a second ``Trainer`` with the same iteration, weights and Adam
-    states."""
-    _require_cuda()
+def _tiny_trainer_cfg(tmp_path):
+    """A 2-frame 24x32 synthetic scene and small nets."""
     from copenerf_torch.config.loader import load_config
     from copenerf_torch.data.synthetic import make_scene
-    from copenerf_torch.training.trainer import Trainer
 
     path, name = make_scene(str(tmp_path / "scene"), n_frames=2, h=24, w=32)
     cfg = load_config(None)
@@ -898,6 +891,20 @@ def test_trainer_steps_and_checkpoint_round_trip_on_card(tmp_path):
     cfg["neus_nerf"].update({"D": 2, "W": 32})
     cfg["neus_renderer"].update({"n_samples": 16, "n_importance": 16,
                                  "up_sample_steps": 2})
+    return cfg
+
+
+@pytest.mark.gpu
+def test_trainer_steps_and_checkpoint_round_trip_on_card(tmp_path):
+    """A tiny-config ``Trainer`` on the card: 2 stage-1 iterations on a
+    2-frame synthetic scene, each through 2 K2 (``up_sample_steps`` 2) + 1
+    K1-fwd + 1 K1-bwd + 1 K3-fwd + 1 K3-bwd launches; its checkpoint resumes
+    in a second ``Trainer`` with the same iteration, weights and Adam
+    states."""
+    _require_cuda()
+    from copenerf_torch.training.trainer import Trainer
+
+    cfg = _tiny_trainer_cfg(tmp_path)
     counters = {"sdf_value": SV.COUNTER, "rendercore_fwd": RC.COUNTER,
                 "rendercore_bwd": RC.BWD_COUNTER,
                 "sdf_value_diff_fwd": SVD.FWD_COUNTER,
@@ -1030,3 +1037,61 @@ def test_eval_pose_step_card_matches_cpu():
         assert torch.all(ref[0] == 0) and torch.all(got[0] == 0)
         assert ref[1].abs().max() > 0
         assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_extract_geometry_card_matches_cpu(tmp_path):
+    """``Trainer.extract_geometry`` at resolution 48 (110,592 grid points,
+    one K2 launch) on the card and on the CPU at time 0, the SDF's
+    geometric init perturbed: the same triangles, every vertex within 1e-3
+    voxel widths of its counterpart."""
+    _require_cuda()
+    from copenerf_torch.training.trainer import MESH_BATCH, Trainer
+
+    res = 48
+    cfg = _tiny_trainer_cfg(tmp_path)
+    meshes = {}
+    for dev in ("cuda", "cpu"):
+        trainer = Trainer(copy.deepcopy(cfg), device=dev, verbose=False)
+        perturb_(trainer.state["fields"]["sdf"],
+                 torch.Generator().manual_seed(3))
+        SV.COUNTER.launches = 0
+        # At time 0: the geometric init is a 4-D sphere of radius 0.5 in
+        # (x, y, z, t), and this 2-frame scene's world time is -1.
+        meshes[dev] = trainer.extract_geometry(resolution=res, time_step=0.0)
+        launches = SV.COUNTER.launches
+        assert launches == (-(-res ** 3 // MESH_BATCH) if dev == "cuda" else 0)
+    (vc, tc), (vp, tp) = meshes["cuda"], meshes["cpu"]
+    assert len(tp) > 100
+    np.testing.assert_array_equal(tc, tp)
+    voxel = 2.4 / (res - 1)
+    assert np.abs(vc - vp).max() <= 1e-3 * voxel
+
+
+@pytest.mark.gpu
+def test_bench_prints_the_contract_line(monkeypatch, capsys):
+    """``copenerf_torch.bench`` at the protocol's 1,024 rays, 2 timed
+    steps: one JSON line with the contract's keys, a finite positive
+    rate and the card's name."""
+    _require_cuda()
+    import json
+
+    from copenerf_torch import bench
+
+    monkeypatch.setattr(bench, "ITERS", 2)
+    monkeypatch.setattr(bench, "WARMUP", 1)
+    bench.main(["--rays", "1024"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "train_rays_per_sec"
+    assert line["unit"] == "rays/s" and line["rays_per_step"] == 1024
+    assert np.isfinite(line["value"]) and line["value"] > 0
+    assert line["vs_baseline"] == round(line["value"] / 3000.0, 3)
+    assert "ESTIMATE" in line["baseline"]
+    assert torch.cuda.get_device_name(0) in line["device"]
+    # 3 steps (1 warm-up, 2 timed) of 4 K2, K1-fwd, K1-bwd, K3-fwd, K3-bwd.
+    per_step = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
+                "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
+    assert {k: v for k, v in line["launches"].items() if v} == {
+        k: 3 * n for k, n in per_step.items()}

@@ -171,15 +171,39 @@ Phases, each printed on its own line, any failure exits non-zero:
 25. bench    ``python3 -m copenerf_torch.bench`` in a subprocess: its JSON
             line parsed, the contract's keys, a finite positive
             ``train_rays_per_sec`` at 1,024 rays, its launch counts.
-26. pose_refine_shape  ``run_pose_refinement`` at configs/Co3D/bench.yaml's
+26. dp_nccl1  data parallelism, each rank a process of this script
+            (``--dp-worker``) under ``python -m torch.distributed.run
+            --standalone``: one rank over NCCL on card 0 runs 10 stage-1
+            steps of the train phase's batch through
+            ``build_train_step(..., group=...)`` and the single-device step
+            from the same weights (parameters within 1e-6 of each tensor's
+            largest entry, the tensors not bitwise equal listed); exact
+            launches; the gradient bucket's all-reduce timed alone, its
+            bytes; the DP step's ms beside the single-device step's.
+27. dp_gloo2_one_card  two ranks sharing card 0 over Gloo (NCCL refuses
+            two ranks on one card): 5 stage-1 and 5 stage-2 steps, 512 rays
+            a rank, against the one-rank step on the global batch (metrics,
+            gradients within 1e-5 of each tensor's largest entry or twice
+            the one-rank gradient's own move under 6 reorderings of the
+            rays that leave the loss unchanged; a planted per-rank-mean
+            fault must exceed that bound), exact launches and rows
+            a rank, the replicas bitwise equal; a split 180x320 view
+            against the one-rank view; a 2-rank ``Trainer.train(max_epochs=2)``
+            on the trainer phase's scene against that phase's loss curve
+            (bounded by a one-rank Trainer whose batches are reordered), no
+            file from rank 1, rank 0's checkpoint resumed in one process.
+28. dp_nccl2  the same over NCCL, a card a rank, where the machine has two
+            cards or more; otherwise ``{"phase": "dp_nccl2", "run": false}``.
+29. pose_refine_shape  ``run_pose_refinement`` at configs/Co3D/bench.yaml's
             stage-2 size (712x1266, 34 synthetic views, 33 pairs in batches
             of 16, 16, 1): ms an epoch without and with the host pose
             metrics, the device's busy ms an epoch, peak memory, and the
             default 2,000 epochs projected. No gate on speed.
-27. the ``{"kernels": [...]}`` line (launches per path: render, train,
+30. the ``{"kernels": [...]}`` line (launches per path: render, train,
    render_composed, train_composed, train_fold, sdf_output, trainer,
-   trainer_stage2, evaluate, mesh, cli, bench), then the contract line
-   ``{"ok": true, "device": {...}}`` last.
+   trainer_stage2, evaluate, mesh, cli, bench, train_dp (rank 0's
+   data-parallel steps), render_dp (rank 0's split view)), then the
+   contract line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1768,7 +1792,9 @@ def phase_trainer(counters):
         for c in counters:
             c.launches = 0
         first = Trainer(copy.deepcopy(cfg), verbose=False)
+        losses = record_losses(first)
         first.train(max_epochs=2)
+        TRAINER_LOSSES[:] = [float(x) for x in losses]
         saved = _flatten(TS.train_state_to_jax(first.state))
         second = Trainer(copy.deepcopy(cfg), verbose=False)
         resumed_it = second.it
@@ -2785,6 +2811,597 @@ def phase_bench():
         fail("bench: " + "; ".join(bad))
     return launches
 
+# ---------------------------------------------------------------------------
+# Data parallelism: each rank a process of its own, started by torchrun
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT = 900          # seconds a phase's ranks may take; their collectives' bound
+DP_NCCL1_STEPS = 10
+DP_STEPS = 5              # a stage, in the two-rank phases
+DP_METRIC_RTOL = 2e-5
+DP_GRAD_RTOL = 1e-5
+# Orders of the global batch's rays that leave the loss unchanged, for the
+# one-rank step's own summation-order noise (``reordered``), by seed.
+DP_REORDERS = range(6)
+TRAINER_LOSSES = []       # the trainer phase's first Trainer, by iteration
+DP_PER_STEP = {"stage1": {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1,
+                          "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1},
+               "stage2": {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1}}
+
+
+def record_losses(trainer):
+    """Keep each iteration's loss of ``trainer`` (device tensors, copied by
+    the caller after training); returns the list."""
+    losses = []
+    get_step = trainer._get_step
+
+    def wrapped(stage1, train_motion):
+        inner = get_step(stage1, train_motion)
+
+        def step(state, batch, generator):
+            metrics = inner(state, batch, generator)
+            losses.append(metrics["loss"])
+            return metrics
+
+        return step
+
+    trainer._get_step = wrapped
+    return losses
+
+
+def kernel_counters():
+    from copenerf_torch.ops.kernels import color as CK
+    from copenerf_torch.ops.kernels import outgrad as OG
+    from copenerf_torch.ops.kernels import rendercore as RC
+    from copenerf_torch.ops.kernels import rendercore_cons as RCC
+    from copenerf_torch.ops.kernels import sdf_out as SO
+    from copenerf_torch.ops.kernels import sdf_value as SV
+    from copenerf_torch.ops.kernels import sdf_value_diff as SVD
+
+    return [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER,
+            SVD.BWD_COUNTER, OG.FWD_COUNTER, OG.BWD_COUNTER, CK.FWD_COUNTER,
+            CK.BWD_COUNTER, RCC.FWD_COUNTER, RCC.BWD_COUNTER, SO.FWD_COUNTER,
+            SO.BWD_COUNTER]
+
+
+def run_ranks(phase, nproc, work):
+    """``nproc`` ranks of this script's ``--dp-worker phase`` under
+    ``python -m torch.distributed.run --standalone``, each writing
+    ``<phase>_rank<r>.json`` to ``work``; (their results, seconds). A rank's
+    failure fails the phase (torchrun stops the others), and so does
+    DP_TIMEOUT (every process of the launch is killed)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.abspath(__file__),
+           "--dp-worker", phase, work]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"{phase}: the ranks did not end within {DP_TIMEOUT} s: {out[-3000:]}")
+    if proc.returncode != 0:
+        fail(f"{phase}: torchrun exit {proc.returncode}: {out[-6000:]}")
+    results = []
+    for r in range(nproc):
+        with open(os.path.join(work, f"{phase}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, time.perf_counter() - t0
+
+
+def optimized_params(state, s):
+    stepped = ("opt_fields", "opt_motion") if s.train_motion else ("opt_fields",)
+    return [p for key in stepped for g in state[key].param_groups for p in g["params"]]
+
+
+def params_digest(fields):
+    """sha256 of every parameter's bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in fields.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def reordered(batch, seed):
+    """The batch with its injected global rays (whole 4x4 patches,
+    row-major within each) in another order that leaves the loss unchanged:
+    the patches permuted, and each patch's 16 rays moved by one of the
+    square's 8 symmetries (the smoothness terms are symmetric under each),
+    drawn from ``seed``."""
+    import torch
+
+    n = batch["ray_idx"].shape[0]
+    g = torch.Generator().manual_seed(seed)
+    grid = torch.arange(16).reshape(4, 4)
+    moves = [torch.rot90(grid, k, (0, 1)) for k in range(4)]
+    moves += [m.T for m in moves]
+    order = torch.randperm(n // 16, generator=g)
+    pick = torch.randint(0, 8, (n // 16,), generator=g)
+    rows = torch.cat([16 * int(q) + moves[int(d)].reshape(-1)
+                      for q, d in zip(order, pick)]).to(batch["ray_idx"].device)
+    return dict(batch, ray_idx=batch["ray_idx"][rows], t_rand=batch["t_rand"][rows])
+
+
+def one_rank_grads(fields, rcfg, s, batch):
+    """(metrics, gradients of the optimized parameters) of the single-device
+    loss of the global batch at ``fields``' weights (a copy)."""
+    from copenerf_torch.training import step as TS
+
+    ref = copy.deepcopy(fields)
+    total, metrics = TS.compute_losses(ref, rcfg, s, batch, batch["ray_idx"],
+                                       t_rand=batch["t_rand"])
+    total.backward()
+    nets = TS.FIELD_NETS + (("motion",) if s.train_motion else ())
+    return ({k: float(v) for k, v in metrics.items()},
+            [p.grad.detach().clone() for k in nets for p in ref[k].parameters()])
+
+
+def per_rank_mean_grads(fields, rcfg, s, batch, rank, group):
+    """The planted fault: each rank's loss as one device would take it on
+    its half of the global batch (local means and denominators), the
+    gradients of the optimized networks averaged over the two ranks."""
+    import dataclasses
+
+    from copenerf_torch.parallel import distributed as dist
+    from copenerf_torch.training import step as TS
+
+    ref = copy.deepcopy(fields)
+    n = s.n_points // 2
+    rows = slice(rank * n, (rank + 1) * n)
+    total, _ = TS.compute_losses(ref, rcfg, dataclasses.replace(s, n_points=n),
+                                 batch, batch["ray_idx"][rows],
+                                 t_rand=batch["t_rand"][rows])
+    total.backward()
+    nets = TS.FIELD_NETS + (("motion",) if s.train_motion else ())
+    params = [p for k in nets for p in ref[k].parameters()]
+    dist.all_reduce_grads_(params, group)
+    return [p.grad / 2 for p in params]
+
+
+def check_dp_grads(got, ref, others):
+    """Per gradient tensor: |got - ref| over the bound max(DP_GRAD_RTOL x its
+    largest entry, 2 x the most the one-rank gradient moves under the
+    reorderings ``others``) + 1e-7; (the largest ratio, its index, how many
+    tensors needed the reordering term, the 3 largest ratios with their
+    index, difference, scale and reordering term)."""
+    rows, by_order = [], 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        scale = DP_GRAD_RTOL * float(r.abs().max())
+        noise = 2 * max(float((o[i] - r).abs().max()) for o in others)
+        by_order += noise > scale
+        diff = float((g - r).abs().max())
+        rows.append((diff / (max(scale, noise) + 1e-7), i, diff, scale, noise))
+    rows.sort(reverse=True)
+    return rows[0][0], rows[0][1], by_order, rows[:3]
+
+
+def dp_nccl1_rank(work):
+    """One rank over NCCL: DP_NCCL1_STEPS data-parallel stage-1 steps of the
+    train phase's batch against the single-device step from the same
+    weights; the gradient all-reduce timed alone."""
+    import numpy as np
+    import torch
+    from copenerf_torch.parallel import distributed as dist
+    from copenerf_torch.training import step as TS
+
+    counters = kernel_counters()
+    group = dist.process_group()
+    cfg, _, fields, _ = full_width_nets(seed=0)
+    s, rcfg, batch = train_setup(cfg, seed=5)
+    tc = cfg["training"]
+    runs = {}
+    for name, grp in (("single", None), ("dp", group)):
+        state = TS.init_train_state(copy.deepcopy(fields))
+        step = TS.build_train_step(rcfg, s, group=grp)
+        for c in counters:
+            c.launches = 0
+        losses, times = [], []
+        for i in range(DP_NCCL1_STEPS):
+            batch["lr"] = tc["learning_rate"] * min(i / tc["nb_warm_up_it"], 1.0)
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(1e3 * (time.perf_counter() - t0))
+        runs[name] = {"state": state, "losses": losses,
+                      "mean_step_ms": float(np.mean(times[1:])),
+                      "launches": {c.name: c.launches for c in counters}}
+    shares, not_bitwise = {}, []
+    single = dict(runs["single"]["state"]["fields"].named_parameters())
+    for n, p in runs["dp"]["state"]["fields"].named_parameters():
+        a = single[n].detach()
+        shares[n] = float((p.detach() - a).abs().max() / a.abs().max().clamp_min(1e-30))
+        if not torch.equal(p.detach(), a):
+            not_bitwise.append(n)
+    params = optimized_params(runs["dp"]["state"], s)
+    nbytes = dist.all_reduce_grads_(params, group)
+    reduce_ms = cuda_ms(lambda: dist.all_reduce_grads_(params, group), 20)
+    return {"rays": s.n_points, "steps": DP_NCCL1_STEPS,
+            "losses": {k: r["losses"] for k, r in runs.items()},
+            "mean_step_ms": {k: r["mean_step_ms"] for k, r in runs.items()},
+            "launches": runs["dp"]["launches"],
+            "max_param_share": max(shares.values()),
+            "worst_param": max(shares, key=shares.get),
+            "not_bitwise": not_bitwise, "n_params": len(shares),
+            "allreduce_bytes": nbytes, "allreduce_ms": reduce_ms}
+
+
+def dp_two_ranks_rank(phase, work):
+    """One of two ranks: DP_STEPS stage-1 and DP_STEPS stage-2
+    data-parallel steps of the train phase's batch (rank 0 computes the
+    one-rank step's metrics and gradients of the global batch at each step's
+    weights, in its order and in DP_REORDERS); the planted per-rank-mean
+    fault's gradients at the first stage-1 step; the launches and rows of
+    each step's kernels; a split render against the one-rank render; a
+    ``Trainer.train(max_epochs=2)`` of the trainer phase's config on the
+    scene in ``work``, rank r writing to its own out_dir."""
+    import numpy as np
+    import torch
+    from copenerf_torch.evaluation.render import ImageRenderer
+    from copenerf_torch.ops.kernels import build
+    from copenerf_torch.parallel import distributed as dist
+    from copenerf_torch.training import step as TS
+    from copenerf_torch.training.trainer import Trainer
+
+    counters = kernel_counters()
+    group, rank = dist.process_group(), dist.rank()
+    cfg, _, fields, _ = full_width_nets(seed=0)
+    train = train_setup(cfg, seed=5)
+    out = {"rank": rank}
+    check_input = build.check_input
+    for stage, (s, rcfg, batch) in (("stage1", train),
+                                    ("stage2", stage2_setup(cfg, train))):
+        state = TS.init_train_state(copy.deepcopy(fields))
+        step = TS.build_train_step(rcfg, s, group=group)
+        rec = {"launches": [], "rows": [], "metric_rel": [], "grad_worst": [],
+               "grad_worst_tensor": [], "tensors_at_order_noise": [], "ms": []}
+        names = [f"{k}.{n}" for k in TS.FIELD_NETS + (("motion",) if s.train_motion else ())
+                 for n, _ in state["fields"][k].named_parameters()]
+        for k in range(DP_STEPS):
+            if rank == 0:
+                ref_m, ref_g = one_rank_grads(state["fields"], rcfg, s, batch)
+                others = [one_rank_grads(state["fields"], rcfg, s,
+                                         reordered(batch, seed))[1]
+                          for seed in DP_REORDERS]
+            if stage == "stage1" and k == 0:
+                fault = per_rank_mean_grads(state["fields"], rcfg, s, batch,
+                                            rank, group)
+                if rank == 0:
+                    out["fault_ratio"] = check_dp_grads(fault, ref_g, others)[0]
+            rows = []
+
+            def recording(t, name, width):
+                rows.append((name, int(t.shape[0])))
+                return check_input(t, name, width)
+
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            build.check_input = recording
+            try:
+                t0 = time.perf_counter()
+                m = step(state, batch)
+                m = {k: float(v) for k, v in m.items()}
+                rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            finally:
+                build.check_input = check_input
+            rec["launches"].append({c.name: c.launches for c in counters if c.launches})
+            rec["rows"].append(sorted({n for name, n in rows if name == "x"}))
+            if rank == 0:
+                got = [p.grad for p in optimized_params(state, s)]
+                rec["metric_rel"].append(max(
+                    abs(m[k] - v) / (abs(v) + 1e-7 / DP_METRIC_RTOL) for k, v in ref_m.items()))
+                worst, at, by_order, top = check_dp_grads(got, ref_g, others)
+                rec.setdefault("grad_top", []).append(
+                    [[names[i], ratio, diff, scale, noise]
+                     for ratio, i, diff, scale, noise in top])
+                rec["grad_worst"].append(worst)
+                rec["grad_worst_tensor"].append(names[at])
+                rec["tensors_at_order_noise"].append(by_order)
+        rec["params_sha256"] = params_digest(state["fields"])
+        out[stage] = rec
+
+    rcfg = train[1]
+    eye = np.eye(4, dtype=np.float32)
+    frames, w2c = view_poses(fields, seed=3)
+    args = (camera(*RES), w2c[0], eye, time_of(frames[0]), RES,
+            cfg["rendering"]["depth_range"], 1.0)
+    split = ImageRenderer(rcfg, chunk=CHUNK, device=DEVICE, group=group)
+    split.render_image(fields, *args)               # warm-up (not counted)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = split.render_image(fields, *args)
+    out["render"] = {"ms": 1e3 * (time.perf_counter() - t0),
+                     "launches": {c.name: c.launches for c in counters if c.launches}}
+    if rank == 0:
+        one = ImageRenderer(rcfg, chunk=CHUNK, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = one.render_image(fields, *args)
+        out["render"].update(
+            one_rank_ms=1e3 * (time.perf_counter() - t0),
+            **{f"{k}_max_abs": float(np.abs(got[k] - ref[k]).max())
+               for k in ("color", "depth")},
+            bitwise=[k for k in ref if np.array_equal(got[k], ref[k])])
+
+    with open(os.path.join(work, "scene.json")) as f:
+        scene = json.load(f)
+    tcfg, _ = trainer_config(scene, os.path.join(work, f"{phase}_out{rank}"))
+    trainer = Trainer(tcfg, verbose=False)
+    losses = record_losses(trainer)
+    t0 = time.perf_counter()
+    trainer.train(max_epochs=2)
+    out["trainer"] = {
+        "losses": [float(x) for x in losses], "it": trainer.it,
+        "s": time.perf_counter() - t0, "fell_back": trainer.pose_refine_fell_back,
+        "profiled": trainer.profile_summary is not None,
+        "state_sha256": state_digest(trainer.state)}
+    return out
+
+
+def state_digest(state):
+    """sha256 of a train state in the JAX layout (weights and both Adams)."""
+    import hashlib
+
+    from copenerf_torch.training import step as TS
+    from copenerf_torch.training.checkpoints import _flatten
+
+    flat = _flatten(TS.train_state_to_jax(state))
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(flat[k].tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(phase, work):
+    """A rank of ``phase`` (torchrun sets RANK, WORLD_SIZE, LOCAL_RANK):
+    NCCL for ``dp_nccl1`` and ``dp_nccl2``; Gloo for ``dp_gloo2_one_card``,
+    both ranks on card 0 (NCCL refuses two ranks on one card)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from copenerf_torch.parallel import distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = "nccl"
+    if phase == "dp_gloo2_one_card":
+        backend = "gloo"
+        os.environ["LOCAL_RANK"] = "0"
+    dist.initialize(backend, timeout=DP_TIMEOUT)
+    res = dp_nccl1_rank(work) if phase == "dp_nccl1" else dp_two_ranks_rank(phase, work)
+    res.update(backend=torch.distributed.get_backend(), world=dist.world_size(),
+               device=str(torch.cuda.current_device()))
+    with open(os.path.join(work, f"{phase}_rank{dist.rank()}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dp_nccl1(work):
+    """``dp_nccl1``: one rank over NCCL on card 0 (process group, gradient
+    bucket all-reduce, barrier: the real path). Gates: the data-parallel
+    parameters after DP_NCCL1_STEPS steps within 1e-6 of each tensor's
+    largest entry of the single-device step's (at world size 1 the
+    all-reduce is an identity: bitwise wherever the DP losses keep the
+    single-device order; the others are listed); exact launches."""
+    (res,), sec = run_ranks("dp_nccl1", 1, work)
+    want = {k: v * DP_NCCL1_STEPS for k, v in DP_PER_STEP["stage1"].items()}
+    launches = {k: v for k, v in res["launches"].items() if v}
+    log("dp_nccl1", backend=res["backend"], world=res["world"], rays=res["rays"],
+        steps=res["steps"], launches=launches, expected=want,
+        max_param_share=res["max_param_share"], worst_param=res["worst_param"],
+        not_bitwise=res["not_bitwise"], n_param_tensors=res["n_params"],
+        losses=res["losses"], mean_step_ms=res["mean_step_ms"],
+        train_phase_step_ms=STEP_MEAN_MS.get("train"),
+        allreduce_bytes=res["allreduce_bytes"], allreduce_ms=res["allreduce_ms"],
+        phase_s=sec)
+    if res["backend"] != "nccl" or res["world"] != 1:
+        fail(f"dp_nccl1: backend {res['backend']}, world {res['world']}")
+    if not res["max_param_share"] <= 1e-6:
+        fail(f"dp_nccl1: parameters {res['max_param_share']} of their largest "
+             f"entry from the single-device step's ({res['worst_param']})")
+    if launches != want:
+        fail(f"dp_nccl1 launch counts {launches} != {want}")
+    return launches
+
+
+def rel_curve(got, ref):
+    """The largest relative difference of two loss curves (inf when their
+    lengths differ)."""
+    import numpy as np
+
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape or not ref.size:
+        return float("inf")
+    return float(np.max(np.abs(got - ref) / np.abs(ref)))
+
+
+def phase_dp_two_ranks(phase, work, cards, order_losses):
+    """``dp_gloo2_one_card`` (Gloo, both ranks on card 0) or ``dp_nccl2``
+    (NCCL, a card each). Gates, per stage and step: the global metrics
+    within DP_METRIC_RTOL of the one-rank step's; each gradient tensor
+    within check_dp_grads' bound, which the planted per-rank-mean fault
+    must exceed (on this batch the two halves' weight sums and valid-pixel
+    counts are nearly equal, so local denominators move the gradients
+    little, and the margin is small); exactly DP_PER_STEP launches a rank,
+    the
+    field queries at 512 rays a rank (K1 and K3 at 65,536 rows); after the
+    steps the parameters bitwise equal on both ranks. The split 180x320
+    render within 1e-6 of the one-rank render (color, depth). The 2-rank
+    Trainer: its loss curve within 3e-4 relative of the trainer phase's
+    one-rank Trainer (TRAINER_LOSSES), or within 3x the one-rank curve's own
+    move when each batch's patches are merely reordered
+    (``order_losses``), if that is more (22 full-width iterations from
+    warm-up: Adam's first steps move near-zero gradient entries by about
+    lr sign(g), and the runs part from there); no fallback, equal states on both
+    ranks, the profiler window on rank 0 only, no file in rank 1's
+    out_dir; rank 0's checkpoint resumes in a one-rank Trainer with its
+    state. Returns the launches of rank 0's steps and of its render."""
+    from copenerf_torch.training.trainer import Trainer
+
+    (r0, r1), sec = run_ranks(phase, 2, work)
+    bad = []
+    step_launches = {}
+    for stage in ("stage1", "stage2"):
+        want = DP_PER_STEP[stage]
+        for r in (r0, r1):
+            if any(lc != want for lc in r[stage]["launches"]):
+                bad.append(f"{stage} rank {r['rank']} launches {r[stage]['launches']} != {want}")
+            if any(not rows or max(rows) != 512 * 128 or 512 * 64 not in rows
+                   for rows in r[stage]["rows"]):
+                bad.append(f"{stage} rank {r['rank']} rows {r[stage]['rows']}")
+        for lc in r0[stage]["launches"]:
+            for k, v in lc.items():
+                step_launches[k] = step_launches.get(k, 0) + v
+        if max(r0[stage]["metric_rel"]) > DP_METRIC_RTOL:
+            bad.append(f"{stage} metrics {r0[stage]['metric_rel']}")
+        if stage == "stage1" and not r0["fault_ratio"] > 1:
+            bad.append(f"the planted per-rank-mean fault is {r0['fault_ratio']} of "
+                       "the gradient bound: the bound does not catch it")
+        if max(r0[stage]["grad_worst"]) > 1.0:
+            bad.append(f"{stage} gradients {r0[stage]['grad_worst']} "
+                       f"{r0[stage]['grad_worst_tensor']}")
+        if r0[stage]["params_sha256"] != r1[stage]["params_sha256"]:
+            bad.append(f"{stage}: the ranks' parameters differ")
+        log(f"{phase}_{stage}", steps=DP_STEPS, rays=1024, rays_per_rank=512,
+            launches_per_step=r0[stage]["launches"][-1], rows=r0[stage]["rows"][-1],
+            metric_rel=r0[stage]["metric_rel"], grad_worst=r0[stage]["grad_worst"],
+            grad_worst_tensor=r0[stage]["grad_worst_tensor"],
+            tensors_at_order_noise=r0[stage]["tensors_at_order_noise"],
+            grad_top=r0[stage]["grad_top"],
+            planted_fault_ratio=r0["fault_ratio"] if stage == "stage1" else None,
+            step_ms={f"rank{r['rank']}": r[stage]["ms"] for r in (r0, r1)},
+            replicas_equal=r0[stage]["params_sha256"] == r1[stage]["params_sha256"])
+    ren = r0["render"]
+    log(f"{phase}_render", resolution=list(RES), chunk=CHUNK, ms=ren["ms"],
+        one_rank_ms=ren["one_rank_ms"], launches=ren["launches"],
+        color_max_abs=ren["color_max_abs"], depth_max_abs=ren["depth_max_abs"],
+        bitwise=ren["bitwise"])
+    if not (ren["color_max_abs"] <= 1e-6 and ren["depth_max_abs"] <= 1e-6):
+        bad.append(f"split render {ren['color_max_abs']}, {ren['depth_max_abs']}")
+
+    t0, t1 = r0["trainer"], r1["trainer"]
+    rel = rel_curve(t0["losses"], TRAINER_LOSSES)
+    order_rel = rel_curve(order_losses, TRAINER_LOSSES)
+    loss_bound = max(3e-4, 3 * order_rel)
+    out1 = os.path.join(work, f"{phase}_out1")
+    files1 = [os.path.join(d, f) for d, _, fs in os.walk(out1) for f in fs]
+    cfg0, _ = trainer_config(json.load(open(os.path.join(work, "scene.json"))),
+                             os.path.join(work, f"{phase}_out0"))
+    resumed = Trainer(cfg0, verbose=False)
+    resumed_equal = state_digest(resumed.state) == t0["state_sha256"]
+    log(f"{phase}_trainer", iterations=len(t0["losses"]), loss_rel_to_one_rank=rel,
+        reordered_rel_to_one_rank=order_rel, loss_bound=loss_bound,
+        losses=t0["losses"], one_rank_losses=TRAINER_LOSSES, seconds=t0["s"],
+        fell_back=[t0["fell_back"], t1["fell_back"]],
+        profiled=[t0["profiled"], t1["profiled"]],
+        replicas_equal=t0["state_sha256"] == t1["state_sha256"],
+        rank1_files=len(files1), resumed_it=resumed.it, resumed_equal=resumed_equal)
+    if not rel <= loss_bound:
+        bad.append(f"trainer loss curve {rel} from the one-rank Trainer's "
+                   f"(bound {loss_bound})")
+    if t0["fell_back"] or t1["fell_back"]:
+        bad.append("trainer: the transition fell back")
+    if t0["state_sha256"] != t1["state_sha256"]:
+        bad.append("trainer: the ranks' states differ")
+    if not (t0["profiled"] and not t1["profiled"]):
+        bad.append(f"trainer: profiler windows {t0['profiled']}, {t1['profiled']}")
+    if files1:
+        bad.append(f"trainer: rank 1 wrote {files1[:5]}")
+    if not (resumed_equal and resumed.it == t0["it"] and resumed.checkpoint_loaded):
+        bad.append("trainer: rank 0's checkpoint does not resume its state")
+    log(phase, cards=cards, backend=r0["backend"], world=r0["world"],
+        devices=[r0["device"], r1["device"]], phase_s=sec)
+    if bad:
+        fail(f"{phase}: " + "; ".join(bad))
+    return step_launches, ren["launches"]
+
+
+def reordered_trainer_losses(work):
+    """The trainer phase's one-rank Trainer once more, each iteration's
+    global batch (the same rays and jitter, drawn from the generator as the
+    step draws them) with its two halves of patches swapped: how far f32
+    summation order alone moves the loss curve (the 2-rank Trainer's
+    yardstick)."""
+    import dataclasses
+
+    import torch
+    from copenerf_torch.training import step as TS
+    from copenerf_torch.training import trainer as TT
+
+    def swapped_step(rcfg, static, group=None):
+        inner = TS.build_train_step(
+            rcfg, dataclasses.replace(static, inject_sampling=True))
+        n_uniform = rcfg.n_samples + (0 if static.use_importance else rcfg.n_importance)
+
+        def step(state, batch, generator=None):
+            dev = batch["images_all"].device
+            ray_idx = TS.sample_patch_indices(generator, static.h, static.w,
+                                              static.patch_size, static.n_points,
+                                              device=dev)
+            t_rand = torch.rand((static.n_points, n_uniform), generator=generator,
+                                device=dev)
+            rows = torch.arange(static.n_points, device=dev).roll(static.n_points // 2)
+            return inner(state, dict(batch, ray_idx=ray_idx[rows], t_rand=t_rand[rows]))
+
+        return step
+
+    with open(os.path.join(work, "scene.json")) as f:
+        scene = json.load(f)
+    cfg, _ = trainer_config(scene, os.path.join(work, "reordered"))
+    saved = TT.build_train_step
+    TT.build_train_step = swapped_step
+    try:
+        trainer = TT.Trainer(cfg, verbose=False)
+        losses = record_losses(trainer)
+        trainer.train(max_epochs=2)
+    finally:
+        TT.build_train_step = saved
+    return [float(x) for x in losses]
+
+
+def phase_dp(tmp):
+    """The data-parallel phases: ``dp_nccl1``, ``dp_gloo2_one_card``, and
+    ``dp_nccl2`` where the machine has two cards or more. Returns the
+    launches of the paths ``train_dp`` (rank 0's DP steps) and
+    ``render_dp`` (rank 0's split render)."""
+    import torch
+    from copenerf_torch.data.synthetic import make_scene
+
+    work = os.path.join(tmp, "dp")
+    os.makedirs(work)
+    scene = make_scene(os.path.join(work, "scene"), n_frames=TRAINER_FRAMES,
+                       h=TRAINER_RES[0], w=TRAINER_RES[1])
+    with open(os.path.join(work, "scene.json"), "w") as f:
+        json.dump(list(scene), f)
+    train = phase_dp_nccl1(work)
+    t0 = time.perf_counter()
+    order = reordered_trainer_losses(work)
+    log("dp_order_yardstick", losses=order, seconds=time.perf_counter() - t0,
+        loss_rel_to_one_rank=rel_curve(order, TRAINER_LOSSES))
+    gloo_steps, render = phase_dp_two_ranks("dp_gloo2_one_card", work, 1, order)
+    for k, v in gloo_steps.items():
+        train[k] = train.get(k, 0) + v
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        nccl_steps, _ = phase_dp_two_ranks("dp_nccl2", work, cards, order)
+        for k, v in nccl_steps.items():
+            train[k] = train.get(k, 0) + v
+    else:
+        log("dp_nccl2", run=False, cards=cards)
+    return train, render
+
 
 KERNELS = {
     "sdf_value": dict(source="copenerf_torch/csrc/sdf_value.cu",
@@ -2843,13 +3460,7 @@ def main():
 
     # The port must be beside this script: fail before printing anything.
     sys.path.insert(0, REPO)
-    from copenerf_torch.ops.kernels import color as CK
-    from copenerf_torch.ops.kernels import outgrad as OG
-    from copenerf_torch.ops.kernels import rendercore as RC
-    from copenerf_torch.ops.kernels import rendercore_cons as RCC
-    from copenerf_torch.ops.kernels import sdf_out as SO
-    from copenerf_torch.ops.kernels import sdf_value as SV
-    from copenerf_torch.ops.kernels import sdf_value_diff as SVD
+    counters = kernel_counters()
 
     phase_device()
     phase_build()
@@ -2861,10 +3472,6 @@ def main():
     kres.update(tres)
     cres, cstep_ms = phase_composed_kernels(nchecked)
     kres.update(cres)
-    counters = [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER,
-                SVD.BWD_COUNTER, OG.FWD_COUNTER, OG.BWD_COUNTER, CK.FWD_COUNTER,
-                CK.BWD_COUNTER, RCC.FWD_COUNTER, RCC.BWD_COUNTER, SO.FWD_COUNTER,
-                SO.BWD_COUNTER]
     launches = {}
     launches["render"], view = phase_main(
         cfg, fields, counters, {"sdf_value": 4, "rendercore_fwd": 1})
@@ -2918,6 +3525,8 @@ def main():
         launches["mesh"] = phase_mesh(counters, s2cfg, tmp)
         launches["cli"] = phase_cli(counters, s2cfg, s2dir, tmp)
     launches["bench"] = phase_bench()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["train_dp"], launches["render_dp"] = phase_dp(tmp)
     phase_pose_refine_shape()
 
     rows = []
@@ -2939,4 +3548,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -3,6 +3,7 @@
     python -m copenerf_torch.bench               # one JSON line
     python -m copenerf_torch.bench --rays 4096   # another batch
     python -m copenerf_torch.bench --sweep       # a table, no JSON line
+    torchrun --nproc-per-node N -m copenerf_torch.bench   # N cards
 
 Keeps the contract of the JAX package's ``bench.py``: the full training
 iteration (all stage-1 losses, two Adam updates, full-size field networks,
@@ -15,7 +16,13 @@ invocation prints ONE JSON line:
    "device": "<nvidia-smi name, power limit>", "launches": {...}}
 
 ``launches`` counts each kernel's launches over the run (the warm-up steps
-included).
+included), on rank 0.
+
+Under torchrun the step is the data-parallel one (the JAX ``bench.py``
+meshes every device): the global batch of ``--rays`` rays is split over the
+ranks, each on its own card, and rank 0 alone prints the line, with
+``world_size`` added; the rays/s count every rank's rays (the global batch)
+between CUDA events on rank 0, started after a barrier.
 
 On a CUDA device the step runs the port's kernels: four value sweeps (K2),
 the render-core forward and backward (K1) and the sdf-consistency query and
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from .ops.kernels.build import COUNTERS as KERNEL_COUNTERS
+from .parallel import distributed as dist
 
 BASELINE_RAYS_PER_SEC_GPU_EST = 3000.0
 RAYS_DEFAULT = 1024
@@ -52,10 +60,11 @@ WARMUP = 3
 ITERS = 20
 
 
-def build(n_points: int, device="cuda"):
+def build(n_points: int, device="cuda", group=None):
     """(step, state, batch, generator) of the stage-1 step at the protocol
     shape: ``configs`` defaults at full width, seed-0 random fields, 100
-    random 540x960 images from ``RandomState(0)``."""
+    random 540x960 images from ``RandomState(0)``; with ``group`` the
+    data-parallel step of the global batch ``n_points``."""
     from .config.loader import load_config
     from .device import resolve_device
     from .models.fields import configs_from_cfg, init_all_fields
@@ -72,7 +81,7 @@ def build(n_points: int, device="cuda"):
         h=H, w=W, patch_size=4, n_points=n_points, stage1=True,
         n_images=N_IMAGES, nb_sample_timestep=10, n_ref=3, train_motion=True,
         sdf_cons_pose_grad=False, use_flow_rgb=True, use_sdf_consistency=True)
-    step = build_train_step(rcfg, static)
+    step = build_train_step(rcfg, static, group=group)
     state = init_train_state(fields)
 
     rng = np.random.RandomState(0)
@@ -110,11 +119,14 @@ def build(n_points: int, device="cuda"):
 
 def time_step(n_points: int, iters: int, warmup: int):
     """(rays/s from CUDA events, ms a step from the events, ms a step from
-    the host clock) over ``iters`` steps after ``warmup``."""
-    step, state, batch, generator = build(n_points)
+    the host clock) over ``iters`` steps after ``warmup``; every rank's
+    rays under torchrun."""
+    step, state, batch, generator = build(n_points,
+                                          group=dist.process_group())
     for _ in range(warmup):
         metrics = step(state, batch, generator)
     metrics["loss"].item()
+    dist.barrier()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -147,24 +159,31 @@ def main(argv=None):
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dist.initialize()
+    primary = dist.is_primary()
 
     if args.sweep:
         for n in SWEEP:
             try:
                 rays_per_sec, ms, _ = time_step(n, ITERS, WARMUP)
             except torch.OutOfMemoryError as exc:
+                if dist.world_size() > 1:
+                    raise   # the other ranks would wait in the next step
                 msg = str(exc).splitlines()[0][:120]
                 print(f"rays_per_step={n:6d}  FAILED: {msg}", flush=True)
                 continue
             finally:
                 torch.cuda.empty_cache()
-            print(f"rays_per_step={n:6d}  {rays_per_sec:10.1f} rays/s  "
+            if primary:
+                print(f"rays_per_step={n:6d}  {rays_per_sec:10.1f} rays/s  "
                   f"{ms:8.2f} ms/step", flush=True)
         return
 
     for c in KERNEL_COUNTERS:
         c.launches = 0
     rays_per_sec, ms, host_ms = time_step(args.rays, ITERS, WARMUP)
+    if not primary:
+        return
     print(json.dumps({
         "metric": "train_rays_per_sec",
         "value": round(rays_per_sec, 1),
@@ -177,6 +196,7 @@ def main(argv=None):
         "ms_per_step": round(ms, 3),
         "host_ms_per_step": round(host_ms, 3),
         "device": device_line(),
+        "world_size": dist.world_size(),
         "launches": {c.name: c.launches for c in KERNEL_COUNTERS},
     }), flush=True)
 

@@ -9,6 +9,14 @@ or, installed, ``copenerf-torch-{train,eval,extract-mesh,bench}``. Every main
 runs on the CUDA device unless ``--device cpu`` is given (without a card the
 default raises), and turns TF32 off before it builds anything: the port's
 kernels compute in f32 or 3xTF32, and so must the PyTorch around them.
+
+train, eval and bench run data-parallel over the cards of a node, one
+process per card:
+
+    torchrun --nproc-per-node N -m copenerf_torch.cli train <cfg.yaml>
+
+Each process takes ``cuda:LOCAL_RANK``; rank 0 alone writes files.
+extract-mesh runs in one process (the JAX mesher is not sharded either).
 """
 
 from __future__ import annotations
@@ -26,8 +34,11 @@ from .device import resolve_device
 
 def _setup(device: str) -> None:
     """Fail on a missing card before anything is written, and turn TF32
-    off before anything is built."""
-    resolve_device(device)
+    off before anything is built. ``cuda`` is the process's card
+    (``cuda:LOCAL_RANK`` under torchrun)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -47,16 +58,22 @@ def train_main(argv=None):
     _setup(args.device)
 
     from .config.loader import load_config
-    from .training.trainer import Trainer
+    from .parallel import distributed as dist
+    from .training.trainer import Trainer, bring_up
 
     cfg = load_config(args.config_path)
+    bring_up(cfg, args.device)
     out_dir = cfg["training"]["out_dir"]
-    os.makedirs(out_dir, exist_ok=True)
-    shutil.copy(args.config_path, out_dir)
-    if cfg["training"].get("backup_source", True):
-        from .utils.backup import backup
+    # Rank 0 copies (the JAX CLI copies from every process); the others
+    # wait until the run directory is whole.
+    if dist.is_primary():
+        os.makedirs(out_dir, exist_ok=True)
+        shutil.copy(args.config_path, out_dir)
+        if cfg["training"].get("backup_source", True):
+            from .utils.backup import backup
 
-        backup(out_dir, args.config_path)
+            backup(out_dir, args.config_path)
+    dist.barrier()
     np.random.seed(cfg["training"]["seed"])
     trainer = Trainer(cfg, device=args.device)
     trainer.train(max_epochs=args.max_epochs)
@@ -94,6 +111,11 @@ def extract_mesh_main(argv=None):
     if args.time_step is not None and not -1.0 <= args.time_step <= 1.0:
         parser.error(f"--time-step must be in [-1, 1], got {args.time_step} "
                      "(times are normalized frame indices)")
+    from .parallel.distributed import launched_world_size
+
+    if launched_world_size() > 1:
+        parser.error("extract-mesh runs in one process; launch it without "
+                     "torchrun")
     _setup(args.device)
 
     from .config.loader import load_config

@@ -13,9 +13,11 @@ the pose gradient; a rendered chunk runs four K2 and one K1-fwd. The field
 weights stay frozen through the optimization: only ``r`` and ``t`` of the
 test views get gradients.
 
-Every file is written only where ``io_primary`` holds (the JAX evaluator
-writes from every process). Multi-process rendering waits for the
-multi-GPU slice.
+Under torchrun every rank optimizes the test poses, as the JAX evaluator
+does in each process; rank 0's poses are then broadcast, the test views
+are rendered split over the ranks, and the metrics and every file come
+from rank 0 alone (``io_primary``; the JAX evaluator writes from every
+process).
 """
 
 from __future__ import annotations
@@ -126,14 +128,17 @@ class Evaluator(Trainer):
         init_pos = init_positions(test_idx, self.train_field.i_train)
         init_c2w = torch.from_numpy(self.refined_c2w[init_pos]).to(dev)
 
-        if os.path.isfile(cache):
+        # Rank 0's view of the cache decides for every rank.
+        found = bool(self._from_rank0(torch.tensor(float(os.path.isfile(cache)))))
+        if found:
             self._log("Found optimized test poses")
             blob = load_pytree(cache)
             params = {k: torch.as_tensor(blob[k], dtype=torch.float32,
                                          device=dev) for k in ("r", "t")}
             self.pose_retriever_test = (
-                params, torch.as_tensor(blob["init"], dtype=torch.float32,
-                                        device=dev))
+                {k: self._from_rank0(v) for k, v in params.items()},
+                torch.as_tensor(blob["init"], dtype=torch.float32,
+                                device=dev))
             return
 
         pose, _ = pose_retriever_init(len(test_idx), init_c2w, device=dev)
@@ -205,7 +210,9 @@ class Evaluator(Trainer):
                               f"{-10 * np.log10(max(l2, 1e-10)):.2f}")
         self.eval_l2_trace = (torch.stack(l2_all).cpu().numpy() if l2_all
                               else np.zeros((0,), np.float32))
-        params = {"r": r.detach(), "t": t.detach()}
+        # The split render needs the same poses on every rank: rank 0's.
+        params = {"r": self._from_rank0(r.detach()),
+                  "t": self._from_rank0(t.detach())}
         self.pose_retriever_test = (params, init_c2w)
         if self.io_primary:
             save_pytree(cache, {"r": params["r"].cpu().numpy(),
@@ -287,9 +294,14 @@ class Evaluator(Trainer):
         return {"rpe_trans": rpe_t, "rpe_rot": rpe_r, "ate": ate}
 
     # ------------------------------------------------------------------
-    def eval(self, store_output: bool = True) -> dict:
+    def eval(self, store_output: bool = True) -> dict | None:
+        """The metrics (and, with ``store_output``, the extraction folders)
+        on rank 0; the other ranks take part in the renders and return
+        None."""
         self.eval_optimization()
         gt_imgs, gt_depths, preds = self.render_eval()
+        if not self.io_primary:
+            return None
         result = {}
         result.update(self.image_eval(gt_imgs, preds))
         result.update(self.pose_eval())
@@ -297,8 +309,6 @@ class Evaluator(Trainer):
         if depth_result is not None:
             result.update(depth_result)
         self._log(f"results: {result}")
-        if not self.io_primary:
-            return result
         with open(os.path.join(self.out_dir, "results.txt"), "w") as f:
             for k, v in result.items():
                 f.write(f"{k}: {v}\n")

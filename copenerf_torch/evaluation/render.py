@@ -4,7 +4,12 @@ The serving path: visualization, stage-1 depth extraction and the NVS/depth
 evaluation all render through ``ImageRenderer.render_image``. Pixel
 coordinates are generated on the device from ``(start, h, w)``; the padded
 tail of the last chunk clamps to the last pixel and is cut off on the host.
-Multi-process and mesh sharding wait for the multi-GPU slice.
+
+With a process group the render is split over the ranks, as the JAX
+package shards each chunk's rays over its mesh: every rank renders its
+contiguous 1/world slice of each chunk and ``gather_rays`` rebuilds the
+chunk, so every rank returns the whole view. A ray's outputs depend on no
+other ray, so the split render is the single-device one.
 """
 
 from __future__ import annotations
@@ -15,6 +20,12 @@ import torch
 from ..device import resolve_device
 from ..ops.rays import rays_from_pixels
 from ..ops.renderer import RendererConfig, render
+from ..parallel.distributed import rank, world_size
+from ..parallel.mesh import gather_rays
+
+# The per-ray outputs of a chunk, with their widths (the gathered layout).
+KEYS = (("color", 3), ("depth", 1), ("weighted_z", 1), ("normal", 3),
+        ("depth_highest", 1))
 
 
 class ImageRenderer:
@@ -24,13 +35,28 @@ class ImageRenderer:
     effective chunk is the next power of two >= the pixel count (at least
     ``min(1024, chunk)``), capped at ``chunk`` rounded down to a power-of-two
     multiple of that minimum.
+
+    ``group`` (a process group; None renders on this device alone) splits
+    each chunk over the ranks: the minimum is then rounded down to a
+    multiple of the world size, never up (the cap is a memory maximum), and
+    a ``chunk`` below the world size raises. Every rank must call
+    ``render_image`` with the same arguments.
     """
 
     def __init__(self, rcfg: RendererConfig, chunk: int = 32768,
-                 device="cuda"):
+                 device="cuda", group=None):
         self.rcfg = rcfg
         self.device = resolve_device(device)
-        self.min_chunk = min(1024, max(chunk, 1))
+        self.group = group
+        self.world = world_size(group) if group is not None else 1
+        self.rank = rank(group) if group is not None else 0
+        if chunk < self.world:
+            raise ValueError(
+                f"render chunk {chunk} < mesh size {self.world}; the chunk "
+                "cap is an HBM maximum and cannot be rounded up to a mesh "
+                "multiple — raise training.render_chunk or shrink the mesh")
+        self.min_chunk = min(max(1024, self.world), max(chunk, 1))
+        self.min_chunk -= self.min_chunk % self.world
         self.chunk = self.min_chunk
         while self.chunk * 2 <= chunk:
             self.chunk *= 2
@@ -98,15 +124,20 @@ class ImageRenderer:
         camera_mat, world_mat, scale_mat = (mat(camera_mat), mat(world_mat),
                                             mat(scale_mat))
         time_step = torch.tensor(float(time_step), device=self.device)
-        keys = ("color", "depth", "weighted_z", "normal", "depth_highest")
+        keys = [k for k, _ in KEYS]
         outs = {k: [] for k in keys}
         extra = {"weights": [], "pts": []}
+        # This rank's slice of every chunk.
+        part = chunk // self.world
         # Results stay on the device until the end: a host fetch per chunk
         # would serialize against the next chunk's launches.
         for i in range(0, n_total, chunk):
-            res = self._chunk(fields, chunk, i, h, w, camera_mat, world_mat,
-                              scale_mat, time_step, depth_range[0],
-                              depth_range[1], float(cos_anneal_ratio))
+            res = self._chunk(fields, part, i + self.rank * part, h, w,
+                              camera_mat, world_mat, scale_mat, time_step,
+                              depth_range[0], depth_range[1],
+                              float(cos_anneal_ratio))
+            if self.group is not None:
+                res = self._gather(res, want_pts)
             for k in keys:
                 outs[k].append(res[k])
             if want_pts:
@@ -122,3 +153,20 @@ class ImageRenderer:
             result["weights_flat"] = torch.cat(extra["weights"], 0)[:n].cpu().numpy()
             result["pts_flat"] = torch.cat(extra["pts"], 0)[:n].cpu().numpy()
         return result
+
+    def _gather(self, res: dict, want_pts: bool) -> dict:
+        """Every rank's slice of a chunk's outputs, in rank order: one
+        all-gather of the outputs packed side by side."""
+        cols = [res[k].reshape(res[k].shape[0], -1) for k, _ in KEYS]
+        widths = [width for _, width in KEYS]
+        if want_pts:
+            cols += [res["weights"], res["pts"].reshape(len(res["pts"]), -1)]
+            widths += [res["weights"].shape[1], res["pts"][0].numel()]
+        full = gather_rays(torch.cat(cols, 1), self.group)
+        out = dict(zip([k for k, _ in KEYS] + ["weights", "pts"],
+                       torch.split(full, widths, 1)))
+        for k in ("depth", "weighted_z", "depth_highest"):
+            out[k] = out[k][:, 0]
+        if want_pts:
+            out["pts"] = out["pts"].reshape(len(full), *res["pts"].shape[1:])
+        return out

@@ -222,10 +222,22 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
+def check_device(index: int, current: int, name: str) -> None:
+    """A kernel input must lie on the current CUDA device: the C entry
+    points launch there (and set their attributes there), while ``stream``
+    takes the tensor's own device."""
+    if index != current:
+        raise ValueError(
+            f"{name}: tensor on cuda:{index}, but the current device is "
+            f"cuda:{current}; call torch.cuda.set_device first")
+
+
 def check_input(t, name: str, width: int) -> None:
-    """A kernel input must be a contiguous f32 (n, width) CUDA tensor."""
+    """A kernel input must be a contiguous f32 (n, width) CUDA tensor on
+    the current device."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    check_device(t.device.index, torch.cuda.current_device(), name)
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if t.dim() != 2 or t.shape[1] != width:

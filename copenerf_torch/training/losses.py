@@ -46,12 +46,17 @@ def eikonal_loss(normals: torch.Tensor) -> torch.Tensor:
     return torch.mean((torch.linalg.norm(n, dim=-1) - 1.0) ** 2)
 
 
-def sdf_flow_loss(scene_flow, normals, sdf_flows, weights) -> torch.Tensor:
-    """|<flow, n> + d(sdf)/dt| weighted by the detached render weights."""
+def sdf_flow_loss(scene_flow, normals, sdf_flows, weights,
+                  weight_sum=None) -> torch.Tensor:
+    """|<flow, n> + d(sdf)/dt| weighted by the detached render weights.
+    ``weight_sum`` replaces the sum of the weights in the denominator (the
+    data-parallel step passes the sum over every rank's rays)."""
     w = weights.reshape(-1).detach()
     lhs = torch.sum(scene_flow * normals.reshape(-1, 3), dim=-1)
+    if weight_sum is None:
+        weight_sum = torch.sum(w)
     return torch.sum(torch.abs(lhs + sdf_flows.reshape(-1)) * w) / (
-        torch.sum(w) + 1e-10)
+        weight_sum + 1e-10)
 
 
 def ssim_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,16 @@ On a CUDA device the step runs the port's kernels: four value sweeps
 (K2), the render-core forward and backward (K1-fwd, K1-bwd) and the
 sdf-consistency value query and its backward (K3-fwd, K3-bwd). Passing
 ``device="cpu"`` tensors takes the kernels' plain versions.
+
+With a process group (``build_train_step(..., group=...)``) the step is
+data-parallel, one process per card: every rank draws the global batch
+from the same generator and keeps its contiguous slice of whole patches,
+computes its share of the global loss (means over the global batch; the
+ratio terms' detached denominators summed over the ranks before the
+division), and the gradients of the optimized parameters are summed by one
+all-reduce of a flat bucket, so every rank takes the single-device step of
+the global batch, to f32 summation order. The JAX package gets the same
+from sharding constraints on one program (``mesh=``).
 """
 
 from __future__ import annotations
@@ -29,6 +39,9 @@ from ..models.fields import VarianceNetwork, motion_apply
 from ..ops.interp import warp_pixels
 from ..ops.rays import rays_from_pixels
 from ..ops.renderer import RendererConfig, render
+from ..parallel.distributed import (all_reduce_, all_reduce_grads_, rank,
+                                    world_size)
+from ..parallel.mesh import shard_rays
 from ..poses.lie import se3_inverse
 from ..poses.motion import full_video_w2c
 from .losses import (edge_aware_smoothness_loss, eikonal_loss, rgb_l1_loss,
@@ -105,14 +118,27 @@ def make_loss_weights(rgb, eikonal, sdf, flow_rgb, sdf_consistency,
 
 
 def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
-                   ray_idx: torch.Tensor, generator=None, t_rand=None):
+                   ray_idx: torch.Tensor, generator=None, t_rand=None,
+                   group=None):
     """(total loss, metrics) of one step for explicit ray indices.
 
     ``fields`` is the ``ModuleDict`` of networks; ``batch`` holds the
     device-resident image stack and the step's scalars (see
     ``build_train_step``); ``t_rand`` (n, n_samples) overrides the
-    stratified jitter, which otherwise comes from ``generator``."""
+    stratified jitter, which otherwise comes from ``generator``.
+
+    With ``group`` the rays are this rank's equal slice of whole patches of
+    the global batch, and the loss and metrics are this rank's shares of the
+    global ones: each mean is scaled by 1/world, and the denominators of
+    the sdf-flow and flow-rgb ratios (detached) are summed over the ranks
+    before the division. Their sums over the ranks are the global values,
+    and so are the sums of the gradients."""
     dev = ray_idx.device
+    world = world_size(group) if group is not None else 1
+
+    def part(x):
+        return x if world == 1 else x * (1.0 / world)
+
     p, p_norm = _pixels_from_indices(ray_idx, s.h, s.w)
     image_idx = batch["image_idx"]
     image = _gather_image(batch["images_all"], image_idx)
@@ -144,9 +170,9 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
 
     w = batch["loss_weights"]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    rgb_loss = rgb_l1_loss(out["color_fine"], rgb_gt)
-    l2_mean = torch.mean((out["color_fine"] - rgb_gt) ** 2)
-    eik_loss = eikonal_loss(out["normals"])
+    rgb_loss = part(rgb_l1_loss(out["color_fine"], rgb_gt))
+    l2_mean = part(torch.mean((out["color_fine"] - rgb_gt) ** 2))
+    eik_loss = part(eikonal_loss(out["normals"]))
     sdf_loss = flow_rgb_loss = sdf_cons_loss = edge_loss = smooth_loss = zero
 
     if s.stage1:
@@ -155,8 +181,9 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
                               device=dev).reshape(1, 1)
         omega, vel = motion_apply(fields["motion"], t_q)
         scene_flow = torch.cross(omega[0].expand(pts.shape), pts, dim=-1) + vel[0]
-        sdf_loss = sdf_flow_loss(scene_flow, out["normals"], out["sdf_flows"],
-                                 out["weights"].reshape(-1))
+        weights_flat = out["weights"].reshape(-1)
+        # Per reference frame: (weighted L1 sum, valid-pixel count).
+        refs = []
 
         if s.use_flow_rgb or s.use_sdf_consistency:
             # The reference computes this block only when the reference
@@ -167,8 +194,9 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
                                     != torch.as_tensor(batch["world_cam_idx"],
                                                        device=dev))
                 sdf_cons_loss = torch.where(
-                    active, torch.mean(torch.abs(out["sdf_world"].reshape(-1)
-                                                 - out["sdf"].reshape(-1))),
+                    active, part(torch.mean(torch.abs(
+                        out["sdf_world"].reshape(-1)
+                        - out["sdf"].reshape(-1)))),
                     zero)
             if s.use_flow_rgb:
                 ray_weights = out["weights"][..., None]           # (N, S, 1)
@@ -193,21 +221,34 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
                     warped = warp_pixels(
                         _gather_image(batch["images_all"], ref_idx), corr,
                         normalize=True)
-                    return (torch.sum(torch.abs(warped - rgb_gt) * valid)
-                            / (torch.sum(valid) + 1e-10))
+                    return (torch.sum(torch.abs(warped - rgb_gt) * valid),
+                            torch.sum(valid))
 
-                losses_t = torch.stack([one_ref(t) for t in range(s.n_ref)])
-                flow_rgb_loss = torch.where(any_ref, torch.sum(losses_t) / 3.0,
-                                            zero)
+                refs = [one_ref(t) for t in range(s.n_ref)]
+
+        # The ratios' denominators, over every rank's rays before dividing.
+        weight_sum = None
+        dens = [den for _, den in refs]
+        if group is not None:
+            sums = all_reduce_(torch.stack(
+                [torch.sum(weights_flat.detach())] + dens), group)
+            weight_sum, dens = sums[0], list(sums[1:])
+        sdf_loss = sdf_flow_loss(scene_flow, out["normals"], out["sdf_flows"],
+                                 weights_flat, weight_sum)
+        if refs:
+            losses_t = torch.stack([num / (den + 1e-10)
+                                    for (num, _), den in zip(refs, dens)])
+            flow_rgb_loss = torch.where(any_ref, torch.sum(losses_t) / 3.0,
+                                        zero)
 
     ps = s.patch_size
     if ps > 1:
-        n_patches = s.n_points // (ps * ps)
+        n_patches = n // (ps * ps)
         disp = out["depth_pred"].reshape(n_patches, ps, ps, 1)
         rgb_grid = rgb_gt.reshape(n_patches, ps, ps, 3)
         scale = 1.0 / (2 ** s.smooth_scale)
-        edge_loss = scale * edge_aware_smoothness_loss(disp, rgb_grid)
-        smooth_loss = scale * smoothness_loss(disp)
+        edge_loss = scale * part(edge_aware_smoothness_loss(disp, rgb_grid))
+        smooth_loss = scale * part(smoothness_loss(disp))
 
     total = (w["rgb"] * rgb_loss + w["eikonal"] * eik_loss
              + w["sdf"] * sdf_loss + w["flow_rgb"] * flow_rgb_loss
@@ -220,13 +261,28 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
         "sdf_consistency_loss": sdf_cons_loss,
         "edge_aware_smoothness_loss": edge_loss,
         "smoothness_loss": smooth_loss,
-        "s_val": torch.mean(out["s_val"]),
-        "cdf_fine": torch.mean(out["cdf_fine"]),
-        "weight_sum": torch.mean(out["weight_sum"]),
-        "weight_max": torch.mean(out["weight_max"]),
-        "psnr": -10.0 * torch.log10(torch.clamp(l2_mean, min=1e-10)),
+        "s_val": part(torch.mean(out["s_val"])),
+        "cdf_fine": part(torch.mean(out["cdf_fine"])),
+        "weight_sum": part(torch.mean(out["weight_sum"])),
+        "weight_max": part(torch.mean(out["weight_max"])),
+        "psnr": _psnr(l2_mean),
     }
     return total, metrics
+
+
+def _psnr(l2_mean):
+    return -10.0 * torch.log10(torch.clamp(l2_mean, min=1e-10))
+
+
+def _sum_metrics(metrics: dict, group) -> dict:
+    """Every rank's metric shares summed by one all-reduce (on the device,
+    no host copy); the psnr of the global l2_mean."""
+    names = [k for k in metrics if k != "psnr"]
+    sums = all_reduce_(torch.stack([metrics[k].detach() for k in names]),
+                       group)
+    out = dict(zip(names, sums.unbind()))
+    out["psnr"] = _psnr(out["l2_mean"])
+    return out
 
 
 def _adam(params):
@@ -245,9 +301,16 @@ def init_train_state(fields) -> dict:
     }
 
 
-def build_train_step(rcfg: RendererConfig, static: StepStatic):
+def build_train_step(rcfg: RendererConfig, static: StepStatic, group=None):
     """Return ``step(state, batch, generator) -> metrics``: one update of
     ``state`` (``init_train_state``) in place.
+
+    ``group`` None is the single-device step. With a process group
+    (``parallel.distributed.process_group()``) the step is data-parallel:
+    every rank draws the global batch of ``static.n_points`` rays (or takes
+    the injected global ``ray_idx`` / ``t_rand``), keeps its contiguous
+    slice, and returns the global metrics; ``n_points`` must split into
+    whole patches over the ranks.
 
     ``batch``: ``images_all`` (F, 3, H, W) uint8 or f32, ``K_all`` (F, 4, 4),
     ``ref_idxs`` (n_ref,) int, ``ref_in_list`` and ``ref_valid_flow``
@@ -259,13 +322,21 @@ def build_train_step(rcfg: RendererConfig, static: StepStatic):
     and ``t_rand``. ``generator`` (on the batch's device) draws the patches
     and the stratified jitter."""
     s = static
+    world = world_size(group) if group is not None else 1
+    me = rank(group) if group is not None else 0
+    if group is not None and s.n_points % (world * s.patch_size ** 2):
+        raise ValueError(
+            f"n_points={s.n_points} does not split into whole "
+            f"{s.patch_size}x{s.patch_size} patches over {world} ranks")
+    # The stratified jitter's width, as ``render`` draws it.
+    n_uniform = rcfg.n_samples + (0 if s.use_importance else rcfg.n_importance)
 
     def step(state: dict, batch: dict, generator=None) -> dict:
         fields = state["fields"]
         opts = (state["opt_fields"], state["opt_motion"])
         for opt, lr in zip(opts, (batch["lr"], batch["motion_lr"])):
-            for group in opt.param_groups:
-                group["lr"] = float(lr)
+            for pg in opt.param_groups:
+                pg["lr"] = float(lr)
             opt.zero_grad(set_to_none=True)
         if s.inject_sampling:
             ray_idx, t_rand = batch["ray_idx"], batch["t_rand"]
@@ -274,9 +345,25 @@ def build_train_step(rcfg: RendererConfig, static: StepStatic):
                 generator, s.h, s.w, s.patch_size, s.n_points,
                 device=batch["images_all"].device)
             t_rand = None
+            if group is not None:
+                # The global batch's jitter, the draw the single-device
+                # render makes next from the generator.
+                t_rand = torch.rand((s.n_points, n_uniform),
+                                    generator=generator,
+                                    device=ray_idx.device)
+        if group is not None:
+            ray_idx = shard_rays(ray_idx, me, world)
+            t_rand = shard_rays(t_rand, me, world)
         total, metrics = compute_losses(fields, rcfg, s, batch, ray_idx,
-                                        generator=generator, t_rand=t_rand)
+                                        generator=generator, t_rand=t_rand,
+                                        group=group)
         total.backward()
+        if group is not None:
+            stepped = opts if s.train_motion else opts[:1]
+            all_reduce_grads_([p for opt in stepped
+                               for g in opt.param_groups
+                               for p in g["params"]], group)
+            metrics = _sum_metrics(metrics, group)
         opts[0].step()
         if s.train_motion:
             opts[1].step()

@@ -30,8 +30,16 @@ iteration's patches and jitter come from a device generator seeded from
 
 ``extract_geometry`` meshes the SDF's zero level set: the grid query is
 K2 on a CUDA device (``sdf_grid``), the marching the port's mesher on the
-host. Not ported yet: multi-GPU training; ``io_primary`` gates every file
-write for it.
+host.
+
+Multi-GPU: one process per card, launched by ``torchrun`` (or
+``training.distributed: true``), joins the process group before anything
+else is built (``parallel/distributed.py``). Every rank holds the whole
+model; the train step is data-parallel over the ray batch (``step.py``),
+the renders are split over the ranks (``ImageRenderer``), the stage-2
+transition's refined poses are rank 0's, broadcast, and only rank 0
+(``io_primary``) writes files and logs. ``training.n_devices``, where set,
+must equal the number of processes.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from ..models.fields import (configs_from_cfg, init_all_fields, motion_apply,
                              sdf_value_nograd)
 from ..models.torch_io import load_pretrained_sdf
 from ..ops.renderer import RendererConfig
+from ..parallel import distributed as dist
 from ..poses.motion import full_video_w2c
 from ..poses.retriever import pose_retriever_all, pose_retriever_init
 from ..utils.profiling import StepTimer, synchronize, trace
@@ -75,11 +84,33 @@ TRACE_ITERS = 5
 MESH_BATCH = 64 ** 3
 
 
+def bring_up(cfg: dict, device="cuda") -> None:
+    """Join the process group where the run asks for one
+    (``training.distributed``, or torchrun's ``WORLD_SIZE`` above 1), before
+    any other computation (the JAX ``Trainer`` initializes first too); Gloo
+    for a CPU run, NCCL on cards. A no-op where it is already joined."""
+    if cfg["training"].get("distributed") or dist.launched_world_size() > 1:
+        dist.initialize("gloo" if torch.device(device).type == "cpu"
+                        else None)
+
+
 class Trainer:
     def __init__(self, cfg: dict, device="cuda", verbose: bool = True):
-        self.device = resolve_device(device)
-        self.cfg = cfg
         tr = cfg["training"]
+        bring_up(cfg, device)
+        self.group = dist.process_group()
+        self.rank, self.world = dist.rank(), dist.world_size()
+        n_devices = tr.get("n_devices")
+        if n_devices and int(n_devices) != self.world:
+            raise ValueError(
+                f"training.n_devices={n_devices} but {self.world} process(es) "
+                "run: the port runs one process per GPU; launch with "
+                f"torchrun --nproc-per-node {n_devices} -m copenerf_torch.cli "
+                "train <cfg.yaml>, or leave n_devices unset")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.cfg = cfg
         self.tr = tr
         self.verbose = verbose
         fused = tr.get("fused_kernels", "auto")
@@ -91,9 +122,8 @@ class Trainer:
                 "device='cpu') takes the plain versions")
         self.out_dir = tr["out_dir"]
         self.render_path = os.path.join(self.out_dir, "rendering")
-        # One writer: every file artifact is written only where io_primary
-        # holds (always here; the multi-GPU slice gates it per process).
-        self.io_primary = True
+        # One writer: every file artifact is written only on rank 0.
+        self.io_primary = self.rank == 0
         if self.io_primary:
             os.makedirs(os.path.join(self.out_dir, "models"), exist_ok=True)
             os.makedirs(self.render_path, exist_ok=True)
@@ -160,6 +190,7 @@ class Trainer:
             self._log("Checkpoint found ==> continue training")
         except FileNotFoundError:
             self._log("No checkpoint found ==> train from scratch")
+        dist.check_replicas(self.state["fields"], self.group)
 
         self.lr_state = LRState(tr)
         self.logger = ScalarLogger(self.out_dir, enabled=self.io_primary)
@@ -202,12 +233,15 @@ class Trainer:
         # the batch without changing the objective in expectation.
         self.rays_per_step = int(tr.get("rays_per_step") or
                                  tr["n_training_points"])
-        if self.rays_per_step % (self.patch_size ** 2) != 0:
+        if self.rays_per_step % (self.world * self.patch_size ** 2) != 0:
             raise ValueError(
                 f"rays_per_step={self.rays_per_step} must be a multiple of "
-                f"patch_size^2={self.patch_size ** 2}")
+                f"patch_size^2={self.patch_size ** 2}"
+                + (f" times the {self.world} ranks (each takes whole patches)"
+                   if self.world > 1 else ""))
         self.image_renderer = ImageRenderer(
-            self.rcfg, chunk=tr.get("render_chunk", 32768), device=self.device)
+            self.rcfg, chunk=tr.get("render_chunk", 32768), device=self.device,
+            group=self.group)
         self._steps = {}
         self.query_in_canonical_space = False
         # Stage 2: each train view's refined pose, (M, 4, 4) on the device
@@ -223,8 +257,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _log(self, msg):
-        if self.verbose:
+        if self.verbose and self.io_primary:
             print(f"[trainer] {msg}")
+
+    def _from_rank0(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (on this device) overwritten with rank 0's (itself in one
+        process)."""
+        t = t.to(self.device).contiguous()
+        dist.broadcast_([t], src=0, group=self.group)
+        return t
 
     def _build_datasets(self, resolution):
         cfg = dict(self.cfg)
@@ -290,7 +331,8 @@ class Trainer:
                 use_sdf_consistency=(
                     sum(self.tr["sdf_consistency_weight"]) != 0),
                 smooth_scale=self.s)
-            self._steps[key] = build_train_step(self.rcfg, static)
+            self._steps[key] = build_train_step(self.rcfg, static,
+                                                group=self.group)
         return self._steps[key]
 
     def time_of(self, idx):
@@ -448,6 +490,15 @@ class Trainer:
         world_pos = list(i_train).index(self.world_cam_idx)
         pred_poses = (np.linalg.inv(pred_poses) @
                       pred_poses[world_pos][None]).astype(np.float32)
+        if self.group is not None:
+            # Rank 0's poses and fallback flag on every rank: the ranks'
+            # refinements may differ by rounding or one rank's fallback.
+            flat = self._from_rank0(torch.from_numpy(np.append(
+                pred_poses.reshape(-1),
+                np.float32(self.pose_refine_fell_back))))
+            flat = flat.cpu().numpy()
+            pred_poses = flat[:-1].reshape(pred_poses.shape)
+            self.pose_refine_fell_back = bool(flat[-1])
         self._set_world_mats(pred_poses)
         self.refined_c2w = pred_poses
         if self.io_primary:
@@ -745,6 +796,11 @@ class Trainer:
                     stage1=not self.query_in_canonical_space,
                     train_motion=not freeze_pose)
                 perm = np.random.permutation(self.train_field.N_imgs)
+                if self.group is not None:
+                    # Rank 0's view order: a library's first import can draw
+                    # from one rank's np.random and not another's (importing
+                    # TensorBoard, which only rank 0's logger does, does).
+                    perm = self._from_rank0(torch.from_numpy(perm)).cpu().numpy()
                 epoch_metrics = []
                 vis_ms = 0.0
                 synchronize(self.device)
@@ -797,6 +853,10 @@ class Trainer:
                             with record_function("visualize"):
                                 self.visualize(int(pos), epoch_it)
                         except Exception as e:  # as the JAX Trainer does
+                            # unless ranks would leave the split render's
+                            # collectives out of step
+                            if self.group is not None:
+                                raise
                             self._log(f"visualization failed: {e}")
                         vis_ms += 1e3 * (time.perf_counter() - t_vis)
 
@@ -867,11 +927,13 @@ class Trainer:
                   f"busy share {summary['busy_share']:.3f}")
 
     def save_checkpoint(self):
-        if not self.io_primary:
-            return
-        scalars = {"epoch_it": self.epoch_it, "it": self.it,
-                   "depth_range": list(map(float, self.depth_range))}
-        tree = train_state_to_jax(self.state)
-        save_checkpoint(self.out_dir, tree, scalars, latest=True)
-        save_checkpoint(self.out_dir, tree, scalars, latest=False,
-                        epoch=self.epoch_it)
+        """Rank 0 writes; every rank then waits for it, so that nothing
+        reads a half-written checkpoint."""
+        if self.io_primary:
+            scalars = {"epoch_it": self.epoch_it, "it": self.it,
+                       "depth_range": list(map(float, self.depth_range))}
+            tree = train_state_to_jax(self.state)
+            save_checkpoint(self.out_dir, tree, scalars, latest=True)
+            save_checkpoint(self.out_dir, tree, scalars, latest=False,
+                            epoch=self.epoch_it)
+        dist.barrier()

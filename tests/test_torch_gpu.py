@@ -23,6 +23,7 @@ outputs and K6's sdf_w, like sdf, to 1e-4 absolute."""
 
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1095,3 +1096,202 @@ def test_bench_prints_the_contract_line(monkeypatch, capsys):
                 "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
     assert {k: v for k, v in line["launches"].items() if v} == {
         k: 3 * n for k, n in per_step.items()}
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism on the card: the ranks are processes running this file
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT = 300
+DP_STEPS = 3
+DP_RAYS = 128            # 8 patches of 4x4: 4 a rank at world size 2
+DP_PER_STEP = {"sdf_value": 2, "rendercore_fwd": 1, "rendercore_bwd": 1,
+               "sdf_value_diff_fwd": 1, "sdf_value_bwd": 1}
+
+
+def _dp_np_batch():
+    """The stage-1 batch of ``test_torch_step.py`` (random images), with
+    DP_STEPS draws of DP_RAYS global rays and their jitter."""
+    rng = np.random.default_rng(0)
+    f = 30.0 / 12.0
+    k = np.array([[f, 0, 0, 0], [0, -f, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1]],
+                 np.float32)
+    ray_idx = np.stack([TS.sample_patch_indices(
+        torch.Generator().manual_seed(s), 24, 24, 4, DP_RAYS,
+        device="cpu").numpy() for s in range(DP_STEPS)])
+    return {
+        "images_all": rng.uniform(size=(7, 3, 24, 24)).astype(np.float32),
+        "K_all": np.stack([k] * 7),
+        "ref_idxs": np.asarray([3, 4, 5], np.int32),
+        "ref_in_list": np.ones(3, np.float32),
+        "ref_valid_flow": np.asarray([1.0, 1.0, 0.0], np.float32),
+        "scale_mat": np.eye(4, dtype=np.float32),
+        "world_mat": np.eye(4, dtype=np.float32),
+        "query_time_step": np.float32(-0.2),
+        "world_time_step": np.float32(0.0), "image_idx": np.int32(2),
+        "world_cam_idx": np.int32(3), "near": np.float32(0.5),
+        "far": np.float32(3.5), "cos_anneal_ratio": np.float32(0.5),
+        "weights": np.asarray((1.0, 0.1, 0.1, 7.5, 0.1, 1.0, 1e-4),
+                              np.float32),
+        "lr": np.float32(1e-3), "motion_lr": np.float32(5e-4),
+        "ray_idx": ray_idx,
+        "t_rand": rng.uniform(size=(DP_STEPS, DP_RAYS, 16)).astype(np.float32),
+    }
+
+
+def _dp_rank_main(mode, work, rank):
+    """A rank of ``nccl1`` (one rank, NCCL) or ``gloo2`` (two ranks on card
+    0, Gloo): DP_STEPS data-parallel stage-1 steps of small nets on the
+    card; rank 0 also runs the single-device step (``nccl1``) or the
+    one-rank gradients of the global batch, in its order and two others,
+    at each step's weights (``gloo2``). Writes ``rank<r>.json``."""
+    import hashlib
+    import json
+
+    import test_torch_parallel as TPL
+
+    from copenerf_torch.parallel import distributed as dist
+
+    world = 1 if mode == "nccl1" else 2
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="1" if mode == "nccl1" else "2")
+    dist.initialize("nccl" if mode == "nccl1" else "gloo",
+                    init_method="file://" + os.path.join(work, "store"),
+                    timeout=DP_TIMEOUT)
+    group = dist.process_group()
+    nb = _dp_np_batch()
+    rcfg = RendererConfig(**TPL.STEP_RCFG)
+    s = TPL.static("stage1", n_points=DP_RAYS)
+    fields = TF.init_all_fields(TPL.STEP_CFGS, torch.Generator().manual_seed(0),
+                                device="cpu")
+    perturb_(fields["sdf"], torch.Generator().manual_seed(1))
+    fields = fields.to("cuda")
+    counters = [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER,
+                SVD.BWD_COUNTER]
+
+    def batch_of(k, rows=slice(None)):
+        b = {key: (v.cuda() if torch.is_tensor(v) else v)
+             for key, v in TPL.torch_batch(nb, k).items()}
+        return dict(b, ray_idx=b["ray_idx"][rows], t_rand=b["t_rand"][rows])
+
+    def one_rank(flds, b):
+        ref = copy.deepcopy(flds)
+        total, m = TS.compute_losses(ref, rcfg, s, b, b["ray_idx"],
+                                     t_rand=b["t_rand"])
+        total.backward()
+        return ({k: float(v) for k, v in m.items()},
+                [p.grad for k in TPL.stepped_nets("stage1")
+                 for p in ref[k].parameters()])
+
+    out = {"launches": [], "metric_rel": [], "grad_worst": [], "detail": []}
+    names = [f"{k}.{n}" for k in TPL.stepped_nets("stage1")
+             for n, _ in fields[k].named_parameters()]
+    state = TS.init_train_state(copy.deepcopy(fields))
+    step = TS.build_train_step(rcfg, s, group=group)
+    single = TS.init_train_state(copy.deepcopy(fields))
+    single_step = TS.build_train_step(rcfg, s)
+    reorders = [TPL.reorder_rows(DP_RAYS, seed)
+                for seed in range(TPL.N_REORDERS)]
+    for k in range(DP_STEPS):
+        if mode == "gloo2" and rank == 0:
+            ref_m, ref_g = one_rank(state["fields"], batch_of(k))
+            others = [one_rank(state["fields"], batch_of(k, rows))[1]
+                      for rows in reorders]
+        for c in counters:
+            c.launches = 0
+        m = {key: float(v) for key, v in step(state, batch_of(k)).items()}
+        out["launches"].append({c.name: c.launches for c in counters})
+        if mode == "nccl1":
+            single_step(single, batch_of(k))
+        elif rank == 0:
+            got = [p.grad for key in TPL.stepped_nets("stage1")
+                   for p in state["fields"][key].parameters()]
+            out["metric_rel"].append(max(abs(m[key] - v) / (abs(v) + 5e-3)
+                                         for key, v in ref_m.items()))
+            ratios = []
+            for i, (g, r) in enumerate(zip(got, ref_g)):
+                diff = float((g - r).abs().max())
+                scale = 1e-5 * float(r.abs().max())
+                noise = 2 * max(float((o[i] - r).abs().max()) for o in others)
+                ratios.append((diff / (max(scale, noise) + 1e-7), names[i],
+                               diff, scale, noise))
+            ratios.sort(reverse=True)
+            out["grad_worst"].append(ratios[0][0])
+            out["detail"].append(ratios[:4])
+    if mode == "nccl1":
+        ref = dict(single["fields"].named_parameters())
+        out["param_share"] = max(
+            float((p - ref[n]).abs().max() / ref[n].abs().max())
+            for n, p in state["fields"].named_parameters())
+    digest = hashlib.sha256()
+    for p in state["fields"].parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out["params_sha256"] = digest.hexdigest()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _run_dp_ranks(mode, world, work):
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), mode, str(work), str(r)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+@pytest.mark.gpu
+def test_nccl_world1_step_matches_single_device_on_card(tmp_path):
+    """One rank over NCCL (process group, gradient bucket all-reduce): after
+    3 data-parallel stage-1 steps the parameters are within 1e-6 of each
+    tensor's largest entry of the single-device step's (the smoke's
+    ``dp_nccl1`` bound); every step launches 2 K2 + K1 + K3."""
+    _require_cuda()
+    (res,) = _run_dp_ranks("nccl1", 1, tmp_path)
+    assert res["param_share"] <= 1e-6
+    assert all(lc == DP_PER_STEP for lc in res["launches"])
+
+
+@pytest.mark.gpu
+def test_gloo_two_ranks_on_one_card_match_one_rank(tmp_path):
+    """Two ranks sharing card 0 over Gloo, 64 rays each: per step the
+    global metrics within 2e-5 relative (+ 1e-7) of the one-rank step's on
+    the global batch, each gradient tensor within 1e-5 of its largest entry
+    or twice the one-rank gradient's own move when the rays are put in
+    another order that leaves the loss unchanged
+    (``test_torch_parallel.reorder_rows``: f32 summation order), exact
+    launches on both ranks, and both ranks' parameters bitwise equal after
+    3 steps."""
+    _require_cuda()
+    r0, r1 = _run_dp_ranks("gloo2", 2, tmp_path)
+    assert max(r0["metric_rel"]) <= 2e-5
+    assert max(r0["grad_worst"]) <= 1.0, r0["detail"]
+    assert all(lc == DP_PER_STEP for r in (r0, r1) for lc in r["launches"])
+    assert r0["params_sha256"] == r1["params_sha256"]
+
+
+if __name__ == "__main__":
+    import sys
+
+    _dp_rank_main(sys.argv[1], sys.argv[2], int(sys.argv[3]))

@@ -75,7 +75,9 @@ def test_import_leaves_jax_unloaded():
             "copenerf_torch.utils.backup, copenerf_torch.utils.checks, "
             "copenerf_torch.utils.frustum, copenerf_torch.ops.trajectories, "
             "copenerf_torch.mesher.marching_cubes, copenerf_torch.cli, "
-            "copenerf_torch.bench; "
+            "copenerf_torch.bench, copenerf_torch.parallel, "
+            "copenerf_torch.parallel.distributed, "
+            "copenerf_torch.parallel.mesh; "
             "copenerf_torch.evaluation.Evaluator; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")

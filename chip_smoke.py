@@ -9,11 +9,10 @@ Phases, each printed on its own line, any failure exits non-zero:
 2. build    nvcc builds every kernel in ``copenerf_torch/csrc`` (one process
             per source, in parallel); prints the build time and ptxas usage,
             then (``registers``) the registers and spill bytes of the
-            tensor-core kernels: K1 and K6 (3xTF32 on ``mma.sync``,
-            ``csrc/mma_tile.cuh``), K2-K5 and K7 (3xTF32 on ``wgmma``,
-            ``csrc/wgmma_tile.cuh``) and the weight-gradient reduction
-            (``wgmma``, ``csrc/wgrad.cu``), and any ptxas line about the
-            wgmma pipeline (``wgmma_warnings``).
+            tensor-core kernels: the row kernels K1-K7 (3xTF32 on
+            ``wgmma``, ``csrc/wgmma_tile.cuh``) and the weight-gradient
+            reduction (``wgmma``, ``csrc/wgrad.cu``), and any ptxas line
+            about the wgmma pipeline (``wgmma_warnings``).
 3. kernels  each forward kernel against its plain PyTorch version on the card
             at the main path's widths (the full-width SDF + color net of
             configs/default.yaml, geometric init perturbed by ``perturb_`` so
@@ -156,11 +155,16 @@ Phases, each printed on its own line, any failure exits non-zero:
             and the PLY. Launch counters zeroed before and read after
             (exactly 64 K2, no other kernel); 65,536 of the grid's values
             against the plain version on the CPU (1e-4); at resolution 64 a
-            card mesh and a CPU mesh of the same checkpoint (the same
-            triangle count, every vertex within 1e-3 voxel widths). Prints
-            the mesher's path, the mesh's size, the grid query's ms (CUDA
-            events), the K2 launches' alone, the marching's, the PLY
-            write's and the peak memory.
+            card mesh and a CPU mesh of the same checkpoint
+            (``mesh_agreement``: the same grid signs and triangles,
+            every vertex within 1e-3 voxel widths or, on an edge
+            where the SDF barely changes, within what twice the plain f32
+            grid's error against f64 explains there). Prints the mesher's
+            path, the mesh's size, the grid query's ms (CUDA events), the
+            K2 launches' alone, the marching's, the PLY write's and the
+            peak memory. ``python3 chip_smoke.py --mesh-readings`` trains
+            the stage-2 run alone and prints the same check at resolutions
+            63, 64, 65 and four time steps.
 24. cli      the mains through argv in this process, on the card by default:
             ``train_main --max-epochs 1`` on the trainer phase's scene (a
             fresh out_dir; the checkpoint, the config copy and ``backup/``
@@ -427,16 +431,17 @@ def bounds(flop, nbytes):
 
 
 def split_ms(fn, reps, row_kernel):
-    """(row kernel ms, reduction ms, every kernel's ms) of one call of a
-    backward launcher, from torch.profiler's device times
+    """(row kernel ms, reduction ms, every kernel's ms per launch and
+    launches recorded) of one call of a backward launcher, which runs each
+    of its kernels once, from torch.profiler's device times
     (``kernel_times.kernel_split``); "not measured" where it sees none."""
     from kernel_times import kernel_split
 
     split = kernel_split(fn, reps)
     if split is None:
         return "not measured", "not measured", "not measured"
-    return (sum(v for k, v in split.items() if row_kernel in k),
-            sum(v for k, v in split.items() if k.startswith("wgrad")), split)
+    return (sum(v["ms"] for k, v in split.items() if row_kernel in k),
+            sum(v["ms"] for k, v in split.items() if k.startswith("wgrad")), split)
 
 
 def smi_under_load(fn, ms_each):
@@ -864,13 +869,15 @@ def phase_train_kernels(fields):
 
         from kernel_times import kernel_split
 
-        pack_ms = cuda_ms(value_pack, reps=5)
-        pack_split = kernel_split(value_pack, 5)
+        pack_reps = 5
+        pack_ms = cuda_ms(value_pack, reps=pack_reps)
+        pack_split = kernel_split(value_pack, pack_reps)
     log("step_shapes", rows=n, kernel_ms=step_ms, bound_ms=step_bound,
         tc_bound_ms={**step_tc, "rendercore_fwd": tc_bound_ms(
             *k1_work(scfg, ccfg, n, sdf_net, color_net))},
         value_pack_ms=pack_ms,
-        value_pack_device_ms=sum(pack_split.values()) if pack_split else "not measured")
+        value_pack_device_ms=(sum(v["ms"] * v["launches"] for v in pack_split.values())
+                              / pack_reps if pack_split else "not measured"))
     del x, d, cots, xs, xk
     torch.cuda.empty_cache()
     for k in results:
@@ -2528,6 +2535,110 @@ def capture_self(cls, name, store):
     return orig
 
 
+def mesh_agreement(card, cpu, res, time_step=None):
+    """The meshes of one checkpoint at resolution ``res`` through two
+    Trainers' ``extract_geometry`` (time_step None: the world camera's),
+    ``card`` on the card and ``cpu`` on the CPU, held against each other.
+
+    The mesher puts each vertex on one grid edge (a, b) whose ends lie on
+    either side of the level, at the fraction f_a / (f_a - f_b) of it; which
+    edges, and the vertices' order, depend on the grid's signs alone. Two
+    grids of the same signs that differ by at most d at a and b place the
+    vertex at most d / max(|f_b - f_a|) apart along the edge (the larger of
+    the two grids' changes; exact for the interpolation), in voxel widths,
+    per coordinate. Where the SDF barely changes across a voxel, f32
+    rounding alone moves the vertex far. So the grids' signs and the
+    triangles must be the same, and each vertex within the larger of 1e-3
+    voxel widths and 2 eps / max(|f_b - f_a|) of its counterpart, eps the
+    plain f32 grid's largest error against an f64 evaluation of the same
+    points: two f32 grids each as accurate as the plain one differ by at
+    most 2 eps. Each vertex's edge comes from the mesher itself: on the
+    grid of signs alone (-1 inside, 1 outside) it puts every vertex at its
+    edge's midpoint, exactly, in the same order. -> a dict of readings;
+    ``ok`` the verdict."""
+    import numpy as np
+    import torch
+    from copenerf_torch.mesher import marching_cubes as MC
+    from copenerf_torch.ops.kernels.sdf_value import sdf_value_plain
+    from copenerf_torch.training import trainer as TT
+
+    grids = []
+    sdf_grid = TT.Trainer.sdf_grid
+
+    def keep(self, *args, **kwargs):
+        grids.append(sdf_grid(self, *args, **kwargs))
+        return grids[-1]
+
+    TT.Trainer.sdf_grid = keep
+    try:
+        card_v, card_t = card.extract_geometry(resolution=res, time_step=time_step)
+        t0 = time.perf_counter()
+        cpu_v, cpu_t = cpu.extract_geometry(resolution=res, time_step=time_step)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        TT.Trainer.sdf_grid = sdf_grid
+    g_card, g_cpu = (g.astype(np.float64).ravel() for g in grids)
+    # The same points (the f32 axes, the f32 time step) in f64 on the CPU.
+    t = cpu.world_time_step if time_step is None else time_step
+    axes = MC.grid_axes((-1.2,) * 3, (1.2,) * 3, res)
+    pts = np.stack([*np.meshgrid(*axes, indexing="ij"),
+                    np.full((res,) * 3, t, np.float32)], -1).reshape(-1, 4)
+    net64 = copy.deepcopy(cpu.state["fields"]["sdf"]).cpu().double()
+    g64 = -torch.cat([sdf_value_plain(net64, p) for p in
+                      torch.from_numpy(pts).double().split(65536)]).numpy()
+    eps = float(np.abs(g_cpu - g64).max())
+
+    voxel = 2.4 / (res - 1)
+    out = {"resolution": res, "time_step": float(t), "card_faces": len(card_t),
+           "cpu_faces": len(cpu_t), "card_vertices": len(card_v),
+           "cpu_vertices": len(cpu_v), "cpu_f64_err": eps,
+           "card_f64_err": float(np.abs(g_card - g64).max()),
+           "card_cpu_grid_diff": float(np.abs(g_card - g_cpu).max()),
+           "cpu_mesh_ms": cpu_ms}
+    inside = grids[1] < 0
+    mid, _ = MC.marching_cubes(np.where(inside, -1.0, 1.0).astype(np.float32), 0.0)
+    same = (np.array_equal(inside, grids[0] < 0) and card_v.shape == cpu_v.shape
+            == mid.shape and np.array_equal(card_t, cpu_t))
+    out["same_signs_and_triangles"] = bool(same)
+    if not same:
+        out["ok"] = False
+        return out
+    a, b = (np.ravel_multi_index(f(mid).astype(np.int64).T, inside.shape)
+            for f in (np.floor, np.ceil))
+    err = np.abs(card_v - cpu_v).max(1) / voxel
+    change = np.maximum(np.abs(g_cpu[b] - g_cpu[a]), np.abs(g_card[b] - g_card[a]))
+    bound = np.maximum(1e-3, 2 * eps / change)
+    out.update(max_vertex_err_voxels=float(err.max()),
+               flat_vertices=int((bound > 1e-3).sum()),
+               largest_bound_voxels=float(bound.max()),
+               worst_err_over_bound=float((err / bound).max()),
+               ok=bool((err <= bound).all()))
+    return out
+
+
+def mesh_readings():
+    """``--mesh-readings``: the ``trainer_stage2`` phase's run, then
+    ``mesh_agreement`` at resolutions 63, 64 and 65 and at the world
+    camera's time step (the gate's, at 64), -0.5, 0 and 0.5, one line each.
+    Readings of the gate beyond its one point, for this checkout's kernels;
+    exits 0 whatever they read."""
+    import tempfile
+
+    sys.path.insert(0, REPO)
+    from copenerf_torch.training import trainer as TT
+
+    phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, cfg, _ = phase_trainer_stage2(kernel_counters(), tmp)
+        card = TT.Trainer(copy.deepcopy(cfg), verbose=False)
+        cpu = TT.Trainer(copy.deepcopy(cfg), device="cpu", verbose=False)
+        for t in (None, -0.5, 0.0, 0.5):
+            for r in (63, 64, 65):
+                log("mesh_reading", **mesh_agreement(card, cpu, r, t))
+    return 0
+
+
 def phase_mesh(counters, cfg, tmp):
     """``extract_mesh_main([cfg, "--resolution", "256"])`` on
     ``trainer_stage2``'s run (the CLI's default resolution: 16,777,216 grid
@@ -2539,8 +2650,8 @@ def phase_mesh(counters, cfg, tmp):
     events after it. Gates: the launches; 65,536 of the grid's values, from
     a seed, against the plain version on the CPU within K2's forward gate
     (1e-4); at resolution 64 a card mesh and a CPU mesh of the same
-    checkpoint with the same triangle count and every vertex within 1e-3
-    voxel widths of its counterpart; a non-empty mesh in the PLY."""
+    checkpoint that pass ``mesh_agreement``; a non-empty mesh in the
+    PLY."""
     import numpy as np
     import torch
     from copenerf_torch import cli
@@ -2622,15 +2733,8 @@ def phase_mesh(counters, cfg, tmp):
     card = grid.reshape(-1)[flat.cpu().numpy()]
     query_err = float(np.abs(card - plain).max())
     # Resolution 64: the card's mesh against a CPU Trainer's of the same run.
-    card_v, card_t = trainer.extract_geometry(resolution=MESH_CHECK_RES)
     cpu_trainer = TT.Trainer(copy.deepcopy(cfg), device="cpu", verbose=False)
-    t0 = time.perf_counter()
-    cpu_v, cpu_t = cpu_trainer.extract_geometry(resolution=MESH_CHECK_RES)
-    cpu_mesh_ms = 1e3 * (time.perf_counter() - t0)
-    voxel = 2.4 / (MESH_CHECK_RES - 1)
-    same_shape = card_v.shape == cpu_v.shape and card_t.shape == cpu_t.shape
-    vert_err = float(np.abs(card_v - cpu_v).max() / voxel) if same_shape else None
-    tris_equal = same_shape and bool(np.array_equal(card_t, cpu_t))
+    check = mesh_agreement(trainer, cpu_trainer, MESH_CHECK_RES)
 
     log("mesh", resolution=MESH_RES, mesher_path=path, vertices=n_verts,
         faces=n_faces, launches=launches, expected=want,
@@ -2638,11 +2742,7 @@ def phase_mesh(counters, cfg, tmp):
         k2_ms_per_launch=k2_ms, marching_ms=seen["marching_ms"],
         ply_write_ms=seen["ply_write_ms"], main_ms=main_ms, peak_gb=peak_gb,
         query_max_abs_err=query_err, query_points=MESH_CHECK_POINTS,
-        check_resolution=MESH_CHECK_RES,
-        check={"card_faces": len(card_t), "cpu_faces": len(cpu_t),
-               "card_vertices": len(card_v), "cpu_vertices": len(cpu_v),
-               "max_vertex_err_voxels": vert_err, "triangles_equal": tris_equal,
-               "cpu_mesh_ms": cpu_mesh_ms},
+        check_resolution=MESH_CHECK_RES, check=check,
         note=("grid_query_ms: CUDA events around Trainer.sdf_grid (index "
               "arithmetic, 64 K2 launches, the host copy); k2_ms: 64 x one "
               "262,144-point batch timed alone (CUDA events); marching_ms "
@@ -2653,10 +2753,9 @@ def phase_mesh(counters, cfg, tmp):
         bad.append(f"launch counts {launches} != {want}")
     if not query_err <= 1e-4:
         bad.append(f"grid values {query_err} from the plain version")
-    if not (same_shape and len(card_t) == len(cpu_t) and vert_err <= 1e-3):
-        bad.append(f"card mesh {card_v.shape} / {card_t.shape} against CPU "
-                   f"{cpu_v.shape} / {cpu_t.shape}, vertex err {vert_err} voxels")
-    if not (n_verts > 0 and n_faces > 0 and len(card_t) > 0):
+    if not check["ok"]:
+        bad.append(f"card mesh against CPU mesh: {check}")
+    if not (n_verts > 0 and n_faces > 0 and check["card_faces"] > 0):
         bad.append(f"empty mesh: {n_verts} vertices, {n_faces} faces")
     if bad:
         fail("mesh: " + "; ".join(bad))
@@ -3550,4 +3649,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(*sys.argv[2:4]))
+    if sys.argv[1:] == ["--mesh-readings"]:
+        sys.exit(mesh_readings())
     sys.exit(main())

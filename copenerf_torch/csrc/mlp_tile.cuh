@@ -18,14 +18,13 @@
 // (L2-resident: a few MB in all) through a KS x 256 shared-memory slice.
 // Every value is f32 and every product at least as accurate as an f32 FFMA
 // (no plain TF32, no bf16): the sharpened NeuS alpha cannot tolerate
-// bf16-level SDF error. The sweeps take the GEMM as a policy (`G`;
-// FfmaGemm is `gemm` on rows of 256), which also says where each hidden
-// layer's weights are (`G::w`, `G::wt`), the head's feature columns
-// (`G::wf`, `G::wft`) and each hidden color layer's (`G::wc`, `G::wct`,
-// `G::wct0_tail`); K1 and K6 pass mma_tile.cuh's 3xTF32 `mma.sync` policy
-// (TcGemm, which reads the weights where FfmaGemm does), K2, K3, K4, K5 and
-// K7 wgmma_tile.cuh's 3xTF32 `wgmma` policies (WgGemm, WgGemm1, weights
-// pre-packed by the host); both keep activation rows of 272 floats.
+// bf16-level SDF error. The sweeps take the GEMM as a policy (`G`), which
+// also says where each hidden layer's weights are (`G::w`, `G::wt`), the
+// head's feature columns (`G::wf`, `G::wft`) and each hidden color layer's
+// (`G::wc`, `G::wct`, `G::wct0_tail`): every kernel passes one of
+// wgmma_tile.cuh's 3xTF32 `wgmma` policies (WgGemm, WgGemm1, weights
+// pre-packed by the host, activation rows of 272 floats). `gemm` (FFMA) is
+// the accuracy trial's control (tc_check.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,15 +44,12 @@ constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr int kMaxSdfHidden = 16;
 constexpr int kMaxColorLayers = 6;
 struct Offsets {
-  long long w[kMaxSdfHidden];      // SDF hidden layer l: W (in, out)
-  long long b[kMaxSdfHidden];      // (out,)
-  long long wt[kMaxSdfHidden];     // W^T (out, in), for the gradient sweep
+  long long b[kMaxSdfHidden];      // SDF hidden layer l's bias (out,)
   long long w_last0, b_last0;      // last SDF layer, column 0: (hidden,), (1,)
-  long long w_feat, b_feat;        // columns 1..: (hidden, d_feat), (d_feat,)
-  long long wc[kMaxColorLayers];   // color layer l: W (in, out)
+  long long b_feat;                // the bias of columns 1.. (d_feat,)
+  long long wc[kMaxColorLayers];   // color layer l: W (in, out); the head's only
   long long bc[kMaxColorLayers];   // (out,)
-  long long wct[kMaxColorLayers];  // W^T (out, in), for the color backward
-  long long w_feat_t;              // feature columns as (d_feat, hidden)
+  long long wct[kMaxColorLayers];  // W^T (out, in); the head's only
   long long wp[kMaxSdfHidden];     // W_l as wgmma B (pack.py wg_pack_b), forward
   long long wtp[kMaxSdfHidden];    // W_l^T as wgmma B, for the down-sweep
   long long wfp;                   // feature columns as wgmma B (hidden x d_feat)
@@ -64,29 +60,22 @@ struct Offsets {
 };
 
 // Host: fill `off` from the entry point's named offsets of n_hidden SDF
-// hidden layers (w and wt may be null: the wgmma kernels read their packed
-// copies) and n_color color layers (wc, bc may be null). False when a count
-// exceeds the struct.
-inline bool make_offsets(Offsets& off, int n_hidden, const long long* w,
-                         const long long* b, const long long* wt, long long w_last0,
-                         long long b_last0, long long w_feat, long long b_feat,
-                         int n_color, const long long* wc, const long long* bc) {
-  if (n_hidden < 1 || n_hidden > kMaxSdfHidden || n_color < 0 || n_color > kMaxColorLayers)
-    return false;
+// hidden layers: per layer b, W as wgmma B and W^T as wgmma B (wtp may be
+// null: the forward kernels read none), the head's column 0 and its bias,
+// the feature columns' bias. False when the count exceeds the struct.
+inline bool make_offsets(Offsets& off, int n_hidden, const long long* b,
+                         const long long* wp, const long long* wtp, long long w_last0,
+                         long long b_last0, long long b_feat) {
+  if (n_hidden < 1 || n_hidden > kMaxSdfHidden) return false;
   off = Offsets{};
   for (int l = 0; l < n_hidden; ++l) {
-    if (w) off.w[l] = w[l];
     off.b[l] = b[l];
-    if (wt) off.wt[l] = wt[l];
+    off.wp[l] = wp[l];
+    if (wtp) off.wtp[l] = wtp[l];
   }
   off.w_last0 = w_last0;
   off.b_last0 = b_last0;
-  off.w_feat = w_feat;
   off.b_feat = b_feat;
-  for (int l = 0; l < n_color; ++l) {
-    off.wc[l] = wc[l];
-    off.bc[l] = bc[l];
-  }
   return true;
 }
 
@@ -106,6 +95,34 @@ inline bool make_color_offsets(Offsets& off, int n_color, const long long* wcp,
   off.wct0tp = wct0tp;
   off.wc[n_color - 1] = wc_last;
   off.wct[n_color - 1] = wct_last;
+  return true;
+}
+
+// Host: fill `off` for the render-core kernels (K1, K6): the SDF part as
+// the wgmma kernels read it (per hidden layer b, W and W^T as wgmma B; the
+// head's column 0 and its bias plain, its feature columns as wgmma B both
+// ways (wftp 0 for the forward) and their bias) and the color part as
+// make_color_offsets fills it.
+inline bool make_rendercore_offsets(Offsets& off, int n_hidden, const long long* b,
+                                    const long long* wp, const long long* wtp,
+                                    long long w_last0, long long b_last0, long long wfp,
+                                    long long wftp, long long b_feat, int n_color,
+                                    const long long* wcp, const long long* wctp,
+                                    long long wct0tp, const long long* bc, long long wc_last,
+                                    long long wct_last) {
+  if (n_hidden < 1 || n_hidden > kMaxSdfHidden ||
+      !make_color_offsets(off, n_color, wcp, wctp, wct0tp, bc, wc_last, wct_last))
+    return false;
+  for (int l = 0; l < n_hidden; ++l) {
+    off.b[l] = b[l];
+    off.wp[l] = wp[l];
+    off.wtp[l] = wtp[l];
+  }
+  off.w_last0 = w_last0;
+  off.b_last0 = b_last0;
+  off.wfp = wfp;
+  off.wftp = wftp;
+  off.b_feat = b_feat;
   return true;
 }
 
@@ -321,46 +338,10 @@ __device__ __forceinline__ void gemm(const float* in, int ld_in, int K,
     gemm_rows<1, KS>(in, ld_in, K, W, ldw, N, w_s, epi);
 }
 
-// The GEMM policy contract of the sweeps below (`G`): `gemm` on activation
-// rows of kLd floats, w_s of kWsFloats. K1 and K6 pass mma_tile.cuh's
-// TcGemm, which derives from this one; K2-K5 and K7 wgmma_tile.cuh's
-// WgGemm / WgGemm1.
-struct FfmaGemm {
-  static constexpr int kLd = 256;
-  static constexpr int kWsFloats = 2 * 64 * kSliceCols;  // two 64-deep slices
-  // SDF hidden layer l's W (in, out) and W^T (out, in) as run() takes them,
-  // and the head's feature columns both ways: wf (hidden, d_feat), the
-  // forward head's B, and wft (d_feat, hidden), the backward's.
-  __device__ static __forceinline__ const float* w(const float* P, const Offsets& off, int l) {
-    return P + off.w[l];
-  }
-  __device__ static __forceinline__ const float* wt(const float* P, const Offsets& off, int l) {
-    return P + off.wt[l];
-  }
-  __device__ static __forceinline__ const float* wf(const float* P, const Offsets& off) {
-    return P + off.w_feat;
-  }
-  __device__ static __forceinline__ const float* wft(const float* P, const Offsets& off) {
-    return P + off.w_feat_t;
-  }
-  // Hidden color layer l's W (in, out) and W^T (out, in; row stride k0 for
-  // layer 0), and the B of h0_bar's columns 256 .. k0 (the second pass).
-  __device__ static __forceinline__ const float* wc(const float* P, const Offsets& off, int l) {
-    return P + off.wc[l];
-  }
-  __device__ static __forceinline__ const float* wct(const float* P, const Offsets& off, int l) {
-    return P + off.wct[l];
-  }
-  __device__ static __forceinline__ const float* wct0_tail(const float* P, const Offsets& off) {
-    return P + off.wct[0] + kSliceCols;
-  }
-  template <int KS, class Epi>
-  __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
-                                             const float* __restrict__ W, int ldw, int N,
-                                             float* __restrict__ w_s, Epi epi) {
-    gemm<KS>(in, ld_in, K, W, ldw, N, w_s, epi);
-  }
-};
+// The GEMM policy contract of the sweeps below (`G`, wgmma_tile.cuh's
+// WgGemmRing): `G::kLd`, the activation row stride; `G::kWsFloats`, the
+// shared floats of w_s; `G::run<KS>(in, ld_in, K, B, ldw, N, w_s, epi)`
+// with `gemm`'s contract, B where `G::w` and its kin say.
 
 // Narrow head (N <= 4 columns): one warp reduction per row and column.
 // Needs a __syncthreads() before it if `in` was written by other warps'

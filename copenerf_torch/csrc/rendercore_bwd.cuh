@@ -44,18 +44,25 @@
 // buffer every GEMM overwrites in place, 32-deep weight slices) with the
 // 64 x 292 color-input buffer reused as the channel-B buffer of the
 // down-sweep (row stride 272 there too). Every GEMM of the row kernel (about
-// 50 a tile) runs on mma_tile.cuh's 3xTF32 core (`TcGemm`); the narrow heads
-// stay FFMA. 230,400 of the 232,448 bytes of shared memory. The per-layer
-// sigmoids and zB go to a per-block scratch in device memory (persistent
-// grid). Every matrix the weight gradients need (T_l, z_A + z_B, u_l, p_l,
-// color inputs and zbar) is staged per row in device memory and reduced by
-// wgrad.cu's tensor-core split-row GEMM (`wgrad_tc_launch`: 128 x 128
-// output tiles on `wgmma` in 3xTF32, 32-row slices through a four-stage
-// cp.async ring, the 1,024-row splits summed in order); rows past n are
-// never staged, so the ragged tail adds nothing. The sweeps are
-// mlp_tile.cuh's, shared with K4-bwd (sdf_outgrad_bwd.cu: all but the color
-// parts) and K5-bwd (color_bwd.cu: the color parts), which run them on the
-// wgmma core.
+// 50 a tile) runs on wgmma_tile.cuh's 3xTF32 `wgmma` core with the
+// one-stage ring (G = WgGemm1, as K4-bwd and K5-bwd: the two row buffers
+// leave room for one 64 KB stage), the weights packed by the host as wgmma
+// B; the narrow heads stay FFMA on the plain columns. Shared memory:
+// 231,488 of the 232,448 bytes at the default config (d0 52, k0 292; two
+// stages would need 297,024). A one-buffer variant on the two-stage ring
+// (the feature and feat_bar waiting in the block's scratch, channel B run
+// after channel A and added to its staged z) measured no faster: the row
+// kernel 32.1-32.3 ms against 31.8-32.1, K6-bwd's 42.7-43.3 against
+// 41.4-41.6 (PERF.md §6). The per-layer sigmoids and zB go to a
+// per-block scratch in device memory (persistent grid). Every matrix the
+// weight gradients need (T_l, z_A + z_B, u_l, p_l, color inputs and zbar)
+// is staged per row in device memory and reduced by wgrad.cu's tensor-core
+// split-row GEMM (`wgrad_tc_launch`: 128 x 128 output tiles on `wgmma` in
+// 3xTF32, 32-row slices through two cp.async stages, the 1,024-row splits
+// summed in order); rows past n are never staged, so the ragged tail adds
+// nothing. The sweeps are mlp_tile.cuh's, shared with K4-bwd
+// (sdf_outgrad_bwd.cu: all but the color parts) and K5-bwd (color_bwd.cu:
+// the color parts).
 //
 // K6-bwd (kCons) adds, per row of y with the cotangent swbar of sdf_w, after
 // the x tile in the same block: K3-bwd's row kernel (sdf_value_bwd.cu) on
@@ -69,13 +76,13 @@
 // and ~17 KB a row more of staged rows (~61 KB in all).
 #pragma once
 
-#include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 #include "wgrad.cuh"
 
 namespace copenerf {
 namespace {
 
-constexpr int kSliceK = 32;
+using G = WgGemm1;
 
 // Staged per-row matrices of K1-bwd.
 struct RcStages {
@@ -139,18 +146,18 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     }
 
     // ---- SDF forward: inputs to the stage, sigmoids to the scratch ----
-    sdf_hidden_forward<kSliceK, TcGemm>(
+    sdf_hidden_forward<G::kSliceK, G>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
         [&](int l, int r, int c, float v) { stage_put(st.t, l, row0 + r, n, c, v); });
     {
       const float* bf = P + off.b_feat;
-      tc_gemm<kSliceK, kTcVariant>(h, kTcLd, g.hidden, P + off.w_feat, cg.d_feat, cg.d_feat, w_s,
-                                   [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; });
+      G::run<G::kSliceK>(h, kTcLd, g.hidden, G::wf(P, off), cg.d_feat, cg.d_feat, w_s,
+                         [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; });
     }
 
     // ---- input-gradient sweep: u_l = r_{l+1} * sig_l, staged ----
-    sdf_grad_sweep<kSliceK, TcGemm>(P, off, g, h, e, w_s, 0, sig_at, [&](int l, int r, int c, float u) {
+    sdf_grad_sweep<G::kSliceK, G>(P, off, g, h, e, w_s, 0, sig_at, [&](int l, int r, int c, float u) {
       stage_put(st.u, l, row0 + r, n, c, u);
     });
     __syncthreads();
@@ -161,14 +168,14 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     __syncthreads();
 
     // ---- color forward on [feature, x, PE(dirs), grad, 0], inputs staged ----
-    color_forward<kSliceK, true, TcGemm>(
+    color_forward<G::kSliceK, true, G>(
         P, off, cg, cin, h, w_s, xr, dr, gs,
         [&](int l, int r, int c, float v) { stage_put(st.ci, l, row0 + r, n, c, v); },
         [&](int r, int c, float v) { cs[r * 4 + c] = v; });
     __syncthreads();
 
     // ---- color backward: h0_bar into cin ----
-    color_backward<kSliceK, TcGemm>(
+    color_backward<G::kSliceK, G>(
         P, off, cg, cin, h, cs, w_s,
         [&](int r, int j) {
           const long long gr = row0 + r;
@@ -188,7 +195,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     __syncthreads();
 
     // ---- channel B up-sweep from J_pe (gbar + grad_bar_c) ----
-    sdf_channel_b_up<kSliceK, TcGemm>(
+    sdf_channel_b_up<G::kSliceK, G>(
         P, off, g, h, e, w_s, gs, xs, sig_at,
         [&](int l, int r, int c) { return stage_get(st.u, l, row0 + r, n, c); }, zb_at,
         [&](int l, int r, int c, float v) {
@@ -199,7 +206,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
         });
 
     // ---- z_A = [sbar / scale, feat_bar], z_B = 0, down channels A and B ----
-    sdf_down_sweep_ab<kSliceK, TcGemm>(
+    sdf_down_sweep_ab<G::kSliceK, G>(
         P, off, g, cg.d_feat, h, hb, e, w_s, sb, cin, cg.k0, sig_at, zb_at,
         [&](int l, int r, int c, float v) { stage_put(st.z, l, row0 + r, n, c, v); });
     __syncthreads();
@@ -221,7 +228,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
         const int r = i / g.d0;
         stage_put(st.t, 0, n + row0 + r, n2, i - r * g.d0, e[i]);
       }
-      sdf_hidden_forward<kSliceK, TcGemm>(
+      sdf_hidden_forward<G::kSliceK, G>(
           P, off, g, e, h, w_s,
           [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
           [&](int l, int r, int c, float v) { stage_put(st.t, l, n + row0 + r, n2, c, v); });
@@ -241,7 +248,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
           h[r * kTcLd + c] = sb[r] * w0[c] * sig_at(lh, r, c);
         }
       }
-      sdf_down_sweep_a<kSliceK, TcGemm>(P, off, g, h, e, w_s, sig_at, [&](int l, int r, int c, float v) {
+      sdf_down_sweep_a<G::kSliceK, G>(P, off, g, h, e, w_s, sig_at, [&](int l, int r, int c, float v) {
         stage_put(st.z, l, n + row0 + r, n2, c, v);
       });
       __syncthreads();
@@ -330,9 +337,11 @@ int rc_jobs(const SdfGeom& g, const ColorGeom& cg, const RcStages& st, long long
   return k;
 }
 
+// Shared memory of one block, in bytes: 231,488 at the default config
+// (d0 52, k0 292).
 size_t rc_bwd_smem(int d0, int k0) {
-  return sizeof(float) * (kRows * kTcLd + kRows * (k0 > kTcLd ? k0 : kTcLd) + kRows * d0 + 7 * kRows * 4 +
-                          2 * kSliceK * kSliceCols);
+  return sizeof(float) * (kRows * kTcLd + kRows * (k0 > kTcLd ? k0 : kTcLd) + kRows * d0 +
+                          7 * kRows * 4 + G::kWsFloats);
 }
 
 bool rc_geometry(long long n, int n_lin, int d_in, int multires, int hidden, int skip,
@@ -370,11 +379,12 @@ int rc_bwd_workspace(long long n, int n_lin, int d_in, int multires, int hidden,
 template <bool kCons>
 int rc_bwd_run(const float* x, const float* dirs, const float* y, const float* sbar,
                const float* gbar, const float* cbar, const float* swbar, float* xbar,
-               float* dbar, float* ybar, const float* params, const long long* off_w,
-               const long long* off_b, const long long* off_wt, long long off_w_last0,
-               long long off_b_last0, long long off_w_feat, long long off_b_feat,
-               long long off_w_feat_t, const long long* off_wc, const long long* off_bc,
-               const long long* off_wct, float* grads, const long long* off_gw,
+               float* dbar, float* ybar, const float* params, const long long* off_b,
+               const long long* off_wp, const long long* off_wtp, long long off_w_last0,
+               long long off_b_last0, long long off_wfp, long long off_wftp,
+               long long off_b_feat, const long long* off_wcp, const long long* off_wctp,
+               long long off_wct0tp, const long long* off_bc, long long off_wc_last,
+               long long off_wct_last, float* grads, const long long* off_gw,
                const long long* off_gb, long long off_gw_last0, const long long* off_gwc,
                const long long* off_gbc, float* stage, float* partial, float* scratch,
                long long n, int n_lin, int d_in, int multires, int hidden, int skip,
@@ -384,14 +394,14 @@ int rc_bwd_run(const float* x, const float* dirs, const float* y, const float* s
   SdfGeom g;
   ColorGeom cg;
   if (!rc_geometry(n, n_lin, d_in, multires, hidden, skip, scale, d_feat, c_n_lin, c_hidden,
-                   c_multires, c_k0, squeeze, g, cg))
+                   c_multires, c_k0, squeeze, g, cg) ||
+      (c_k0 > kSliceCols && off_wct0tp == 0))
     return (int)cudaErrorInvalidValue;
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, off_w, off_b, off_wt, off_w_last0, off_b_last0, off_w_feat,
-                    off_b_feat, c_n_lin, off_wc, off_bc))
+  if (!make_rendercore_offsets(off, n_lin - 1, off_b, off_wp, off_wtp, off_w_last0,
+                               off_b_last0, off_wfp, off_wftp, off_b_feat, c_n_lin, off_wcp,
+                               off_wctp, off_wct0tp, off_bc, off_wc_last, off_wct_last))
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < c_n_lin; ++l) off.wct[l] = off_wct[l];
-  off.w_feat_t = off_w_feat_t;
   const long long n_tz = kCons ? 2 * n : n;
   RcStages st;
   rc_stage_layout(g, cg, n, n_tz, stage, st);

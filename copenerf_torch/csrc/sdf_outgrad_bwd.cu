@@ -243,13 +243,8 @@ extern "C" int copenerf_sdf_outgrad_bwd(
   if (!og_geometry(n, n_lin, d_in, multires, hidden, skip, scale, d_out, g))
     return (int)cudaErrorInvalidValue;
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, nullptr, off_b, nullptr, off_w_last0, off_b_last0, 0, 0, 0,
-                    nullptr, nullptr))
+  if (!make_offsets(off, n_lin - 1, off_b, off_wp, off_wtp, off_w_last0, off_b_last0, 0))
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < n_lin - 1; ++l) {
-    off.wp[l] = off_wp[l];
-    off.wtp[l] = off_wtp[l];
-  }
   off.wftp = off_wftp;
   OgStages st;
   og_stage_layout(g, d_out, n, stage, st);

@@ -107,13 +107,9 @@ int outgrad_fwd_run(const float* x, float* out, float* grad, const float* params
   if (d_in != 4 || d_out < 5 || (d_out - 1) % 4) return (int)cudaErrorInvalidValue;
   SdfGeom g{n_lin, d_in, multires, d_in * (1 + 2 * multires), hidden, skip, scale};
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, nullptr, off_b, nullptr, off_w_last0, off_b_last0, 0,
-                    off_b_feat, 0, nullptr, nullptr))
+  if (!make_offsets(off, n_lin - 1, off_b, off_wp, off_wtp, off_w_last0, off_b_last0,
+                    off_b_feat))
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < n_lin - 1; ++l) {
-    off.wp[l] = off_wp[l];
-    if (off_wtp) off.wtp[l] = off_wtp[l];
-  }
   off.wfp = off_wfp;
   const size_t smem =
       sizeof(float) * (kRows * G::kLd + kRows * g.d0 + kRows * 4 + G::kWsFloats);

@@ -62,22 +62,20 @@ sdf_value_kernel(const float* __restrict__ x, float* __restrict__ out,
 using namespace copenerf;
 
 // out (n,) = sdf(x (n, d_in)). The off_* arguments are float offsets into
-// `params`: per hidden layer (n_lin - 1 of them) W (in, out), b and W as
-// wgmma B (pack.py `wg_pack_b`), then the last layer's column 0 and its
-// bias. Returns cudaGetLastError() after the launch.
+// `params`: per hidden layer (n_lin - 1 of them) b and W as wgmma B
+// (pack.py `wg_pack_b`), then the last layer's column 0 and its bias.
+// Returns cudaGetLastError() after the launch.
 extern "C" int copenerf_sdf_value(const float* x, float* out, const float* params,
-                                  const long long* off_w, const long long* off_b,
-                                  const long long* off_wp, long long off_w_last0,
+                                  const long long* off_b, const long long* off_wp,
+                                  long long off_w_last0,
                                   long long off_b_last0, long long n, int n_lin, int d_in,
                                   int multires, int hidden, int skip, float scale,
                                   void* stream) {
   if (n <= 0) return 0;
   SdfGeom g{n_lin, d_in, multires, d_in * (1 + 2 * multires), hidden, skip, scale};
   Offsets off;
-  if (!make_offsets(off, n_lin - 1, off_w, off_b, nullptr, off_w_last0, off_b_last0, 0, 0,
-                    0, nullptr, nullptr))
+  if (!make_offsets(off, n_lin - 1, off_b, off_wp, nullptr, off_w_last0, off_b_last0, 0))
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < n_lin - 1; ++l) off.wp[l] = off_wp[l];
   const size_t smem =
       sizeof(float) * (kRows * G::kLd + kRows * g.d0 + kRows * d_in + G::kWsFloats);
   cudaError_t err = cudaFuncSetAttribute(

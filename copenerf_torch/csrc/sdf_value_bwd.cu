@@ -304,13 +304,13 @@ extern "C" int copenerf_sdf_value_bwd_workspace(long long n, int n_lin, int d_in
 // x_bar (n, 4) and the weight gradients (into `grads` at off_gw / off_gb
 // per layer, pack.py `sdf_value_grad_layout`) of sdf(x (n, 4)) for the
 // cotangent obar (n,). The off_* weight arguments are float offsets into
-// `params` as for copenerf_sdf_value, plus W^T and W^T as wgmma B (the
+// `params` as for copenerf_sdf_value, plus W^T as wgmma B (the
 // down-sweep's, pack.py `wg_pack_b`) per hidden layer. Returns the first
 // CUDA error.
 extern "C" int copenerf_sdf_value_bwd(
     const float* x, const float* obar, float* xbar, const float* params,
-    const long long* off_w, const long long* off_b, const long long* off_wt,
-    const long long* off_wp, const long long* off_wtp, long long off_w_last0,
+    const long long* off_b, const long long* off_wp, const long long* off_wtp,
+    long long off_w_last0,
     long long off_b_last0, float* grads, const long long* off_gw, const long long* off_gb,
     float* stage, float* partial, float* scratch, long long n, int n_lin, int d_in,
     int multires, int hidden, int skip, float scale, int n_blocks, void* stream) {
@@ -318,13 +318,8 @@ extern "C" int copenerf_sdf_value_bwd(
   SdfGeom g;
   Offsets off;
   if (!value_geometry(n_lin, d_in, multires, hidden, skip, scale, 1, g) ||
-      !make_offsets(off, n_lin - 1, off_w, off_b, off_wt, off_w_last0, off_b_last0, 0, 0, 0,
-                    nullptr, nullptr))
+      !make_offsets(off, n_lin - 1, off_b, off_wp, off_wtp, off_w_last0, off_b_last0, 0))
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < n_lin - 1; ++l) {
-    off.wp[l] = off_wp[l];
-    off.wtp[l] = off_wtp[l];
-  }
   return value_bwd_run<false>(x, obar, xbar, params, off, grads, off_gw, off_gb, stage, partial,
                               scratch, n, g, 1, n_blocks, stream);
 }
@@ -355,13 +350,8 @@ extern "C" int copenerf_sdf_out_bwd(
   SdfGeom g;
   Offsets off;
   if (d_out < 5 || !value_geometry(n_lin, d_in, multires, hidden, skip, scale, d_out, g) ||
-      !make_offsets(off, n_lin - 1, nullptr, off_b, nullptr, off_w_last0, off_b_last0, 0, 0, 0,
-                    nullptr, nullptr))
+      !make_offsets(off, n_lin - 1, off_b, off_wp, off_wtp, off_w_last0, off_b_last0, 0))
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < n_lin - 1; ++l) {
-    off.wp[l] = off_wp[l];
-    off.wtp[l] = off_wtp[l];
-  }
   off.wftp = off_wftp;
   return value_bwd_run<true>(x, obar, xbar, params, off, grads, off_gw, off_gb, stage, partial,
                              scratch, n, g, d_out, n_blocks, stream);

@@ -1,16 +1,18 @@
-// The wgmma 3xTF32 GEMM core of K2 (sdf_value.cu, also K3-fwd), K3-bwd
-// (sdf_value_bwd.cu), K4-fwd (sdf_outgrad_fwd.cu, also K7-fwd), K4-bwd
-// (sdf_outgrad_bwd.cu), K5-fwd (color_fwd.cu) and K5-bwd (color_bwd.cu):
-// the sweeps' 64-row tile product (mlp_tile.cuh, the GEMM
-// policy contract of `FfmaGemm::run`) on Hopper's asynchronous warpgroup
-// matrix multiply, with the weight slices brought in by bulk copies that
-// complete on mbarriers.
+// The wgmma 3xTF32 GEMM core of every row kernel: K1-fwd and K6-fwd
+// (rendercore_fwd.cuh), K1-bwd and K6-bwd (rendercore_bwd.cuh), K2
+// (sdf_value.cu, also K3-fwd), K3-bwd (sdf_value_bwd.cu), K4-fwd
+// (sdf_outgrad_fwd.cu, also K7-fwd), K4-bwd (sdf_outgrad_bwd.cu), K5-fwd
+// (color_fwd.cu) and K5-bwd (color_bwd.cu): the sweeps' 64-row tile product
+// (mlp_tile.cuh, the GEMM policy contract) on Hopper's asynchronous
+// warpgroup matrix multiply, with the weight slices brought in by bulk
+// copies that complete on mbarriers.
 //
 // Bound: these kernels do ~0.9 MFLOP a row against 20-36 bytes, so the
 // operations bound them; 3xTF32 on the tensor cores (495 / 3 TFLOP/s of f32
-// products) is 2.5x the f32 FFMA rate. The `mma.sync` core (mma_tile.cuh)
-// reached only 34 TFLOP/s of f32 products: one 8-warp block an SM left each
-// scheduler two warps to hide every synchronous `mma`, shared load and split.
+// products) is 2.5x the f32 FFMA rate. A core on the synchronous warp-level
+// m16n8k8 product reached only 34 TFLOP/s of f32 products (PERF.md): one
+// 8-warp block an SM left each scheduler two warps to hide every
+// synchronous product, shared load and split.
 // `wgmma` is asynchronous: a warpgroup issues a slice's products and waits
 // once, and the weight operand never passes through registers.
 // Design:
@@ -33,8 +35,9 @@
 //  * A (the activations) stays row-major f32 in shared memory (rows of
 //    kTcLd = 272 floats, so every h[r * ld + c] of the sweeps holds). Each
 //    thread loads its slice of A as float4s (columns 4t .. 4t + 3 of each
-//    16-column block: two k8 products, the k order permuted within the
-//    block as mma_tile.cuh does, and the packed B permuted to match), splits
+//    16-column block: two k8 products, columns 4t, 4t + 1 as k = t, t + 4
+//    of the first and 4t + 2, 4t + 3 of the second (any order shared by A
+//    and B gives the same sum), the packed B permuted to match), splits
 //    them in registers, and keeps the slice's fragments (32 registers) live
 //    until the products that read them are done, so ptxas need not
 //    serialize the pipeline.
@@ -46,10 +49,11 @@
 //    0 refills it with the slice kStages ahead. The barriers are
 //    initialized at each call and invalidated at its end. Two stages (128
 //    KB, as the FFMA GEMM's two 64 x 256 slices) overlap a slice's copy
-//    with the previous slice's products: K2, K3, K4-fwd and K5-fwd. One
-//    stage (64 KB) exposes each copy's latency but leaves room for the two
-//    activation buffers of K4-bwd and K5-bwd (two stages would need 287,040
-//    and 280,640 bytes of the 232,448 a block may have).
+//    with the previous slice's products: K1-fwd, K2, K3, K4-fwd, K5-fwd,
+//    K6-fwd and K7. One stage (64 KB) exposes each copy's latency but
+//    leaves room for the two row buffers of K1-bwd, K6-bwd, K4-bwd and
+//    K5-bwd (two stages would need 297,024, 287,040 and 280,640 bytes of
+//    the 232,448 a block may have).
 //  * Accuracy: Hopper's tensor cores add into the accumulator with their
 //    own rounding; summed over K = 256 on them, 3xTF32 was 6-13x the FFMA
 //    error (PERF.md). Each group of kWgGroup k8 steps (small terms
@@ -62,7 +66,7 @@
 //    and no stale value meets a zero.
 #pragma once
 
-#include "mma_tile.cuh"
+#include "tf32_split.cuh"
 
 namespace copenerf {
 
@@ -360,7 +364,7 @@ struct WgGemmRing {
   }
 };
 
-using WgGemm = WgGemmRing<2>;   // K2, K3, K4-fwd (and K7-fwd), K5-fwd
-using WgGemm1 = WgGemmRing<1>;  // K4-bwd, K5-bwd
+using WgGemm = WgGemmRing<2>;   // K1-fwd, K6-fwd, K2, K3, K4-fwd (and K7-fwd), K5-fwd
+using WgGemm1 = WgGemmRing<1>;  // K1-bwd, K6-bwd, K4-bwd, K5-bwd
 
 }  // namespace copenerf

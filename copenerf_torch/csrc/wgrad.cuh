@@ -61,7 +61,7 @@ cudaError_t wgrad_launch(const WgradJob* jobs, int n_jobs, long long n, float* p
 
 // The same with pass 1 on the tensor cores (wgrad.cu
 // `wgrad_wg_partial_kernel`, `wgmma` m64n128k8; the same partial buffer):
-// what every backward kernel runs. variant 0 is mma_tile.cuh's kTcVariant
+// what every backward kernel runs. variant 0 is tf32_split.cuh's kTcVariant
 // (3xTF32), kTf32x1 one TF32 product (the accuracy trial's control).
 cudaError_t wgrad_tc_launch(const WgradJob* jobs, int n_jobs, long long n, float* partial,
                             cudaStream_t stream, int variant = 0);

@@ -134,23 +134,21 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
-    lib.copenerf_sdf_value.argtypes = [
-        _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P]
-    lib.copenerf_rendercore_fwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _L,
-        _I, _I, _I, _I, _I, _F,
-        _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.copenerf_sdf_value.argtypes = [_P] * 5 + [_L] * 3 + [_I] * 5 + [_F, _P]
+    # The render-core entries after their row tensors and the parameter
+    # buffer: the pack's offsets, then the geometry.
+    rc_geom = [_L] + [_I] * 5 + [_F] + [_I] * 7 + [_P]
+    rc_fwd = [_P] * 3 + [_L] * 4 + [_P] * 2 + [_L] + [_P] + rc_geom
+    lib.copenerf_rendercore_fwd.argtypes = [_P] * 6 + rc_fwd
     lib.copenerf_sdf_value_bwd_workspace.argtypes = [
         _L, _I, _I, _I, _I, _I, _I, _P]
-    lib.copenerf_sdf_value_bwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L,
-        _I, _I, _I, _I, _I, _F, _I, _P]
+    lib.copenerf_sdf_value_bwd.argtypes = (
+        [_P] * 7 + [_L] * 2 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _P])
     lib.copenerf_rendercore_bwd_workspace.argtypes = [
         _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-    lib.copenerf_rendercore_bwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L,
-        _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L,
-        _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P]
+    rc_bwd = ([_P] * 3 + [_L] * 5 + [_P] * 2 + [_L] + [_P] + [_L] * 2 + [_P] * 3
+              + [_L] + [_P] * 5 + rc_geom)
+    lib.copenerf_rendercore_bwd.argtypes = [_P] * 8 + rc_bwd
     lib.copenerf_sdf_outgrad_fwd.argtypes = (
         [_P] * 7 + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P])
     lib.copenerf_sdf_outgrad_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
@@ -162,19 +160,16 @@ def load_library() -> ctypes.CDLL:
     lib.copenerf_color_bwd_workspace.argtypes = [_L] + [_I] * 5 + [_P]
     lib.copenerf_color_bwd.argtypes = (
         [_P] * 4 + [_L] + [_P] * 9 + [_L] * 3 + [_P] * 5 + [_L] + [_I] * 6 + [_P])
-    lib.copenerf_rendercore_cons_fwd.argtypes = (
-        [_P] * 11 + [_L] * 4 + [_P] * 3 + [_L] + [_I] * 5 + [_F] + [_I] * 7 + [_P])
+    lib.copenerf_rendercore_cons_fwd.argtypes = [_P] * 8 + rc_fwd
     lib.copenerf_rendercore_cons_bwd_workspace.argtypes = (
         lib.copenerf_rendercore_bwd_workspace.argtypes)
-    lib.copenerf_rendercore_cons_bwd.argtypes = (
-        [_P] * 14 + [_L] * 5 + [_P] * 6 + [_L] + [_P] * 5 + [_L] + [_I] * 5
-        + [_F] + [_I] * 7 + [_P])
+    lib.copenerf_rendercore_cons_bwd.argtypes = [_P] * 11 + rc_bwd
     lib.copenerf_sdf_out_fwd.argtypes = (
         [_P] * 5 + [_L] * 5 + [_I] * 5 + [_F, _I, _I, _P])
     lib.copenerf_sdf_out_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
     lib.copenerf_sdf_out_bwd.argtypes = (
         [_P] * 7 + [_L] * 3 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _I, _P])
-    lib.copenerf_tile_gemm_check.argtypes = [_P] * 4 + [_L] + [_I] * 4 + [_P] * 2
+    lib.copenerf_tile_gemm_check.argtypes = [_P] * 3 + [_L] + [_I] * 4 + [_P] * 2
     lib.copenerf_wgrad_check.argtypes = (
         [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _L] + [_I] * 5 + [_P])
     for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,

@@ -9,21 +9,18 @@ implements the CUDA subset the kernels use on host threads: one
 in turn,
 ``std::barrier`` for ``__syncthreads`` and the warp shuffles, shared memory
 filled with NaN at each block's start (a read before a write shows), and
-``cp.async`` as a synchronous copy (zero-filled past its source bytes). The
-tensor-core instructions of ``mma_tile.cuh``: ``cvt.rna.tf32.f32`` rounds to
-nearest, ties away from zero, to 10 explicit mantissa bits; ``mma.sync``
-m16n8k8 TF32 is a warp-collective exchange of every lane's fragments through
-a per-warp buffer between two warp barriers, each lane then computing its
-four outputs from the PTX fragment layout, ignoring the low 13 bits of each
-operand as the hardware does, the eight products summed exactly and added
-to the accumulator with one rounding (the card's own accumulation rounding
-is not modelled). The wgmma core of ``wgmma_tile.cuh``: ``wgmma.mma_async``
-m64n128k8 TF32 is a warpgroup-collective exchange of every thread's A
-fragment through a per-warpgroup buffer between two barriers of its 128
-threads, each thread computing its 64 accumulators from A and from B read
-out of shared memory through the matrix descriptor (start address, leading
-and stride byte offsets, no swizzle or the 128-byte one), computed when
-issued; ``wgmma.fence``, ``commit_group``, ``wait_group`` and
+``cp.async`` as a synchronous copy (zero-filled past its source bytes).
+``cvt.rna.tf32.f32`` (``tf32_split.cuh``) rounds to nearest, ties away from
+zero, to 10 explicit mantissa bits. The wgmma core of ``wgmma_tile.cuh``:
+``wgmma.mma_async`` m64n128k8 TF32 is a warpgroup-collective exchange of
+every thread's A fragment through a per-warpgroup buffer between two
+barriers of its 128 threads, each thread computing its 64 accumulators from
+A and from B read out of shared memory through the matrix descriptor (start
+address, leading and stride byte offsets, no swizzle or the 128-byte one),
+ignoring the low 13 bits of each operand as the hardware does, the eight
+products of a k8 step summed exactly and added to the accumulator with one
+rounding (the card's own accumulation rounding is not modelled), computed
+when issued; ``wgmma.fence``, ``commit_group``, ``wait_group`` and
 ``fence.proxy.async`` are no-ops; an ``mbarrier`` (init, arrive.expect_tx,
 try_wait.parity, inval) is a phase, a pending count and a transaction count
 under a mutex; ``cp.async.bulk`` copies at once and completes its bytes on
@@ -115,8 +112,6 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline std::barrier<>* host_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> host_warp_barriers;
 inline std::vector<std::array<float, 32>> host_shuffle;
-struct HostMmaLane { unsigned a[4], b[2]; float c[4]; };
-inline std::vector<std::array<HostMmaLane, 32>> host_mma;
 inline float4* host_shared;
 inline size_t host_shared_bytes;
 inline float4* host_dynamic_shared() { return host_shared; }
@@ -159,7 +154,6 @@ inline void host_launch(dim3 grid, dim3 block, size_t smem, std::function<void()
   host_wg_barriers.clear();
   for (int w = 0; w < nt / 128; ++w) host_wg_barriers.emplace_back(new std::barrier<>(128));
   host_shuffle.assign((nt + 31) / 32, {});
-  host_mma.assign((nt + 31) / 32, {});
   host_wg.assign(nt / 128, {});
   host_mbars.clear();
   const float nan = std::numeric_limits<float>::quiet_NaN();
@@ -187,30 +181,6 @@ inline unsigned host_tf32_rna(float x) {
   unsigned u = __float_as_uint(x);
   if ((u & 0x7f800000u) != 0x7f800000u) u += 0x1000u;
   return u & 0xffffe000u;
-}
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 d = a b + d, one warp.
-inline void host_mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  HostMmaLane& mine = host_mma[w][lane];
-  for (int i = 0; i < 4; ++i) mine.a[i] = a[i] & 0xffffe000u;
-  for (int i = 0; i < 2; ++i) mine.b[i] = b[i] & 0xffffe000u;
-  for (int i = 0; i < 4; ++i) mine.c[i] = d[i];
-  host_warp_barriers[w]->arrive_and_wait();
-  const auto& buf = host_mma[w];
-  const int g = lane / 4, t = lane % 4;
-  float out[4];
-  for (int i = 0; i < 4; ++i) {
-    const int row = g + (i >= 2 ? 8 : 0), col = 2 * t + (i & 1);
-    double s = 0.0;
-    for (int k = 0; k < 8; ++k) {
-      const unsigned av = buf[(row % 8) * 4 + k % 4].a[(row >= 8) + 2 * (k >= 4)];
-      const unsigned bv = buf[col * 4 + k % 4].b[k >= 4];
-      s += (double)__uint_as_float(av) * (double)__uint_as_float(bv);
-    }
-    out[i] = (float)((double)buf[lane].c[i] + s);
-  }
-  host_warp_barriers[w]->arrive_and_wait();
-  for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 // Element (n, k) of a K-major B operand through a wgmma matrix descriptor:
 // bits 0-13 start address, 16-29 leading byte offset, 32-45 stride byte
@@ -354,8 +324,6 @@ _CP_ZFILL = re.compile(
     r"asm volatile\(\"cp\.async\.cg\.shared\.global.*?\"r\"\(bytes\)\);",
     re.S)
 _CVT_TF32 = ('asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));')
-_MMA = re.compile(r"asm\(\s*\"mma\.sync\.aligned\.m16n8k8\.row\.col\."
-                  r"f32\.tf32\.tf32\.f32.*?\);", re.S)
 # The wgmma core (wgmma_tile.cuh): each helper's one asm statement, and
 # what the host runs in its place.
 _WG_ASM = [
@@ -392,7 +360,6 @@ def _host_source(text: str) -> str:
     text = _CP_ZFILL.sub("std::memset(smem, 0, 16); std::memcpy(smem, gmem, bytes);",
                          text)
     text = text.replace(_CVT_TF32, "r = host_tf32_rna(x);")
-    text = _MMA.sub("host_mma_tf32(d, a, b);", text)
     text = text.replace('asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));', "")
     text = text.replace('asm volatile("cp.async.commit_group;\\n" ::);', "")
     for pattern, host in _WG_ASM:

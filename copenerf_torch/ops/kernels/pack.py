@@ -6,37 +6,33 @@ offsets into it (the ``off_*`` arguments of the C entry points, which fill
 Weight norm is materialized here (``effective_layers``), as the JAX package
 does outside its kernels (``sdf_kernels.py`` ``_prep``):
 
-  * ``w[l]``, ``b[l]``: SDF hidden layer l, W_l (in, out) and b_l;
-    ``wt[l]``: W_l^T (out, in) for the gradient and backward sweeps (the
-    render-core and value packs);
+  * ``b[l]``: SDF hidden layer l's bias b_l;
   * ``w_last0``, ``b_last0``: the last SDF layer's column 0 (hidden,) and
-    its bias; ``w_feat``, ``b_feat``: its feature columns (hidden, d_feat)
-    and their bias; ``w_feat_t``: the feature columns as (d_feat, hidden),
-    for the backward (``w_feat`` and ``w_feat_t`` the render-core pack's);
-  * ``wp[l]``, ``wtp[l]`` (the value and outgrad packs): W_l and W_l^T as
-    the wgmma core's B operand (``wg_pack_b``), for K2, K3, K4 and K7;
-    ``wfp``, ``wftp`` (the outgrad pack): the feature columns (hidden,
-    d_feat) and their transpose as wgmma B, for K4 and K7;
-  * ``wc[l]``, ``bc[l]``: color layer l (in, out); layer 0 has its input
-    rows permuted to [feature, x, PE(dirs), grad] and zero-padded to k0 (a
-    multiple of 4); ``wct[l]``: the same layer as (out, in), for the color
-    backward (the render-core pack);
-  * ``wcp[l]``, ``wctp[l]`` (the color pack, hidden layers): W_l and W_l^T
-    as wgmma B, layer 0 in the kernel's input order (``wctp[0]`` its
-    columns < 256, ``wct0tp`` the rest when k0 > 256: h0_bar's second
-    pass); ``wc_last``, ``wct_last``: the 3-wide head both ways, plain.
+    its bias; ``b_feat``: its feature columns' bias;
+  * ``wp[l]``, ``wtp[l]``: W_l and W_l^T as the wgmma core's B operand
+    (``wg_pack_b``), for every SDF kernel (K1-K4, K6, K7); ``wfp``,
+    ``wftp`` (the outgrad and render-core packs): the feature columns
+    (hidden, d_feat) and their transpose as wgmma B;
+  * ``bc[l]``: color layer l's bias; ``wcp[l]``, ``wctp[l]`` (the color
+    and render-core packs, hidden layers): W_l and W_l^T as wgmma B, layer
+    0 with its input rows permuted to [feature, x, PE(dirs), grad] and
+    zero-padded to k0, a multiple of 4 (``wctp[0]`` its columns < 256,
+    ``wct0tp`` the rest when k0 > 256: h0_bar's second pass);
+    ``wc_last``, ``wct_last``: the 3-wide head both ways, plain.
 
 The render-core kernels (K1, and K6 with the consistency query folded in)
 take the SDF and the color parts in one buffer; the outgrad kernels (K4)
 and the SDF output kernels (K7) the SDF part with the feature columns; the
-color kernels (K5) the color part alone.
+color kernels (K5) the color part alone; the value kernels (K2, K3) the
+SDF part without the feature columns. No pack carries a plain copy of a
+hidden layer.
 
 The backward kernels write their weight gradients into one flat buffer too
 (``rendercore_grad_layout``, also K6-bwd's: the x rows and the y rows feed
 the same SDF slots; ``outgrad_grad_layout``, ``color_grad_layout``,
 ``sdf_value_grad_layout``, also K7-bwd's with the whole head): per layer
 the gradient of the effective W in the kernel's (out, in) layout (the color
-layer 0 with the permuted, padded inputs of ``wct[0]``) and of b.
+layer 0 with the permuted, padded inputs of ``wctp[0]``) and of b.
 ``unpack_*_grads`` map it back to each layer's effective (W (out, in), b).
 
 A pack is cached on the network it belongs to (the SDF network for a pack
@@ -184,7 +180,7 @@ class _Packer:
         return torch.cat(self.parts).contiguous(), self.offs
 
 
-_PER_LAYER = ("w", "b", "wt", "wp", "wtp", "wc", "wct", "bc", "wcp", "wctp")
+_PER_LAYER = ("b", "wp", "wtp", "bc", "wcp", "wctp")
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -259,6 +255,19 @@ def wg_pack_b(bt: torch.Tensor) -> torch.Tensor:
     return wg_pack_many([(bt, False)])[0]
 
 
+def wg_unpack_b(packed: torch.Tensor, K: int, N: int):
+    """(hi, lo), each B (K, N), read back from ``wg_pack_b``'s layout at the
+    start of ``packed``: the inverse of the packing, for checks of a pack."""
+    idx, lo_mask = _wg_index([(N, K, False)], packed.device)
+    seg = packed[:idx.numel()].float()
+    parts = []
+    for mask in (~lo_mask, lo_mask):
+        bt = seg.new_zeros(N * K + 1)
+        bt[idx[mask]] = seg[mask]            # padding lands on the last slot
+        parts.append(bt[:-1].view(N, K).t())
+    return tuple(parts)
+
+
 def effective_layers(net) -> list:
     """[(W (out, in), b (out,))] of every linear layer of ``net``, in order."""
     return [(layer.effective_weight(), layer.b)
@@ -266,38 +275,26 @@ def effective_layers(net) -> list:
                           for l in range(len(net.cfg.dims) - 1))]
 
 
-def _add_sdf(pk: _Packer, layers, with_feature: bool, with_wg: bool = False,
-             plain: bool = True) -> None:
-    """The SDF part of a pack: per hidden layer b, with ``plain`` W and W^T
-    as they are, with ``with_wg`` both as wgmma B; the head's column 0 and
-    its bias; with ``with_feature`` the feature columns' bias and their
-    matrix both ways, plain or as wgmma B."""
-    if with_wg:       # the forward's B^T is W (out, in), the down-sweep's W^T
-        mats = [(w, t) for w, _ in layers[:-1] for t in (False, True)]
-        if with_feature:          # the head's feature rows, both ways
-            mats += [(layers[-1][0][1:], t) for t in (False, True)]
-        wg = iter(wg_pack_many(mats))
-    for w, b in layers[:-1]:                           # w (out, in)
-        if plain:
-            pk.add("w", w.t().contiguous())
+def _add_sdf(pk: _Packer, layers, with_feature: bool) -> None:
+    """The SDF part of a pack: per hidden layer b, W and W^T as wgmma B;
+    the head's column 0 and its bias; with ``with_feature`` the feature
+    columns' bias and their matrix both ways as wgmma B."""
+    # The forward's B^T is W (out, in), the down-sweep's W^T.
+    mats = [(w, t) for w, _ in layers[:-1] for t in (False, True)]
+    if with_feature:              # the head's feature rows, both ways
+        mats += [(layers[-1][0][1:], t) for t in (False, True)]
+    wg = iter(wg_pack_many(mats))
+    for _, b in layers[:-1]:
         pk.add("b", b)
-        if plain:
-            pk.add("wt", w)
-        if with_wg:
-            pk.add("wp", next(wg))
-            pk.add("wtp", next(wg))
+        pk.add("wp", next(wg))
+        pk.add("wtp", next(wg))
     w, b = layers[-1]                                  # (d_out, hidden)
     pk.add("w_last0", w[0])
     pk.add("b_last0", b[:1])
     if with_feature:
-        if with_wg:
-            pk.add("wfp", next(wg))
-            pk.add("wftp", next(wg))
-        else:
-            pk.add("w_feat", w[1:].t().contiguous())
+        pk.add("wfp", next(wg))
+        pk.add("wftp", next(wg))
         pk.add("b_feat", b[1:])
-        if not with_wg:
-            pk.add("w_feat_t", w[1:])
 
 
 def _cached(owner, name: str, nets, make):
@@ -316,10 +313,10 @@ def _cached(owner, name: str, nets, make):
 
 def pack_sdf_value_layers(layers):
     """(params (P,), offsets by name) for the value kernels (K2, K3-fwd and
-    K3-bwd), from the SDF net's effective layers: W and W^T, plain and
-    packed for the wgmma core."""
+    K3-bwd), from the SDF net's effective layers: W and W^T as the wgmma
+    core's B (one gather)."""
     pk = _Packer()
-    _add_sdf(pk, layers, with_feature=False, with_wg=True)
+    _add_sdf(pk, layers, with_feature=False)
     return pk.done()
 
 
@@ -349,15 +346,12 @@ def color_kernel_inputs(w: torch.Tensor, ccfg) -> torch.Tensor:
     return torch.cat([w, w.new_zeros((w.shape[0], pad))], 1) if pad else w
 
 
-def _add_color(pk: _Packer, color_layers, ccfg, with_wg: bool = False) -> None:
+def _add_color(pk: _Packer, color_layers, ccfg) -> None:
+    """The color part of a pack: each hidden layer as wgmma B both ways
+    (one gather), layer 0 in the kernel's input order; the head plain both
+    ways; ``bc`` per layer."""
     layers = [(color_kernel_inputs(w, ccfg) if l == 0 else w, b)    # w (out, in)
               for l, (w, b) in enumerate(color_layers)]
-    if not with_wg:
-        for w, b in layers:
-            pk.add("wc", w.t().contiguous())
-            pk.add("wct", w)
-            pk.add("bc", b)
-        return
     # The forward's B^T is W (out, in), the backward's W^T; h0_bar (N = k0)
     # runs in passes of at most 256 columns, each with its own B.
     w0 = layers[0][0]
@@ -379,8 +373,9 @@ def _add_color(pk: _Packer, color_layers, ccfg, with_wg: bool = False) -> None:
 
 
 def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
-    """(params (P,), offsets by name) for the render-core kernels, from the
-    effective layers of both nets."""
+    """(params (P,), offsets by name) for the render-core kernels (K1, K6),
+    from the effective layers of both nets: the outgrad pack's SDF part and
+    the color pack's color part, no plain copy of any hidden layer."""
     pk = _Packer()
     _add_sdf(pk, sdf_layers, with_feature=True)
     _add_color(pk, color_layers, ccfg)
@@ -401,7 +396,7 @@ def pack_outgrad_layers(sdf_layers):
     the feature columns), the matrices only as the wgmma core's B both ways
     (one gather): no kernel of K4 or K7 reads a plain copy."""
     pk = _Packer()
-    _add_sdf(pk, sdf_layers, with_feature=True, with_wg=True, plain=False)
+    _add_sdf(pk, sdf_layers, with_feature=True)
     return pk.done()
 
 
@@ -417,7 +412,7 @@ def pack_color_layers(color_layers, ccfg):
     in the kernel's input order; the head plain both ways; ``bc`` per
     layer."""
     pk = _Packer()
-    _add_color(pk, color_layers, ccfg, with_wg=True)
+    _add_color(pk, color_layers, ccfg)
     return pk.done()
 
 

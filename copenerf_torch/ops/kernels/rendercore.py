@@ -67,6 +67,29 @@ def _check_rows(scfg, ccfg, x, dirs) -> None:
         raise ValueError("x and dirs must have the same rows and device")
 
 
+def fwd_offsets(offs) -> tuple:
+    """The forward entries' pack offsets (K1-fwd, K6-fwd): per SDF hidden
+    layer b, W and W^T as wgmma B; the head's column 0, its bias, its
+    feature columns as wgmma B and their bias; per hidden color layer W as
+    wgmma B; every color b; the color head (hidden, 3)."""
+    O = build.offsets
+    return (O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
+            offs["b_last0"], offs["wfp"], offs["b_feat"], O(offs["wcp"]),
+            O(offs["bc"]), offs["wc_last"])
+
+
+def bwd_offsets(offs) -> tuple:
+    """The backward entries' pack offsets (K1-bwd, K6-bwd): the forward's
+    with the feature columns' transpose as wgmma B, each hidden color
+    layer's W^T as wgmma B (layer 0's columns < 256, then the rest: 0 when
+    k0 <= 256) and the color head (3, hidden)."""
+    O = build.offsets
+    return (O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
+            offs["b_last0"], offs["wfp"], offs["wftp"], offs["b_feat"],
+            O(offs["wcp"]), O(offs["wctp"]), offs.get("wct0tp", 0),
+            O(offs["bc"]), offs["wc_last"], offs["wct_last"])
+
+
 def launch_fwd(scfg, ccfg, packed, x: torch.Tensor, dirs: torch.Tensor):
     """K1-fwd on (n, 4) points and (n, 3) dirs, contiguous f32 CUDA, with a
     render-core pack -> (sdf (n, 1), grad (n, 4), color (n, 3))."""
@@ -81,13 +104,11 @@ def launch_fwd(scfg, ccfg, packed, x: torch.Tensor, dirs: torch.Tensor):
     color = torch.empty((n, 3), **f32)
     blocks = build.n_blocks(dev)
     sgeom, (d_feat, c_n_lin, c_hidden, c_multires, k0) = _geometry(scfg, ccfg)
-    scratch = torch.empty(blocks * (sgeom[0] - 1) * 64 * 256, **f32)
+    # per block: each hidden layer's sigmoids and the feature, 64 x 256 each
+    scratch = torch.empty(blocks * sgeom[0] * 64 * 256, **f32)
     code = build.load_library().copenerf_rendercore_fwd(
         x.data_ptr(), dirs.data_ptr(), sdf.data_ptr(), grad.data_ptr(),
-        color.data_ptr(), params.data_ptr(), build.offsets(offs["w"]),
-        build.offsets(offs["b"]), build.offsets(offs["wt"]), offs["w_last0"],
-        offs["b_last0"], offs["w_feat"], offs["b_feat"],
-        build.offsets(offs["wc"]), build.offsets(offs["bc"]),
+        color.data_ptr(), params.data_ptr(), *fwd_offsets(offs),
         scratch.data_ptr(), n, *sgeom, float(scfg.scale), d_feat, c_n_lin,
         c_hidden, c_multires, k0, int(ccfg.squeeze_out), blocks,
         build.stream(x))
@@ -135,9 +156,7 @@ def rendercore_bwd_cuda(scfg, ccfg, packed, x, dirs, sbar, gbar, cbar):
     code = lib.copenerf_rendercore_bwd(
         x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(), gbar.data_ptr(),
         cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(), params.data_ptr(),
-        O(offs["w"]), O(offs["b"]), O(offs["wt"]), offs["w_last0"],
-        offs["b_last0"], offs["w_feat"], offs["b_feat"], offs["w_feat_t"],
-        O(offs["wc"]), O(offs["bc"]), O(offs["wct"]), grads.data_ptr(),
+        *bwd_offsets(offs), grads.data_ptr(),
         O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], O(goffs["gwc"]),
         O(goffs["gbc"]), stage.data_ptr(), partial.data_ptr(),
         scratch.data_ptr(), n, *sgeom, float(scfg.scale), *cgeom,

@@ -25,7 +25,8 @@ from torch.autograd.function import once_differentiable
 from . import build
 from .pack import (effective_layers, pack_rendercore_layers,
                    rendercore_grad_layout, unpack_rendercore_grads)
-from .rendercore import _check_rows, _geometry, rendercore_fwd_plain
+from .rendercore import (_check_rows, _geometry, bwd_offsets, fwd_offsets,
+                         rendercore_fwd_plain)
 from .sdf_value_diff import sdf_value_diff_plain
 
 FWD_COUNTER = build.KernelCounter("rendercore_cons_fwd")
@@ -63,14 +64,12 @@ def launch_cons_fwd(scfg, ccfg, packed, x, dirs, y):
     sdf_w = torch.empty((n,), **f32)
     blocks = build.n_blocks(dev)
     sgeom, cgeom = _geometry(scfg, ccfg)
-    scratch = torch.empty(blocks * (sgeom[0] - 1) * 64 * 256, **f32)
-    O = build.offsets
+    # per block: each hidden layer's sigmoids and the feature, 64 x 256 each
+    scratch = torch.empty(blocks * sgeom[0] * 64 * 256, **f32)
     code = build.load_library().copenerf_rendercore_cons_fwd(
         x.data_ptr(), dirs.data_ptr(), y.data_ptr(), sdf.data_ptr(),
         grad.data_ptr(), color.data_ptr(), sdf_w.data_ptr(), params.data_ptr(),
-        O(offs["w"]), O(offs["b"]), O(offs["wt"]), offs["w_last0"],
-        offs["b_last0"], offs["w_feat"], offs["b_feat"], O(offs["wc"]),
-        O(offs["bc"]), scratch.data_ptr(), n, *sgeom, float(scfg.scale),
+        *fwd_offsets(offs), scratch.data_ptr(), n, *sgeom, float(scfg.scale),
         *cgeom, int(ccfg.squeeze_out), blocks, build.stream(x))
     build.check(code, "rendercore_cons_fwd")
     FWD_COUNTER.launches += 1
@@ -109,10 +108,8 @@ def rendercore_cons_bwd_cuda(scfg, ccfg, packed, x, dirs, y, sbar, gbar, cbar,
     code = lib.copenerf_rendercore_cons_bwd(
         x.data_ptr(), dirs.data_ptr(), y.data_ptr(), sbar.data_ptr(),
         gbar.data_ptr(), cbar.data_ptr(), swbar.data_ptr(), x_bar.data_ptr(),
-        d_bar.data_ptr(), y_bar.data_ptr(), params.data_ptr(), O(offs["w"]),
-        O(offs["b"]), O(offs["wt"]), offs["w_last0"], offs["b_last0"],
-        offs["w_feat"], offs["b_feat"], offs["w_feat_t"], O(offs["wc"]),
-        O(offs["bc"]), O(offs["wct"]), grads.data_ptr(), O(goffs["gw"]),
+        d_bar.data_ptr(), y_bar.data_ptr(), params.data_ptr(),
+        *bwd_offsets(offs), grads.data_ptr(), O(goffs["gw"]),
         O(goffs["gb"]), goffs["gw_last0"], O(goffs["gwc"]), O(goffs["gbc"]),
         stage.data_ptr(), partial.data_ptr(), scratch.data_ptr(), n, *sgeom,
         float(scfg.scale), *cgeom, int(ccfg.squeeze_out), blocks,

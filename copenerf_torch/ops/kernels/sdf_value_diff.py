@@ -54,8 +54,7 @@ def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     x_bar = torch.empty((n, 4), **f32)
     code = lib.copenerf_sdf_value_bwd(
         x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
-        build.offsets(offs["w"]), build.offsets(offs["b"]),
-        build.offsets(offs["wt"]), build.offsets(offs["wp"]),
+        build.offsets(offs["b"]), build.offsets(offs["wp"]),
         build.offsets(offs["wtp"]), offs["w_last0"], offs["b_last0"],
         grads.data_ptr(), build.offsets(goffs["gw"]),
         build.offsets(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),

@@ -1,11 +1,11 @@
 """The accuracy trial and card check of the tensor-core cores
-(``csrc/tc_check.cu`` over ``csrc/mma_tile.cuh``, ``csrc/wgmma_tile.cuh``
-and ``csrc/wgrad.cu``): the 64-row tile GEMM that K1 and K6 run on
-``mma.sync`` and K2-K5 and K7 on ``wgmma``, in 3xTF32, and the
-weight-gradient reduction every backward kernel runs on ``wgmma``, on
-operands the caller chooses, beside f32 FFMA versions.
+(``csrc/tc_check.cu`` over ``csrc/wgmma_tile.cuh`` and ``csrc/wgrad.cu``):
+the 64-row tile GEMM every row kernel (K1-K7) runs on ``wgmma`` in 3xTF32,
+and the weight-gradient reduction every backward kernel runs on ``wgmma``,
+on operands the caller chooses, beside f32 FFMA versions.
 
 Nothing of the main path calls these launchers; ``tests/test_torch_gpu.py``,
+``tests/test_torch_wgmma_emulation.py`` and
 ``tests/test_torch_mma_emulation.py`` (through the host emulation) and
 ``kernel_times.py --trial`` hold their results against an f64 product.
 """
@@ -15,17 +15,15 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .pack import tf32_rna, wg_pack_b
+from .pack import wg_pack_b
 
-# tile_gemm's `mode`: 0 f32 FFMA, else mma_tile.cuh's TcVariant on
-# `mma.sync` (K1's core); PRESPLIT, 3xTF32 with the weights split on the
-# host; and WG_MODES, the wgmma core (the weights packed by
-# pack.wg_pack_b): "wg" as K2, K3, K4-fwd, K5-fwd and K7 ship it (a
-# two-stage ring), one TF32 product, the control that shows what the split
-# buys, and "wg_1stage" as K4-bwd and K5-bwd ship it (a one-stage ring).
-MODES = {"ffma": 0, "tf32": 1, "3xtf32": 2, "3xtf32_acc": 3}
-PRESPLIT = "3xtf32_presplit"
+# tile_gemm's `mode`: "ffma", the f32 FFMA control; and WG_MODES, the wgmma
+# core (the weights packed by pack.wg_pack_b): "wg" as K1-fwd, K6-fwd, K2,
+# K3, K4-fwd, K5-fwd and K7 ship it (a two-stage ring), one TF32 product,
+# the control that shows what the split buys, and "wg_1stage" as K1-bwd,
+# K6-bwd, K4-bwd and K5-bwd ship it (a one-stage ring).
 WG_MODES = {"wg": 5, "wg_tf32": 6, "wg_1stage": 7}
+MODES = {"ffma": 0, **WG_MODES}
 # row_reduce's `mode`: the FFMA reduction (the trial's control), the wgmma
 # one every backward kernel runs ("wg", 3xTF32) and its one-product control.
 REDUCE_MODES = {"ffma": 0, "wg": 2, "wg_tf32": 1}
@@ -38,11 +36,11 @@ def _mat(t, name: str) -> None:
     build.check_input(t, name, t.shape[1])
 
 
-def tile_gemm(a: torch.Tensor, w: torch.Tensor, mode: str = "3xtf32", reps: int = 1,
+def tile_gemm(a: torch.Tensor, w: torch.Tensor, mode: str = "wg", reps: int = 1,
               aux: torch.Tensor | None = None) -> torch.Tensor:
     """a (m, K) @ w (K, N) through a tile GEMM (K and N multiples of 4,
-    N <= 256): the render-core kernels' in ``MODES`` and PRESPLIT (w split
-    here), the wgmma core in ``WG_MODES`` (w packed here). For
+    N <= 256): the FFMA control ("ffma") or the wgmma core in ``WG_MODES``
+    (w packed here). For
     timing: each block repeats the GEMM ``reps`` times, and with ``aux``
     (2 m N floats) the epilogue multiplies by aux[i] and stores to
     aux[m N + i], the load-after-store chain of the sweeps' epilogues."""
@@ -51,19 +49,12 @@ def tile_gemm(a: torch.Tensor, w: torch.Tensor, mode: str = "3xtf32", reps: int 
     if w.shape[0] != a.shape[1]:
         raise ValueError(f"a is {tuple(a.shape)}, w {tuple(w.shape)}")
     c = torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
-    w_lo, n_out = w, w.shape[1]
-    if mode == PRESPLIT:
-        code = 4
-        w = tf32_rna(w)
-        w_lo = tf32_rna(w_lo - w)
-    elif mode in WG_MODES:
-        code = WG_MODES[mode]
-        w = w_lo = wg_pack_b(w.t())
-    else:
-        code = MODES[mode]
+    n_out = w.shape[1]
+    if mode in WG_MODES:
+        w = wg_pack_b(w.t())
     code = build.load_library().copenerf_tile_gemm_check(
-        a.data_ptr(), w.data_ptr(), w_lo.data_ptr(), c.data_ptr(), a.shape[0],
-        a.shape[1], n_out, code, reps,
+        a.data_ptr(), w.data_ptr(), c.data_ptr(), a.shape[0],
+        a.shape[1], n_out, MODES[mode], reps,
         aux.data_ptr() if aux is not None else None, build.stream(a))
     build.check(code, f"tile_gemm_check {mode}")
     return c

@@ -14,8 +14,9 @@ with ``perturb_``, random inputs and cotangents from fixed seeds: the mean of
 ``REPS`` launches after a warm-up (CUDA events), then the same launches under
 ``torch.profiler`` (CUDA activity), whose device time per kernel name gives
 the split (each backward: its row kernel, ``wgrad_wg_partial_kernel`` and
-``wgrad_final_kernel``; "not measured" where the profiler sees no device
-time); beside them ``torch.mm`` of every backward's weight reduction over
+``wgrad_final_kernel``, each as ms per launch beside the launches the
+profiler recorded; "not measured" where it sees no device time); beside
+them ``torch.mm`` of every backward's weight reduction over
 random rows of its staged widths, one product a job
 (``<launcher>_reduction_mm`` for K1, K3-K7: yardsticks the port never
 calls) and the reductions' bounds (3xTF32 products; staged bytes), the
@@ -30,15 +31,13 @@ another checkout, e.g. a parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists, so two versions compare on one card in
 one call, in turns: ``--root A``, ``--root B``, ``--root B``, ``--root A``.
 
-``--trial`` holds the tile GEMMs (K1 and K6 on ``mma.sync``, K2-K5 and K7
-on ``wgmma``) and the weight-gradient reduction (``csrc/tc_check.cu``)
-against an f64 product at the shapes the kernels multiply (K = 52, 204,
-256, 292), in every variant (f32 FFMA, 1xTF32, 3xTF32 as shipped, 3xTF32
-summed on the tensor core; wgmma as shipped with a two-stage and a
-one-stage ring, and in 1xTF32; the reduction in FFMA, as shipped on wgmma
-and in 1xTF32), and times each tile GEMM's slope (``mma.sync`` with the
-weights split in registers or on the host, ``wgmma`` with them packed by
-the host, through either ring).
+``--trial`` holds the tile GEMM of every row kernel (``wgmma``) and the
+weight-gradient reduction (``csrc/tc_check.cu``) against an f64 product at
+the shapes the kernels multiply (K = 52, 204, 256, 292), in every variant
+(f32 FFMA; wgmma in 3xTF32 as shipped with a two-stage and a one-stage
+ring, and in 1xTF32; the reduction in FFMA, as shipped on wgmma and in
+1xTF32), and times each tile GEMM's slope (the FFMA control, ``wgmma``
+with the weights packed by the host through either ring).
 
 Needs a CUDA card; prints the card's ``nvidia-smi`` name and power limit
 first.
@@ -72,26 +71,34 @@ def event_ms(fn, reps):
 
 
 def kernel_split(fn, reps):
-    """{CUDA kernel name: device ms per call of fn} from torch.profiler, or
-    None when it records no device time."""
+    """{CUDA kernel name: {"ms": device ms per launch, "launches": launches
+    recorded}} from torch.profiler over ``reps`` calls of fn after one
+    warm-up call inside the profiler (CUPTI's first records of a window can
+    be lost), or None when it records no device time. A launcher's kernel
+    that runs once a call shows ``launches`` == reps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+        for _ in range(reps + 1):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     split = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if us <= 0:
+        if us <= 0 or ev.count <= 0:
             continue
         m = re.search(r"(\w+_kernel)(<[^>(]*>)?", ev.key)
         name = m.group(1) + (m.group(2) or "") if m else ev.key[:60]
-        split[name] = split.get(name, 0.0) + us / 1e3 / reps
-    return split or None
+        got = split.setdefault(name, {"us": 0.0, "launches": 0})
+        got["us"] += us
+        got["launches"] += ev.count
+    return {k: {"ms": v["us"] / 1e3 / v["launches"], "launches": v["launches"]}
+            for k, v in split.items()} or None
 
 
 def registers(log):
@@ -293,8 +300,8 @@ def run_trial():
     """Relative Frobenius errors against f64 of the tile GEMM (m rows of
     64-row tiles, K x N weights) and the reduction (n rows, O x I), for
     activations >= 0 (softplus, ReLU outputs) and of either sign
-    (cotangents), weights N(0, 1/K); then times of the tile GEMM with the
-    weights split in registers and split on the host."""
+    (cotangents), weights N(0, 1/K); then times of the tile GEMM in every
+    mode."""
     import torch
     from copenerf_torch.ops.kernels import build
     from copenerf_torch.ops.kernels import tc_check as TC
@@ -311,7 +318,7 @@ def run_trial():
             ref = a.double() @ w.double()
             res["tile_gemm"][f"64x{K}x{N} {kind}"] = {
                 mode: TC.rel_err(TC.tile_gemm(a, w, mode), ref)
-                for mode in (*TC.MODES, *TC.WG_MODES)}
+                for mode in TC.MODES}
     for n, O, I in ((1024, 256, 256), (131072, 256, 256)):
         for kind in ("nonneg", "signed"):
             z = torch.randn((n, O), generator=gen, device="cuda")
@@ -329,8 +336,7 @@ def run_trial():
     aux = torch.rand((2 * ROWS * 256,), generator=gen, device="cuda")
     times = {"note": f"{ROWS} rows x 256 x 256 per GEMM: ms from the slope over "
                      "1 and 9 repeats, TFLOP/s of f32 products"}
-    for mode in ("ffma", "3xtf32", "3xtf32_acc", "tf32", "3xtf32_presplit",
-                 *TC.WG_MODES):
+    for mode in TC.MODES:
         for chain in (None, aux):
             t1 = event_ms(lambda: TC.tile_gemm(a, w, mode, 1, chain), REPS)
             t9 = event_ms(lambda: TC.tile_gemm(a, w, mode, 9, chain), REPS)

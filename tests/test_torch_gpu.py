@@ -48,6 +48,12 @@ WIDTHS = {
                            multires=3),
               TF.ColorConfig(d_feature=32, d_hidden=64, n_layers=3,
                              multires_view=2)),
+    # Every layer, the feature head and the color layers past one
+    # warpgroup's 128 columns, with K tails.
+    "wide": (TF.SDFConfig(d_out=161, d_hidden=160, n_layers=4, skip_in=(2,),
+                          multires=3),
+             TF.ColorConfig(d_feature=160, d_hidden=160, n_layers=3,
+                            multires_view=2)),
 }
 KINK_MARGIN = 2e-5
 
@@ -548,10 +554,10 @@ def test_fold_switch_and_sdf_output_route_to_k6_and_k7_on_card(monkeypatch):
     assert launched(output) == [0, 0, 0, 0, 0, 0, 1, 1]
 
 
-# The 3xTF32 tensor-core cores, of K1 and K6 (csrc/mma_tile.cuh) and of K2
-# and K3 (csrc/wgmma_tile.cuh), through csrc/tc_check.cu: the error against
-# an f64 product must stay within 2x that of the f32 FFMA version the other
-# kernels run, on the same inputs.
+# The 3xTF32 tensor-core cores of every row kernel (csrc/wgmma_tile.cuh) and
+# of the weight-gradient reduction (csrc/wgrad.cu), through
+# csrc/tc_check.cu: the error against an f64 product must stay within 2x
+# that of an f32 FFMA version, on the same inputs.
 # The tile GEMM's activation columns past K hold NaN, so a read past K shows.
 TILE_WIDTHS = [(52, 256), (256, 204), (204, 256), (292, 256), (256, 52),
                (256, 36), (28, 64), (64, 28), (64, 48), (48, 32)]
@@ -566,21 +572,6 @@ def _tc_inputs(shape, seed, nonneg=False):
     g = torch.Generator(device="cuda").manual_seed(seed)
     t = torch.randn(shape, generator=g, device="cuda")
     return t.abs() if nonneg else t
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("K,N", TILE_WIDTHS)
-def test_tc_tile_gemm_odd_widths_on_card(K, N):
-    from copenerf_torch.ops.kernels import tc_check as TC
-
-    _require_cuda()
-    for m in (1, 70, 4096):
-        a = _tc_inputs((m, K), seed=K * N + m, nonneg=True)
-        w = _tc_inputs((K, N), seed=K + N) / K ** 0.5
-        ref = a.double() @ w.double()
-        e_ffma = TC.rel_err(TC.tile_gemm(a, w, "ffma"), ref)
-        e_tc = TC.rel_err(TC.tile_gemm(a, w, "3xtf32"), ref)
-        assert e_tc <= 2 * e_ffma, (K, N, m, e_tc, e_ffma)
 
 
 @pytest.mark.gpu
@@ -609,44 +600,13 @@ def test_tc_row_reduction_odd_widths_on_card(O, I):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("O,I", [(257, 52), (160, 292), (3, 268)])
-def test_tc_row_reduction_pairs_exact_on_card(O, I):
-    """The reduction on small integers (exact in TF32 and in every sum) over
-    2,500 rows: a second pair that stops at row 1,300 (the render-core
-    backward's sweep rows; its later rows hold values no sum may read), and
-    ones for z stopping at row 700 (its row-0 job)."""
-    from copenerf_torch.ops.kernels import tc_check as TC
-
-    _require_cuda()
-    n = 2500
-    g = torch.Generator(device="cuda").manual_seed(O + I)
-
-    def ints(width):
-        out = torch.full((n, -(-width // 4) * 4), float("nan"), device="cuda")
-        out[:, :width] = torch.randint(-8, 9, (n, width), generator=g,
-                                       device="cuda").float()
-        return out
-
-    z, t, z2, t2 = ints(O), ints(I), ints(O), ints(I)
-    w, b = TC.row_reduce(z, t, O, I, pair2=(z2, t2, 1300))
-    ref = (z[:, :O].double().T @ t[:, :I].double()
-           + z2[:1300, :O].double().T @ t2[:1300, :I].double())
-    assert torch.equal(w.double(), ref), (O, I)
-    assert torch.equal(b.double(), z[:, :O].double().sum(0)), (O, I)
-    w, b = TC.row_reduce(None, t, O, I, rows=700)
-    ref = t[:700, :I].double().sum(0).expand(O, I)
-    assert torch.equal(w.double(), ref), (O, I)
-    assert torch.equal(b, torch.full((O,), 700.0, device="cuda")), (O, I)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("shape", ["64x52x256", "64x256x256", "64x256x204",
                                    "64x292x256", "reduce 1024x256x256"])
 def test_tc_accuracy_trial_on_card(shape):
-    """The accuracy trial at the shapes K1 multiplies (the tile GEMM over
-    528 tiles; the reduction over one 1,024-row split): 3xTF32 within 2x the
-    FFMA GEMM's error against f64, for activations >= 0 and of either
-    sign."""
+    """The accuracy trial at the shapes K1 multiplies (the tile GEMM on
+    K1-bwd's one-stage wgmma ring over 528 tiles; the reduction over one
+    1,024-row split): 3xTF32 within 2x the FFMA GEMM's error against f64,
+    for activations >= 0 and of either sign."""
     from copenerf_torch.ops.kernels import tc_check as TC
 
     _require_cuda()
@@ -662,15 +622,16 @@ def test_tc_accuracy_trial_on_card(shape):
             a = _tc_inputs((64 * 528, K), seed=K, nonneg=nonneg)
             w = _tc_inputs((K, N), seed=N) / K ** 0.5
             ref = a.double() @ w.double()
-            errs = [TC.rel_err(TC.tile_gemm(a, w, m), ref) for m in ("ffma", "3xtf32")]
+            errs = [TC.rel_err(TC.tile_gemm(a, w, m), ref) for m in ("ffma", "wg_1stage")]
         assert errs[1] <= 2 * errs[0], (shape, nonneg, errs)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,N", TILE_WIDTHS)
 def test_wg_tile_gemm_odd_widths_on_card(K, N):
-    """The wgmma core of K2, K3 and K4 (csrc/wgmma_tile.cuh): as shipped,
-    with the two-stage ring (K2, K3, K4-fwd) and the one-stage ring (K4-bwd),
+    """The wgmma core of every row kernel (csrc/wgmma_tile.cuh): as shipped,
+    with the two-stage ring (K1-fwd, K6-fwd, K2, K3, K4-fwd, K5-fwd, K7) and
+    the one-stage ring (K1-bwd, K6-bwd, K4-bwd, K5-bwd),
     within 2x the FFMA GEMM's error against f64; every variant exact on
     small integers (the fragment layouts, the descriptor strides, the
     swizzle, the ring's barrier phases)."""
@@ -829,12 +790,12 @@ def test_color_kernels_past_one_warpgroup_on_card(name, n):
 
 @pytest.mark.gpu
 def test_tensor_core_instructions_per_kernel_on_card():
-    """``cuobjdump -sass`` of the built library: K2, K3-bwd, K4-fwd (and
-    K7-fwd, its other instantiation), K4-bwd, K5-fwd, K5-bwd, K7-bwd and the
-    weight-gradient reduction of every backward kernel issue TF32 HGMMA
-    (wgmma) and no HMMA; K1 and K6 (row kernels) issue TF32 HMMA
-    (mma.sync); the FFMA reduction (the accuracy trial's control) and the
-    final sums issue neither."""
+    """``cuobjdump -sass`` of the built library: every row kernel (K1-fwd
+    and K6-fwd, K1-bwd and K6-bwd, K2, K3-bwd, K4-fwd and K7-fwd, K4-bwd,
+    K5-fwd, K5-bwd, K7-bwd) and the weight-gradient reduction of every
+    backward kernel issue TF32 HGMMA (wgmma) and no HMMA; the FFMA
+    reduction (the accuracy trial's control) and the final sums issue
+    neither."""
     import re
     import shutil
     import subprocess
@@ -855,16 +816,13 @@ def test_tensor_core_instructions_per_kernel_on_card():
         funcs[key] = funcs.get(key, "") + body
     wg = ["sdf_value_kernel", "sdf_value_bwd_kernel", "sdf_outgrad_fwd_kernel",
           "sdf_outgrad_fwd_kernel<1>", "sdf_outgrad_bwd_kernel", "color_fwd_kernel",
-          "color_bwd_kernel", "sdf_out_bwd_kernel", "wgrad_wg_partial_kernel"]
-    tc = ["rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
+          "color_bwd_kernel", "sdf_out_bwd_kernel", "wgrad_wg_partial_kernel",
+          "rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
           "rendercore_bwd_kernel<1>"]
     ffma = ["wgrad_partial_kernel", "wgrad_final_kernel"]
     for k in wg:
         assert re.search(r"HGMMA\.[\w.]*TF32", funcs[k]), k
         assert "HMMA" not in funcs[k].replace("HGMMA", ""), k
-    for k in tc:
-        assert re.search(r"HMMA\.[\w.]*TF32", funcs[k]), k
-        assert "HGMMA" not in funcs[k], k
     for k in ffma:
         assert "HMMA" not in funcs[k] and "HGMMA" not in funcs[k], k
 

@@ -98,6 +98,18 @@ def _pe(v, m):
     return torch.cat(parts, -1)
 
 
+def _wg(P, off, shape):
+    """The matrix B (K, N) a wgmma pack holds at ``off``: its hi + lo parts,
+    within 2^-21 of each value."""
+    hi, lo = pack.wg_unpack_b(P[off:], *shape)
+    return hi + lo
+
+
+def _hidden_w(P, offs, l, d_in, d_out):
+    """SDF hidden layer l's W (in, out), as wgmma B in every pack."""
+    return _wg(P, offs["wp"][l], (d_in, d_out))
+
+
 def _emulate_sdf(P, offs, cfg, x, keep=None):
     c = 1.0 / np.sqrt(2.0)
     n_lin = len(cfg.dims) - 1
@@ -108,7 +120,7 @@ def _emulate_sdf(P, offs, cfg, x, keep=None):
         d_in, d_out = TF.idr_layer_dims(cfg, l)
         if l == skip:
             h = torch.cat([h, e * c], -1)
-        z = h @ _take(P, offs["w"][l], (d_in, d_out)) + _take(
+        z = h @ _hidden_w(P, offs, l, d_in, d_out) + _take(
             P, offs["b"][l], (d_out,))
         h = torch.nn.functional.softplus(z, beta=100.0, threshold=20.0)
         if keep is not None:
@@ -130,14 +142,16 @@ def test_packed_layout_value(nets):
     flat = [o for v in offs.values() for o in (v if isinstance(v, list)
                                                else [v])]
     assert all(o % 4 == 0 for o in flat)
-    assert len(offs["w"]) == len(offs["b"]) == len(tp["sdf"].cfg.dims) - 2
+    assert len(offs["wp"]) == len(offs["wtp"]) == len(offs["b"]) == len(tp["sdf"].cfg.dims) - 2
+    assert not {"w", "wt", "wfp", "wftp", "b_feat"} & set(offs)
     np.testing.assert_allclose(sdf.numpy(), ref.numpy(), rtol=0, atol=ATOL)
 
 
 def test_packed_layout_rendercore(nets):
-    """The kernel's algorithm on the packed buffer: forward, the reverse
-    input-gradient sweep over W^T, J_pe^T, and the color MLP on the permuted
-    [feature, x, PE(dirs), grad, 0] input."""
+    """The kernel's algorithm on the packed buffer (every hidden matrix and
+    the feature columns as wgmma B, read back as hi + lo): forward, the
+    reverse input-gradient sweep over W^T, J_pe^T, and the color MLP on the
+    permuted [feature, x, PE(dirs), grad, 0] input."""
     _, tp = nets
     scfg, ccfg = tp["sdf"].cfg, tp["color"].cfg
     xn, dn = rows(19, seed=4)
@@ -148,7 +162,7 @@ def test_packed_layout_rendercore(nets):
         sigs = []
         sdf, h, e = _emulate_sdf(P, offs, scfg, x, keep=sigs)
         d_feat = ccfg.d_feature
-        feat = h @ _take(P, offs["w_feat"], (scfg.d_hidden, d_feat)) + \
+        feat = h @ _wg(P, offs["wfp"], (scfg.d_hidden, d_feat)) + \
             _take(P, offs["b_feat"], (d_feat,))
         n_lin, skip = len(scfg.dims) - 1, pack.sdf_skip(scfg)
         d0 = scfg.dims[0]
@@ -156,7 +170,7 @@ def test_packed_layout_rendercore(nets):
         ee_skip = 0.0
         for l in range(n_lin - 2, -1, -1):
             d_in, d_out = TF.idr_layer_dims(scfg, l)
-            p = q @ _take(P, offs["wt"][l], (d_out, d_in))
+            p = q @ _wg(P, offs["wtp"][l], (d_out, d_in))
             if l == skip:
                 p = p * c
                 ee_skip = p[:, d_in - d0:]
@@ -176,8 +190,9 @@ def test_packed_layout_rendercore(nets):
         dims = list(ccfg.dims)
         dims[0] = k0
         for l in range(len(dims) - 1):
-            hin = hin @ _take(P, offs["wc"][l], (dims[l], dims[l + 1])) + \
-                _take(P, offs["bc"][l], (dims[l + 1],))
+            w = (_wg(P, offs["wcp"][l], (dims[l], dims[l + 1])) if l < len(dims) - 2
+                 else _take(P, offs["wc_last"], (dims[l], dims[l + 1])))
+            hin = hin @ w + _take(P, offs["bc"][l], (dims[l + 1],))
             if l < len(dims) - 2:
                 hin = torch.relu(hin)
         color = torch.sigmoid(hin)

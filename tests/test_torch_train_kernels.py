@@ -214,29 +214,38 @@ def test_value_grad_layout_pads_the_head():
 
 
 def test_backward_pack_layout(nets):
-    """The backward's extra weights: ``wct[l]`` is each color layer's
-    (out, in) effective weight (layer 0 in the kernel's input order, padded)
-    and ``wc[l]`` its transpose; ``w_feat_t`` is the last SDF layer's
-    feature rows."""
+    """The backward's extra weights, as wgmma B split into TF32 hi and lo:
+    ``wctp[l]`` is each hidden color layer's (out, in) effective weight
+    (layer 0 in the kernel's input order, padded: its columns < 256, and
+    ``wct0tp`` the rest where k0 > 256); ``wftp`` the last SDF layer's
+    feature rows; the color head plain, ``wct_last`` (out, in) and
+    ``wc_last`` its transpose."""
     _, tp = nets
     P, offs = pack.pack_rendercore(tp["sdf"], tp["color"])
     ccfg = tp["color"].cfg
     k0 = pack.color_k0(ccfg)
+
+    def same_split(off, b):
+        hi, lo = pack.wg_unpack_b(P[off:], *b.shape)
+        torch.testing.assert_close(hi, pack.tf32_rna(b), rtol=0, atol=0)
+        torch.testing.assert_close(lo, pack.tf32_rna(b - hi), rtol=0, atol=0)
+
     with torch.no_grad():
         layers = pack.effective_layers(tp["color"])
-        for l, (w, _) in enumerate(layers):
-            o, i = w.shape
-            width = k0 if l == 0 else i
-            wct = P[offs["wct"][l]:offs["wct"][l] + o * width].view(o, width)
-            wc = P[offs["wc"][l]:offs["wc"][l] + o * width].view(width, o)
+        for l, (w, _) in enumerate(layers[:-1]):
             want = pack.color_kernel_inputs(w, ccfg) if l == 0 else w
-            torch.testing.assert_close(wct, want, rtol=0, atol=0)
-            torch.testing.assert_close(wc, want.t(), rtol=0, atol=0)
+            same_split(offs["wctp"][l], want[:, :256])
+            if want.shape[1] > 256:
+                same_split(offs["wct0tp"], want[:, 256:])
+        assert ("wct0tp" in offs) == (k0 > 256)
+        w = layers[-1][0]
+        o, i = w.shape
+        torch.testing.assert_close(P[offs["wct_last"]:offs["wct_last"] + o * i].view(o, i),
+                                   w, rtol=0, atol=0)
+        torch.testing.assert_close(P[offs["wc_last"]:offs["wc_last"] + o * i].view(i, o),
+                                   w.t(), rtol=0, atol=0)
         w_last = pack.effective_layers(tp["sdf"])[-1][0]
-        n = w_last[1:].numel()
-        torch.testing.assert_close(
-            P[offs["w_feat_t"]:offs["w_feat_t"] + n].view(w_last[1:].shape),
-            w_last[1:], rtol=0, atol=0)
+        same_split(offs["wftp"], w_last[1:])
 
 
 def test_backward_cuda_entries_refuse_cpu_tensors(nets):

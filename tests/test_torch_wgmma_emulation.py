@@ -1,4 +1,4 @@
-"""The wgmma core of K2-K5 and K7 (``csrc/wgmma_tile.cuh``) and the
+"""The wgmma core of every row kernel (``csrc/wgmma_tile.cuh``) and the
 weight-gradient reduction (``csrc/wgrad.cu``) as the host emulation runs
 them (``copenerf_torch/ops/kernels/emulate.py``: ``wgmma.mma_async``
 m64n128k8 TF32 with A from registers and B through a shared-memory
@@ -14,14 +14,14 @@ descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
   GEMM of ``csrc/tc_check.cu`` in every wgmma mode at ragged K and N < 256:
   the fragment layouts, the descriptor strides and the swizzle must give the
   product exactly;
-* the one-stage ring of K4-bwd over 2, 5 and 8 slices (every refill waits
-  on the next phase of the one barrier): the two-stage ring's product bit
-  for bit;
+* the one-stage ring of K1-bwd, K4-bwd, K5-bwd and K6-bwd over 2, 5 and 8
+  slices (every refill waits on the next phase of the one barrier): the
+  two-stage ring's product bit for bit;
 * one TF32 product against numpy's f64 product of the operands rounded to
   TF32: within 4e-7 relative (the f32 sums);
-* 3xTF32 as K2 and K3 ship it against f64: within 2x the f32 FFMA GEMM's
-  error and within 1e-6 relative, at the widths K2 and K3 multiply (K = 52,
-  204, 256) and ragged ones; one TF32 product is far from it;
+* 3xTF32 through either ring against f64: within 2x the f32 FFMA GEMM's
+  error and within 1e-6 relative, at the widths the kernels multiply (K =
+  52, 204, 256, 292) and ragged ones; one TF32 product is far from it;
 * K2, K3-bwd, K4-fwd (out and grad), K4-bwd (per cotangent channel),
   K7-fwd and K7-bwd (per cotangent channel) through their own wrappers at
   a width whose layers, and the feature head, are wider than one
@@ -39,7 +39,15 @@ descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
   apart) read back through the descriptor, and K5-fwd and K5-bwd through
   their own wrappers with hidden layers past one warpgroup (d_hidden 160),
   a K tail in every hidden GEMM (136), and a color input past 256 columns
-  with a K tail (k0 = 268: layer 0's tail slice, h0_bar's second pass).
+  with a K tail (k0 = 268: layer 0's tail slice, h0_bar's second pass);
+* the render-core pack (``pack.pack_rendercore_layers``) byte for byte the
+  outgrad pack's SDF part and the color pack's color part, no plain copy;
+  K1-fwd and K6-fwd through their own wrappers with every layer, the
+  feature head and the color layers past one warpgroup and a 268-wide
+  color input (d_hidden 160, d_feature 232), and with a K tail in every
+  GEMM (136); K1-bwd and K6-bwd at d_hidden 160 per cotangent channel
+  (sbar, gbar, cbar, K6's swbar, all) with ``chip_smoke.py``'s rules
+  (``KINK_MARGIN`` on the color cotangent).
 
 Skips where there is no ``g++``."""
 
@@ -55,6 +63,8 @@ from copenerf_torch.models.mlp import perturb_
 from copenerf_torch.ops.kernels import color as CK
 from copenerf_torch.ops.kernels import emulate, pack
 from copenerf_torch.ops.kernels import outgrad as OG
+from copenerf_torch.ops.kernels import rendercore as RC
+from copenerf_torch.ops.kernels import rendercore_cons as RCC
 from copenerf_torch.ops.kernels import sdf_out as SO
 from copenerf_torch.ops.kernels import sdf_value as SV
 from copenerf_torch.ops.kernels import sdf_value_diff as SVD
@@ -189,16 +199,20 @@ def test_emulated_wgmma_tf32_product_matches_numpy(emu, K, N):
     assert np.linalg.norm(got - ref) <= 4e-7 * np.linalg.norm(ref)
 
 
+@pytest.mark.parametrize("ring", ["wg", "wg_1stage"])
 @pytest.mark.parametrize("K,N", [(52, 256), (204, 256), (256, 204), (256, 52),
-                                 (28, 64)])
-def test_emulated_wgmma_3xtf32_against_f64(emu, K, N):
+                                 (28, 64), (292, 36)])
+def test_emulated_wgmma_3xtf32_against_f64(emu, K, N, ring):
+    """Either ring: two stages (K1-fwd, K6-fwd, K2, K3, K4-fwd, K5-fwd, K7)
+    and one (K1-bwd, K6-bwd, K4-bwd, K5-bwd), at the widths the kernels multiply and ragged ones
+    (K = 292: the render core's color input)."""
     a, w = _mats(130, K, N, seed=3 * K + N)
     a = np.abs(a)
     ref = a.astype(np.float64) @ w.astype(np.float64)
     err = {m: np.linalg.norm(TC.tile_gemm(torch.from_numpy(a), torch.from_numpy(w),
                                           m).numpy() - ref) / np.linalg.norm(ref)
-           for m in ("ffma", "wg", "wg_tf32")}
-    assert err["wg"] <= min(2 * err["ffma"], 1e-6), err
+           for m in ("ffma", ring, "wg_tf32")}
+    assert err[ring] <= min(2 * err["ffma"], 1e-6), err
     assert err["wg_tf32"] > 1e-5, err                # the split is what buys it
 
 
@@ -521,3 +535,142 @@ def test_emulated_k5_bwd_past_one_warpgroup(emu, name):
     r64 = grads(lambda *a: CK.color_plain(net64, *a), net64, [t.double() for t in ins],
                 cbar.double())
     _within_plain(got, plain, r64)
+
+
+# The render core's nets (K1, K6): every SDF layer, the feature head and the
+# color layers past one warpgroup with a color input past 256 columns
+# (d_hidden 160, d_feature 232, multires_view 4: k0 = 268, layer 0's tail
+# slice, h0_bar's second pass), and a K tail in every GEMM (136).
+RENDER_CORE = {
+    160: (F.SDFConfig(d_out=233, d_hidden=160, n_layers=4, skip_in=(2,), multires=3,
+                      scale=1.3),
+          F.ColorConfig(d_feature=232, d_hidden=160, n_layers=3, multires_view=4)),
+    136: (F.SDFConfig(d_out=137, d_hidden=136, n_layers=4, skip_in=(2,), multires=3,
+                      scale=1.3),
+          F.ColorConfig(d_feature=136, d_hidden=136, n_layers=3, multires_view=2)),
+}
+_RC_NETS = {}
+
+
+def render_core_nets(hidden):
+    if hidden not in _RC_NETS:
+        scfg, ccfg = RENDER_CORE[hidden]
+        g = torch.Generator().manual_seed(6)
+        _RC_NETS[hidden] = (
+            perturb_(F.SDFNetwork(scfg, torch.Generator().manual_seed(hidden)), g),
+            perturb_(F.ColorNetwork(ccfg, torch.Generator().manual_seed(hidden + 1)), g))
+    return _RC_NETS[hidden]
+
+
+def _render_rows(n, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    cols = [rng.uniform(-1.2, 1.2, size=(n, 4)), d / np.linalg.norm(d, axis=-1, keepdims=True),
+            rng.uniform(-1.2, 1.2, size=(n, 4))]
+    return [torch.from_numpy(c.astype(np.float32)) for c in cols]
+
+
+def test_rendercore_pack_holds_what_the_kernels_read():
+    """The render-core pack (K1, K6): the SDF part as the outgrad pack
+    holds it and the color part as the color pack does, every matrix as
+    wgmma B, the same bytes; no plain copy of any hidden layer or of the
+    feature columns; h0_bar's tail only where k0 > 256."""
+    for hidden, (scfg, ccfg) in RENDER_CORE.items():
+        sdf, col = render_core_nets(hidden)
+        s_layers, c_layers = pack.effective_layers(sdf), pack.effective_layers(col)
+        params, offs = pack.pack_rendercore_layers(s_layers, c_layers, ccfg)
+        tail = {"wct0tp"} if pack.color_k0(ccfg) > 256 else set()
+        assert set(offs) == {"b", "wp", "wtp", "w_last0", "b_last0", "wfp", "wftp",
+                             "b_feat", "wcp", "wctp", "bc", "wc_last", "wct_last"} | tail
+        assert len(offs["wp"]) == len(offs["wtp"]) == len(s_layers) - 1
+        assert len(offs["wcp"]) == len(offs["wctp"]) == len(c_layers) - 1
+        og, og_offs = pack.pack_outgrad_layers(s_layers)
+        cl, cl_offs = pack.pack_color_layers(c_layers, ccfg)
+        ends = sorted(v for o in offs.values() for v in (o if isinstance(o, list) else [o]))
+        ends.append(params.numel())
+        for key, where in offs.items():
+            src, src_offs = (cl, cl_offs) if key in cl_offs else (og, og_offs)
+            for i, off in enumerate(where if isinstance(where, list) else [where]):
+                o2 = src_offs[key] if not isinstance(src_offs[key], list) else src_offs[key][i]
+                size = ends[ends.index(off) + 1] - off
+                assert torch.equal(params[off:off + size], src[o2:o2 + size]), (hidden, key, i)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K6"])
+@pytest.mark.parametrize("hidden", [160, 136])
+def test_emulated_rendercore_fwd_past_one_warpgroup(emu, kernel, hidden):
+    """K1-fwd and K6-fwd (every GEMM on the two-stage wgmma ring: the
+    hidden layers, the feature head into the color input, the gradient
+    sweep, the color layers; K6 also the value sweep at y) against their
+    plain versions: 1e-4, the gradient 1e-4 of its largest entry."""
+    scfg, ccfg = RENDER_CORE[hidden]
+    sdf, col = render_core_nets(hidden)
+    x, d, y = _render_rows(70, 16)
+    packed = pack.pack_rendercore(sdf, col)
+    with torch.no_grad():
+        if kernel == "K1":
+            got = RC.launch_fwd(scfg, ccfg, packed, x, d)
+            ref = RC.rendercore_fwd_plain(sdf, col, x, d)
+        else:
+            got = RCC.launch_cons_fwd(scfg, ccfg, packed, x, d, y)
+            ref = RCC.rendercore_cons_plain(sdf, col, x, d, y)
+    for name, a, b in zip(("sdf", "grad", "color", "sdf_w"), got, ref):
+        lim = 1e-4 * (max(1.0, b.abs().max().item()) if name == "grad" else 1.0)
+        assert (a - b).abs().max().item() <= lim, name
+
+
+# Cotangent channels of the render core: sdf, grad, color (and K6's sdf_w).
+RC_CHANNELS = {"sbar": (1, 0, 0, 0), "gbar": (0, 1, 0, 0), "cbar": (0, 0, 1, 0),
+               "swbar": (0, 0, 0, 1), "all": (1, 1, 1, 1)}
+
+
+def _rendercore_bwd_check(kernel, chan):
+    """K1-bwd or K6-bwd (every GEMM on the one-stage wgmma ring, the
+    tensor-core reduction) at d_hidden 160 through its autograd.Function for
+    one cotangent channel (or all): x_bar, dirs_bar (y_bar) and every
+    weight gradient of both nets within 2x the plain f32 version's error
+    against f64, or 1e-5; no color cotangent on rows within KINK_MARGIN of
+    a color ReLU's kink."""
+    scfg, ccfg = RENDER_CORE[160]
+    sdf, col = render_core_nets(160)
+    sdf64, col64 = copy.deepcopy(sdf).double(), copy.deepcopy(col).double()
+    x, d, y = _render_rows(70, 17)
+    ins = [x, d] if kernel == "K1" else [x, d, y]
+    rng = np.random.default_rng(18)
+    cots = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((70, 1), (70, 4), (70, 3), (70,))]
+    margin = RC.color_relu_margin(sdf64, col64, x.double(), d.double())
+    cots[2] = cots[2] * (margin >= KINK_MARGIN).float()[:, None]
+    cots = [c * m for c, m in zip(cots, RC_CHANNELS[chan])][:len(ins) + 1]
+    ws, bs = zip(*pack.effective_layers(sdf))
+    wc, bc = zip(*pack.effective_layers(col))
+
+    def kernel_fn(*a):
+        if kernel == "K1":
+            return RC.RenderCore.apply(scfg, ccfg, *a, *ws, *bs, *wc, *bc)
+        return RCC.RenderCoreCons.apply(scfg, ccfg, *a, *ws, *bs, *wc, *bc)
+
+    def plain(nets, *a):
+        fn = RC.rendercore_fwd_plain if kernel == "K1" else RCC.rendercore_cons_plain
+        return fn(*nets, *a)
+
+    def grads(fn, nets, xs, cs):
+        xs = [t.clone().requires_grad_(True) for t in xs]
+        params = [p for m in nets for p in m.parameters()]
+        return torch.autograd.grad(fn(*xs), [*xs, *params], cs)
+
+    got = grads(kernel_fn, (sdf, col), ins, cots)
+    ref = grads(lambda *a: plain((sdf, col), *a), (sdf, col), ins, cots)
+    r64 = grads(lambda *a: plain((sdf64, col64), *a), (sdf64, col64),
+                [t.double() for t in ins], [c.double() for c in cots])
+    _within_plain(got, ref, r64)
+
+
+@pytest.mark.parametrize("chan", ["sbar", "gbar", "cbar", "all"])
+def test_emulated_k1_bwd_past_one_warpgroup(emu, chan):
+    _rendercore_bwd_check("K1", chan)
+
+
+@pytest.mark.parametrize("chan", ["sbar", "gbar", "cbar", "swbar", "all"])
+def test_emulated_k6_bwd_past_one_warpgroup(emu, chan):
+    _rendercore_bwd_check("K6", chan)

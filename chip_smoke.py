@@ -203,10 +203,33 @@ Phases, each printed on its own line, any failure exits non-zero:
             of 16, 16, 1): ms an epoch without and with the host pose
             metrics, the device's busy ms an epoch, peak memory, and the
             default 2,000 epochs projected. No gate on speed.
-30. the ``{"kernels": [...]}`` line (launches per path: render, train,
+30. e2e      the whole pipeline of ``e2e_port.py`` on the card: seed 0 of
+            the head-to-head against the JAX package (16 frames at 44x64,
+            the small nets, 40 epochs with stage 2 at 20, 80 refinement
+            epochs, 30 eval-pose epochs; ``Trainer.train`` then
+            ``Evaluator.eval``). Launch counters zeroed before and read
+            after (K3-fwd and K3-bwd once per stage-1 iteration, K1-bwd
+            once per iteration and per test-time pose step, K2 and K1-fwd
+            at least once per iteration, no K4-K7). Gates: the initial
+            weights' sha256 equal to the committed seed-0 hash of
+            ``PARITY_E2E_PORT.json``; each quality metric (PSNR, SSIM,
+            LPIPS, ATE, RPE) within [min_JAX - range_JAX, max_JAX +
+            range_JAX] over the committed JAX seeds, each pose metric (ATE,
+            RPE) also within ``e2e_port.SEED_GAP_FACTOR`` times the largest
+            committed gap between two sides' values of one seed, of JAX
+            seed 0, each depth metric within max(1e-3 |JAX seed 0|, the
+            larger committed range) of JAX seed 0. Prints the metrics, train
+            and eval wall seconds. Then (``e2e_kernels``) the path's kernels
+            at its widths (SDF 52->64x4->33, color 32x2; weights perturbed)
+            on the rows the run launched them at (``launch_rows``: each
+            kernel's three most launched row counts and its largest),
+            against their plain versions with the kernels and
+            train_kernels phases' gates; their errors join the kernels
+            line's ``max_abs_err``.
+31. the ``{"kernels": [...]}`` line (launches per path: render, train,
    render_composed, train_composed, train_fold, sdf_output, trainer,
    trainer_stage2, evaluate, mesh, cli, bench, train_dp (rank 0's
-   data-parallel steps), render_dp (rank 0's split view)), then the
+   data-parallel steps), render_dp (rank 0's split view), e2e), then the
    contract line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.
@@ -533,16 +556,17 @@ def phase_build():
     log("wgmma_warnings", lines=warn)
 
 
-def full_width_nets(seed, negative_ray=False):
+def full_width_nets(seed, negative_ray=False, cfg_path=None):
     """(cfg, field configs, geometric-init fields, the same fields perturbed
-    for the checks); ``negative_ray`` sets the color net's
+    for the checks) of configs/default.yaml, or of the config file
+    ``cfg_path``; ``negative_ray`` sets the color net's
     ``use_negative_ray_vector`` (the composed path), with the same weights."""
     import torch
     from copenerf_torch.config import load_config
     from copenerf_torch.models import configs_from_cfg, init_all_fields
     from copenerf_torch.models.mlp import perturb_
 
-    cfg = load_config(os.path.join(REPO, "configs", "default.yaml"))
+    cfg = load_config(cfg_path or os.path.join(REPO, "configs", "default.yaml"))
     cfg["neus_rendering_network"]["use_negative_ray_vector"] = negative_ray
     fcfg = configs_from_cfg(cfg)
     fields = init_all_fields(fcfg, torch.Generator().manual_seed(seed),
@@ -566,6 +590,44 @@ def sample_rows(n, seed):
     return x.to(DEVICE), d.to(DEVICE)
 
 
+def merge_errs(errs, new):
+    """``errs[k] = max(errs[k], new[k])`` for every kernel of ``new``."""
+    for k, e in new.items():
+        errs[k] = max(errs.get(k, 0.0), e)
+
+
+def check_sdf_value(sdf_net, x):
+    """K2 on the rows ``x`` against its plain version: 1e-4 absolute."""
+    import torch
+    from copenerf_torch.ops.kernels import sdf_value as SV
+
+    n = x.shape[0]
+    with torch.no_grad():
+        v = SV.sdf_value_cuda(sdf_net, x)
+        v_ref = SV.sdf_value_plain(sdf_net, x)
+    torch.cuda.synchronize()
+    e_v = (v - v_ref).abs().max().item()
+    tol_v = 1e-4
+    log("check", kernel="sdf_value", rows=n, max_abs_err=e_v, tol=tol_v)
+    if not e_v <= tol_v:
+        fail(f"sdf_value at {n} rows: max abs err {e_v} > {tol_v}")
+    return {"sdf_value": e_v}
+
+
+def check_rendercore_fwd(sdf_net, color_net, x, d):
+    """K1-fwd on the rows ``x``, ``d`` against its plain version
+    (``check_forward``)."""
+    import torch
+    from copenerf_torch.ops.kernels import rendercore as RC
+
+    with torch.no_grad():
+        got = RC.rendercore_fwd_cuda(sdf_net, color_net, x, d)
+        ref = RC.rendercore_fwd_plain(sdf_net, color_net, x, d)
+    torch.cuda.synchronize()
+    return {"rendercore_fwd": check_forward(
+        "rendercore_fwd", ("sdf", "grad", "color"), got, ref, x.shape[0])}
+
+
 def phase_kernels(fields):
     import torch
     from copenerf_torch.ops.kernels import rendercore as RC
@@ -577,21 +639,8 @@ def phase_kernels(fields):
     errs = {"sdf_value": 0.0, "rendercore_fwd": 0.0}
     for n in (262144, 1000):
         x, d = sample_rows(n, seed=n)
-        v = SV.sdf_value_cuda(sdf_net, x)
-        v_ref = SV.sdf_value_plain(sdf_net, x)
-        torch.cuda.synchronize()
-        e_v = (v - v_ref).abs().max().item()
-        tol_v = 1e-4
-        log("check", kernel="sdf_value", rows=n, max_abs_err=e_v, tol=tol_v)
-        if not e_v <= tol_v:
-            fail(f"sdf_value at {n} rows: max abs err {e_v} > {tol_v}")
-        errs["sdf_value"] = max(errs["sdf_value"], e_v)
-        got = RC.rendercore_fwd_cuda(sdf_net, color_net, x, d)
-        ref = RC.rendercore_fwd_plain(sdf_net, color_net, x, d)
-        torch.cuda.synchronize()
-        errs["rendercore_fwd"] = max(errs["rendercore_fwd"], check_forward(
-            "rendercore_fwd", ("sdf", "grad", "color"), got, ref, n))
-        del got, ref
+        merge_errs(errs, check_sdf_value(sdf_net, x))
+        merge_errs(errs, check_rendercore_fwd(sdf_net, color_net, x, d))
 
     # Times at the render chunk's shapes: 32768 rays x 64 / x 16 samples
     # for the sweep, x 128 for the render core.
@@ -714,6 +763,76 @@ def _vjp_slices(fn, inputs, params, cots, sl):
     return [torch.cat(a) for a in acc[:len(inputs)]] + acc[len(inputs):]
 
 
+def check_rendercore_bwd(sdf_net, color_net, x, d, cot_seed):
+    """K1-bwd through its autograd.Function on the rows ``x``, ``d`` against
+    autograd of the plain version in f32 and f64, for sbar, gbar, cbar alone
+    and all three (cotangents from ``cot_seed``; no color cotangent on rows
+    with a color ReLU within KINK_MARGIN of its kink), every input and
+    parameter gradient (``check_grads``). Returns {kernel: the largest
+    |kernel - plain|}."""
+    import torch
+    from copenerf_torch.ops.kernels import rendercore as RC
+
+    n = x.shape[0]
+    sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
+    params = [*sdf_net.parameters(), *color_net.parameters()]
+    params64 = [*sdf64.parameters(), *color64.parameters()]
+    names = (["x", "dirs"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
+             + [f"color.{k}" for k, _ in color_net.named_parameters()])
+    g = torch.Generator(device=DEVICE).manual_seed(cot_seed)
+    full = [torch.randn((n, w), generator=g, device=DEVICE)
+            for w in (1, 4, 3)]
+    margin = RC.color_relu_margin(sdf64, color64, x.double(), d.double())
+    smooth = margin >= KINK_MARGIN
+    log("kinks", rows=n, margin=KINK_MARGIN,
+        cbar_zeroed_share=1.0 - smooth.float().mean().item())
+    full[2] = full[2] * smooth.float()[:, None]
+    del margin
+    return {"rendercore_bwd": check_channels(
+        "rendercore_bwd", n, names,
+        lambda a, b: RC.rendercore_fwd(sdf_net, color_net, a, b),
+        lambda f64, a, b: RC.rendercore_fwd_plain(
+            *((sdf64, color64) if f64 else (sdf_net, color_net)), a, b),
+        [x, d], params, params64, full,
+        [("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)), ("cbar", (0, 0, 1)),
+         ("all", (1, 1, 1))], 32768)}
+
+
+def check_sdf_value_diff(sdf_net, x, cot_seed):
+    """K3 through its autograd.Function on the rows ``x``: the forward
+    within 1e-4 of the plain version, every gradient for one cotangent
+    (the first draw from ``cot_seed``, as ``check_rendercore_bwd``'s sbar)
+    by ``check_grads``. Returns {kernel: largest |kernel - plain|}."""
+    import torch
+    from copenerf_torch.ops.kernels import sdf_value_diff as SVD
+
+    n = x.shape[0]
+    sdf64 = copy.deepcopy(sdf_net).double()
+    sdf_params = list(sdf_net.parameters())
+    xk = x.clone().requires_grad_(True)
+    v = SVD.sdf_value_diff(sdf_net, xk)
+    with torch.no_grad():
+        v_ref = SVD.sdf_value_diff_plain(sdf_net, x)
+    e_v = (v.detach() - v_ref).abs().max().item()
+    log("check", kernel="sdf_value_diff_fwd", rows=n, max_abs_err=e_v,
+        tol=1e-4)
+    if not e_v <= 1e-4:
+        fail(f"sdf_value_diff_fwd at {n} rows: {e_v} > 1e-4")
+    g = torch.Generator(device=DEVICE).manual_seed(cot_seed)
+    obar = torch.randn((n, 1), generator=g, device=DEVICE)[:, 0].contiguous()
+    got = _vjp(lambda a: SVD.sdf_value_diff(sdf_net, a), [x], sdf_params,
+               [obar])
+    ref = _vjp_slices(lambda a: SVD.sdf_value_diff_plain(sdf_net, a), [x],
+                      sdf_params, [obar], 65536)
+    ref64 = _vjp_slices(lambda a: SVD.sdf_value_diff_plain(sdf64, a),
+                        [x.double()], list(sdf64.parameters()),
+                        [obar.double()], 32768)
+    e = check_grads(dict(kernel="sdf_value_bwd", rows=n),
+                    ["x"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()],
+                    got, ref, ref64)
+    return {"sdf_value_diff_fwd": e_v, "sdf_value_bwd": e}
+
+
 def phase_train_kernels(fields):
     """K1-bwd and K3 through their autograd.Functions against autograd of
     the plain versions (perturbed full-width nets), then times at the train
@@ -725,58 +844,17 @@ def phase_train_kernels(fields):
     from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 
     sdf_net, color_net = fields["sdf"], fields["color"]
-    sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
     scfg, ccfg = sdf_net.cfg, color_net.cfg
     params = [*sdf_net.parameters(), *color_net.parameters()]
-    params64 = [*sdf64.parameters(), *color64.parameters()]
-    names = (["x", "dirs"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
-             + [f"color.{k}" for k, _ in color_net.named_parameters()])
     sdf_params = list(sdf_net.parameters())
     errs = {"rendercore_bwd": 0.0, "sdf_value_diff_fwd": 0.0,
             "sdf_value_bwd": 0.0}
     for n in CHECK_ROWS:
         x, d = sample_rows(n, seed=n + 11)
-        g = torch.Generator(device=DEVICE).manual_seed(n)
-        full = [torch.randn((n, w), generator=g, device=DEVICE)
-                for w in (1, 4, 3)]
-        margin = RC.color_relu_margin(sdf64, color64, x.double(), d.double())
-        smooth = margin >= KINK_MARGIN
-        log("kinks", rows=n, margin=KINK_MARGIN,
-            cbar_zeroed_share=1.0 - smooth.float().mean().item())
-        full[2] = full[2] * smooth.float()[:, None]
-        del margin
-        e = check_channels(
-            "rendercore_bwd", n, names,
-            lambda a, b: RC.rendercore_fwd(sdf_net, color_net, a, b),
-            lambda f64, a, b: RC.rendercore_fwd_plain(
-                *((sdf64, color64) if f64 else (sdf_net, color_net)), a, b),
-            [x, d], params, params64, full,
-            [("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)), ("cbar", (0, 0, 1)),
-             ("all", (1, 1, 1))], 32768)
-        errs["rendercore_bwd"] = max(errs["rendercore_bwd"], e)
-        xk = x.clone().requires_grad_(True)
-        v = SVD.sdf_value_diff(sdf_net, xk)
-        with torch.no_grad():
-            v_ref = SVD.sdf_value_diff_plain(sdf_net, x)
-        e_v = (v.detach() - v_ref).abs().max().item()
-        log("check", kernel="sdf_value_diff_fwd", rows=n, max_abs_err=e_v,
-            tol=1e-4)
-        if not e_v <= 1e-4:
-            fail(f"sdf_value_diff_fwd at {n} rows: {e_v} > 1e-4")
-        errs["sdf_value_diff_fwd"] = max(errs["sdf_value_diff_fwd"], e_v)
-        obar = full[0][:, 0].contiguous()
-        got = _vjp(lambda a: SVD.sdf_value_diff(sdf_net, a), [x], sdf_params,
-                   [obar])
-        ref = _vjp_slices(lambda a: SVD.sdf_value_diff_plain(sdf_net, a), [x],
-                          sdf_params, [obar], 65536)
-        ref64 = _vjp_slices(lambda a: SVD.sdf_value_diff_plain(sdf64, a),
-                            [x.double()], list(sdf64.parameters()),
-                            [obar.double()], 32768)
-        e = check_grads(dict(kernel="sdf_value_bwd", rows=n),
-                        ["x"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()],
-                        got, ref, ref64)
-        errs["sdf_value_bwd"] = max(errs["sdf_value_bwd"], e)
-        del x, d, got, ref, ref64, full
+        merge_errs(errs, check_rendercore_bwd(sdf_net, color_net, x, d,
+                                              cot_seed=n))
+        merge_errs(errs, check_sdf_value_diff(sdf_net, x, cot_seed=n))
+        del x, d
         torch.cuda.empty_cache()
 
     # Times at the train step's shapes: 1024 rays x 128 samples.
@@ -3502,6 +3580,157 @@ def phase_dp(tmp):
     return train, render
 
 
+class launch_rows:
+    """Within the block, the row counts each kernel was launched at, and the
+    rows of its first launch at each count: ``rows[name][n] = [launches,
+    x]``. Every launcher hands its row tensor to ``build.stream`` just
+    before it adds one to its counter, so the counter that moved between two
+    such calls launched on the earlier call's rows."""
+
+    def __init__(self, counters):
+        self.counters, self.rows = counters, {}
+
+    def __enter__(self):
+        from copenerf_torch.ops.kernels import build
+
+        self.build, self.stream = build, build.stream
+        self.last, self.seen = None, [c.launches for c in self.counters]
+        build.stream = self._stream
+        return self.rows
+
+    def _settle(self):
+        now = [c.launches for c in self.counters]
+        for c, before, after in zip(self.counters, self.seen, now):
+            if after != before and self.last is not None:
+                entry = self.rows.setdefault(c.name, {}).setdefault(
+                    self.last.shape[0], [0, self.last.detach().clone()])
+                entry[0] += after - before
+        self.seen = now
+
+    def _stream(self, t):
+        self._settle()
+        self.last = t
+        return self.stream(t)
+
+    def __exit__(self, *exc):
+        self._settle()
+        self.build.stream = self.stream
+        self.last = None
+
+
+E2E_CHECKED_COUNTS = 3    # a kernel's most launched row counts checked
+
+
+def checked_counts(by_count):
+    """Of ``launch_rows``' {rows: [launches, x]} for one kernel, the row
+    counts the e2e phase checks: the E2E_CHECKED_COUNTS most launched, and
+    the largest."""
+    top = sorted(by_count, key=lambda n: -by_count[n][0])
+    return sorted(set(top[:E2E_CHECKED_COUNTS]) | {max(by_count)})
+
+
+def phase_e2e(counters, tmp):
+    """``e2e_port.run_torch`` for seed 0 on the card, held against the JAX
+    seed band committed in ``PARITY_E2E_PORT.json`` (the chip machine has
+    no JAX); then the path's kernels at its widths and row counts against
+    their plain versions; see the module docstring. Returns the path's
+    launches and each kernel's largest error."""
+    import torch
+
+    import e2e_port
+
+    with open(os.path.join(REPO, "PARITY_E2E_PORT.json")) as f:
+        report = json.load(f)
+    root = os.path.join(tmp, "e2e")
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with launch_rows(counters) as rows:
+        res = e2e_port.run_torch(root, 0, DEVICE, verbose=False)
+    seconds = time.perf_counter() - t0
+    launches = {c.name: c.launches for c in counters}
+    iters = res["_iters"]
+    stage1 = (e2e_port.SCHEDULE["start_query_world_epoch"]
+              * res["train_views"])
+    pose_steps = (e2e_port.TINY["eval"]["eval_pose_epoch"]
+                  * res["test_views"])
+    exact = {"sdf_value_diff_fwd": stage1, "sdf_value_bwd": stage1,
+             "rendercore_bwd": iters + pose_steps}
+    at_least = {"sdf_value": iters + pose_steps,
+                "rendercore_fwd": iters + pose_steps}
+    bounds = e2e_port.smoke_bounds(report, 0)
+    want_hash = report["init_sha256"]["0"]
+    log("e2e", seconds=seconds, train_wall_s=res["_train_wall_s"],
+        eval_wall_s=res["_eval_wall_s"], iters=iters,
+        train_views=res["train_views"], test_views=res["test_views"],
+        metrics={k: res[k] for k in e2e_port.METRIC_ORDER},
+        bounds=bounds, init_sha256=res["init_sha256"],
+        committed_sha256=want_hash, launches=launches, exact=exact,
+        at_least=at_least, peak_gb=res["peak_gb"], card=res["card"],
+        launch_rows={k: {n: v[0] for n, v in r.items()}
+                     for k, r in rows.items()})
+    bad = []
+    if res["init_sha256"] != want_hash:
+        bad.append(f"init sha256 {res['init_sha256']} != committed {want_hash}")
+    outside = {k: (res[k], lo, hi) for k, (lo, hi) in bounds.items()
+               if not lo <= res[k] <= hi}
+    if outside:
+        bad.append(f"metrics outside their bounds (value, lo, hi): {outside}")
+    for name, n in exact.items():
+        if launches[name] != n:
+            bad.append(f"{name} launched {launches[name]} times, want {n}")
+    for name, n in at_least.items():
+        if launches[name] < n:
+            bad.append(f"{name} launched {launches[name]} times, want >= {n}")
+    others = {k: v for k, v in launches.items()
+              if k not in exact and k not in at_least and v}
+    if others:
+        bad.append(f"kernels off the path launched: {others}")
+    if set(rows) != {k for k, v in launches.items() if v}:
+        bad.append(f"launch rows recorded for {sorted(rows)}, launched "
+                   f"{sorted(k for k, v in launches.items() if v)}")
+    elif set(rows["sdf_value_bwd"]) != set(rows["sdf_value_diff_fwd"]):
+        bad.append("K3-bwd launched at other row counts than K3-fwd: "
+                   f"{sorted(rows['sdf_value_bwd'])}, "
+                   f"{sorted(rows['sdf_value_diff_fwd'])}")
+    if bad:
+        fail("e2e: " + "; ".join(bad))
+
+    # The path's kernels at its widths (the run's config file, weights
+    # perturbed as in the kernels phase), on the rows the path launched them
+    # at (``checked_counts``; K3-bwd with K3-fwd, on the rows it saved),
+    # against their plain versions with the kernels and train_kernels
+    # phases' gates.
+    _, _, _, checked = full_width_nets(
+        0, cfg_path=os.path.join(root, "cfg_port_cuda_out.yaml"))
+    sdf_net, color_net = checked["sdf"], checked["color"]
+    log("e2e_kernels", sdf_dims=list(sdf_net.cfg.dims),
+        color_dims=list(color_net.cfg.dims),
+        checked_counts=E2E_CHECKED_COUNTS)
+    errs = {}
+    checks = {
+        "sdf_value": lambda x, d, n: check_sdf_value(sdf_net, x),
+        "rendercore_fwd": lambda x, d, n: check_rendercore_fwd(
+            sdf_net, color_net, x, d),
+        "rendercore_bwd": lambda x, d, n: check_rendercore_bwd(
+            sdf_net, color_net, x, d, cot_seed=n),
+        "sdf_value_diff_fwd": lambda x, d, n: check_sdf_value_diff(
+            sdf_net, x, cot_seed=n),
+    }
+    counts = {}
+    for name, check in checks.items():
+        counts[name] = checked_counts(rows[name])
+        for n in counts[name]:
+            _, d = sample_rows(n, seed=n + 13)
+            merge_errs(errs, check(rows[name][n][1], d, n))
+    missing = (set(checks) | {"sdf_value_bwd"}) - set(errs)
+    if missing:
+        fail(f"e2e: path kernels not checked: {sorted(missing)}")
+    log("e2e_kernels", rows_checked=counts, max_abs_err=errs)
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
 KERNELS = {
     "sdf_value": dict(source="copenerf_torch/csrc/sdf_value.cu",
                       replaces="copenerf_tpu/ops/pallas/sdf_kernels.py:450"),
@@ -3627,6 +3856,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches["train_dp"], launches["render_dp"] = phase_dp(tmp)
     phase_pose_refine_shape()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["e2e"], e2e_errs = phase_e2e(counters, tmp)
+    for name, e in e2e_errs.items():
+        kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"], e)
 
     rows = []
     for name, meta in KERNELS.items():

@@ -56,11 +56,11 @@
 //    the 232,448 a block may have).
 //  * Accuracy: Hopper's tensor cores add into the accumulator with their
 //    own rounding; summed over K = 256 on them, 3xTF32 was 6-13x the FFMA
-//    error (PERF.md). Each group of kWgGroup k8 steps (small terms
+//    error (PERF.md). Each group of kWgRowGroup k8 steps (small terms
 //    first: lo hi, hi lo, hi hi) goes into a partial accumulator that the
 //    first product overwrites (scale-d 0), and the partial is added to the
 //    f32 sum with FADD: 128 accumulator registers in all. The group was
-//    chosen by an accuracy trial whose readings PERF.md keeps.
+//    chosen by accuracy trials whose readings PERF.md keeps.
 //  * Tails: A float4s at or past K read as 0 (K is a multiple of 4); the
 //    packed B is zero past K and past N, so nothing past a buffer is read
 //    and no stale value meets a zero.
@@ -72,11 +72,17 @@ namespace copenerf {
 
 constexpr int kWgSliceK = 32;                            // K depth of a ring stage
 constexpr int kWgStageFloats = 2 * kSliceCols * kWgSliceK;  // hi + lo at N = 256
-// k8 steps summed on the tensor core before each FADD into the f32 sum:
-// the accuracy trial (PERF.md §6) put 4 at 1.87-1.95x the FFMA GEMM's
+// k8 steps summed on the tensor core before each FADD into the f32 sum.
+// The accuracy trial (PERF.md §6) put 4 at 1.87-1.95x the FFMA GEMM's
 // error against f64 at K = 52 and 2 at 1.04-1.08x, for 2.7% of the GEMM's
-// time.
+// time; the weight reduction (wgrad.cu) keeps 2. The row kernels take 1:
+// with 2, K1-bwd at the whole-pipeline head-to-head's small nets (SDF
+// 52->64x4->33) missed the checks' bound (2x the plain f32 version's error
+// against f64) on the weight-norm gain of the 12-wide layer before the
+// skip; one step a partial brought it within, for 1-7% of each row
+// kernel's time (PERF.md §6).
 constexpr int kWgGroup = 2;
+constexpr int kWgRowGroup = 1;
 // Shared floats a ring of kStages stages needs at w_s: the stages,
 // 1024-byte alignment slack and the mbarriers.
 __host__ __device__ constexpr int wg_ws_floats(int stages) {
@@ -186,18 +192,18 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const unsigned (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// Issue the products of k8 steps J0 .. J0 + kWgGroup - 1 of a slice for
+// Issue the products of k8 steps J0 .. J0 + NG - 1 of a slice for
 // this thread's warpgroup into the partial d (the first overwrites it;
 // small terms first: lo hi, hi lo, hi hi), a (ah, al) times b (hi at dh,
 // lo at dl), and commit them as one group; V = kTf32x1 (the trial's
 // control) takes a's and b's hi parts alone.
-template <TcVariant V, int J0>
+template <TcVariant V, int J0, int NG = kWgGroup>
 __device__ __forceinline__ void wg_group(float (&d)[64], const unsigned (&ah)[4][4],
                                          const unsigned (&al)[4][4], unsigned long long dh,
                                          unsigned long long dl) {
   wg_fence();
 #pragma unroll
-  for (int j = J0; j < J0 + kWgGroup; ++j) {
+  for (int j = J0; j < J0 + NG; ++j) {
     // step j reads bytes 32 j .. 32 j + 31 of each 128-byte row
     const unsigned long long oh = dh + 2 * j, ol = dl + 2 * j;
     if constexpr (V == kTf32x1) {
@@ -222,15 +228,15 @@ __device__ __forceinline__ void wg_group_add(float (&acc)[64], float (&d)[64]) {
   }
 }
 
-// One slice's products for this thread's warpgroup, kWgGroup k8 steps to a
-// partial: acc += sum over the slice of a b.
+// One slice's products for this thread's warpgroup, kWgRowGroup k8 steps to
+// a partial: acc += sum over the slice of a b.
 template <TcVariant V, int J0 = 0>
 __device__ __forceinline__ void wg_slice(float (&acc)[64], float (&d)[64],
                                          const unsigned (&ah)[4][4], const unsigned (&al)[4][4],
                                          unsigned long long dh, unsigned long long dl) {
-  wg_group<V, J0>(d, ah, al, dh, dl);
+  wg_group<V, J0, kWgRowGroup>(d, ah, al, dh, dl);
   wg_group_add(acc, d);
-  if constexpr (J0 + kWgGroup < 4) wg_slice<V, J0 + kWgGroup>(acc, d, ah, al, dh, dl);
+  if constexpr (J0 + kWgRowGroup < 4) wg_slice<V, J0 + kWgRowGroup>(acc, d, ah, al, dh, dl);
 }
 
 // out[r][c] = epi(r, c, sum_k in[r][k] * B[k][c]) for r < 64, c < N <= 256,

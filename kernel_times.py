@@ -5,6 +5,7 @@ line; with ``--trial``, the accuracy trial of the tensor-core core instead.
 
     python3 kernel_times.py [--root DIR] [--label NAME]
     python3 kernel_times.py --trial
+    python3 kernel_times.py --e2e-draws N [--root DIR] [--label NAME]
 
 Times every launcher of K1-K7 on 131,072 rows (the train step's field
 queries; K2 on 65,536 and on 2,097,152, a render chunk's first sweep;
@@ -38,6 +39,18 @@ the shapes the kernels multiply (K = 52, 204, 256, 292), in every variant
 ring, and in 1xTF32; the reduction in FFMA, as shipped on wgmma and in
 1xTF32), and times each tile GEMM's slope (the FFMA control, ``wgmma``
 with the weights packed by the host through either ring).
+
+``--e2e-draws N`` reports K1-bwd's accuracy at the small nets of the
+whole-pipeline head-to-head (``e2e_port.py``): seed 0 of its run on the
+card, K1-bwd's rows at its most launched row count captured by
+``chip_smoke.launch_rows``, then for N cotangent draws on those rows (the
+smoke's check: sbar, gbar, cbar alone, no color cotangent within
+KINK_MARGIN of a color ReLU's kink) each channel's worst gradient tensor's
+error against f64 over the smoke's bound (2x the plain f32 version's
+error, or 1e-5 of the tensor's norm; above 1 misses it) and the geometric
+mean over the tensors of the kernel's error over the plain version's. A
+report, no gate; with ``--root`` the kernels and the run are that tree's
+(``chip_smoke.py`` and ``e2e_port.py`` are this one's).
 
 Needs a CUDA card; prints the card's ``nvidia-smi`` name and power limit
 first.
@@ -348,11 +361,86 @@ def run_trial():
     print(json.dumps({"trial": res, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
+def run_e2e_draws(label, draws):
+    import copy
+    import importlib.util
+    import math
+    import tempfile
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    mods = {}
+    for name in ("chip_smoke", "e2e_port"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, name + ".py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    S, E = mods["chip_smoke"], mods["e2e_port"]
+    from copenerf_torch.ops.kernels import rendercore as RC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp()
+    root = os.path.join(tmp, "e2e")
+    with S.launch_rows(S.kernel_counters()) as rows:
+        E.run_torch(root, 0, "cuda", verbose=False)
+    by_n = rows["rendercore_bwd"]
+    n = max(by_n, key=lambda k: by_n[k][0])
+    x = by_n[n][1]
+    d = S.sample_rows(n, seed=n + 13)[1]
+    _, _, _, nets = S.full_width_nets(
+        0, cfg_path=os.path.join(root, "cfg_port_cuda_out.yaml"))
+    sdf, col = nets["sdf"], nets["color"]
+    sdf64, col64 = copy.deepcopy(sdf).double(), copy.deepcopy(col).double()
+    params = [*sdf.parameters(), *col.parameters()]
+    params64 = [*sdf64.parameters(), *col64.parameters()]
+    smooth = (RC.color_relu_margin(sdf64, col64, x.double(), d.double())
+              >= S.KINK_MARGIN).float()[:, None]
+
+    def rel(a, b):
+        b = b.float()
+        return (a - b).norm().item() / b.norm().item()
+
+    out = []
+    for cot_seed in [n] + list(range(1, draws)):
+        g = torch.Generator(device="cuda").manual_seed(cot_seed)
+        full = [torch.randn((n, w), generator=g, device="cuda") for w in (1, 4, 3)]
+        full[2] = full[2] * smooth
+        res = {"cot_seed": cot_seed}
+        for chan, on in (("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)), ("cbar", (0, 0, 1))):
+            cots = [c * m for c, m in zip(full, on)]
+            got = S._vjp(lambda a, b: RC.rendercore_fwd(sdf, col, a, b), [x, d],
+                         params, cots)
+            ref = S._vjp(lambda a, b: RC.rendercore_fwd_plain(sdf, col, a, b),
+                         [x, d], params, cots)
+            r64 = S._vjp(lambda a, b: RC.rendercore_fwd_plain(sdf64, col64, a, b),
+                         [x.double(), d.double()], params64,
+                         [c.double() for c in cots])
+            worst, logs = 0.0, []
+            for a, b, c in zip(got, ref, r64):
+                if c.norm().item() == 0:
+                    continue
+                ka, pb = rel(a, c), rel(b, c)
+                worst = max(worst, ka / max(S.GRAD_TOL["factor_of_plain"] * pb,
+                                            S.GRAD_TOL["floor"]))
+                logs.append(math.log(max(ka, 1e-12) / max(pb, 1e-12)))
+            res[chan] = {"worst_over_bound": worst,
+                         "geo_kernel_over_plain": math.exp(sum(logs) / len(logs))}
+        out.append(res)
+    print(json.dumps({"label": label, "e2e_k1_bwd_draws": out, "rows": n,
+                      "worst_over_bound": max(r[c]["worst_over_bound"]
+                                              for r in out
+                                              for c in ("sbar", "gbar", "cbar"))}),
+          flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default="")
     ap.add_argument("--trial", action="store_true")
+    ap.add_argument("--e2e-draws", type=int, default=0)
     a = ap.parse_args(argv)
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -364,6 +452,8 @@ def main(argv=None):
     print(smi(), flush=True)
     if a.trial:
         run_trial()
+    elif a.e2e_draws:
+        run_e2e_draws(a.label, a.e2e_draws)
     else:
         run_times(a.label, root)
     return 0

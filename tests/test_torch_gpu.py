@@ -1249,6 +1249,45 @@ def test_gloo_two_ranks_on_one_card_match_one_rank(tmp_path):
     assert r0["params_sha256"] == r1["params_sha256"]
 
 
+
+# Card-to-CPU tolerance of the micro run (``e2e_port.MICRO``), per metric:
+# 3 times the largest gap between the card's and the CPU's run over seeds
+# 0-2 as this test prints them (PERF.md §6, the head-to-head's findings),
+# each a small share of the metric's values; the depth metrics' gaps are
+# below 3e-7 of their values, so they are held to 1e-6 of the CPU's value.
+MICRO_CARD_TOL = {"PSNR": 0.0056, "SSIM": 2.7e-4, "LPIPS": 9.4e-4,
+                  "rpe_trans": 9.1, "rpe_rot": 0.90, "ate": 0.0046}
+MICRO_DEPTH_REL = 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_e2e_micro_run_card_matches_cpu(tmp_path, seed):
+    """``e2e_port.py``'s pipeline on its micro schedule (``e2e_port.MICRO``:
+    both stages, the refinement, test-time pose optimization and every
+    metric) on the card and on the CPU from one init: the same init hash,
+    each metric of the card within ``MICRO_CARD_TOL`` of the CPU run's (a
+    depth metric within ``MICRO_DEPTH_REL`` of it). Prints the gaps."""
+    _require_cuda()
+    import json
+
+    import e2e_port as E
+
+    cpu = E.run_torch(str(tmp_path / "cpu"), seed, "cpu", verbose=False,
+                      **E.MICRO)
+    card = E.run_torch(str(tmp_path / "card"), seed, "cuda", verbose=False,
+                       **E.MICRO)
+    assert card["init_sha256"] == cpu["init_sha256"]
+    gaps = {k: abs(card[k] - cpu[k]) for k in E.METRIC_ORDER}
+    print(json.dumps({"seed": seed, "cpu": {k: cpu[k] for k in E.METRIC_ORDER},
+                      "card": {k: card[k] for k in E.METRIC_ORDER},
+                      "gaps": gaps}))
+    for k in E.METRIC_ORDER:
+        bound = (MICRO_DEPTH_REL * abs(cpu[k]) if k in E.DEPTH
+                 else MICRO_CARD_TOL[k])
+        assert gaps[k] <= bound, (k, card[k], cpu[k], bound)
+
+
 if __name__ == "__main__":
     import sys
 

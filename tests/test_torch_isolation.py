@@ -1,6 +1,6 @@
-"""The port stands alone: nothing in ``copenerf_torch``, ``chip_smoke.py``
-or ``kernel_times.py`` imports JAX or the JAX package, and importing the
-port loads neither."""
+"""The port stands alone: nothing in ``copenerf_torch``, ``chip_smoke.py``,
+``kernel_times.py`` or ``e2e_port.py`` imports JAX or the JAX package, and
+importing the port loads neither."""
 
 import ast
 import os
@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "copenerf_tpu", "optax")
 
 
 def _port_files():
-    out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_times.py")]
+    out = [os.path.join(REPO, f)
+           for f in ("chip_smoke.py", "kernel_times.py", "e2e_port.py")]
     for root, _, files in os.walk(os.path.join(REPO, "copenerf_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -37,6 +37,7 @@ from ..training.depth_metrics import compute_depth_errors
 from ..training.schedules import MultiStepLR
 from ..training.step import sample_patch_indices
 from ..training.trainer import Trainer
+from ..utils.profiling import spanned
 from .metrics_image import lpips_fn, psnr, ssim
 from .metrics_pose import pose_error_report
 
@@ -79,6 +80,7 @@ def frozen(module: torch.nn.Module):
             p.requires_grad_(flag)
 
 
+@spanned("copenerf.pose.loss")
 def pose_loss(fields, rcfg, r, t, init_c2w, image, camera_mat, ray_idx,
               time_step, near, far, *, generator=None, t_rand=None):
     """(L1 loss, l2) of one test view's pose ``make_c2w(r, t) @ init_c2w``

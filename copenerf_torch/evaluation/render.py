@@ -22,6 +22,7 @@ from ..ops.rays import rays_from_pixels
 from ..ops.renderer import RendererConfig, render
 from ..parallel.distributed import rank, world_size
 from ..parallel.mesh import gather_rays
+from ..utils.profiling import span, spanned
 
 # The per-ray outputs of a chunk, with their widths (the gathered layout).
 KEYS = (("color", 3), ("depth", 1), ("weighted_z", 1), ("normal", 3),
@@ -61,6 +62,7 @@ class ImageRenderer:
         while self.chunk * 2 <= chunk:
             self.chunk *= 2
 
+    @spanned("copenerf.view.chunk")
     def _chunk(self, fields, chunk, start, h, w, camera_mat, world_mat,
                scale_mat, time_step, near, far, cos_anneal_ratio):
         dev = self.device
@@ -99,6 +101,7 @@ class ImageRenderer:
             "pts": pts,
         }
 
+    @spanned("copenerf.view")
     @torch.no_grad()
     def render_image(self, fields, camera_mat, world_mat, scale_mat,
                      time_step, resolution, depth_range, cos_anneal_ratio,
@@ -145,13 +148,15 @@ class ImageRenderer:
                 extra["pts"].append(res["pts"])
 
         result = {}
-        for k, chunks in outs.items():
-            arr = torch.cat(chunks, 0)[:n].cpu().numpy()
-            result[k] = (arr.reshape(h, w, -1) if k in ("color", "normal")
-                         else arr.reshape(h, w))
-        if want_pts:
-            result["weights_flat"] = torch.cat(extra["weights"], 0)[:n].cpu().numpy()
-            result["pts_flat"] = torch.cat(extra["pts"], 0)[:n].cpu().numpy()
+        with span("copenerf.view.fetch"):
+            for k, chunks in outs.items():
+                arr = torch.cat(chunks, 0)[:n].cpu().numpy()
+                result[k] = (arr.reshape(h, w, -1) if k in ("color", "normal")
+                             else arr.reshape(h, w))
+            if want_pts:
+                result["weights_flat"] = torch.cat(
+                    extra["weights"], 0)[:n].cpu().numpy()
+                result["pts_flat"] = torch.cat(extra["pts"], 0)[:n].cpu().numpy()
         return result
 
     def _gather(self, res: dict, want_pts: bool) -> dict:

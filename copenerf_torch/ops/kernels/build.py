@@ -20,6 +20,8 @@ import time
 
 import torch
 
+from ...utils.profiling import span
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -30,14 +32,40 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class KernelCounter:
-    """Plain-integer launch count of one kernel; its wrapper adds one where
-    it launches the kernel and nowhere else. Every counter made is in
+    """Plain-integer launch count of one kernel; its wrapper launches the
+    kernel inside ``launch()`` and nowhere else. Every counter made is in
     ``COUNTERS`` (those of the kernel modules imported so far)."""
 
     def __init__(self, name: str):
         self.name = name
+        self.span = "copenerf.kernel." + name
         self.launches = 0
         COUNTERS.append(self)
+
+    def launch(self) -> "_Launch":
+        """The host side of one launch (allocations, the library call, its
+        check, the unpack of its output buffer, with any wait for the card
+        that the unpack makes) inside the span ``copenerf.kernel.<name>``;
+        ``launches`` counts it once the block ends without an error."""
+        return _Launch(self)
+
+
+class _Launch:
+    __slots__ = ("counter", "region")
+
+    def __init__(self, counter: KernelCounter):
+        self.counter = counter
+        self.region = span(counter.span)
+
+    def __enter__(self):
+        self.region.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.region.__exit__(*exc)
+        if exc[0] is None:
+            self.counter.launches += 1
+        return False
 
 
 COUNTERS = []

@@ -84,14 +84,14 @@ def launch_color_fwd(ccfg, packed, x, dirs, grad, feat) -> torch.Tensor:
     if params.device != x.device:
         raise ValueError(f"weights on {params.device}, x on {x.device}")
     n = x.shape[0]
-    color = torch.empty((n, 3), dtype=torch.float32, device=x.device)
-    code = build.load_library().copenerf_color_fwd(
-        x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
-        feat.stride(0), color.data_ptr(), params.data_ptr(),
-        build.offsets(offs["wcp"]), build.offsets(offs["bc"]), offs["wc_last"], n,
-        *color_geometry(ccfg), int(ccfg.squeeze_out), build.stream(x))
-    build.check(code, "color_fwd")
-    FWD_COUNTER.launches += 1
+    with FWD_COUNTER.launch():
+        color = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+        code = build.load_library().copenerf_color_fwd(
+            x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
+            feat.stride(0), color.data_ptr(), params.data_ptr(),
+            build.offsets(offs["wcp"]), build.offsets(offs["bc"]), offs["wc_last"], n,
+            *color_geometry(ccfg), int(ccfg.squeeze_out), build.stream(x))
+        build.check(code, "color_fwd")
     return color
 
 
@@ -114,29 +114,30 @@ def color_bwd_cuda(ccfg, packed, x, dirs, grad, feat, cbar):
     goffs, gsize = color_grad_layout(ccfg)
     n, dev = x.shape[0], x.device
     geom = color_geometry(ccfg)
-    lib = build.load_library()
-    n_stage, n_part, _ = build.workspace(lib.copenerf_color_bwd_workspace, n,
-                                         *geom)
-    f32 = dict(dtype=torch.float32, device=dev)
-    stage = torch.empty(n_stage, **f32)
-    partial = torch.empty(n_part, **f32)
-    grads = torch.zeros(gsize, **f32)
-    x_bar = torch.empty((n, 4), **f32)
-    d_bar = torch.empty((n, 3), **f32)
-    g_bar = torch.empty((n, 4), **f32)
-    f_bar = torch.empty((n, ccfg.d_feature), **f32)
-    O = build.offsets
-    code = lib.copenerf_color_bwd(
-        x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
-        feat.stride(0), cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(),
-        g_bar.data_ptr(), f_bar.data_ptr(), params.data_ptr(), O(offs["wcp"]),
-        O(offs["wctp"]), O(offs["bc"]), offs.get("wct0tp", 0), offs["wc_last"],
-        offs["wct_last"], grads.data_ptr(), O(goffs["gwc"]), O(goffs["gbc"]),
-        stage.data_ptr(), partial.data_ptr(), n, *geom, int(ccfg.squeeze_out),
-        build.stream(x))
-    build.check(code, "color_bwd")
-    BWD_COUNTER.launches += 1
-    return x_bar, d_bar, g_bar, f_bar, unpack_color_grads(grads, goffs, ccfg)
+    with BWD_COUNTER.launch():
+        lib = build.load_library()
+        n_stage, n_part, _ = build.workspace(lib.copenerf_color_bwd_workspace, n,
+                                             *geom)
+        f32 = dict(dtype=torch.float32, device=dev)
+        stage = torch.empty(n_stage, **f32)
+        partial = torch.empty(n_part, **f32)
+        grads = torch.zeros(gsize, **f32)
+        x_bar = torch.empty((n, 4), **f32)
+        d_bar = torch.empty((n, 3), **f32)
+        g_bar = torch.empty((n, 4), **f32)
+        f_bar = torch.empty((n, ccfg.d_feature), **f32)
+        O = build.offsets
+        code = lib.copenerf_color_bwd(
+            x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
+            feat.stride(0), cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(),
+            g_bar.data_ptr(), f_bar.data_ptr(), params.data_ptr(), O(offs["wcp"]),
+            O(offs["wctp"]), O(offs["bc"]), offs.get("wct0tp", 0), offs["wc_last"],
+            offs["wct_last"], grads.data_ptr(), O(goffs["gwc"]), O(goffs["gbc"]),
+            stage.data_ptr(), partial.data_ptr(), n, *geom, int(ccfg.squeeze_out),
+            build.stream(x))
+        build.check(code, "color_bwd")
+        bars = unpack_color_grads(grads, goffs, ccfg)
+    return x_bar, d_bar, g_bar, f_bar, bars
 
 
 class ColorMLP(torch.autograd.Function):

@@ -49,21 +49,21 @@ def launch_outgrad_fwd(cfg, packed, x: torch.Tensor):
     if params.device != x.device:
         raise ValueError(f"weights on {params.device}, x on {x.device}")
     n, dev = x.shape[0], x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.empty((n, cfg.d_out), **f32)
-    grad = torch.empty((n, 4), **f32)
-    blocks = build.n_blocks(dev)
-    geom = sdf_geometry(cfg)
-    scratch = torch.empty(blocks * (geom[0] - 1) * 64 * 256, **f32)
-    O = build.offsets
-    code = build.load_library().copenerf_sdf_outgrad_fwd(
-        x.data_ptr(), out.data_ptr(), grad.data_ptr(), params.data_ptr(),
-        O(offs["b"]), O(offs["wp"]), O(offs["wtp"]),
-        offs["w_last0"], offs["b_last0"], offs["wfp"], offs["b_feat"],
-        scratch.data_ptr(), n,
-        *geom, float(cfg.scale), cfg.d_out, blocks, build.stream(x))
-    build.check(code, "sdf_outgrad_fwd")
-    FWD_COUNTER.launches += 1
+    with FWD_COUNTER.launch():
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = torch.empty((n, cfg.d_out), **f32)
+        grad = torch.empty((n, 4), **f32)
+        blocks = build.n_blocks(dev)
+        geom = sdf_geometry(cfg)
+        scratch = torch.empty(blocks * (geom[0] - 1) * 64 * 256, **f32)
+        O = build.offsets
+        code = build.load_library().copenerf_sdf_outgrad_fwd(
+            x.data_ptr(), out.data_ptr(), grad.data_ptr(), params.data_ptr(),
+            O(offs["b"]), O(offs["wp"]), O(offs["wtp"]),
+            offs["w_last0"], offs["b_last0"], offs["wfp"], offs["b_feat"],
+            scratch.data_ptr(), n,
+            *geom, float(cfg.scale), cfg.d_out, blocks, build.stream(x))
+        build.check(code, "sdf_outgrad_fwd")
     return out, grad
 
 
@@ -88,27 +88,28 @@ def outgrad_bwd_cuda(cfg, packed, x, obar, gbar):
     n, dev = x.shape[0], x.device
     blocks = build.n_blocks(dev)
     geom = sdf_geometry(cfg)
-    lib = build.load_library()
-    n_stage, n_part, n_scratch = build.workspace(
-        lib.copenerf_sdf_outgrad_bwd_workspace, n, *geom, cfg.d_out, blocks)
-    f32 = dict(dtype=torch.float32, device=dev)
-    stage = torch.empty(n_stage, **f32)
-    partial = torch.empty(n_part, **f32)
-    scratch = torch.empty(n_scratch, **f32)
-    grads = torch.zeros(gsize, **f32)
-    x_bar = torch.empty((n, 4), **f32)
-    O = build.offsets
-    code = lib.copenerf_sdf_outgrad_bwd(
-        x.data_ptr(), obar.data_ptr(), gbar.data_ptr(), x_bar.data_ptr(),
-        params.data_ptr(), O(offs["b"]), O(offs["wp"]),
-        O(offs["wtp"]), offs["w_last0"], offs["b_last0"], offs["wftp"],
-        grads.data_ptr(),
-        O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], stage.data_ptr(),
-        partial.data_ptr(), scratch.data_ptr(), n, *geom, float(cfg.scale),
-        cfg.d_out, blocks, build.stream(x))
-    build.check(code, "sdf_outgrad_bwd")
-    BWD_COUNTER.launches += 1
-    return x_bar, unpack_outgrad_grads(grads, goffs, cfg)
+    with BWD_COUNTER.launch():
+        lib = build.load_library()
+        n_stage, n_part, n_scratch = build.workspace(
+            lib.copenerf_sdf_outgrad_bwd_workspace, n, *geom, cfg.d_out, blocks)
+        f32 = dict(dtype=torch.float32, device=dev)
+        stage = torch.empty(n_stage, **f32)
+        partial = torch.empty(n_part, **f32)
+        scratch = torch.empty(n_scratch, **f32)
+        grads = torch.zeros(gsize, **f32)
+        x_bar = torch.empty((n, 4), **f32)
+        O = build.offsets
+        code = lib.copenerf_sdf_outgrad_bwd(
+            x.data_ptr(), obar.data_ptr(), gbar.data_ptr(), x_bar.data_ptr(),
+            params.data_ptr(), O(offs["b"]), O(offs["wp"]),
+            O(offs["wtp"]), offs["w_last0"], offs["b_last0"], offs["wftp"],
+            grads.data_ptr(),
+            O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], stage.data_ptr(),
+            partial.data_ptr(), scratch.data_ptr(), n, *geom, float(cfg.scale),
+            cfg.d_out, blocks, build.stream(x))
+        build.check(code, "sdf_outgrad_bwd")
+        bars = unpack_outgrad_grads(grads, goffs, cfg)
+    return x_bar, bars
 
 
 class SdfOutGrad(torch.autograd.Function):

@@ -46,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from ...models.embedder import embed_dim
+from ...utils.profiling import spanned
 
 MAX_SDF_HIDDEN_LAYERS = 16   # mlp_tile.cuh kMaxSdfHidden
 MAX_COLOR_LAYERS = 6         # mlp_tile.cuh kMaxColorLayers
@@ -268,6 +269,7 @@ def wg_unpack_b(packed: torch.Tensor, K: int, N: int):
     return tuple(parts)
 
 
+@spanned("copenerf.pack")
 def effective_layers(net) -> list:
     """[(W (out, in), b (out,))] of every linear layer of ``net``, in order."""
     return [(layer.effective_weight(), layer.b)
@@ -311,6 +313,7 @@ def _cached(owner, name: str, nets, make):
     return packed
 
 
+@spanned("copenerf.pack")
 def pack_sdf_value_layers(layers):
     """(params (P,), offsets by name) for the value kernels (K2, K3-fwd and
     K3-bwd), from the SDF net's effective layers: W and W^T as the wgmma
@@ -372,6 +375,7 @@ def _add_color(pk: _Packer, color_layers, ccfg) -> None:
     pk.add("bc", b)
 
 
+@spanned("copenerf.pack")
 def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
     """(params (P,), offsets by name) for the render-core kernels (K1, K6),
     from the effective layers of both nets: the outgrad pack's SDF part and
@@ -390,6 +394,7 @@ def pack_rendercore(sdf_net, color_net):
                        color_net.cfg))
 
 
+@spanned("copenerf.pack")
 def pack_outgrad_layers(sdf_layers):
     """(params (P,), offsets by name) for the outgrad kernels (K4) and the
     SDF output kernels (K7): the SDF layers and the whole head (column 0,
@@ -406,6 +411,7 @@ def pack_outgrad(sdf_net):
                    lambda: pack_outgrad_layers(effective_layers(sdf_net)))
 
 
+@spanned("copenerf.pack")
 def pack_color_layers(color_layers, ccfg):
     """(params (P,), offsets by name) for the color kernels (K5): each
     hidden layer packed for the wgmma core both ways (one gather), layer 0

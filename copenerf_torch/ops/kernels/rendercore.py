@@ -98,22 +98,22 @@ def launch_fwd(scfg, ccfg, packed, x: torch.Tensor, dirs: torch.Tensor):
     if params.device != x.device:
         raise ValueError(f"weights on {params.device}, x on {x.device}")
     n, dev = x.shape[0], x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    sdf = torch.empty((n, 1), **f32)
-    grad = torch.empty((n, 4), **f32)
-    color = torch.empty((n, 3), **f32)
-    blocks = build.n_blocks(dev)
-    sgeom, (d_feat, c_n_lin, c_hidden, c_multires, k0) = _geometry(scfg, ccfg)
-    # per block: each hidden layer's sigmoids and the feature, 64 x 256 each
-    scratch = torch.empty(blocks * sgeom[0] * 64 * 256, **f32)
-    code = build.load_library().copenerf_rendercore_fwd(
-        x.data_ptr(), dirs.data_ptr(), sdf.data_ptr(), grad.data_ptr(),
-        color.data_ptr(), params.data_ptr(), *fwd_offsets(offs),
-        scratch.data_ptr(), n, *sgeom, float(scfg.scale), d_feat, c_n_lin,
-        c_hidden, c_multires, k0, int(ccfg.squeeze_out), blocks,
-        build.stream(x))
-    build.check(code, "rendercore_fwd")
-    COUNTER.launches += 1
+    with COUNTER.launch():
+        f32 = dict(dtype=torch.float32, device=dev)
+        sdf = torch.empty((n, 1), **f32)
+        grad = torch.empty((n, 4), **f32)
+        color = torch.empty((n, 3), **f32)
+        blocks = build.n_blocks(dev)
+        sgeom, (d_feat, c_n_lin, c_hidden, c_multires, k0) = _geometry(scfg, ccfg)
+        # per block: each hidden layer's sigmoids and the feature, 64 x 256 each
+        scratch = torch.empty(blocks * sgeom[0] * 64 * 256, **f32)
+        code = build.load_library().copenerf_rendercore_fwd(
+            x.data_ptr(), dirs.data_ptr(), sdf.data_ptr(), grad.data_ptr(),
+            color.data_ptr(), params.data_ptr(), *fwd_offsets(offs),
+            scratch.data_ptr(), n, *sgeom, float(scfg.scale), d_feat, c_n_lin,
+            c_hidden, c_multires, k0, int(ccfg.squeeze_out), blocks,
+            build.stream(x))
+        build.check(code, "rendercore_fwd")
     return sdf, grad, color
 
 
@@ -142,28 +142,29 @@ def rendercore_bwd_cuda(scfg, ccfg, packed, x, dirs, sbar, gbar, cbar):
     n, dev = x.shape[0], x.device
     blocks = build.n_blocks(dev)
     sgeom, cgeom = _geometry(scfg, ccfg)
-    lib = build.load_library()
-    n_stage, n_part, n_scratch = build.workspace(
-        lib.copenerf_rendercore_bwd_workspace, n, *sgeom, *cgeom, blocks)
-    f32 = dict(dtype=torch.float32, device=dev)
-    stage = torch.empty(n_stage, **f32)
-    partial = torch.empty(n_part, **f32)
-    scratch = torch.empty(n_scratch, **f32)
-    grads = torch.zeros(gsize, **f32)
-    x_bar = torch.empty((n, 4), **f32)
-    d_bar = torch.empty((n, 3), **f32)
-    O = build.offsets
-    code = lib.copenerf_rendercore_bwd(
-        x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(), gbar.data_ptr(),
-        cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(), params.data_ptr(),
-        *bwd_offsets(offs), grads.data_ptr(),
-        O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], O(goffs["gwc"]),
-        O(goffs["gbc"]), stage.data_ptr(), partial.data_ptr(),
-        scratch.data_ptr(), n, *sgeom, float(scfg.scale), *cgeom,
-        int(ccfg.squeeze_out), blocks, build.stream(x))
-    build.check(code, "rendercore_bwd")
-    BWD_COUNTER.launches += 1
-    sdf_bars, color_bars = unpack_rendercore_grads(grads, goffs, scfg, ccfg)
+    with BWD_COUNTER.launch():
+        lib = build.load_library()
+        n_stage, n_part, n_scratch = build.workspace(
+            lib.copenerf_rendercore_bwd_workspace, n, *sgeom, *cgeom, blocks)
+        f32 = dict(dtype=torch.float32, device=dev)
+        stage = torch.empty(n_stage, **f32)
+        partial = torch.empty(n_part, **f32)
+        scratch = torch.empty(n_scratch, **f32)
+        grads = torch.zeros(gsize, **f32)
+        x_bar = torch.empty((n, 4), **f32)
+        d_bar = torch.empty((n, 3), **f32)
+        O = build.offsets
+        code = lib.copenerf_rendercore_bwd(
+            x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(), gbar.data_ptr(),
+            cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(), params.data_ptr(),
+            *bwd_offsets(offs), grads.data_ptr(),
+            O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], O(goffs["gwc"]),
+            O(goffs["gbc"]), stage.data_ptr(), partial.data_ptr(),
+            scratch.data_ptr(), n, *sgeom, float(scfg.scale), *cgeom,
+            int(ccfg.squeeze_out), blocks, build.stream(x))
+        build.check(code, "rendercore_bwd")
+        sdf_bars, color_bars = unpack_rendercore_grads(grads, goffs, scfg,
+                                                       ccfg)
     return x_bar, d_bar, sdf_bars, color_bars
 
 

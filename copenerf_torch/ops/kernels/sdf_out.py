@@ -47,15 +47,15 @@ def launch_out_fwd(cfg, packed, x: torch.Tensor) -> torch.Tensor:
     _check(cfg, packed, x)
     params, offs = packed
     n = x.shape[0]
-    out = torch.empty((n, cfg.d_out), dtype=torch.float32, device=x.device)
-    code = build.load_library().copenerf_sdf_out_fwd(
-        x.data_ptr(), out.data_ptr(), params.data_ptr(),
-        build.offsets(offs["b"]), build.offsets(offs["wp"]),
-        offs["w_last0"], offs["b_last0"],
-        offs["wfp"], offs["b_feat"], n, *sdf_geometry(cfg),
-        float(cfg.scale), cfg.d_out, build.n_blocks(x.device), build.stream(x))
-    build.check(code, "sdf_out_fwd")
-    FWD_COUNTER.launches += 1
+    with FWD_COUNTER.launch():
+        out = torch.empty((n, cfg.d_out), dtype=torch.float32, device=x.device)
+        code = build.load_library().copenerf_sdf_out_fwd(
+            x.data_ptr(), out.data_ptr(), params.data_ptr(),
+            build.offsets(offs["b"]), build.offsets(offs["wp"]),
+            offs["w_last0"], offs["b_last0"],
+            offs["wfp"], offs["b_feat"], n, *sdf_geometry(cfg),
+            float(cfg.scale), cfg.d_out, build.n_blocks(x.device), build.stream(x))
+        build.check(code, "sdf_out_fwd")
     return out
 
 
@@ -71,26 +71,27 @@ def sdf_out_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     n, dev = x.shape[0], x.device
     geom = sdf_geometry(cfg)
     blocks = build.n_blocks(dev)
-    lib = build.load_library()
-    n_stage, n_part, n_scratch = build.workspace(
-        lib.copenerf_sdf_out_bwd_workspace, n, *geom, cfg.d_out, blocks)
-    f32 = dict(dtype=torch.float32, device=dev)
-    stage = torch.empty(n_stage, **f32)
-    partial = torch.empty(n_part, **f32)
-    scratch = torch.empty(n_scratch, **f32)
-    grads = torch.zeros(gsize, **f32)
-    x_bar = torch.empty((n, 4), **f32)
-    O = build.offsets
-    code = lib.copenerf_sdf_out_bwd(
-        x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
-        O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
-        offs["b_last0"], offs["wftp"], grads.data_ptr(), O(goffs["gw"]),
-        O(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
-        scratch.data_ptr(), n, *geom, float(cfg.scale), cfg.d_out, blocks,
-        build.stream(x))
-    build.check(code, "sdf_out_bwd")
-    BWD_COUNTER.launches += 1
-    return x_bar, unpack_sdf_value_grads(grads, goffs, cfg, cfg.d_out)
+    with BWD_COUNTER.launch():
+        lib = build.load_library()
+        n_stage, n_part, n_scratch = build.workspace(
+            lib.copenerf_sdf_out_bwd_workspace, n, *geom, cfg.d_out, blocks)
+        f32 = dict(dtype=torch.float32, device=dev)
+        stage = torch.empty(n_stage, **f32)
+        partial = torch.empty(n_part, **f32)
+        scratch = torch.empty(n_scratch, **f32)
+        grads = torch.zeros(gsize, **f32)
+        x_bar = torch.empty((n, 4), **f32)
+        O = build.offsets
+        code = lib.copenerf_sdf_out_bwd(
+            x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
+            O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
+            offs["b_last0"], offs["wftp"], grads.data_ptr(), O(goffs["gw"]),
+            O(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
+            scratch.data_ptr(), n, *geom, float(cfg.scale), cfg.d_out, blocks,
+            build.stream(x))
+        build.check(code, "sdf_out_bwd")
+        bars = unpack_sdf_value_grads(grads, goffs, cfg, cfg.d_out)
+    return x_bar, bars
 
 
 class SdfOut(torch.autograd.Function):

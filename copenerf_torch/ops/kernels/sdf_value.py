@@ -33,14 +33,14 @@ def launch_value(cfg, packed, x: torch.Tensor,
     params, offs = packed
     if params.device != x.device:
         raise ValueError(f"weights on {params.device}, x on {x.device}")
-    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    code = build.load_library().copenerf_sdf_value(
-        x.data_ptr(), out.data_ptr(), params.data_ptr(),
-        build.offsets(offs["b"]), build.offsets(offs["wp"]), offs["w_last0"],
-        offs["b_last0"], x.shape[0], *sdf_geometry(cfg), float(cfg.scale),
-        build.stream(x))
-    build.check(code, "sdf_value")
-    counter.launches += 1
+    with counter.launch():
+        out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+        code = build.load_library().copenerf_sdf_value(
+            x.data_ptr(), out.data_ptr(), params.data_ptr(),
+            build.offsets(offs["b"]), build.offsets(offs["wp"]), offs["w_last0"],
+            offs["b_last0"], x.shape[0], *sdf_geometry(cfg), float(cfg.scale),
+            build.stream(x))
+        build.check(code, "sdf_value")
     return out
 
 

@@ -43,26 +43,27 @@ def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     n, dev = x.shape[0], x.device
     geom = sdf_geometry(cfg)
     blocks = build.n_blocks(dev)
-    lib = build.load_library()
-    n_stage, n_part, n_scratch = build.workspace(
-        lib.copenerf_sdf_value_bwd_workspace, n, *geom, blocks)
-    f32 = dict(dtype=torch.float32, device=dev)
-    stage = torch.empty(n_stage, **f32)
-    partial = torch.empty(n_part, **f32)
-    scratch = torch.empty(n_scratch, **f32)
-    grads = torch.zeros(gsize, **f32)
-    x_bar = torch.empty((n, 4), **f32)
-    code = lib.copenerf_sdf_value_bwd(
-        x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
-        build.offsets(offs["b"]), build.offsets(offs["wp"]),
-        build.offsets(offs["wtp"]), offs["w_last0"], offs["b_last0"],
-        grads.data_ptr(), build.offsets(goffs["gw"]),
-        build.offsets(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
-        scratch.data_ptr(), n, *geom, float(cfg.scale), blocks,
-        build.stream(x))
-    build.check(code, "sdf_value_bwd")
-    BWD_COUNTER.launches += 1
-    return x_bar, unpack_sdf_value_grads(grads, goffs, cfg)
+    with BWD_COUNTER.launch():
+        lib = build.load_library()
+        n_stage, n_part, n_scratch = build.workspace(
+            lib.copenerf_sdf_value_bwd_workspace, n, *geom, blocks)
+        f32 = dict(dtype=torch.float32, device=dev)
+        stage = torch.empty(n_stage, **f32)
+        partial = torch.empty(n_part, **f32)
+        scratch = torch.empty(n_scratch, **f32)
+        grads = torch.zeros(gsize, **f32)
+        x_bar = torch.empty((n, 4), **f32)
+        code = lib.copenerf_sdf_value_bwd(
+            x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
+            build.offsets(offs["b"]), build.offsets(offs["wp"]),
+            build.offsets(offs["wtp"]), offs["w_last0"], offs["b_last0"],
+            grads.data_ptr(), build.offsets(goffs["gw"]),
+            build.offsets(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
+            scratch.data_ptr(), n, *geom, float(cfg.scale), blocks,
+            build.stream(x))
+        build.check(code, "sdf_value_bwd")
+        bars = unpack_sdf_value_grads(grads, goffs, cfg)
+    return x_bar, bars
 
 
 class SdfValueDiff(torch.autograd.Function):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..models.fields import (sdf_grad_color, sdf_grad_color_cons,
                              sdf_value_nograd, variance_inv_s)
+from ..utils.profiling import span, spanned
 from .sampling import (_exclusive_transmittance, cat_z_vals, up_sample,
                        up_sample_naive)
 
@@ -91,6 +92,7 @@ def render_core_outside(nerf_net, rays_o, rays_d, z_vals, sample_dist,
             "weights": weights}
 
 
+@spanned("copenerf.render.core")
 def render_core(fields, rays_o, rays_d, rays_d_norm, time_step, z_vals,
                 sample_dist, cos_anneal_ratio, *, eval_depth: bool, cons=None):
     """SDF -> alpha (NeuS eq. 13) -> transmittance-weighted compositing of
@@ -165,6 +167,7 @@ def render_core(fields, rays_o, rays_d, rays_d_norm, time_step, z_vals,
     }
 
 
+@spanned("copenerf.render")
 def render(fields, rays_o, rays_d, rays_d_norm, time_step, near, far, *,
            rcfg: RendererConfig, cos_anneal_ratio,
            use_importance: bool = True, train: bool = True,
@@ -181,42 +184,46 @@ def render(fields, rays_o, rays_d, rays_d_norm, time_step, near, far, *,
     else:
         n_samples, n_importance = rcfg.n_samples + rcfg.n_importance, 0
 
-    sample_dist = (far[0, 0] - near[0, 0]) / n_samples
-    t = torch.linspace(0.0, 1.0, n_samples, dtype=rays_o.dtype,
-                       device=rays_o.device)
-    z_vals = near * (1.0 - t[None, :]) + far * t[None, :]
+    with span("copenerf.render.importance"):
+        sample_dist = (far[0, 0] - near[0, 0]) / n_samples
+        t = torch.linspace(0.0, 1.0, n_samples, dtype=rays_o.dtype,
+                           device=rays_o.device)
+        z_vals = near * (1.0 - t[None, :]) + far * t[None, :]
 
-    if train:
-        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
-        lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-        if t_rand is None:
-            t_rand = torch.rand((batch_size, n_samples), generator=generator,
-                                device=rays_o.device)
-        z_vals = lower + (upper - lower) * t_rand
+        if train:
+            mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+            lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+            if t_rand is None:
+                t_rand = torch.rand((batch_size, n_samples),
+                                    generator=generator, device=rays_o.device)
+            z_vals = lower + (upper - lower) * t_rand
 
-    if n_importance > 0:
-        sdf_net = fields["sdf"]
-        # Importance pre-sampling is gradient-free (reference no_grad).
-        with torch.no_grad():
-            z_vals = z_vals.detach()
-            pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-            sdf = sdf_value_nograd(
-                sdf_net, _with_time(pts, time_step).contiguous())
-            n_per_step = n_importance // rcfg.up_sample_steps
-            up_fn = up_sample_naive if rcfg.naive_render else up_sample
-            for i in range(rcfg.up_sample_steps):
-                new_z = up_fn(rays_o, rays_d, z_vals, sdf, n_per_step,
-                              64.0 * 2 ** i)
-                if (i + 1) == rcfg.up_sample_steps:
-                    z_vals, sdf, _ = cat_z_vals(z_vals, new_z, sdf, None)
-                else:
-                    new_pts = (rays_o[:, None, :] +
-                               rays_d[:, None, :] * new_z[..., None])
-                    new_sdf = sdf_value_nograd(
-                        sdf_net, _with_time(new_pts, time_step).contiguous())
-                    z_vals, sdf, _ = cat_z_vals(z_vals, new_z, sdf, new_sdf)
-        n_samples = n_samples + n_importance
+        if n_importance > 0:
+            sdf_net = fields["sdf"]
+            # Importance pre-sampling is gradient-free (reference no_grad).
+            with torch.no_grad():
+                z_vals = z_vals.detach()
+                pts = (rays_o[:, None, :]
+                       + rays_d[:, None, :] * z_vals[..., None])
+                sdf = sdf_value_nograd(
+                    sdf_net, _with_time(pts, time_step).contiguous())
+                n_per_step = n_importance // rcfg.up_sample_steps
+                up_fn = up_sample_naive if rcfg.naive_render else up_sample
+                for i in range(rcfg.up_sample_steps):
+                    new_z = up_fn(rays_o, rays_d, z_vals, sdf, n_per_step,
+                                  64.0 * 2 ** i)
+                    if (i + 1) == rcfg.up_sample_steps:
+                        z_vals, sdf, _ = cat_z_vals(z_vals, new_z, sdf, None)
+                    else:
+                        new_pts = (rays_o[:, None, :] +
+                                   rays_d[:, None, :] * new_z[..., None])
+                        new_sdf = sdf_value_nograd(
+                            sdf_net,
+                            _with_time(new_pts, time_step).contiguous())
+                        z_vals, sdf, _ = cat_z_vals(z_vals, new_z, sdf,
+                                                    new_sdf)
+            n_samples = n_samples + n_importance
 
     if rcfg.n_outside > 0:
         z_out = torch.linspace(1e-3, 1.0 - 1.0 / (rcfg.n_outside + 1.0),

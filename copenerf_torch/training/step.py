@@ -44,6 +44,7 @@ from ..parallel.distributed import (all_reduce_, all_reduce_grads_, rank,
 from ..parallel.mesh import shard_rays
 from ..poses.lie import se3_inverse
 from ..poses.motion import full_video_w2c
+from ..utils.profiling import span, spanned
 from .losses import (edge_aware_smoothness_loss, eikonal_loss, rgb_l1_loss,
                      sdf_flow_loss, smoothness_loss)
 
@@ -139,135 +140,148 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
     def part(x):
         return x if world == 1 else x * (1.0 / world)
 
-    p, p_norm = _pixels_from_indices(ray_idx, s.h, s.w)
-    image_idx = batch["image_idx"]
-    image = _gather_image(batch["images_all"], image_idx)
-    rgb_gt = image.reshape(3, s.h * s.w)[:, ray_idx].T          # (N, 3)
-    rays_o, rays_d, rays_d_norm = rays_from_pixels(
-        p_norm, batch["K_all"][image_idx], batch["world_mat"],
-        batch["scale_mat"])
-    n = rays_o.shape[0]
-    ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
-    near, far = ones * batch["near"], ones * batch["far"]
+    with span("copenerf.step.sample"):
+        p, p_norm = _pixels_from_indices(ray_idx, s.h, s.w)
+        image_idx = batch["image_idx"]
+        image = _gather_image(batch["images_all"], image_idx)
+        rgb_gt = image.reshape(3, s.h * s.w)[:, ray_idx].T      # (N, 3)
+        rays_o, rays_d, rays_d_norm = rays_from_pixels(
+            p_norm, batch["K_all"][image_idx], batch["world_mat"],
+            batch["scale_mat"])
+        n = rays_o.shape[0]
+        ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
+        near, far = ones * batch["near"], ones * batch["far"]
 
     cons = None
     w2c_all = inv_here = None
     if s.stage1 and (s.use_flow_rgb or s.use_sdf_consistency):
-        w2c_all = full_video_w2c(fields["motion"], s.n_images,
-                                 s.nb_sample_timestep)
-        inv_here = se3_inverse(w2c_all[image_idx])
-        if s.use_sdf_consistency:
-            cw2 = w2c_all[batch["world_cam_idx"]] @ inv_here
-            if not s.sdf_cons_pose_grad:
-                cw2 = cw2.detach()
-            cons = (cw2, batch["world_time_step"])
+        with span("copenerf.step.motion"):
+            w2c_all = full_video_w2c(fields["motion"], s.n_images,
+                                     s.nb_sample_timestep)
+            inv_here = se3_inverse(w2c_all[image_idx])
+            if s.use_sdf_consistency:
+                cw2 = w2c_all[batch["world_cam_idx"]] @ inv_here
+                if not s.sdf_cons_pose_grad:
+                    cw2 = cw2.detach()
+                cons = (cw2, batch["world_time_step"])
 
     out = render(fields, rays_o, rays_d, rays_d_norm, batch["query_time_step"],
                  near, far, rcfg=rcfg,
                  cos_anneal_ratio=batch["cos_anneal_ratio"],
                  use_importance=s.use_importance, train=True,
                  generator=generator, t_rand=t_rand, cons=cons)
+    with span("copenerf.step.losses"):
+        w = batch["loss_weights"]
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        rgb_loss = part(rgb_l1_loss(out["color_fine"], rgb_gt))
+        l2_mean = part(torch.mean((out["color_fine"] - rgb_gt) ** 2))
+        eik_loss = part(eikonal_loss(out["normals"]))
+        sdf_loss = flow_rgb_loss = sdf_cons_loss = zero
+        edge_loss = smooth_loss = zero
 
-    w = batch["loss_weights"]
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    rgb_loss = part(rgb_l1_loss(out["color_fine"], rgb_gt))
-    l2_mean = part(torch.mean((out["color_fine"] - rgb_gt) ** 2))
-    eik_loss = part(eikonal_loss(out["normals"]))
-    sdf_loss = flow_rgb_loss = sdf_cons_loss = edge_loss = smooth_loss = zero
+        if s.stage1:
+            pts = out["sampled_points"].reshape(-1, 3)
+            t_q = torch.as_tensor(batch["query_time_step"],
+                                  dtype=torch.float32, device=dev).reshape(1, 1)
+            omega, vel = motion_apply(fields["motion"], t_q)
+            scene_flow = (torch.cross(omega[0].expand(pts.shape), pts, dim=-1)
+                          + vel[0])
+            weights_flat = out["weights"].reshape(-1)
+            # Per reference frame: (weighted L1 sum, valid-pixel count).
+            refs = []
 
-    if s.stage1:
-        pts = out["sampled_points"].reshape(-1, 3)
-        t_q = torch.as_tensor(batch["query_time_step"], dtype=torch.float32,
-                              device=dev).reshape(1, 1)
-        omega, vel = motion_apply(fields["motion"], t_q)
-        scene_flow = torch.cross(omega[0].expand(pts.shape), pts, dim=-1) + vel[0]
-        weights_flat = out["weights"].reshape(-1)
-        # Per reference frame: (weighted L1 sum, valid-pixel count).
-        refs = []
+            if s.use_flow_rgb or s.use_sdf_consistency:
+                # The reference computes this block only when the reference
+                # list is non-empty.
+                any_ref = torch.max(batch["ref_in_list"]) > 0
+                if s.use_sdf_consistency:
+                    active = any_ref & (
+                        torch.as_tensor(image_idx, device=dev)
+                        != torch.as_tensor(batch["world_cam_idx"], device=dev))
+                    sdf_cons_loss = torch.where(
+                        active, part(torch.mean(torch.abs(
+                            out["sdf_world"].reshape(-1)
+                            - out["sdf"].reshape(-1)))),
+                        zero)
+                if s.use_flow_rgb:
+                    ray_weights = out["weights"][..., None]       # (N, S, 1)
+                    pts_r = out["sampled_points"]                 # (N, S, 3)
+                    size = torch.tensor([float(s.w), float(s.h)],
+                                        device=dev)
 
-        if s.use_flow_rgb or s.use_sdf_consistency:
-            # The reference computes this block only when the reference
-            # list is non-empty.
-            any_ref = torch.max(batch["ref_in_list"]) > 0
-            if s.use_sdf_consistency:
-                active = any_ref & (torch.as_tensor(image_idx, device=dev)
-                                    != torch.as_tensor(batch["world_cam_idx"],
-                                                       device=dev))
-                sdf_cons_loss = torch.where(
-                    active, part(torch.mean(torch.abs(
-                        out["sdf_world"].reshape(-1)
-                        - out["sdf"].reshape(-1)))),
-                    zero)
-            if s.use_flow_rgb:
-                ray_weights = out["weights"][..., None]           # (N, S, 1)
-                pts_r = out["sampled_points"]                     # (N, S, 3)
-                size = torch.tensor([float(s.w), float(s.h)], device=dev)
-
-                def one_ref(t):
-                    ref_idx = torch.clamp(batch["ref_idxs"][t], 0, s.n_images - 1)
-                    w2c_t = w2c_all[ref_idx] @ inv_here
-                    pts_map = pts_r @ w2c_t[:3, :3].T + w2c_t[:3, 3]
-                    wpm = torch.sum(ray_weights * pts_map, dim=1)  # (N, 3)
-                    proj = batch["scale_mat"][:3, :3] @ batch["K_all"][ref_idx][:3, :3]
-                    pix = wpm @ proj.T
-                    z = pix[:, 2:]
-                    z_safe = torch.where(torch.abs(z) < 1e-8,
-                                         torch.where(z < 0, -1e-8, 1e-8), z)
-                    flow = (pix[:, :2] / z_safe - p_norm) * (size / 2.0)
-                    corr = p + flow
-                    in_bounds = (corr >= 0).all(dim=1) & (corr < size).all(dim=1)
-                    valid = (in_bounds.float()
-                             * batch["ref_valid_flow"][t]).detach()[:, None]
-                    warped = warp_pixels(
-                        _gather_image(batch["images_all"], ref_idx), corr,
-                        normalize=True)
-                    return (torch.sum(torch.abs(warped - rgb_gt) * valid),
+                    def one_ref(t):
+                        ref_idx = torch.clamp(batch["ref_idxs"][t], 0,
+                                              s.n_images - 1)
+                        w2c_t = w2c_all[ref_idx] @ inv_here
+                        pts_map = pts_r @ w2c_t[:3, :3].T + w2c_t[:3, 3]
+                        wpm = torch.sum(ray_weights * pts_map, dim=1)  # (N, 3)
+                        proj = (batch["scale_mat"][:3, :3]
+                                @ batch["K_all"][ref_idx][:3, :3])
+                        pix = wpm @ proj.T
+                        z = pix[:, 2:]
+                        z_safe = torch.where(
+                            torch.abs(z) < 1e-8,
+                            torch.where(z < 0, -1e-8, 1e-8), z)
+                        flow = (pix[:, :2] / z_safe - p_norm) * (size / 2.0)
+                        corr = p + flow
+                        in_bounds = ((corr >= 0).all(dim=1)
+                                     & (corr < size).all(dim=1))
+                        valid = (in_bounds.float()
+                                 * batch["ref_valid_flow"][t]).detach()[:, None]
+                        warped = warp_pixels(
+                            _gather_image(batch["images_all"], ref_idx), corr,
+                            normalize=True)
+                        return (
+                            torch.sum(torch.abs(warped - rgb_gt) * valid),
                             torch.sum(valid))
 
-                refs = [one_ref(t) for t in range(s.n_ref)]
+                    refs = [one_ref(t) for t in range(s.n_ref)]
 
-        # The ratios' denominators, over every rank's rays before dividing.
-        weight_sum = None
-        dens = [den for _, den in refs]
-        if group is not None:
-            sums = all_reduce_(torch.stack(
-                [torch.sum(weights_flat.detach())] + dens), group)
-            weight_sum, dens = sums[0], list(sums[1:])
-        sdf_loss = sdf_flow_loss(scene_flow, out["normals"], out["sdf_flows"],
-                                 weights_flat, weight_sum)
-        if refs:
-            losses_t = torch.stack([num / (den + 1e-10)
-                                    for (num, _), den in zip(refs, dens)])
-            flow_rgb_loss = torch.where(any_ref, torch.sum(losses_t) / 3.0,
-                                        zero)
+            # The ratios' denominators, over every rank's rays before
+            # dividing.
+            weight_sum = None
+            dens = [den for _, den in refs]
+            if group is not None:
+                sums = all_reduce_(torch.stack(
+                    [torch.sum(weights_flat.detach())] + dens), group)
+                weight_sum, dens = sums[0], list(sums[1:])
+            sdf_loss = sdf_flow_loss(scene_flow, out["normals"],
+                                     out["sdf_flows"], weights_flat,
+                                     weight_sum)
+            if refs:
+                losses_t = torch.stack([num / (den + 1e-10) for (num, _), den
+                                        in zip(refs, dens)])
+                flow_rgb_loss = torch.where(
+                    any_ref, torch.sum(losses_t) / 3.0, zero)
 
-    ps = s.patch_size
-    if ps > 1:
-        n_patches = n // (ps * ps)
-        disp = out["depth_pred"].reshape(n_patches, ps, ps, 1)
-        rgb_grid = rgb_gt.reshape(n_patches, ps, ps, 3)
-        scale = 1.0 / (2 ** s.smooth_scale)
-        edge_loss = scale * part(edge_aware_smoothness_loss(disp, rgb_grid))
-        smooth_loss = scale * part(smoothness_loss(disp))
+        ps = s.patch_size
+        if ps > 1:
+            n_patches = n // (ps * ps)
+            disp = out["depth_pred"].reshape(n_patches, ps, ps, 1)
+            rgb_grid = rgb_gt.reshape(n_patches, ps, ps, 3)
+            scale = 1.0 / (2 ** s.smooth_scale)
+            edge_loss = scale * part(edge_aware_smoothness_loss(disp,
+                                                                rgb_grid))
+            smooth_loss = scale * part(smoothness_loss(disp))
 
-    total = (w["rgb"] * rgb_loss + w["eikonal"] * eik_loss
-             + w["sdf"] * sdf_loss + w["flow_rgb"] * flow_rgb_loss
-             + w["sdf_consistency"] * sdf_cons_loss
-             + w["edge_smooth"] * edge_loss + w["smooth"] * smooth_loss)
-    metrics = {
-        "loss": total, "loss_rgb": rgb_loss, "loss_eikonal": eik_loss,
-        "l2_mean": l2_mean, "loss_sdf": sdf_loss,
-        "loss_flow_rgb": flow_rgb_loss,
-        "sdf_consistency_loss": sdf_cons_loss,
-        "edge_aware_smoothness_loss": edge_loss,
-        "smoothness_loss": smooth_loss,
-        "s_val": part(torch.mean(out["s_val"])),
-        "cdf_fine": part(torch.mean(out["cdf_fine"])),
-        "weight_sum": part(torch.mean(out["weight_sum"])),
-        "weight_max": part(torch.mean(out["weight_max"])),
-        "psnr": _psnr(l2_mean),
-    }
-    return total, metrics
+        total = (w["rgb"] * rgb_loss + w["eikonal"] * eik_loss
+                 + w["sdf"] * sdf_loss + w["flow_rgb"] * flow_rgb_loss
+                 + w["sdf_consistency"] * sdf_cons_loss
+                 + w["edge_smooth"] * edge_loss + w["smooth"] * smooth_loss)
+        metrics = {
+            "loss": total, "loss_rgb": rgb_loss, "loss_eikonal": eik_loss,
+            "l2_mean": l2_mean, "loss_sdf": sdf_loss,
+            "loss_flow_rgb": flow_rgb_loss,
+            "sdf_consistency_loss": sdf_cons_loss,
+            "edge_aware_smoothness_loss": edge_loss,
+            "smoothness_loss": smooth_loss,
+            "s_val": part(torch.mean(out["s_val"])),
+            "cdf_fine": part(torch.mean(out["cdf_fine"])),
+            "weight_sum": part(torch.mean(out["weight_sum"])),
+            "weight_max": part(torch.mean(out["weight_max"])),
+            "psnr": _psnr(l2_mean),
+        }
+        return total, metrics
 
 
 def _psnr(l2_mean):
@@ -331,42 +345,48 @@ def build_train_step(rcfg: RendererConfig, static: StepStatic, group=None):
     # The stratified jitter's width, as ``render`` draws it.
     n_uniform = rcfg.n_samples + (0 if s.use_importance else rcfg.n_importance)
 
+    @spanned("copenerf.step")
     def step(state: dict, batch: dict, generator=None) -> dict:
         fields = state["fields"]
         opts = (state["opt_fields"], state["opt_motion"])
-        for opt, lr in zip(opts, (batch["lr"], batch["motion_lr"])):
-            for pg in opt.param_groups:
-                pg["lr"] = float(lr)
-            opt.zero_grad(set_to_none=True)
-        if s.inject_sampling:
-            ray_idx, t_rand = batch["ray_idx"], batch["t_rand"]
-        else:
-            ray_idx = sample_patch_indices(
-                generator, s.h, s.w, s.patch_size, s.n_points,
-                device=batch["images_all"].device)
-            t_rand = None
+        with span("copenerf.step.optimizer"):
+            for opt, lr in zip(opts, (batch["lr"], batch["motion_lr"])):
+                for pg in opt.param_groups:
+                    pg["lr"] = float(lr)
+                opt.zero_grad(set_to_none=True)
+        with span("copenerf.step.sample"):
+            if s.inject_sampling:
+                ray_idx, t_rand = batch["ray_idx"], batch["t_rand"]
+            else:
+                ray_idx = sample_patch_indices(
+                    generator, s.h, s.w, s.patch_size, s.n_points,
+                    device=batch["images_all"].device)
+                t_rand = None
+                if group is not None:
+                    # The global batch's jitter, the draw the single-device
+                    # render makes next from the generator.
+                    t_rand = torch.rand((s.n_points, n_uniform),
+                                        generator=generator,
+                                        device=ray_idx.device)
             if group is not None:
-                # The global batch's jitter, the draw the single-device
-                # render makes next from the generator.
-                t_rand = torch.rand((s.n_points, n_uniform),
-                                    generator=generator,
-                                    device=ray_idx.device)
-        if group is not None:
-            ray_idx = shard_rays(ray_idx, me, world)
-            t_rand = shard_rays(t_rand, me, world)
+                ray_idx = shard_rays(ray_idx, me, world)
+                t_rand = shard_rays(t_rand, me, world)
         total, metrics = compute_losses(fields, rcfg, s, batch, ray_idx,
                                         generator=generator, t_rand=t_rand,
                                         group=group)
-        total.backward()
+        with span("copenerf.step.backward"):
+            total.backward()
         if group is not None:
-            stepped = opts if s.train_motion else opts[:1]
-            all_reduce_grads_([p for opt in stepped
-                               for g in opt.param_groups
-                               for p in g["params"]], group)
-            metrics = _sum_metrics(metrics, group)
-        opts[0].step()
-        if s.train_motion:
-            opts[1].step()
+            with span("copenerf.step.allreduce"):
+                stepped = opts if s.train_motion else opts[:1]
+                all_reduce_grads_([p for opt in stepped
+                                   for g in opt.param_groups
+                                   for p in g["params"]], group)
+                metrics = _sum_metrics(metrics, group)
+        with span("copenerf.step.optimizer"):
+            opts[0].step()
+            if s.train_motion:
+                opts[1].step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

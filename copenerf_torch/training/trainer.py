@@ -50,7 +50,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..data.fields import get_data_fields
 from ..device import resolve_device
@@ -64,7 +63,7 @@ from ..ops.renderer import RendererConfig
 from ..parallel import distributed as dist
 from ..poses.motion import full_video_w2c
 from ..poses.retriever import pose_retriever_all, pose_retriever_init
-from ..utils.profiling import StepTimer, synchronize, trace
+from ..utils.profiling import StepTimer, span, synchronize, trace
 from .checkpoints import (load_checkpoint, load_pytree, save_checkpoint,
                           save_pytree)
 from .logging_utils import ScalarLogger
@@ -195,7 +194,6 @@ class Trainer:
         self.lr_state = LRState(tr)
         self.logger = ScalarLogger(self.out_dir, enabled=self.io_primary)
         self.step_timer = StepTimer(
-            window=50,
             log_path=(os.path.join(self.out_dir, "logs", "throughput.jsonl")
                       if self.io_primary else None))
         # Set to an iteration number to capture a torch.profiler trace of
@@ -818,10 +816,9 @@ class Trainer:
                         window = contextlib.ExitStack()
                         summary = window.enter_context(trace(
                             os.path.join(self.out_dir, "logs", "plugins"),
-                            self.device, annotation="visualize"))
+                            self.device, annotation="copenerf.visualize"))
                         first_traced = self.it
                     metrics = step(self.state, batch, self.generator)
-                    self.step_timer.tick()
                     epoch_metrics.append(metrics)
 
                     if self.print_every > 0 and self.it % self.print_every == 0:
@@ -850,7 +847,7 @@ class Trainer:
                         synchronize(self.device)
                         t_vis = time.perf_counter()
                         try:
-                            with record_function("visualize"):
+                            with span("copenerf.visualize"):
                                 self.visualize(int(pos), epoch_it)
                         except Exception as e:  # as the JAX Trainer does
                             # unless ranks would leave the split render's
@@ -895,12 +892,12 @@ class Trainer:
                 for k, vals in epoch_losses.items():
                     self.logger.add_scalar(
                         f"loss_epoch/{k}", float(np.mean(vals)), epoch_it)
+                steps_ms = (loop_ms - vis_ms) / len(perm)
                 self.step_timer.log(
                     self.it, epoch=epoch_it,
-                    rays_per_sec=(self.step_timer.items_per_sec *
-                                  self.rays_per_step),
+                    rays_per_sec=1e3 * self.rays_per_step / steps_ms,
                     ms_per_it=loop_ms / len(perm), vis_ms=vis_ms,
-                    ms_per_it_steps=(loop_ms - vis_ms) / len(perm))
+                    ms_per_it_steps=steps_ms)
 
                 if (epoch_it % self.eval_pose_every == 0 and
                         not self.query_in_canonical_space):

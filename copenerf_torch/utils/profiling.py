@@ -1,20 +1,140 @@
-"""Step timing and profiler traces (port of ``copenerf_tpu/utils/profiling.py``).
+"""Spans, step timing and profiler traces (port of
+``copenerf_tpu/utils/profiling.py``).
 
-``StepTimer`` is the JAX package's rolling throughput meter with the same
-JSONL journal; its ``tick(sync=...)`` synchronizes the CUDA device instead of
-``jax.block_until_ready``. ``trace`` is the counterpart of the JAX package's
-``jax.profiler`` trace: a ``torch.profiler`` capture exported as a Chrome
-trace, summarized as the window's wall time and the device's busy share.
+``span(name)`` marks a region of the program (dotted names under
+``copenerf.``; ``spanned(name)`` is its decorator form). Off, it is one
+check of module state and a shared no-op. While a ``torch.profiler`` is
+active it enters ``record_function(name)``, so the region lands in the
+profiler's Chrome trace beside the kernels it launched; while
+``record_spans()`` records, it appends ``(name, thread, start_ns, end_ns,
+parent)`` to the recording's log. A span never synchronizes the device and
+never touches a tensor.
+
+``StepTimer`` is the JSONL journal of the ``Trainer``. ``trace`` is the
+counterpart of the JAX package's ``jax.profiler`` trace: a
+``torch.profiler`` capture exported as a Chrome trace, summarized as the
+window's wall time and the device's busy share.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+
+class _Off:
+    """The span of a region while nothing records and no profiler runs."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_RECORDING = None            # the active ``_Recording``, if any
+_THREAD = threading.local()  # .stack: the spans open on this thread
+
+
+class _Recording:
+    def __init__(self):
+        self.closed = []                 # _Span objects, as they close
+        self.stack = _open_stack()       # the recording thread's
+
+
+def _open_stack() -> list:
+    stack = getattr(_THREAD, "stack", None)
+    if stack is None:
+        stack = _THREAD.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "rf", "rec", "stack", "parent", "thread", "start",
+                 "end")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.rec = rec = _RECORDING
+        if rec is not None:
+            self.stack = stack = _open_stack()
+            # On a thread with no open span (autograd's device thread in a
+            # backward pass) the region belongs to the recording thread's
+            # innermost span.
+            outer = stack or rec.stack
+            self.parent = outer[-1] if outer else None
+            self.thread = threading.get_ident()
+            stack.append(self)
+            self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec is not None:
+            self.end = time.perf_counter_ns()
+            self.stack.pop()
+            rec.closed.append(self)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one region of the program named ``name``;
+    see the module's docstring."""
+    if _RECORDING is None and not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Record every span of the block, on any thread; yields the log, a
+    list that is filled when the block ends with one
+    ``(name, thread, start_ns, end_ns, parent)`` per span in the order they
+    closed: ``thread`` is ``threading.get_ident()``, the times are
+    ``time.perf_counter_ns()``, and ``parent`` is the index in the log of
+    the innermost span open on the same thread when it opened (on a thread
+    with none open, on the recording thread), or None for a root."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError("record_spans() is already recording")
+    rec = _RECORDING = _Recording()
+    log = []
+    try:
+        yield log
+    finally:
+        _RECORDING = None
+        index = {id(s): i for i, s in enumerate(rec.closed)}
+        log.extend((s.name, s.thread, s.start, s.end,
+                    index.get(id(s.parent))) for s in rec.closed)
 
 
 def synchronize(device) -> None:
@@ -97,38 +217,14 @@ def trace(log_dir: str, device="cuda", annotation: str | None = None):
 
 
 class StepTimer:
-    """Lightweight rolling throughput meter; optionally journals to JSONL."""
+    """The JSONL journal of a run (``logs/throughput.jsonl``): one line a
+    ``log`` call, flushed as it is written."""
 
-    def __init__(self, window: int = 50, log_path: str | None = None):
-        self.window = window
-        self.times = []
-        self._last = None
+    def __init__(self, log_path: str | None = None):
         self._f = open(log_path, "a") if log_path else None
-
-    def tick(self, n_items: int = 1, sync=None):
-        """Record the time since the last tick; ``sync`` (a device) is
-        synchronized first."""
-        if sync is not None:
-            synchronize(sync)
-        now = time.perf_counter()
-        if self._last is not None:
-            self.times.append((now - self._last, n_items))
-            if len(self.times) > self.window:
-                self.times.pop(0)
-        self._last = now
-
-    @property
-    def items_per_sec(self) -> float:
-        if not self.times:
-            return 0.0
-        dt = sum(t for t, _ in self.times)
-        n = sum(n for _, n in self.times)
-        return n / dt if dt > 0 else 0.0
 
     def log(self, step: int, **extra):
         if self._f is None:
             return
-        self._f.write(json.dumps({"step": step,
-                                  "items_per_sec": self.items_per_sec,
-                                  **extra}) + "\n")
+        self._f.write(json.dumps({"step": step, **extra}) + "\n")
         self._f.flush()

@@ -330,6 +330,10 @@ def test_sampled_run_resumes_exactly(scene, tmp_path):
                open(os.path.join(full.out_dir, "logs", "throughput.jsonl"))]
     assert [d["epoch"] for d in journal] == [0, 1]
     assert all(d["ms_per_it"] > 0 for d in journal)
+    # The rate of the epoch's synchronized step time (64 rays a step).
+    for d in journal:
+        assert d["rays_per_sec"] == pytest.approx(
+            1e3 * 64 / d["ms_per_it_steps"])
 
 
 def test_plain_mode_raises(scene, tmp_path):
@@ -732,16 +736,22 @@ def test_load_pretrained_sdf_matches_jax(tmp_path):
 
 
 def test_step_timer_and_trace_on_cpu(tmp_path):
-    """The JSONL journal of ``StepTimer``; a CPU ``trace`` writes its
-    Chrome trace and reports no device time."""
-    timer = TP.StepTimer(window=2, log_path=str(tmp_path / "t.jsonl"))
-    for _ in range(4):
-        timer.tick(n_items=3, sync="cpu")
-    assert timer.items_per_sec > 0 and len(timer.times) == 2
-    timer.log(7, epoch=1)
-    line = json.loads(open(tmp_path / "t.jsonl").read())
-    assert line["step"] == 7 and line["epoch"] == 1
-    with TP.trace(str(tmp_path / "plugins"), "cpu") as summary:
+    """The JSONL journal of ``StepTimer``: one line a ``log`` call, written
+    as it is made, none without a path; a CPU ``trace`` writes its Chrome
+    trace, reports no device time and takes its annotation's spans out of
+    the ``*_outside`` wall time."""
+    timer = TP.StepTimer(log_path=str(tmp_path / "t.jsonl"))
+    timer.log(7, epoch=1, rays_per_sec=2.0)
+    timer.log(8, epoch=2)
+    lines = [json.loads(s) for s in open(tmp_path / "t.jsonl")]
+    assert lines == [{"step": 7, "epoch": 1, "rays_per_sec": 2.0},
+                     {"step": 8, "epoch": 2}]
+    TP.StepTimer().log(9)
+    with TP.trace(str(tmp_path / "plugins"), "cpu",
+                  annotation="copenerf.visualize") as summary:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        with TP.span("copenerf.visualize"):
+            torch.ones(256, 256) @ torch.ones(256, 256)
     assert os.path.isfile(summary["trace"])
     assert summary["wall_ms"] > 0 and summary["device_busy_ms"] == 0.0
+    assert 0 < summary["wall_ms_outside"] < summary["wall_ms"]

@@ -341,10 +341,24 @@ def color_input_permutation(ccfg) -> list:
             + list(range(o_dirs, o_grad)) + list(range(o_grad, o_feat)))
 
 
+_COLOR_INDEX = {}
+
+
+def color_input_index(ccfg, device) -> tuple:
+    """(``color_input_permutation`` as an int64 tensor on ``device``, its
+    inverse), made once per (ccfg, device): a gather by them copies no
+    index from the host, so it does not wait for the card."""
+    key = (ccfg, str(device))
+    if key not in _COLOR_INDEX:
+        perm = torch.tensor(color_input_permutation(ccfg))
+        _COLOR_INDEX[key] = (perm.to(device), torch.argsort(perm).to(device))
+    return _COLOR_INDEX[key]
+
+
 def color_kernel_inputs(w: torch.Tensor, ccfg) -> torch.Tensor:
     """Color layer 0's (out, in) matrix with its input columns in the
     kernel's order and zero-padded to k0: (out, k0)."""
-    w = w[:, color_input_permutation(ccfg)]
+    w = w.index_select(1, color_input_index(ccfg, w.device)[0])
     pad = color_k0(ccfg) - w.shape[1]
     return torch.cat([w, w.new_zeros((w.shape[0], pad))], 1) if pad else w
 
@@ -554,8 +568,7 @@ def unpack_color_grads(buf, offs, ccfg) -> list:
         b = _take(buf, offs["gbc"][l], (o,))
         if l == 0:
             g = _take(buf, offs["gwc"][l], (o, color_k0(ccfg)))
-            w = g.new_empty((o, i))
-            w[:, color_input_permutation(ccfg)] = g[:, :i]
+            w = g[:, :i].index_select(1, color_input_index(ccfg, g.device)[1])
         else:
             w = _take(buf, offs["gwc"][l], (o, i))
         color.append((w, b))

@@ -27,20 +27,26 @@ def arange_pixels(resolution, image_range=(-1.0, 1.0)):
     return loc, scaled
 
 
+def _inverse(m: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.inv(m)`` without its error check: the same values."""
+    return torch.linalg.inv_ex(m, check_errors=False).inverse
+
+
 def rays_from_pixels(pixels, camera_mat, world_mat, scale_mat):
     """World-space rays for scaled pixel coords.
 
     Args:
       pixels: (N, 2) scaled pixel coordinates in [-1, 1].
       camera_mat, world_mat, scale_mat: (4, 4) matrices on the same device
-        (non-inverted; they are inverted here).
+        (non-inverted; they are inverted here, with no check that they are
+        invertible: ``torch.linalg.inv``'s check reads its result on the
+        host, and so waits for the card).
 
     Returns:
       rays_o (N, 3), rays_d (N, 3) unit directions, rays_d_norm (N, 1) the
       pre-normalization direction length (converts distance -> depth).
     """
-    inv = (torch.linalg.inv(scale_mat) @ torch.linalg.inv(world_mat)
-           @ torch.linalg.inv(camera_mat))
+    inv = _inverse(scale_mat) @ _inverse(world_mat) @ _inverse(camera_mat)
     n = pixels.shape[0]
     origin = inv[:3, 3]
     camera_world = origin.expand(n, 3)

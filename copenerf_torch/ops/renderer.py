@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from ..models.fields import (sdf_grad_color, sdf_grad_color_cons,
                              sdf_value_nograd, variance_inv_s)
 from ..utils.profiling import span, spanned
+from ..utils.tensors import scalar
 from .sampling import (_exclusive_transmittance, cat_z_vals, up_sample,
                        up_sample_naive)
 
@@ -59,7 +60,7 @@ class RendererConfig:
 
 def _with_time(pts: torch.Tensor, time_step) -> torch.Tensor:
     """Append the scalar time step as a 4th coordinate: (..., 3) -> (..., 4)."""
-    t = torch.as_tensor(time_step, dtype=pts.dtype, device=pts.device)
+    t = scalar(time_step, pts.dtype, pts.device)
     return torch.cat([pts, t.reshape(1).expand(pts.shape[:-1] + (1,))], -1)
 
 

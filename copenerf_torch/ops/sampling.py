@@ -11,6 +11,7 @@ ties.
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 
 def sample_pdf(bins, weights, n_samples: int, *, u=None, prepend_zero=True):
@@ -41,11 +42,33 @@ def sample_pdf(bins, weights, n_samples: int, *, u=None, prepend_zero=True):
     return bins_below + t * (bins_above - bins_below)
 
 
+class _NonzeroCumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last dim of factors none of which is 0,
+    with the gradient autograd's own ``cumprod`` backward gives for such
+    factors, the same operations in the same order: the reversed
+    cumulative sum of output x cotangent, over the factors. Autograd's
+    backward first reads on the host whether any factor is 0, which makes
+    the host wait for the card."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _exclusive_transmittance(alpha: torch.Tensor, eps: float = 1e-7):
-    """T_i = prod_{j<i} (1 - alpha_j + eps)."""
+    """T_i = prod_{j<i} (1 - alpha_j + eps); alpha in [0, 1], so every
+    factor is at least eps."""
     shifted = torch.cat([torch.ones_like(alpha[..., :1]),
                          1.0 - alpha[..., :-1] + eps], dim=-1)
-    return torch.cumprod(shifted, dim=-1)
+    return _NonzeroCumprod.apply(shifted)
 
 
 def up_sample(rays_o, rays_d, z_vals, sdf, n_importance: int, inv_s: float):

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tensors import constant
+
 
 def vec2skew(v: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 3, 3) skew-symmetric matrices."""
@@ -32,19 +34,20 @@ def exp_so3(r: torch.Tensor) -> torch.Tensor:
     return eye + coeff_a * skew + coeff_b * (skew @ skew)
 
 
-def _bottom_row(top: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
+def bottom_row(top: torch.Tensor) -> torch.Tensor:
+    """The rows [0, 0, 0, 1] under (..., 3, 4) ``top``: (..., 1, 4)."""
+    row = constant((0.0, 0.0, 0.0, 1.0), top.dtype, top.device)
     return row.expand(top.shape[:-2] + (1, 4))
 
 
 def make_c2w(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Axis-angle (..., 3) + translation (..., 3) -> SE(3) (..., 4, 4)."""
     top = torch.cat([exp_so3(r), t[..., :, None]], dim=-1)
-    return torch.cat([top, _bottom_row(top)], dim=-2)
+    return torch.cat([top, bottom_row(top)], dim=-2)
 
 
 def se3_inverse(m: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of (..., 4, 4) rigid transforms."""
     rot_t = m[..., :3, :3].transpose(-1, -2)
     top = torch.cat([rot_t, -rot_t @ m[..., :3, 3:]], dim=-1)
-    return torch.cat([top, _bottom_row(top)], dim=-2)
+    return torch.cat([top, bottom_row(top)], dim=-2)

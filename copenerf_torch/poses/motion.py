@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .lie import se3_inverse
+from ..utils.tensors import take
+from .lie import bottom_row, se3_inverse
 from .rotations import euler_angles_to_matrix
 
 
@@ -39,8 +40,7 @@ def consecutive_relative_poses(motion_net, n_images: int,
         rot = rot @ r_t
 
     top = torch.cat([rot, trans[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(n_int, 1, 4)
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, bottom_row(top)], dim=-2)
 
 
 def w2c_mappings(relative_poses: torch.Tensor) -> torch.Tensor:
@@ -64,9 +64,9 @@ def full_video_w2c(motion_net, n_images: int,
 
 def relative_pose(w2c_all: torch.Tensor, src_idx, dst_idx) -> torch.Tensor:
     """Transform taking coords of camera ``src`` to camera ``dst``."""
-    return w2c_all[dst_idx] @ se3_inverse(w2c_all[src_idx])
+    return take(w2c_all, dst_idx) @ se3_inverse(take(w2c_all, src_idx))
 
 
 def w2c_from_anchor(w2c_all: torch.Tensor, anchor_idx) -> torch.Tensor:
     """Re-anchor all world->cam maps so ``anchor`` becomes the world frame."""
-    return w2c_all @ se3_inverse(w2c_all[anchor_idx])[None]
+    return w2c_all @ se3_inverse(take(w2c_all, anchor_idx))[None]

@@ -45,6 +45,7 @@ from ..parallel.mesh import shard_rays
 from ..poses.lie import se3_inverse
 from ..poses.motion import full_video_w2c
 from ..utils.profiling import span, spanned
+from ..utils.tensors import constant, scalar, take
 from .losses import (edge_aware_smoothness_loss, eikonal_loss, rgb_l1_loss,
                      sdf_flow_loss, smoothness_loss)
 
@@ -93,8 +94,9 @@ def sample_patch_indices(generator, h: int, w: int, patch_size: int,
 
 
 def _gather_image(images_all: torch.Tensor, idx) -> torch.Tensor:
-    """One (3, H, W) f32 image of the device-resident stack (uint8 or f32)."""
-    img = images_all[idx]
+    """One (3, H, W) f32 image of the device-resident stack (uint8 or f32);
+    ``idx`` an int or a one-element device tensor (``tensors.take``)."""
+    img = take(images_all, idx)
     if img.dtype == torch.uint8:
         img = img.float() / 255.0
     return img
@@ -146,7 +148,7 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
         image = _gather_image(batch["images_all"], image_idx)
         rgb_gt = image.reshape(3, s.h * s.w)[:, ray_idx].T      # (N, 3)
         rays_o, rays_d, rays_d_norm = rays_from_pixels(
-            p_norm, batch["K_all"][image_idx], batch["world_mat"],
+            p_norm, take(batch["K_all"], image_idx), batch["world_mat"],
             batch["scale_mat"])
         n = rays_o.shape[0]
         ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
@@ -158,9 +160,9 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
         with span("copenerf.step.motion"):
             w2c_all = full_video_w2c(fields["motion"], s.n_images,
                                      s.nb_sample_timestep)
-            inv_here = se3_inverse(w2c_all[image_idx])
+            inv_here = se3_inverse(take(w2c_all, image_idx))
             if s.use_sdf_consistency:
-                cw2 = w2c_all[batch["world_cam_idx"]] @ inv_here
+                cw2 = take(w2c_all, batch["world_cam_idx"]) @ inv_here
                 if not s.sdf_cons_pose_grad:
                     cw2 = cw2.detach()
                 cons = (cw2, batch["world_time_step"])
@@ -181,8 +183,8 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
 
         if s.stage1:
             pts = out["sampled_points"].reshape(-1, 3)
-            t_q = torch.as_tensor(batch["query_time_step"],
-                                  dtype=torch.float32, device=dev).reshape(1, 1)
+            t_q = scalar(batch["query_time_step"], torch.float32,
+                         dev).reshape(1, 1)
             omega, vel = motion_apply(fields["motion"], t_q)
             scene_flow = (torch.cross(omega[0].expand(pts.shape), pts, dim=-1)
                           + vel[0])
@@ -195,9 +197,7 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
                 # list is non-empty.
                 any_ref = torch.max(batch["ref_in_list"]) > 0
                 if s.use_sdf_consistency:
-                    active = any_ref & (
-                        torch.as_tensor(image_idx, device=dev)
-                        != torch.as_tensor(batch["world_cam_idx"], device=dev))
+                    active = any_ref & (image_idx != batch["world_cam_idx"])
                     sdf_cons_loss = torch.where(
                         active, part(torch.mean(torch.abs(
                             out["sdf_world"].reshape(-1)
@@ -206,17 +206,17 @@ def compute_losses(fields, rcfg: RendererConfig, s: StepStatic, batch: dict,
                 if s.use_flow_rgb:
                     ray_weights = out["weights"][..., None]       # (N, S, 1)
                     pts_r = out["sampled_points"]                 # (N, S, 3)
-                    size = torch.tensor([float(s.w), float(s.h)],
-                                        device=dev)
+                    size = constant((float(s.w), float(s.h)), torch.float32,
+                                    dev)
 
                     def one_ref(t):
                         ref_idx = torch.clamp(batch["ref_idxs"][t], 0,
                                               s.n_images - 1)
-                        w2c_t = w2c_all[ref_idx] @ inv_here
+                        w2c_t = take(w2c_all, ref_idx) @ inv_here
                         pts_map = pts_r @ w2c_t[:3, :3].T + w2c_t[:3, 3]
                         wpm = torch.sum(ray_weights * pts_map, dim=1)  # (N, 3)
                         proj = (batch["scale_mat"][:3, :3]
-                                @ batch["K_all"][ref_idx][:3, :3])
+                                @ take(batch["K_all"], ref_idx)[:3, :3])
                         pix = wpm @ proj.T
                         z = pix[:, 2:]
                         z_safe = torch.where(

@@ -280,8 +280,11 @@ class Trainer:
         self.images_all_dev = torch.from_numpy(
             np.clip(self.train_field.all_imgs * 255.0 + 0.5, 0,
                     255).astype(np.uint8)).to(dev)
-        self.K_all_dev = torch.from_numpy(
-            np.asarray(self.train_field.K, np.float32)).to(dev)
+        k_all = np.asarray(self.train_field.K, np.float32)
+        # The step inverts these with no check (a check would wait for the
+        # card): a singular one raises LinAlgError here.
+        np.linalg.inv(k_all)
+        self.K_all_dev = torch.from_numpy(k_all).to(dev)
         # Per train view: its reference masks, frame index and time, on the
         # device, so a step's batch is views of them (no host copy).
         m = self.train_field.N_imgs

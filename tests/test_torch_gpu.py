@@ -182,13 +182,11 @@ def test_backward_kernels_match_plain_on_card(width, n):
     _check_vs_f64(got, ref, ref64, "K3")
 
 
-def _step_card_and_cpu(stage1: bool):
-    """One step at a small width, 64 rays, injected ray_idx and t_rand, on
-    the card (kernels) and on the CPU (plain versions): every metric within
-    1e-4 relative + 1e-5, every parameter gradient within 1e-3 of its
-    tensor's largest entry. Stage 2 queries at the world camera's time
-    through a world_mat with a rotation, the motion net frozen."""
-    _require_cuda()
+def _small_step(stage1: bool, dev):
+    """(fields, batch, static) of a small step with 64 rays on ``dev``: the
+    small widths, 3 refs with flow-rgb and sdf consistency (its pose
+    gradient on); stage 2 queries at the world camera's time through a
+    world_mat with a rotation, the motion net frozen."""
     h = w = 24
     f = 60.0
     K = torch.tensor([[2 * f / w, 0, 0, 0], [0, -2 * f / h, 0, 0],
@@ -202,41 +200,51 @@ def _step_card_and_cpu(stage1: bool):
     imgs = torch.stack([torch.stack([0.5 + 0.4 * torch.sin(0.25 * xx + 0.2 * (c + 1) * yy
                                                            + 0.3 * t + c)
                                      for c in range(3)]) for t in range(7)])
-    g = torch.Generator().manual_seed(0)
-    idx = TS.sample_patch_indices(g, h, w, 4, 64, device="cpu")
-    t_rand = torch.rand((64, 16), generator=g)
-    scfg, ccfg = WIDTHS["small"]
     s = TS.StepStatic(h=h, w=w, patch_size=4, n_points=64, stage1=stage1,
                       n_images=7, nb_sample_timestep=4, n_ref=3,
                       train_motion=stage1, sdf_cons_pose_grad=True,
                       use_flow_rgb=True, use_sdf_consistency=True)
+    sdf_net, color_net = _nets("small", dev)
+    fields = torch.nn.ModuleDict({
+        "sdf": sdf_net, "color": color_net,
+        "variance": TF.VarianceNetwork(TF.VarianceConfig()).to(dev),
+        "motion": TF.MotionNetwork(TF.MotionConfig(d_hidden=32, n_layers=2,
+                                                   skip_in=(1,)),
+                                   torch.Generator().manual_seed(3)).to(dev)})
+    batch = {
+        "images_all": imgs.to(dev), "K_all": K.expand(7, 4, 4).to(dev),
+        "ref_idxs": torch.tensor([3, 4, 5], device=dev),
+        "ref_in_list": torch.ones(3, device=dev),
+        "ref_valid_flow": torch.tensor([1.0, 1.0, 0.0], device=dev),
+        "scale_mat": torch.eye(4, device=dev), "world_mat": world.to(dev),
+        "query_time_step": torch.tensor(-0.2 if stage1 else 0.0,
+                                        device=dev),
+        "world_time_step": torch.tensor(0.0, device=dev),
+        "image_idx": torch.tensor(2, device=dev),
+        "world_cam_idx": torch.tensor(3, device=dev),
+        "near": 1.0, "far": 4.0, "cos_anneal_ratio": 0.5,
+        "loss_weights": TS.make_loss_weights(1.0, 0.1, 0.1, 7.5, 0.1, 1.0,
+                                             1e-4)}
+    return fields, batch, s
+
+
+SMALL_RCFG = RendererConfig(n_samples=16, n_importance=16, up_sample_steps=2)
+
+
+def _step_card_and_cpu(stage1: bool):
+    """One step of ``_small_step``, injected ray_idx and t_rand, on the card
+    (kernels) and on the CPU (plain versions): every metric within 1e-4
+    relative + 1e-5, every parameter gradient within 1e-3 of its tensor's
+    largest entry."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(0)
+    idx = TS.sample_patch_indices(g, 24, 24, 4, 64, device="cpu")
+    t_rand = torch.rand((64, 16), generator=g)
     res = {}
     for dev in ("cuda", "cpu"):
-        sdf_net, color_net = _nets("small", dev)
-        fields = torch.nn.ModuleDict({
-            "sdf": sdf_net, "color": color_net,
-            "variance": TF.VarianceNetwork(TF.VarianceConfig()).to(dev),
-            "motion": TF.MotionNetwork(TF.MotionConfig(d_hidden=32, n_layers=2,
-                                                       skip_in=(1,)),
-                                       torch.Generator().manual_seed(3)).to(dev)})
-        batch = {
-            "images_all": imgs.to(dev), "K_all": K.expand(7, 4, 4).to(dev),
-            "ref_idxs": torch.tensor([3, 4, 5], device=dev),
-            "ref_in_list": torch.ones(3, device=dev),
-            "ref_valid_flow": torch.tensor([1.0, 1.0, 0.0], device=dev),
-            "scale_mat": torch.eye(4, device=dev), "world_mat": world.to(dev),
-            "query_time_step": torch.tensor(-0.2 if stage1 else 0.0,
-                                            device=dev),
-            "world_time_step": torch.tensor(0.0, device=dev),
-            "image_idx": torch.tensor(2, device=dev),
-            "world_cam_idx": torch.tensor(3, device=dev),
-            "near": 1.0, "far": 4.0, "cos_anneal_ratio": 0.5,
-            "loss_weights": TS.make_loss_weights(1.0, 0.1, 0.1, 7.5, 0.1, 1.0,
-                                                 1e-4)}
+        fields, batch, s = _small_step(stage1, dev)
         total, metrics = TS.compute_losses(
-            fields, RendererConfig(n_samples=16, n_importance=16,
-                                   up_sample_steps=2), s, batch,
-            idx.to(dev), t_rand=t_rand.to(dev))
+            fields, SMALL_RCFG, s, batch, idx.to(dev), t_rand=t_rand.to(dev))
         total.backward()
         res[dev] = ({k: v.item() for k, v in metrics.items()},
                     [p.grad.cpu() if p.grad is not None else torch.zeros_like(p).cpu()
@@ -271,6 +279,201 @@ def test_stage2_train_step_card_matches_cpu():
         "sdf_value": 2, "rendercore_fwd": 1, "rendercore_bwd": 1,
         "sdf_value_diff_fwd": 0, "sdf_value_bwd": 0}
     assert all(np.isfinite(v) for v in res["cuda"][0].values())
+
+
+# Host syncs PERF.md records as kept in a pose step (pose_loss, backward,
+# Adam).
+KEPT_POSE_SYNCS = 0
+# Either device: the card's cases are marked ``gpu``, the CPU's run in tier 1.
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage1", [True, False])
+def test_train_step_makes_no_host_sync_on_card(stage1):
+    """After a warm-up step, a whole train step of ``_small_step`` (stage 1:
+    the motion chain, flow-rgb over 3 refs, sdf consistency with its pose
+    gradient; stage 2: canonical queries, the motion net frozen), patches
+    and jitter drawn from a generator as the Trainer draws them and the
+    Adam updates included, runs under ``set_sync_debug_mode("error")``:
+    nothing in it copies to the host or from pageable host memory, so the
+    host never waits for the card."""
+    _require_cuda()
+    fields, batch, s = _small_step(stage1, "cuda")
+    batch.update(lr=5e-4, motion_lr=1e-4)
+    state = TS.init_train_state(fields)
+    step = TS.build_train_step(SMALL_RCFG, s)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(state, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.gpu
+def test_pose_step_host_syncs_on_card():
+    """After a warm-up step, a test-time pose step (``pose_loss`` over the
+    whole (2, 3) ``r``, ``t``, its backward and an Adam update, the fields
+    frozen) warns under ``set_sync_debug_mode("warn")`` no more often than
+    ``KEPT_POSE_SYNCS``."""
+    _require_cuda()
+    import warnings
+
+    from copenerf_torch.evaluation.evaluator import frozen, pose_loss
+
+    fields, batch, _ = _small_step(False, "cuda")
+    init = batch["world_mat"].expand(2, 4, 4).clone()
+    r = torch.zeros((2, 3), device="cuda", requires_grad=True)
+    t = torch.zeros((2, 3), device="cuda", requires_grad=True)
+    opt = torch.optim.Adam([r, t], lr=1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ones = torch.ones((64, 1), device="cuda")
+
+    def pose_step():
+        idx = TS.sample_patch_indices(gen, 24, 24, 1, 64, device="cuda")
+        loss, _ = pose_loss(fields, SMALL_RCFG, r[1], t[1], init[1],
+                            batch["images_all"][1], batch["K_all"][1], idx,
+                            batch["world_time_step"], ones, 4.0 * ones,
+                            generator=gen)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    with frozen(fields):
+        pose_step()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pose_step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) <= KEPT_POSE_SYNCS, [str(w.message) for w in syncs]
+    assert r.grad[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("dev", DEVICES)
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_color_index_gathers_match_list_indexing(dev, width):
+    """The color layer-0 gathers by the device-resident permutation
+    (``pack.color_input_index``) give what indexing by the Python list
+    gave, bitwise: ``color_kernel_inputs`` and its gradient through
+    autograd, ``pack_color_grads`` and ``unpack_color_grads``."""
+    if dev == "cuda":
+        _require_cuda()
+    from copenerf_torch.ops.kernels import pack
+
+    ccfg = WIDTHS[width][1]
+    perm = pack.color_input_permutation(ccfg)
+    shapes = pack._layer_shapes(ccfg)
+    (o, i), k0 = shapes[0], pack.color_k0(ccfg)
+    g = torch.Generator().manual_seed(5)
+    bars = [(torch.randn(a, b, generator=g).to(dev),
+             torch.randn(a, generator=g).to(dev)) for a, b in shapes]
+    w = bars[0][0].clone().requires_grad_(True)
+    cot = torch.randn(o, k0, generator=g).to(dev)
+
+    def old_inputs(m):
+        return torch.cat([m[:, perm], m.new_zeros((o, k0 - i))], 1)
+
+    got, want = pack.color_kernel_inputs(w, ccfg), old_inputs(w)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.autograd.grad(got, w, cot)[0],
+                       torch.autograd.grad(want, w, cot)[0])
+    offs, size = pack.color_grad_layout(ccfg)
+    old = torch.zeros(size, device=dev)
+    for l, (m, b) in enumerate(bars):
+        m = old_inputs(m) if l == 0 else m
+        old[offs["gwc"][l]:offs["gwc"][l] + m.numel()] = m.reshape(-1)
+        old[offs["gbc"][l]:offs["gbc"][l] + b.numel()] = b
+    assert torch.equal(pack.pack_color_grads(bars, ccfg), old)
+    g0 = old[offs["gwc"][0]:offs["gwc"][0] + o * k0].view(o, k0)
+    w_old = g0.new_empty((o, i))
+    w_old[:, perm] = g0[:, :i]
+    assert torch.equal(pack.unpack_color_grads(old, offs, ccfg)[0][0], w_old)
+
+
+@pytest.mark.parametrize("dev", DEVICES)
+@pytest.mark.parametrize("index", ["int", "0-dim", "1-elem", "int32"])
+def test_take_matches_indexing(dev, index):
+    """``tensors.take`` gives what ``table[idx]`` gives, bitwise, for the
+    uint8 image stack and a pose table under autograd (the gradient too)."""
+    if dev == "cuda":
+        _require_cuda()
+    from copenerf_torch.utils.tensors import take
+
+    idx = {"int": 3, "0-dim": torch.tensor(3, device=dev),
+           "1-elem": torch.tensor([3], device=dev),
+           "int32": torch.tensor(3, dtype=torch.int32, device=dev)}[index]
+    g = torch.Generator().manual_seed(6)
+    images = torch.randint(0, 256, (5, 3, 4, 6), generator=g,
+                           dtype=torch.uint8).to(dev)
+    assert torch.equal(take(images, idx), images[3])
+    poses = torch.randn(5, 4, 4, generator=g).to(dev).requires_grad_(True)
+    cot = torch.randn(4, 4, generator=g).to(dev)
+    got, want = take(poses, idx), poses[3]
+    assert torch.equal(got, want)
+    assert torch.equal(torch.autograd.grad(got, poses, cot)[0],
+                       torch.autograd.grad(want, poses, cot)[0])
+
+
+@pytest.mark.parametrize("dev", DEVICES)
+def test_transmittance_matches_cumprod(dev):
+    """``sampling._exclusive_transmittance`` gives ``torch.cumprod``'s
+    values and autograd's gradient of it, bitwise, on a render's (rays,
+    samples) alpha with some entries exactly 0 and 1."""
+    if dev == "cuda":
+        _require_cuda()
+    from copenerf_torch.ops.sampling import _exclusive_transmittance
+
+    g = torch.Generator().manual_seed(7)
+    alpha = torch.rand(1024, 128, generator=g)
+    alpha[::7, 5] = 0.0
+    alpha[::5, 9] = 1.0
+    alpha = alpha.to(dev).requires_grad_(True)
+    cot = torch.randn(1024, 128, generator=g).to(dev)
+    shifted = torch.cat([torch.ones_like(alpha[..., :1]),
+                         1.0 - alpha[..., :-1] + 1e-7], dim=-1)
+    got, want = _exclusive_transmittance(alpha), torch.cumprod(shifted, -1)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.autograd.grad(got, alpha, cot)[0],
+                       torch.autograd.grad(want, alpha, cot)[0])
+
+
+@pytest.mark.parametrize("dev", DEVICES)
+def test_rays_from_pixels_inverse_matches_linalg_inv(dev, monkeypatch):
+    """``rays_from_pixels`` on ``linalg.inv_ex`` without its check gives the
+    rays of ``torch.linalg.inv``, bitwise, and the same gradient with
+    respect to a pose that needs one (the pose step's world matrix)."""
+    if dev == "cuda":
+        _require_cuda()
+    from copenerf_torch.ops import rays as TR
+    from copenerf_torch.poses.lie import make_c2w
+
+    _, pixels = TR.arange_pixels((5, 7))
+    pixels = torch.from_numpy(pixels).to(dev)
+    k = torch.tensor([[1.2, 0, 0, 0], [0, -1.6, 0, 0], [0, 0, -1, 0],
+                      [0, 0, 0, 1.0]], device=dev)
+    scale = torch.diag(torch.tensor([1.1, 1.1, 1.1, 1.0], device=dev))
+    r = torch.tensor([0.02, -0.03, 0.01], device=dev, requires_grad=True)
+    t = torch.tensor([0.1, -0.2, -2.0], device=dev, requires_grad=True)
+
+    def rays():
+        out = TR.rays_from_pixels(pixels, k, make_c2w(r, t), scale)
+        cot = sum((o * (j + 1)).sum() for j, o in enumerate(out))
+        return out, torch.autograd.grad(cot, (r, t))
+
+    got = rays()
+    monkeypatch.setattr(TR, "_inverse", torch.linalg.inv)
+    want = rays()
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -9,9 +9,17 @@ import math
 
 from portbench import work
 
-RENDER_CORE_BWD = ("RenderCoreBackward",)   # the autograd node of K1-bwd
-# K1-fwd outside autograd (the render path) is named by its kernel alone.
-RENDER_CORE_FWD_KERNELS = ("rendercore_fwd_kernel<false>",)
+# The kernels of each roofline, as fragments of their names on the device
+# trace (``Trace.kernel_runs_s``): found by name and stream order, never by
+# the host range that launched them, so that a CUDA graph's replay reads
+# the same work. A backward's run is its row kernel and the weight-gradient
+# reduction (``csrc/wgrad.cu``: ``wgrad_*``) that follows it on its stream;
+# K1-bwd and K3-bwd launch that reduction under the same names.
+K1_FWD = ("rendercore_fwd_kernel<false>",)     # <true> is K6-fwd
+K1_BWD = ("rendercore_bwd_kernel<false>",)     # <true> is K6-bwd
+K2 = ("sdf_value_kernel",)                     # K3-fwd too, in a train step
+K3_BWD = ("sdf_value_bwd_kernel",)             # K7-bwd is sdf_out_bwd_kernel
+WGRAD = ("wgrad_",)
 
 
 def rate(run, kind):
@@ -61,4 +69,4 @@ def k1_bwd_pct(run, kind, weight_grads):
     rows = run.rays_per_unit * work.samples(run.cfg) * run.units
     flop, nbytes = work.k1_bwd_work(run.cfg, rows, weight_grads)
     return roofline_pct(run, flop, nbytes,
-                        run.trace.kernel_s_under(RENDER_CORE_BWD))
+                        run.trace.kernel_runs_s(K1_BWD, WGRAD))

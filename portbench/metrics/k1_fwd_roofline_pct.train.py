@@ -1,10 +1,10 @@
 """K1-fwd's share of its roofline in the train step: its operations and
 bytes for the step's samples (work.k1_fwd_work, rays x work.samples) over
-the device time of the kernels launched under its wrapper's span
-``copenerf.kernel.rendercore_fwd``."""
+the device time of its kernel ``rendercore_fwd_kernel<false>``
+(``_common.K1_FWD``)."""
 
 from portbench import spans, work
-from portbench.metrics._common import roofline_pct
+from portbench.metrics._common import K1_FWD, roofline_pct
 
 
 def read(run):
@@ -13,5 +13,4 @@ def read(run):
     spans.report(run)
     rows = run.rays_per_unit * work.samples(run.cfg) * run.units
     flop, nbytes = work.k1_fwd_work(run.cfg, rows)
-    return roofline_pct(run, flop, nbytes, run.trace.kernel_s_under(
-        ["copenerf.kernel.rendercore_fwd"]))
+    return roofline_pct(run, flop, nbytes, run.trace.kernel_runs_s(K1_FWD))

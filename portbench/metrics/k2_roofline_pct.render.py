@@ -1,10 +1,11 @@
 """K2's share of its roofline in a whole-view render: its operations and
 bytes for the view's swept points (work.k2_work, rays x work.sweep_points;
 the padded tail of the last chunk is not counted) over the device time of
-the kernels launched under its wrapper's span ``copenerf.kernel.sdf_value``."""
+its kernel ``sdf_value_kernel`` (csrc/sdf_value.cu; ``_common.K2``). A
+render launches no K3, which shares the kernel."""
 
 from portbench import spans, work
-from portbench.metrics._common import roofline_pct
+from portbench.metrics._common import K2, roofline_pct
 
 
 def read(run):
@@ -13,5 +14,4 @@ def read(run):
     spans.report(run)
     rows = run.rays_per_unit * work.sweep_points(run.cfg) * run.units
     flop, nbytes = work.k2_work(run.cfg, rows)
-    return roofline_pct(run, flop, nbytes, run.trace.kernel_s_under(
-        ["copenerf.kernel.sdf_value"]))
+    return roofline_pct(run, flop, nbytes, run.trace.kernel_runs_s(K2))

@@ -8,7 +8,7 @@ Two readings, each where its clock is honest:
   spans are ``record_function`` ranges there (``user_annotation`` events
   named ``copenerf.*``). A device operation belongs to every program span
   open on the thread that launched it (found by correlation, as
-  ``Trace.kernel_s_under`` does); a thread with no program span open (the
+  ``Trace.top_gaps`` does); a thread with no program span open (the
   autograd engine's during a backward pass) continues into the program
   spans open at that moment on the thread that runs the window. Each idle
   gap of the card (``trace.gaps``) is split, by overlap, over the innermost

@@ -1,13 +1,15 @@
 """A ``torch.profiler`` capture of a stretch of units, read into the numbers
-the per-layer metrics take: device busy time, kernel time under a named
-host range or by kernel name, launches, the top device operations and the
+the per-layer metrics take: device busy time, the time of a kernel family
+on the device's own order, launches, the top device operations and the
 longest idle gaps by what the host was doing.
 
 The capture is exported as a Chrome trace into ``TMPDIR``, read back and
-deleted. A kernel belongs to a host range when the runtime call that
-launched it (matched by its correlation id) lies inside that range on the
-same thread; this is how ``RenderCoreBackward`` (the autograd node of
-K1-bwd) claims the reductions that K1-bwd and K3-bwd share.
+deleted. A kernel family is found by kernel name and stream order alone
+(``Trace.kernel_runs_s``), never by the host range around its launch: a
+CUDA graph replays every kernel under one ``cudaGraphLaunch``, which lies
+inside none of the ranges that launched them when the graph was captured.
+The idle gaps are still put down to the host range around the launch of
+the operation that ends each (matched by its correlation id).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import functools
 import json
 import os
 import tempfile
@@ -58,6 +61,13 @@ def short(name: str) -> str:
     list and return type."""
     name = name.replace("(anonymous namespace)::", "").split("(")[0]
     return name[5:] if name.startswith("void ") else name
+
+
+def base(name: str) -> str:
+    """A kernel's own name: no namespace, template arguments or argument
+    list (``copenerf::wgrad_final_kernel(WgradArgs, float const*)`` ->
+    ``wgrad_final_kernel``)."""
+    return short(name).split("<")[0].rsplit("::", 1)[-1]
 
 
 class Trace:
@@ -111,27 +121,38 @@ class Trace:
                 return ranges[j]
         return None
 
-    def kernel_s_under(self, names) -> float:
-        """Device seconds of kernels launched inside a host range named in
-        ``names``."""
-        names = set(names)
-        inside = {key: [r for r in rs if r[2] in names]
-                  for key, rs in self.host.items()}
+    def kernel_runs_s(self, leads, follow=()) -> float:
+        """Device seconds of every run of a kernel family. A run is a kernel
+        whose name holds one of ``leads``, with the kernels whose own name
+        (``base``) starts with one of ``follow`` that come directly after
+        it on its stream, by start time; it stops at the first kernel of
+        any other name. The device's own order says which lead a shared
+        follower (the weight-gradient reduction that K1-bwd and K3-bwd both
+        launch) belongs to, however the kernels were launched."""
+        follow = tuple(follow)
         total = 0.0
-        for e in self.kernels:
-            where = self.launch.get(e.get("args", {}).get("correlation"))
-            if not where:
-                continue
-            rs = inside.get(where[:2], [])
-            i = bisect.bisect_right(rs, (where[2], float("inf"), ""))
-            if any(r[1] >= where[2] for r in rs[max(0, i - 4):i]):
+        for ordered in self.streams.values():
+            in_run = False
+            for e in ordered:
+                if any(f in e["name"] for f in leads):
+                    in_run = True
+                elif not (in_run and base(e["name"]).startswith(follow)):
+                    in_run = False
+                    continue
                 total += float(e["dur"])
         return total * 1e-6
 
-    def kernel_s_named(self, fragments) -> float:
-        """Device seconds of kernels whose name holds one of ``fragments``."""
-        return 1e-6 * sum(float(e["dur"]) for e in self.kernels
-                          if any(f in e["name"] for f in fragments))
+    @functools.cached_property
+    def streams(self) -> dict:
+        """(device, stream) -> its kernels by start time."""
+        by = collections.defaultdict(list)
+        for e in self.kernels:
+            args = e.get("args", {})
+            by[(args.get("device", e["pid"]),
+                args.get("stream", e["tid"]))].append(e)
+        for ordered in by.values():
+            ordered.sort(key=lambda e: float(e["ts"]))
+        return dict(by)
 
     @property
     def launches(self) -> int:

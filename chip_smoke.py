@@ -26,8 +26,13 @@ Phases, each printed on its own line, any failure exits non-zero:
             at 262,144 and 1,000 rows: K1 for sbar, gbar, cbar alone and all
             three (no color cotangent on rows with a color ReLU within
             KINK_MARGIN of its kink), every input and parameter gradient;
+            K1-bwd for frozen fields (the nets' weights take no gradient, as
+            in a test-time pose step) the same way at 131,072 and 1,000
+            rows, x and dirs' gradients, every call launching that kernel
+            and not the full one;
             then CUDA-event times at the train step's shapes (131,072 rows;
-            the forward kernels too, for the step's kernels / glue split);
+            the forward kernels too, for the step's kernels / glue split;
+            K1-bwd for frozen fields with its own bound);
             K1-bwd's and K3-bwd's lines split them into the row kernel and
             the weight-gradient reduction (``torch.profiler`` device times)
             and time ``torch.mm`` of the reduction's jobs as a yardstick
@@ -143,8 +148,9 @@ Phases, each printed on its own line, any failure exits non-zero:
             the view rendered in 4 chunks; PSNR / SSIM / LPIPS, 7 depth
             metrics, ATE / RPE, ``results.txt`` and six extraction folders).
             Launch counters zeroed before and read after (per pose step 4 K2
-            + 1 K1-fwd + 1 K1-bwd, per render chunk 4 K2 + 1 K1-fwd, no
-            K3-K7); finite metrics, LPIPS NaN with its warning without a
+            + 1 K1-fwd + 1 K1-bwd for frozen fields, per render chunk 4 K2 +
+            1 K1-fwd, no full K1-bwd, no K3-K7); finite metrics, LPIPS NaN
+            with its warning without a
             weight pack, one file per folder, the field weights unchanged; a
             second ``Evaluator`` reuses the pose cache (no K1-bwd) with the
             same metrics. Prints pose-step ms, render ms a view, metric ms,
@@ -171,7 +177,8 @@ Phases, each printed on its own line, any failure exits non-zero:
             without ``_build``), ``extract_mesh_main --resolution 64`` on
             it, and ``eval_main --no-store`` on a copy of the stage-2 run
             without its pose cache, ``eval_pose_epoch`` cut to 30 (K1-bwd
-            30 x the test views); each main's ms and launch counts.
+            for frozen fields 30 x the test views); each main's ms and launch
+            counts.
 25. bench    ``python3 -m copenerf_torch.bench`` in a subprocess: its JSON
             line parsed, the contract's keys, a finite positive
             ``train_rays_per_sec`` at 1,024 rays, its launch counts.
@@ -209,7 +216,8 @@ Phases, each printed on its own line, any failure exits non-zero:
             epochs, 30 eval-pose epochs; ``Trainer.train`` then
             ``Evaluator.eval``). Launch counters zeroed before and read
             after (K3-fwd and K3-bwd once per stage-1 iteration, K1-bwd
-            once per iteration and per test-time pose step, K2 and K1-fwd
+            once per iteration, K1-bwd for frozen fields once per test-time
+            pose step, K2 and K1-fwd
             at least once per iteration, no K4-K7). Gates: the initial
             weights' sha256 equal to the committed seed-0 hash of
             ``PARITY_E2E_PORT.json``; each quality metric (PSNR, SSIM,
@@ -435,6 +443,18 @@ def k7_bwd_work(scfg, n, sdf_net):
     return 6 * head * n, (32 + 4 * scfg.d_out) * n + 2 * weight_bytes(sdf_net)
 
 
+def k1_bwd_frozen_work(scfg, ccfg, n, sdf_net, color_net):
+    """(FLOP, bytes) of K1-bwd for frozen fields on n rows: K1-bwd's
+    work (``k1_bwd_work``) less the channel-B up-sweep, channel B's
+    down-sweep and the weight reductions; x, dirs, sbar, cbar in (44 B),
+    x_bar, dirs_bar out (28 B) per row, the weights read once."""
+    H = sdf_hidden_macs(scfg)
+    F = scfg.d_hidden * (scfg.d_out - 1)
+    C = color_macs(ccfg)
+    macs = (H + F) + (H + C) + C + (F + scfg.d_hidden + H)
+    return 2 * macs * n, 72 * n + weight_bytes(sdf_net, color_net)
+
+
 def bound_ms(flop, nbytes):
     t_ops, t_bytes = flop / F32_PEAK, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -538,6 +558,7 @@ def phase_build():
         if m:
             name = m.group(1) + ("<%s>" % ",".join(
                 re.findall(r"L(?:b|i|N\w+?E)(\d+)E", m.group(2))) if m.group(2) else "")
+            name += " frozen" if "FrozenFields" in ln else ""
         elif re.search(r"Used \d+ registers|spill", ln):
             usage.append(f"{name}: {ln.strip()}")
     log("build", seconds=round(time.perf_counter() - t0, 3),
@@ -763,22 +784,30 @@ def _vjp_slices(fn, inputs, params, cots, sl):
     return [torch.cat(a) for a in acc[:len(inputs)]] + acc[len(inputs):]
 
 
-def check_rendercore_bwd(sdf_net, color_net, x, d, cot_seed):
+def check_rendercore_bwd(sdf_net, color_net, x, d, cot_seed, frozen=False):
     """K1-bwd through its autograd.Function on the rows ``x``, ``d`` against
     autograd of the plain version in f32 and f64, for sbar, gbar, cbar alone
     and all three (cotangents from ``cot_seed``; no color cotangent on rows
     with a color ReLU within KINK_MARGIN of its kink), every input and
-    parameter gradient (``check_grads``). Returns {kernel: the largest
+    parameter gradient (``check_grads``). With ``frozen``, copies of the
+    nets whose weights take no gradient: K1-bwd for frozen fields, x and
+    dirs' gradients; each call must launch that kernel and not the full one
+    (and the other way round). Returns {kernel: the largest
     |kernel - plain|}."""
     import torch
     from copenerf_torch.ops.kernels import rendercore as RC
 
     n = x.shape[0]
+    kernel = "rendercore_bwd_frozen" if frozen else "rendercore_bwd"
+    if frozen:
+        sdf_net, color_net = (copy.deepcopy(m).requires_grad_(False)
+                              for m in (sdf_net, color_net))
     sdf64, color64 = copy.deepcopy(sdf_net).double(), copy.deepcopy(color_net).double()
-    params = [*sdf_net.parameters(), *color_net.parameters()]
-    params64 = [*sdf64.parameters(), *color64.parameters()]
-    names = (["x", "dirs"] + [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
-             + [f"color.{k}" for k, _ in color_net.named_parameters()])
+    params = [] if frozen else [*sdf_net.parameters(), *color_net.parameters()]
+    params64 = [] if frozen else [*sdf64.parameters(), *color64.parameters()]
+    names = ["x", "dirs"] + ([] if frozen else (
+        [f"sdf.{k}" for k, _ in sdf_net.named_parameters()]
+        + [f"color.{k}" for k, _ in color_net.named_parameters()]))
     g = torch.Generator(device=DEVICE).manual_seed(cot_seed)
     full = [torch.randn((n, w), generator=g, device=DEVICE)
             for w in (1, 4, 3)]
@@ -788,14 +817,22 @@ def check_rendercore_bwd(sdf_net, color_net, x, d, cot_seed):
         cbar_zeroed_share=1.0 - smooth.float().mean().item())
     full[2] = full[2] * smooth.float()[:, None]
     del margin
-    return {"rendercore_bwd": check_channels(
-        "rendercore_bwd", n, names,
+    counters = (RC.FROZEN_BWD_COUNTER, RC.BWD_COUNTER)
+    before = [c.launches for c in counters]
+    channels = [("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)), ("cbar", (0, 0, 1)),
+                ("all", (1, 1, 1))]
+    err = check_channels(
+        kernel, n, names,
         lambda a, b: RC.rendercore_fwd(sdf_net, color_net, a, b),
         lambda f64, a, b: RC.rendercore_fwd_plain(
             *((sdf64, color64) if f64 else (sdf_net, color_net)), a, b),
-        [x, d], params, params64, full,
-        [("sbar", (1, 0, 0)), ("gbar", (0, 1, 0)), ("cbar", (0, 0, 1)),
-         ("all", (1, 1, 1))], 32768)}
+        [x, d], params, params64, full, channels, 32768)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    want = [len(channels), 0] if frozen else [0, len(channels)]
+    if launched != want:
+        fail(f"{kernel} at {n} rows: frozen / full K1-bwd launched {launched}, "
+             f"want {want}")
+    return {kernel: err}
 
 
 def check_sdf_value_diff(sdf_net, x, cot_seed):
@@ -847,13 +884,20 @@ def phase_train_kernels(fields):
     scfg, ccfg = sdf_net.cfg, color_net.cfg
     params = [*sdf_net.parameters(), *color_net.parameters()]
     sdf_params = list(sdf_net.parameters())
-    errs = {"rendercore_bwd": 0.0, "sdf_value_diff_fwd": 0.0,
-            "sdf_value_bwd": 0.0}
+    errs = {"rendercore_bwd": 0.0, "rendercore_bwd_frozen": 0.0,
+            "sdf_value_diff_fwd": 0.0, "sdf_value_bwd": 0.0}
     for n in CHECK_ROWS:
         x, d = sample_rows(n, seed=n + 11)
         merge_errs(errs, check_rendercore_bwd(sdf_net, color_net, x, d,
                                               cot_seed=n))
         merge_errs(errs, check_sdf_value_diff(sdf_net, x, cot_seed=n))
+        del x, d
+        torch.cuda.empty_cache()
+    # K1-bwd for frozen fields at a pose step's rows (1,024 rays x 128).
+    for n in (STEP_ROWS, 1000):
+        x, d = sample_rows(n, seed=n + 12)
+        merge_errs(errs, check_rendercore_bwd(sdf_net, color_net, x, d,
+                                              cot_seed=n, frozen=True))
         del x, d
         torch.cuda.empty_cache()
 
@@ -894,6 +938,34 @@ def phase_train_kernels(fields):
     results["rendercore_bwd"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms,
                                       bound_ms=b, bound_by=by,
                                       tc_bound_ms=tc_bound_ms(*work))]
+    torch.cuda.empty_cache()
+
+    # K1-bwd for frozen fields at the same shapes (a pose step's): its row
+    # kernel alone, no reduction.
+    def frozen_bwd():
+        return RC.rendercore_bwd_frozen_cuda(scfg, ccfg, rc_pack, x, d, cots[0], cots[2])
+
+    k_ms = cuda_ms(frozen_bwd, reps=3)
+    frozen_nets = [copy.deepcopy(m).requires_grad_(False) for m in (sdf_net, color_net)]
+    p_ms = 0.0
+    for i in range(0, n, 32768):
+        xs = x[i:i + 32768].clone().requires_grad_(True)
+        ds = d[i:i + 32768].clone().requires_grad_(True)
+        out = RC.rendercore_fwd_plain(*frozen_nets, xs, ds)
+        cs = [c[i:i + 32768] for c in cots]
+        p_ms += cuda_ms(lambda: torch.autograd.grad(out, [xs, ds], cs,
+                                                    retain_graph=True), reps=2)
+        del out
+    bd = bounds(*k1_bwd_frozen_work(scfg, ccfg, n, sdf_net, color_net))
+    row_ms, red_ms, split = split_ms(frozen_bwd, 3, "rendercore_bwd_kernel")
+    log("time", kernel="rendercore_bwd_frozen", rows=n, kernel_ms=k_ms, plain_ms=p_ms,
+        plain_note=("autograd.grad of the plain version for x and dirs, weights "
+                    "frozen, 4 slices of 32768 rows"),
+        **bd, row_kernel_ms=row_ms, reduction_ms=red_ms, kernel_split_ms=split)
+    if split != "not measured" and (red_ms or not row_ms):
+        fail(f"rendercore_bwd_frozen: kernels {sorted(split)}, want its row kernel alone")
+    results["rendercore_bwd_frozen"] = [dict(rows=n, ms=k_ms, plain_ms=p_ms, **bd)]
+    del frozen_nets
     torch.cuda.empty_cache()
 
     k_ms = cuda_ms(lambda: SVD.launch_value(scfg, v_pack, x, SVD.FWD_COUNTER),
@@ -2456,7 +2528,7 @@ def phase_metrics_f32(seed=0, res=TRAINER_RES):
     return times
 
 
-EVAL_PER_STEP = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd": 1}
+EVAL_PER_STEP = {"sdf_value": 4, "rendercore_fwd": 1, "rendercore_bwd_frozen": 1}
 EVAL_PER_CHUNK = {"sdf_value": 4, "rendercore_fwd": 1}
 
 
@@ -2502,7 +2574,8 @@ def phase_evaluator(counters, cfg, out_dir):
     rays, then the view rendered (4 chunks), PSNR / SSIM / LPIPS, the 7
     depth metrics, ATE / RPE, ``results.txt`` and the extraction folders.
     Launch counters zeroed before and read after: per pose step 4 K2 + 1
-    K1-fwd + 1 K1-bwd, per render chunk 4 K2 + 1 K1-fwd, no K3-K7. Gates:
+    K1-fwd + 1 K1-bwd for frozen fields, per render chunk 4 K2 + 1 K1-fwd,
+    no full K1-bwd, no K3-K7. Gates:
     finite PSNR, SSIM in [-1, 1], finite ATE, RPE and depth metrics; LPIPS
     NaN with the warning where no weight pack is found (finite where one
     is); the results file and six folders of one file each; the field
@@ -2850,7 +2923,8 @@ def phase_cli(counters, s2cfg, s2dir, tmp):
     ``_build``. ``extract_mesh_main --resolution 64`` on that run: 1 K2.
     ``eval_main --no-store`` on a copy of ``trainer_stage2``'s run without
     its pose cache (``model_eval_pose.npz``) or the evaluator phase's
-    outputs, ``eval_pose_epoch`` cut to 30: K1-bwd 30 x the test views, no
+    outputs, ``eval_pose_epoch`` cut to 30: K1-bwd for frozen fields 30 x
+    the test views, no
     extraction folder, ``results.txt`` written."""
     import shutil
 
@@ -3035,10 +3109,10 @@ def kernel_counters():
     from copenerf_torch.ops.kernels import sdf_value as SV
     from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 
-    return [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, SVD.FWD_COUNTER,
-            SVD.BWD_COUNTER, OG.FWD_COUNTER, OG.BWD_COUNTER, CK.FWD_COUNTER,
-            CK.BWD_COUNTER, RCC.FWD_COUNTER, RCC.BWD_COUNTER, SO.FWD_COUNTER,
-            SO.BWD_COUNTER]
+    return [SV.COUNTER, RC.COUNTER, RC.BWD_COUNTER, RC.FROZEN_BWD_COUNTER,
+            SVD.FWD_COUNTER, SVD.BWD_COUNTER, OG.FWD_COUNTER, OG.BWD_COUNTER,
+            CK.FWD_COUNTER, CK.BWD_COUNTER, RCC.FWD_COUNTER, RCC.BWD_COUNTER,
+            SO.FWD_COUNTER, SO.BWD_COUNTER]
 
 
 def run_ranks(phase, nproc, work):
@@ -3655,7 +3729,7 @@ def phase_e2e(counters, tmp):
     pose_steps = (e2e_port.TINY["eval"]["eval_pose_epoch"]
                   * res["test_views"])
     exact = {"sdf_value_diff_fwd": stage1, "sdf_value_bwd": stage1,
-             "rendercore_bwd": iters + pose_steps}
+             "rendercore_bwd": iters, "rendercore_bwd_frozen": pose_steps}
     at_least = {"sdf_value": iters + pose_steps,
                 "rendercore_fwd": iters + pose_steps}
     bounds = e2e_port.smoke_bounds(report, 0)
@@ -3714,6 +3788,8 @@ def phase_e2e(counters, tmp):
             sdf_net, color_net, x, d),
         "rendercore_bwd": lambda x, d, n: check_rendercore_bwd(
             sdf_net, color_net, x, d, cot_seed=n),
+        "rendercore_bwd_frozen": lambda x, d, n: check_rendercore_bwd(
+            sdf_net, color_net, x, d, cot_seed=n, frozen=True),
         "sdf_value_diff_fwd": lambda x, d, n: check_sdf_value_diff(
             sdf_net, x, cot_seed=n),
     }
@@ -3738,6 +3814,9 @@ KERNELS = {
         source="copenerf_torch/csrc/rendercore_fwd.cu",
         replaces="copenerf_tpu/ops/pallas/rendercore_kernels.py:326"),
     "rendercore_bwd": dict(
+        source="copenerf_torch/csrc/rendercore_bwd.cu",
+        replaces="copenerf_tpu/ops/pallas/rendercore_kernels.py:364"),
+    "rendercore_bwd_frozen": dict(
         source="copenerf_torch/csrc/rendercore_bwd.cu",
         replaces="copenerf_tpu/ops/pallas/rendercore_kernels.py:364"),
     "sdf_value_diff_fwd": dict(

@@ -644,7 +644,8 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
 // Per hidden layer l from L down: `put_z(l, r, c, v)` sees z_l, then
 // h = (z_l W_l^T) * sig_{l-1}, split at the skip (h | e) / sqrt(2) with the
 // PE part into e. h ends holding e_hat = d(out)/d(PE) (d0 wide). Starts with
-// a barrier. Used by K3-bwd and K7-bwd (on WgGemm) and K6-bwd.
+// a barrier. Used by K3-bwd and K7-bwd (on WgGemm), K6-bwd and K1-bwd's
+// frozen-fields kernel.
 template <int KS, class G, class Sig, class PutZ>
 __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,

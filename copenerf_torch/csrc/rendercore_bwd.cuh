@@ -74,6 +74,15 @@
 // the same W/b bars: pair 0 of each SDF job spans 2n rows, every other pair
 // n (wgrad.cuh `rows`). ~2.75 MFLOP a row more (K3-bwd's) against 36 bytes,
 // and ~17 KB a row more of staged rows (~61 KB in all).
+//
+// K1-bwd for frozen fields (the `FrozenFields` overload of the kernel, K1
+// only; the test-time pose step, whose fields take no gradient): x_bar and
+// dirs_bar alone. The recompute, the color backward and channel A's
+// down-sweep run as above, operation for operation, so both are the full
+// kernel's bit for bit; channel B, every stage and the reduction go: ~4.0
+// MFLOP a row (the full row kernel's ~5.8 less channel B's 1.84) and no
+// staged bytes. The color backward's ReLU masks read the inputs of color
+// layers 1 .. n_lin - 2, which wait in the block's scratch where zB was.
 #pragma once
 
 #include "wgmma_tile.cuh"
@@ -95,15 +104,24 @@ struct RcStages {
   StageSet rh;  // entry 0: p after the last hidden layer (row 0 of W_last)
 };
 
-template <bool kCons>
-__global__ void __launch_bounds__(kThreads, 1)
-rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
-                      const float* __restrict__ y, const float* __restrict__ sbar,
-                      const float* __restrict__ gbar, const float* __restrict__ cbar,
-                      const float* __restrict__ swbar, float* __restrict__ xbar,
-                      float* __restrict__ dbar, float* __restrict__ ybar,
-                      const float* __restrict__ P, Offsets off, float* __restrict__ scratch,
-                      long long n, SdfGeom g, ColorGeom cg, RcStages st) {
+// The last parameter of K1-bwd's frozen-fields overload below. An overload,
+// not a template argument, so that the kernel's name on a device trace
+// stays `rendercore_bwd_kernel<false>`.
+struct FrozenFields {};
+
+// The row kernel of K1-bwd and K6-bwd, the body of both overloads below.
+// kFrozen: K1-bwd for frozen fields (above), where y, gbar, swbar, ybar and
+// st go unused and the block's scratch holds the sigmoids, then the color
+// layer inputs (rc_bwd_frozen_scratch).
+template <bool kCons, bool kFrozen>
+__device__ __forceinline__ void rendercore_bwd_rows(
+    const float* __restrict__ x, const float* __restrict__ dirs, const float* __restrict__ y,
+    const float* __restrict__ sbar, const float* __restrict__ gbar,
+    const float* __restrict__ cbar, const float* __restrict__ swbar, float* __restrict__ xbar,
+    float* __restrict__ dbar, float* __restrict__ ybar, const float* __restrict__ P,
+    const Offsets& off, float* __restrict__ scratch, long long n, const SdfGeom& g,
+    const ColorGeom& cg, const RcStages& st) {
+  static_assert(!(kCons && kFrozen), "the folded query has no frozen-fields kernel");
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);  // activations / channel A, stride kTcLd
   float* cin = h + kRows * kTcLd;              // color input / h0_bar, stride k0;
@@ -119,8 +137,12 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
   float* w_s = sb + kRows * 4;
   const int n_hidden = g.n_lin - 1;
   const long long layer_floats = (long long)kRows * 256;
-  float* sig_s = scratch + (long long)blockIdx.x * 2 * n_hidden * layer_floats;
-  float* zb_s = sig_s + n_hidden * layer_floats;
+  float* sig_s;
+  if constexpr (kFrozen)
+    sig_s = scratch + (long long)blockIdx.x * (n_hidden + cg.n_lin - 2) * layer_floats;
+  else
+    sig_s = scratch + (long long)blockIdx.x * 2 * n_hidden * layer_floats;
+  float* zb_s = sig_s + n_hidden * layer_floats;  // frozen: color inputs from layer 1
   const long long tiles = (n + kRows - 1) / kRows;
   const int o_x = cg.d_feat;  // kernel color-input columns
   const int o_d = o_x + 4;
@@ -140,16 +162,20 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
       if (j == 0) sb[r] = ok ? sbar[gr] / g.scale : 0.0f;
     }
     load_and_encode(x, n, row0, g, xs, e);
-    for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {  // as e was written
-      const int r = i / g.d0;
-      stage_put(st.t, 0, row0 + r, n, i - r * g.d0, e[i]);
+    if constexpr (!kFrozen) {
+      for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {  // as e was written
+        const int r = i / g.d0;
+        stage_put(st.t, 0, row0 + r, n, i - r * g.d0, e[i]);
+      }
     }
 
     // ---- SDF forward: inputs to the stage, sigmoids to the scratch ----
     sdf_hidden_forward<G::kSliceK, G>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
-        [&](int l, int r, int c, float v) { stage_put(st.t, l, row0 + r, n, c, v); });
+        [&](int l, int r, int c, float v) {
+          if constexpr (!kFrozen) stage_put(st.t, l, row0 + r, n, c, v);
+        });
     {
       const float* bf = P + off.b_feat;
       G::run<G::kSliceK>(h, kTcLd, g.hidden, G::wf(P, off), cg.d_feat, cg.d_feat, w_s,
@@ -158,7 +184,7 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
 
     // ---- input-gradient sweep: u_l = r_{l+1} * sig_l, staged ----
     sdf_grad_sweep<G::kSliceK, G>(P, off, g, h, e, w_s, 0, sig_at, [&](int l, int r, int c, float u) {
-      stage_put(st.u, l, row0 + r, n, c, u);
+      if constexpr (!kFrozen) stage_put(st.u, l, row0 + r, n, c, u);
     });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
@@ -168,9 +194,15 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
     __syncthreads();
 
     // ---- color forward on [feature, x, PE(dirs), grad, 0], inputs staged ----
-    color_forward<G::kSliceK, true, G>(
+    color_forward<G::kSliceK, !kFrozen, G>(
         P, off, cg, cin, h, w_s, xr, dr, gs,
-        [&](int l, int r, int c, float v) { stage_put(st.ci, l, row0 + r, n, c, v); },
+        [&](int l, int r, int c, float v) {
+          if constexpr (kFrozen) {
+            if (l < cg.n_lin - 1) zb_at(l - 1, r, c) = v;
+          } else {
+            stage_put(st.ci, l, row0 + r, n, c, v);
+          }
+        },
         [&](int r, int c, float v) { cs[r * 4 + c] = v; });
     __syncthreads();
 
@@ -181,34 +213,56 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
           const long long gr = row0 + r;
           return gr < n ? cbar[gr * 3 + j] : 0.0f;
         },
-        [&](int l, int r, int c) { return stage_get(st.ci, l, row0 + r, n, c); },
-        [&](int l, int r, int c, float v) { stage_put(st.cz, l, row0 + r, n, c, v); });
+        [&](int l, int r, int c) -> float {
+          if constexpr (kFrozen)
+            return zb_at(l - 1, r, c);
+          else
+            return stage_get(st.ci, l, row0 + r, n, c);
+        },
+        [&](int l, int r, int c, float v) {
+          if constexpr (!kFrozen) stage_put(st.cz, l, row0 + r, n, c, v);
+        });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
       const long long gr = row0 + r;
       xc[i] = cin[r * cg.k0 + o_x + j];
-      gs[i] = (gr < n ? gbar[gr * 4 + j] : 0.0f) + cin[r * cg.k0 + o_g + j];
+      if constexpr (!kFrozen)
+        gs[i] = (gr < n ? gbar[gr * 4 + j] : 0.0f) + cin[r * cg.k0 + o_g + j];
       if (j < 3 && gr < n)
         dbar[gr * 3 + j] = pe3_jac_t(cin + r * cg.k0 + o_d, dr + r * 4, cg.multires, j);
     }
     __syncthreads();
 
-    // ---- channel B up-sweep from J_pe (gbar + grad_bar_c) ----
-    sdf_channel_b_up<G::kSliceK, G>(
-        P, off, g, h, e, w_s, gs, xs, sig_at,
-        [&](int l, int r, int c) { return stage_get(st.u, l, row0 + r, n, c); }, zb_at,
-        [&](int l, int r, int c, float v) {
-          if (l == n_hidden)
-            stage_put(st.rh, 0, row0 + r, n, c, v);
-          else
-            stage_put(st.p, l, row0 + r, n, c, v);
-        });
+    if constexpr (kFrozen) {
+      // ---- channel A from z_A = [sbar / scale, feat_bar], seeded as
+      // sdf_down_sweep_ab seeds h, down to e_hat ----
+      const float* w0 = P + off.w_last0;
+      const int lh = n_hidden - 1;
+      G::run<G::kSliceK>(cin, cg.k0, cg.d_feat, G::wft(P, off), g.hidden, g.hidden, w_s,
+                         [&](int r, int c, float v) {
+                           v = fmaf(sb[r], w0[c], v);
+                           h[r * kTcLd + c] = v * sig_at(lh, r, c);
+                         });
+      sdf_down_sweep_a<G::kSliceK, G>(P, off, g, h, e, w_s, sig_at,
+                                      [](int, int, int, float) {});
+    } else {
+      // ---- channel B up-sweep from J_pe (gbar + grad_bar_c) ----
+      sdf_channel_b_up<G::kSliceK, G>(
+          P, off, g, h, e, w_s, gs, xs, sig_at,
+          [&](int l, int r, int c) { return stage_get(st.u, l, row0 + r, n, c); }, zb_at,
+          [&](int l, int r, int c, float v) {
+            if (l == n_hidden)
+              stage_put(st.rh, 0, row0 + r, n, c, v);
+            else
+              stage_put(st.p, l, row0 + r, n, c, v);
+          });
 
-    // ---- z_A = [sbar / scale, feat_bar], z_B = 0, down channels A and B ----
-    sdf_down_sweep_ab<G::kSliceK, G>(
-        P, off, g, cg.d_feat, h, hb, e, w_s, sb, cin, cg.k0, sig_at, zb_at,
-        [&](int l, int r, int c, float v) { stage_put(st.z, l, row0 + r, n, c, v); });
+      // ---- z_A = [sbar / scale, feat_bar], z_B = 0, down channels A and B ----
+      sdf_down_sweep_ab<G::kSliceK, G>(
+          P, off, g, cg.d_feat, h, hb, e, w_s, sb, cin, cg.k0, sig_at, zb_at,
+          [&](int l, int r, int c, float v) { stage_put(st.z, l, row0 + r, n, c, v); });
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
@@ -259,6 +313,33 @@ rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dir
       }
     }
   }
+}
+
+// K1-bwd (kCons false) and K6-bwd (true): x_bar, dirs_bar (and K6's
+// y_bar), the rows staged for the weight reduction.
+template <bool kCons>
+__global__ void __launch_bounds__(kThreads, 1)
+rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
+                      const float* __restrict__ y, const float* __restrict__ sbar,
+                      const float* __restrict__ gbar, const float* __restrict__ cbar,
+                      const float* __restrict__ swbar, float* __restrict__ xbar,
+                      float* __restrict__ dbar, float* __restrict__ ybar,
+                      const float* __restrict__ P, Offsets off, float* __restrict__ scratch,
+                      long long n, SdfGeom g, ColorGeom cg, RcStages st) {
+  rendercore_bwd_rows<kCons, false>(x, dirs, y, sbar, gbar, cbar, swbar, xbar, dbar, ybar, P,
+                                    off, scratch, n, g, cg, st);
+}
+
+// K1-bwd for frozen fields: x_bar and dirs_bar alone (rendercore_bwd_rows).
+template <bool kCons>
+__global__ void __launch_bounds__(kThreads, 1)
+rendercore_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dirs,
+                      const float* __restrict__ sbar, const float* __restrict__ cbar,
+                      float* __restrict__ xbar, float* __restrict__ dbar,
+                      const float* __restrict__ P, Offsets off, float* __restrict__ scratch,
+                      long long n, SdfGeom g, ColorGeom cg, FrozenFields) {
+  rendercore_bwd_rows<kCons, true>(x, dirs, nullptr, sbar, nullptr, cbar, nullptr, xbar, dbar,
+                                   nullptr, P, off, scratch, n, g, cg, RcStages{});
 }
 
 // The staged matrices of RcStages: the SDF layers' T and z take n_tz rows
@@ -405,16 +486,19 @@ int rc_bwd_run(const float* x, const float* dirs, const float* y, const float* s
   const long long n_tz = kCons ? 2 * n : n;
   RcStages st;
   rc_stage_layout(g, cg, n, n_tz, stage, st);
+  using Kernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const float*, const float*, float*, float*, float*, const float*,
+                          Offsets, float*, long long, SdfGeom, ColorGeom, RcStages);
+  const Kernel kernel = rendercore_bwd_kernel<kCons>;  // not the frozen-fields overload
   const size_t smem = rc_bwd_smem(g.d0, cg.k0);
-  cudaError_t err = cudaFuncSetAttribute(
-      rendercore_bwd_kernel<kCons>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (n + kRows - 1) / kRows;
   const int grid = (int)(tiles < n_blocks ? tiles : n_blocks);
   cudaStream_t s = (cudaStream_t)stream;
-  rendercore_bwd_kernel<kCons><<<grid, kThreads, smem, s>>>(x, dirs, y, sbar, gbar, cbar, swbar,
-                                                             xbar, dbar, ybar, params, off,
-                                                             scratch, n, g, cg, st);
+  kernel<<<grid, kThreads, smem, s>>>(x, dirs, y, sbar, gbar, cbar, swbar, xbar, dbar, ybar,
+                                      params, off, scratch, n, g, cg, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   WgradJob jobs[kMaxWgradJobs];

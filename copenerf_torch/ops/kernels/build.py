@@ -174,9 +174,12 @@ def load_library() -> ctypes.CDLL:
         [_P] * 7 + [_L] * 2 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _P])
     lib.copenerf_rendercore_bwd_workspace.argtypes = [
         _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-    rc_bwd = ([_P] * 3 + [_L] * 5 + [_P] * 2 + [_L] + [_P] + [_L] * 2 + [_P] * 3
-              + [_L] + [_P] * 5 + rc_geom)
+    lib.copenerf_rendercore_bwd_frozen_workspace.argtypes = [_I, _I, _I, _P]
+    rc_bwd_offs = [_P] * 3 + [_L] * 5 + [_P] * 2 + [_L] + [_P] + [_L] * 2
+    rc_bwd = rc_bwd_offs + [_P] * 3 + [_L] + [_P] * 5 + rc_geom
     lib.copenerf_rendercore_bwd.argtypes = [_P] * 8 + rc_bwd
+    lib.copenerf_rendercore_bwd_frozen.argtypes = (
+        [_P] * 7 + rc_bwd_offs + [_P] + rc_geom)
     lib.copenerf_sdf_outgrad_fwd.argtypes = (
         [_P] * 7 + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P])
     lib.copenerf_sdf_outgrad_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
@@ -203,7 +206,9 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,
                lib.copenerf_sdf_value_bwd_workspace, lib.copenerf_sdf_value_bwd,
                lib.copenerf_rendercore_bwd_workspace,
-               lib.copenerf_rendercore_bwd, lib.copenerf_sdf_outgrad_fwd,
+               lib.copenerf_rendercore_bwd_frozen_workspace,
+               lib.copenerf_rendercore_bwd, lib.copenerf_rendercore_bwd_frozen,
+               lib.copenerf_sdf_outgrad_fwd,
                lib.copenerf_sdf_outgrad_bwd_workspace,
                lib.copenerf_sdf_outgrad_bwd, lib.copenerf_color_fwd,
                lib.copenerf_color_bwd_workspace, lib.copenerf_color_bwd,

@@ -509,20 +509,26 @@ def check(width: str = "small", negative_ray: bool = False,
         err = (got - ref).abs().max().item()
         res[name] = (err <= lim, err, lim)
 
-    def bwd(name, kernel_fn, plain_fn, inputs, modules, cots):
+    def bwd(name, kernel_fn, plain_fn, inputs, modules, cots, weights=True,
+            same=None):
         """kernel_fn(*inputs) on ``modules``' weights; plain_fn(modules,
-        *inputs) the plain version, in f32 and in f64."""
-        params = [p for m in modules for p in m.parameters()]
+        *inputs) the plain version, in f32 and in f64. Without ``weights``
+        the inputs' gradients alone; ``same``, gradients the kernel's must
+        equal bit for bit. Returns the kernel's gradients."""
+        params = [p for m in modules for p in m.parameters()] if weights else []
         mods64 = [sdf64 if m is sdf else col64 for m in modules]
         got = _vjp(kernel_fn, inputs, params, cots)
         ref = _vjp(lambda *a: plain_fn(modules, *a), inputs, params, cots)
         r64 = _vjp(lambda *a: plain_fn(mods64, *a), [t.double() for t in inputs],
-                   [p for m in mods64 for p in m.parameters()],
+                   [p for m in mods64 for p in m.parameters()] if weights else [],
                    [c.double() for c in cots])
         ok = all(_rel(a, c) <= max(2 * _rel(b, c), 1e-5)
                  for a, b, c in zip(got, ref, r64))
+        if same is not None:
+            ok = ok and all(torch.equal(a, b) for a, b in zip(got, same))
         res[name] = (ok, max(_rel(a, c) for a, c in zip(got, r64)),
                      max(max(2 * _rel(b, c), 1e-5) for b, c in zip(ref, r64)))
+        return got
 
     def eff(net):
         """Every effective W of ``net``, then every b: a Function's inputs."""
@@ -550,10 +556,12 @@ def check(width: str = "small", negative_ray: bool = False,
         o, gr = F.sdf_output_and_gradient_plain(modules[0], xx)
         return o[:, :1], gr, F.color_apply_plain(modules[1], xx, gr, dd, o[:, 1:])
 
-    def kernel_query(xx, dd):
-        """The render-core query through K1, or K4 + K5 (negative ray)."""
+    def kernel_query(xx, dd, frozen=False):
+        """The render-core query through K1, or K4 + K5 (negative ray);
+        ``frozen``: K1 on weights that need no gradient."""
         if not negative_ray:
-            return RC.RenderCore.apply(scfg, ccfg, xx, dd, *eff(sdf), *eff(col))
+            wb = [t.detach() if frozen else t for t in (*eff(sdf), *eff(col))]
+            return RC.RenderCore.apply(scfg, ccfg, xx, dd, *wb)
         o, gr = OG.SdfOutGrad.apply(scfg, xx, *eff(sdf))
         return (o[:, :1], gr,
                 CK.ColorMLP.apply(ccfg, xx, -dd, -gr, o[:, 1:], *eff(col)))
@@ -570,9 +578,13 @@ def check(width: str = "small", negative_ray: bool = False,
     bwd("K5-bwd", kernel_color, lambda mods, *a: CK.color_plain(mods[0], *a),
         [x, d, g_in, torch.randn(n, ccfg.d_feature) * 0.5], [col],
         [torch.randn(n, 3)])
-    bwd("K1-bwd" if not negative_ray else "K4 + K5 composed", kernel_query,
-        plain_query, [x, d], [sdf, col],
-        [torch.randn(n, 1), torch.randn(n, 4), torch.randn(n, 3)])
+    rc_cots = [torch.randn(n, 1), torch.randn(n, 4), torch.randn(n, 3)]
+    full = bwd("K1-bwd" if not negative_ray else "K4 + K5 composed", kernel_query,
+               plain_query, [x, d], [sdf, col], rc_cots)
+    if not negative_ray:
+        # Frozen fields: x_bar and dirs_bar alone, the full kernel's bit for bit.
+        bwd("K1-bwd frozen", lambda xx, dd: kernel_query(xx, dd, frozen=True),
+            plain_query, [x, d], [sdf, col], rc_cots, weights=False, same=full[:2])
 
     # K7 (the SDF output, first order) and, with a positive ray vector, K6
     # (the render core with the consistency query at y folded in).

@@ -8,7 +8,8 @@ carries the eikonal / sdf-flow / color-through-normal double backprop.
 ``rendercore_fwd`` routes on the tensor's device: a CUDA tensor launches the
 forward kernel alone when nothing needs a gradient, and otherwise goes
 through ``RenderCore`` (an ``autograd.Function`` whose forward launches
-K1-fwd and whose backward launches K1-bwd); a CPU tensor takes
+K1-fwd and whose backward launches K1-bwd, or its frozen-fields kernel
+when no weight needs a gradient); a CPU tensor takes
 ``rendercore_fwd_plain``, under autograd when grad mode is on. The
 Function's inputs are x, dirs and both nets' effective weights and biases,
 so autograd carries the kernel's W-bars through weight norm.
@@ -29,6 +30,7 @@ from .pack import (check_color_geometry, check_sdf_geometry, color_geometry,
 
 COUNTER = build.KernelCounter("rendercore_fwd")
 BWD_COUNTER = build.KernelCounter("rendercore_bwd")
+FROZEN_BWD_COUNTER = build.KernelCounter("rendercore_bwd_frozen")
 
 
 def rendercore_fwd_plain(sdf_net, color_net, x: torch.Tensor,
@@ -65,6 +67,15 @@ def _check_rows(scfg, ccfg, x, dirs) -> None:
     build.check_input(dirs, "dirs", 3)
     if dirs.shape[0] != x.shape[0] or dirs.device != x.device:
         raise ValueError("x and dirs must have the same rows and device")
+
+
+def _check_cots(x, *cots) -> None:
+    """Each (tensor, name, width) cotangent as ``build.check_input`` wants
+    it, with x's rows."""
+    for t, name, w in cots:
+        build.check_input(t, name, w)
+        if t.shape[0] != x.shape[0]:
+            raise ValueError(f"{name}: {t.shape[0]} rows, x has {x.shape[0]}")
 
 
 def fwd_offsets(offs) -> tuple:
@@ -133,10 +144,7 @@ def rendercore_bwd_cuda(scfg, ccfg, packed, x, dirs, sbar, gbar, cbar):
     (x_bar (n, 4), dirs_bar (n, 3), [(W_bar, b_bar)] per SDF layer,
     [(W_bar, b_bar)] per color layer), W_bar (out, in)."""
     _check_rows(scfg, ccfg, x, dirs)
-    for t, name, w in ((sbar, "sbar", 1), (gbar, "gbar", 4), (cbar, "cbar", 3)):
-        build.check_input(t, name, w)
-        if t.shape[0] != x.shape[0]:
-            raise ValueError(f"{name}: {t.shape[0]} rows, x has {x.shape[0]}")
+    _check_cots(x, (sbar, "sbar", 1), (gbar, "gbar", 4), (cbar, "cbar", 3))
     params, offs = packed
     goffs, gsize = rendercore_grad_layout(scfg, ccfg)
     n, dev = x.shape[0], x.device
@@ -168,11 +176,41 @@ def rendercore_bwd_cuda(scfg, ccfg, packed, x, dirs, sbar, gbar, cbar):
     return x_bar, d_bar, sdf_bars, color_bars
 
 
+def rendercore_bwd_frozen_cuda(scfg, ccfg, packed, x, dirs, sbar, cbar):
+    """K1-bwd for frozen fields, the cotangents sbar (n, 1) and cbar (n, 3)
+    -> (x_bar (n, 4), dirs_bar (n, 3)), bit for bit ``rendercore_bwd_cuda``'s
+    (gbar's reaches neither): one row kernel, no weight gradient, no
+    reduction."""
+    _check_rows(scfg, ccfg, x, dirs)
+    _check_cots(x, (sbar, "sbar", 1), (cbar, "cbar", 3))
+    params, offs = packed
+    n, dev = x.shape[0], x.device
+    blocks = build.n_blocks(dev)
+    sgeom, cgeom = _geometry(scfg, ccfg)
+    with FROZEN_BWD_COUNTER.launch():
+        lib = build.load_library()
+        _, _, n_scratch = build.workspace(
+            lib.copenerf_rendercore_bwd_frozen_workspace, sgeom[0], cgeom[1], blocks)
+        f32 = dict(dtype=torch.float32, device=dev)
+        scratch = torch.empty(n_scratch, **f32)
+        x_bar = torch.empty((n, 4), **f32)
+        d_bar = torch.empty((n, 3), **f32)
+        code = lib.copenerf_rendercore_bwd_frozen(
+            x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(), cbar.data_ptr(),
+            x_bar.data_ptr(), d_bar.data_ptr(), params.data_ptr(),
+            *bwd_offsets(offs), scratch.data_ptr(), n, *sgeom, float(scfg.scale),
+            *cgeom, int(ccfg.squeeze_out), blocks, build.stream(x))
+        build.check(code, "rendercore_bwd_frozen")
+    return x_bar, d_bar
+
+
 class RenderCore(torch.autograd.Function):
     """(sdf (n, 1), grad (n, 4), color (n, 3)) of x (n, 4), dirs (n, 3);
     inputs after dirs: the effective W (out, in) of every SDF layer, every
     SDF b, every color W, every color b. Cotangents that arrive as None
-    count as zeros."""
+    count as zeros. When no weight or bias needs a gradient (frozen
+    fields), the backward launches K1-bwd's frozen-fields kernel and
+    returns None for each."""
 
     @staticmethod
     def forward(ctx, scfg, ccfg, x, dirs, *wb):
@@ -188,12 +226,18 @@ class RenderCore(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, sbar, gbar, cbar):
         x, dirs = ctx.saved_tensors
-        n = x.shape[0]
-        cots = [torch.zeros((n, w), dtype=x.dtype, device=x.device)
-                if c is None else c.contiguous()
-                for c, w in ((sbar, 1), (gbar, 4), (cbar, 3))]
+
+        def cot(c, w):
+            return (torch.zeros((x.shape[0], w), dtype=x.dtype, device=x.device)
+                    if c is None else c.contiguous())
+
+        if not any(ctx.needs_input_grad[4:]):
+            x_bar, d_bar = rendercore_bwd_frozen_cuda(
+                *ctx.cfgs, ctx.packed, x, dirs, cot(sbar, 1), cot(cbar, 3))
+            return (None, None, x_bar, d_bar,
+                    *[None] * (len(ctx.needs_input_grad) - 4))
         x_bar, d_bar, sdf_bars, color_bars = rendercore_bwd_cuda(
-            *ctx.cfgs, ctx.packed, x, dirs, *cots)
+            *ctx.cfgs, ctx.packed, x, dirs, cot(sbar, 1), cot(gbar, 4), cot(cbar, 3))
         return (None, None, x_bar, d_bar,
                 *[w for w, _ in sdf_bars], *[b for _, b in sdf_bars],
                 *[w for w, _ in color_bars], *[b for _, b in color_bars])

@@ -16,13 +16,17 @@ with ``perturb_``, random inputs and cotangents from fixed seeds: the mean of
 ``torch.profiler`` (CUDA activity), whose device time per kernel name gives
 the split (each backward: its row kernel, ``wgrad_wg_partial_kernel`` and
 ``wgrad_final_kernel``, each as ms per launch beside the launches the
-profiler recorded; "not measured" where it sees no device time); beside
+profiler recorded; "not measured" where it sees no device time;
+``rendercore_bwd_frozen``, K1-bwd for frozen fields, runs its row kernel
+alone, and a tree without it has no such row); beside
 them ``torch.mm`` of every backward's weight reduction over
 random rows of its staged widths, one product a job
 (``<launcher>_reduction_mm`` for K1, K3-K7: yardsticks the port never
 calls) and the reductions' bounds (3xTF32 products; staged bytes), the
 registers and spill bytes of the tensor-core kernels (K1-K7,
-the reduction) and any ptxas line about the wgmma pipeline,
+the reduction; K1-bwd's frozen-fields overload as
+``rendercore_bwd_kernel<0> frozen``) and any ptxas line about the wgmma
+pipeline,
 ``value_step_16384``: a K2 and a K3-fwd launch on 16,384 rows each after a
 weight update, so with the weight packing a train step does for them, and
 ``color_pack``: the color pack ``ColorMLP`` builds on every call (its
@@ -123,6 +127,7 @@ def registers(log):
         if m:
             name = m.group(1) + ("<%s>" % ",".join(
                 re.findall(r"L(?:b|i|N\w+?E)(\d+)E", m.group(2))) if m.group(2) else "")
+            name += " frozen" if "FrozenFields" in ln else ""
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -280,6 +285,9 @@ def run_times(label, root):
         "sdf_out_fwd": lambda: SO.launch_out_fwd(scfg, og, x),
         "sdf_out_bwd": lambda: SO.sdf_out_bwd_cuda(scfg, og, x, obar),
     }
+    if hasattr(RC, "rendercore_bwd_frozen_cuda"):    # --root may lack it
+        fns["rendercore_bwd_frozen"] = lambda: RC.rendercore_bwd_frozen_cuda(
+            scfg, ccfg, rc, x, d, sbar, cbar)
     # Each backward's reduction as torch.mm of its staged pairs (made just
     # before they are timed, freed after).
     for k in REDUCTION_MM:

@@ -25,7 +25,7 @@ BACKWARD = ["K3-bwd", "K4-bwd obar", "K4-bwd gbar", "K4-bwd both", "K5-bwd",
 CHECKS = {
     "positive": FORWARD + ["K1-fwd sdf", "K1-fwd grad", "K1-fwd color"]
                 + [f"K6-fwd {o}" for o in ("sdf", "grad", "color", "sdf_w")]
-                + BACKWARD + ["K1-bwd", "K6-bwd"],
+                + BACKWARD + ["K1-bwd", "K1-bwd frozen", "K6-bwd"],
     "negative": FORWARD + BACKWARD + ["K4 + K5 composed"],
 }
 

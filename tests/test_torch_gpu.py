@@ -318,8 +318,9 @@ def test_train_step_makes_no_host_sync_on_card(stage1):
 def test_pose_step_host_syncs_on_card():
     """After a warm-up step, a test-time pose step (``pose_loss`` over the
     whole (2, 3) ``r``, ``t``, its backward and an Adam update, the fields
-    frozen) warns under ``set_sync_debug_mode("warn")`` no more often than
-    ``KEPT_POSE_SYNCS``."""
+    frozen) warns under ``set_sync_debug_mode("warn")`` that it "called a
+    synchronizing CUDA operation" no more often than ``KEPT_POSE_SYNCS``
+    (the mode's one notice a process that it is a prototype is no sync)."""
     _require_cuda()
     import warnings
 
@@ -353,9 +354,99 @@ def test_pose_step_host_syncs_on_card():
                 pose_step()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) <= KEPT_POSE_SYNCS, [str(w.message) for w in syncs]
     assert r.grad[1].abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_k1_bwd_frozen_matches_the_full_kernel_at_full_width_on_card():
+    """K1-bwd for frozen fields on 131,072 rows of the full-width nets:
+    x_bar and dirs_bar the full kernel's bit for bit; through
+    ``RenderCore`` with weights that need no gradient, the profiled
+    backward runs one kernel, the frozen-fields overload of
+    ``rendercore_bwd_kernel<false>``, and no ``wgrad_*`` kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from copenerf_torch.ops.kernels import pack
+
+    _require_cuda()
+    sdf_net, color_net = _nets("full", "cuda")
+    scfg, ccfg = sdf_net.cfg, color_net.cfg
+    n = 131072
+    x, d = _rows(n, seed=22)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    sbar, gbar, cbar = (torch.randn((n, w), generator=g, device="cuda") for w in (1, 4, 3))
+    with torch.no_grad():
+        packed = pack.pack_rendercore(sdf_net, color_net)
+        full = RC.rendercore_bwd_cuda(scfg, ccfg, packed, x, d, sbar, gbar, cbar)
+        frozen = RC.rendercore_bwd_frozen_cuda(scfg, ccfg, packed, x, d, sbar, cbar)
+    assert torch.equal(frozen[0], full[0]) and torch.equal(frozen[1], full[1])
+
+    wb = [t.detach() for group in (*zip(*pack.effective_layers(sdf_net)),
+                                   *zip(*pack.effective_layers(color_net)))
+          for t in group]
+    xs = [t.clone().requires_grad_(True) for t in (x, d)]
+    out = RC.RenderCore.apply(scfg, ccfg, *xs, *wb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = torch.autograd.grad(out, xs, (sbar, gbar, cbar))
+        torch.cuda.synchronize()
+    assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA"
+               and "Memcpy" not in e.name and "Memset" not in e.name]
+    assert len(kernels) == 1, kernels
+    assert "rendercore_bwd_kernel<false>" in kernels[0], kernels
+    assert "FrozenFields" in kernels[0], kernels
+    assert not any("wgrad_" in k for k in kernels), kernels
+
+
+@pytest.mark.gpu
+def test_pose_steps_frozen_kernel_match_the_full_kernel_on_card(monkeypatch):
+    """Three test-time pose steps (``pose_loss``, backward, Adam over the
+    whole (2, 3) ``r``, ``t``, the fields frozen) with K1-bwd's
+    frozen-fields kernel, then with ``RenderCore``'s backward forced onto
+    the full kernel: ``r`` and ``t`` bit for bit alike, one launch a step of
+    the frozen kernel, then of the full one."""
+    _require_cuda()
+    from copenerf_torch.evaluation.evaluator import frozen, pose_loss
+
+    def full_backward(ctx, sbar, gbar, cbar):
+        x, dirs = ctx.saved_tensors
+        cots = [torch.zeros((x.shape[0], w), device=x.device) if c is None
+                else c.contiguous() for c, w in ((sbar, 1), (gbar, 4), (cbar, 3))]
+        x_bar, d_bar, _, _ = RC.rendercore_bwd_cuda(*ctx.cfgs, ctx.packed, x, dirs, *cots)
+        return (None, None, x_bar, d_bar, *[None] * (len(ctx.needs_input_grad) - 4))
+
+    def three_steps(want):
+        fields, batch, _ = _small_step(False, "cuda")
+        init = batch["world_mat"].expand(2, 4, 4).clone()
+        r = torch.zeros((2, 3), device="cuda", requires_grad=True)
+        t = torch.zeros((2, 3), device="cuda", requires_grad=True)
+        opt = torch.optim.Adam([r, t], lr=1e-3)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ones = torch.ones((64, 1), device="cuda")
+        counters = (RC.FROZEN_BWD_COUNTER, RC.BWD_COUNTER)
+        before = [c.launches for c in counters]
+        with frozen(fields):
+            for _ in range(3):
+                idx = TS.sample_patch_indices(gen, 24, 24, 1, 64, device="cuda")
+                loss, _ = pose_loss(fields, SMALL_RCFG, r[1], t[1], init[1],
+                                    batch["images_all"][1], batch["K_all"][1], idx,
+                                    batch["world_time_step"], ones, 4.0 * ones,
+                                    generator=gen)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+        assert [c.launches - b for c, b in zip(counters, before)] == want
+        return r.detach().clone(), t.detach().clone()
+
+    r_frozen, t_frozen = three_steps([3, 0])
+    monkeypatch.setattr(RC.RenderCore, "backward", staticmethod(full_backward))
+    r_full, t_full = three_steps([0, 3])
+    assert torch.equal(r_frozen, r_full) and torch.equal(t_frozen, t_full)
+    assert r_frozen[1].abs().max() > 0 and torch.all(r_frozen[0] == 0)
 
 
 @pytest.mark.parametrize("dev", DEVICES)
@@ -994,7 +1085,8 @@ def test_color_kernels_past_one_warpgroup_on_card(name, n):
 @pytest.mark.gpu
 def test_tensor_core_instructions_per_kernel_on_card():
     """``cuobjdump -sass`` of the built library: every row kernel (K1-fwd
-    and K6-fwd, K1-bwd and K6-bwd, K2, K3-bwd, K4-fwd and K7-fwd, K4-bwd,
+    and K6-fwd, K1-bwd, its frozen-fields overload and K6-bwd, K2, K3-bwd,
+    K4-fwd and K7-fwd, K4-bwd,
     K5-fwd, K5-bwd, K7-bwd) and the weight-gradient reduction of every
     backward kernel issue TF32 HGMMA (wgmma) and no HMMA; the FFMA
     reduction (the accuracy trial's control) and the final sums issue
@@ -1016,12 +1108,13 @@ def test_tensor_core_instructions_per_kernel_on_card():
         if m is None:
             continue
         key = m.group(1) + ("<1>" if "ILb1E" in name else "")
+        key += " frozen" if "FrozenFields" in name else ""
         funcs[key] = funcs.get(key, "") + body
     wg = ["sdf_value_kernel", "sdf_value_bwd_kernel", "sdf_outgrad_fwd_kernel",
           "sdf_outgrad_fwd_kernel<1>", "sdf_outgrad_bwd_kernel", "color_fwd_kernel",
           "color_bwd_kernel", "sdf_out_bwd_kernel", "wgrad_wg_partial_kernel",
           "rendercore_fwd_kernel", "rendercore_fwd_kernel<1>", "rendercore_bwd_kernel",
-          "rendercore_bwd_kernel<1>"]
+          "rendercore_bwd_kernel frozen", "rendercore_bwd_kernel<1>"]
     ffma = ["wgrad_partial_kernel", "wgrad_final_kernel"]
     for k in wg:
         assert re.search(r"HGMMA\.[\w.]*TF32", funcs[k]), k
@@ -1147,8 +1240,9 @@ def test_eval_pose_step_card_matches_cpu():
     for view 1 of a whole (2, 3) ``r``, ``t`` on the card against the CPU:
     the loss within 1e-4 relative, each gradient within 1e-3 of its
     largest entry (the stage-2 step's bounds), the other view's rows zero;
-    2 K2 + 1 K1-fwd + 1 K1-bwd launches (``up_sample_steps`` 2) and no
-    gradient on any field weight."""
+    2 K2 + 1 K1-fwd + 1 K1-bwd for frozen fields launches
+    (``up_sample_steps`` 2), no full K1-bwd and no gradient on any field
+    weight."""
     _require_cuda()
     from copenerf_torch.evaluation.evaluator import frozen, pose_loss
 
@@ -1166,7 +1260,8 @@ def test_eval_pose_step_card_matches_cpu():
     t_rand = torch.rand((64, 16), generator=g)
     rcfg = RendererConfig(n_samples=16, n_importance=16, up_sample_steps=2)
     counters = {"sdf_value": SV.COUNTER, "rendercore_fwd": RC.COUNTER,
-                "rendercore_bwd": RC.BWD_COUNTER}
+                "rendercore_bwd": RC.BWD_COUNTER,
+                "rendercore_bwd_frozen": RC.FROZEN_BWD_COUNTER}
     res = {}
     for dev in ("cuda", "cpu"):
         sdf_net, color_net = _nets("small", dev)
@@ -1192,7 +1287,8 @@ def test_eval_pose_step_card_matches_cpu():
         res[dev] = (loss.item(), l2.item(), r.grad.cpu(), t.grad.cpu(),
                     {k: c.launches for k, c in counters.items()})
     (lc, l2c, rc, tc, nc), (lp, l2p, rp, tp, _) = res["cuda"], res["cpu"]
-    assert nc == {"sdf_value": 2, "rendercore_fwd": 1, "rendercore_bwd": 1}
+    assert nc == {"sdf_value": 2, "rendercore_fwd": 1, "rendercore_bwd": 0,
+                  "rendercore_bwd_frozen": 1}
     assert abs(lc - lp) <= 1e-4 * abs(lp) + 1e-6
     assert abs(l2c - l2p) <= 1e-4 * abs(l2p) + 1e-6
     for got, ref in ((rc, rp), (tc, tp)):

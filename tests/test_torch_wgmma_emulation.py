@@ -47,11 +47,15 @@ descriptor, ``mbarrier``, ``cp.async.bulk``), on CPU tensors:
   color input (d_hidden 160, d_feature 232), and with a K tail in every
   GEMM (136); K1-bwd and K6-bwd at d_hidden 160 per cotangent channel
   (sbar, gbar, cbar, K6's swbar, all) with ``chip_smoke.py``'s rules
-  (``KINK_MARGIN`` on the color cotangent).
+  (``KINK_MARGIN`` on the color cotangent); K1-bwd for frozen fields per
+  channel: None for every weight and bias, x_bar and dirs_bar the full
+  kernel's bit for bit and within the same rule; with one color layer
+  trainable, the full kernel and that layer's W and b bars.
 
 Skips where there is no ``g++``."""
 
 import copy
+import functools
 import shutil
 
 import numpy as np
@@ -624,6 +628,43 @@ RC_CHANNELS = {"sbar": (1, 0, 0, 0), "gbar": (0, 1, 0, 0), "cbar": (0, 0, 1, 0),
                "swbar": (0, 0, 0, 1), "all": (1, 1, 1, 1)}
 
 
+def _rendercore_case(kernel, chan):
+    """(inputs, cotangents) of K1-bwd's or K6-bwd's checks at d_hidden 160
+    for one cotangent channel (or all): no color cotangent on rows within
+    KINK_MARGIN of a color ReLU's kink."""
+    sdf, col = render_core_nets(160)
+    x, d, y = _render_rows(70, 17)
+    ins = [x, d] if kernel == "K1" else [x, d, y]
+    rng = np.random.default_rng(18)
+    cots = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((70, 1), (70, 4), (70, 3), (70,))]
+    margin = RC.color_relu_margin(copy.deepcopy(sdf).double(), copy.deepcopy(col).double(),
+                                  x.double(), d.double())
+    cots[2] = cots[2] * (margin >= KINK_MARGIN).float()[:, None]
+    return ins, [c * m for c, m in zip(cots, RC_CHANNELS[chan])][:len(ins) + 1]
+
+
+def _rc_grads(fn, nets, xs, cs):
+    xs = [t.clone().requires_grad_(True) for t in xs]
+    params = [p for m in nets for p in m.parameters()]
+    return torch.autograd.grad(fn(*xs), [*xs, *params], cs)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_grads(kernel, chan):
+    """x_bar, dirs_bar (y_bar) and every parameter's gradient of both nets
+    through K1-bwd's or K6-bwd's autograd.Function for ``_rendercore_case``
+    (kept: the frozen-fields checks hold K1's against their own)."""
+    scfg, ccfg = RENDER_CORE[160]
+    sdf, col = render_core_nets(160)
+    ins, cots = _rendercore_case(kernel, chan)
+    ws, bs = zip(*pack.effective_layers(sdf))
+    wc, bc = zip(*pack.effective_layers(col))
+    fn = RC.RenderCore if kernel == "K1" else RCC.RenderCoreCons
+    return _rc_grads(lambda *a: fn.apply(scfg, ccfg, *a, *ws, *bs, *wc, *bc), (sdf, col),
+                     ins, cots)
+
+
 def _rendercore_bwd_check(kernel, chan):
     """K1-bwd or K6-bwd (every GEMM on the one-stage wgmma ring, the
     tensor-core reduction) at d_hidden 160 through its autograd.Function for
@@ -631,39 +672,14 @@ def _rendercore_bwd_check(kernel, chan):
     weight gradient of both nets within 2x the plain f32 version's error
     against f64, or 1e-5; no color cotangent on rows within KINK_MARGIN of
     a color ReLU's kink."""
-    scfg, ccfg = RENDER_CORE[160]
     sdf, col = render_core_nets(160)
     sdf64, col64 = copy.deepcopy(sdf).double(), copy.deepcopy(col).double()
-    x, d, y = _render_rows(70, 17)
-    ins = [x, d] if kernel == "K1" else [x, d, y]
-    rng = np.random.default_rng(18)
-    cots = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-            for shape in ((70, 1), (70, 4), (70, 3), (70,))]
-    margin = RC.color_relu_margin(sdf64, col64, x.double(), d.double())
-    cots[2] = cots[2] * (margin >= KINK_MARGIN).float()[:, None]
-    cots = [c * m for c, m in zip(cots, RC_CHANNELS[chan])][:len(ins) + 1]
-    ws, bs = zip(*pack.effective_layers(sdf))
-    wc, bc = zip(*pack.effective_layers(col))
-
-    def kernel_fn(*a):
-        if kernel == "K1":
-            return RC.RenderCore.apply(scfg, ccfg, *a, *ws, *bs, *wc, *bc)
-        return RCC.RenderCoreCons.apply(scfg, ccfg, *a, *ws, *bs, *wc, *bc)
-
-    def plain(nets, *a):
-        fn = RC.rendercore_fwd_plain if kernel == "K1" else RCC.rendercore_cons_plain
-        return fn(*nets, *a)
-
-    def grads(fn, nets, xs, cs):
-        xs = [t.clone().requires_grad_(True) for t in xs]
-        params = [p for m in nets for p in m.parameters()]
-        return torch.autograd.grad(fn(*xs), [*xs, *params], cs)
-
-    got = grads(kernel_fn, (sdf, col), ins, cots)
-    ref = grads(lambda *a: plain((sdf, col), *a), (sdf, col), ins, cots)
-    r64 = grads(lambda *a: plain((sdf64, col64), *a), (sdf64, col64),
-                [t.double() for t in ins], [c.double() for c in cots])
-    _within_plain(got, ref, r64)
+    ins, cots = _rendercore_case(kernel, chan)
+    plain = RC.rendercore_fwd_plain if kernel == "K1" else RCC.rendercore_cons_plain
+    ref = _rc_grads(lambda *a: plain(sdf, col, *a), (sdf, col), ins, cots)
+    r64 = _rc_grads(lambda *a: plain(sdf64, col64, *a), (sdf64, col64),
+                    [t.double() for t in ins], [c.double() for c in cots])
+    _within_plain(_kernel_grads(kernel, chan), ref, r64)
 
 
 @pytest.mark.parametrize("chan", ["sbar", "gbar", "cbar", "all"])
@@ -674,3 +690,64 @@ def test_emulated_k1_bwd_past_one_warpgroup(emu, chan):
 @pytest.mark.parametrize("chan", ["sbar", "gbar", "cbar", "swbar", "all"])
 def test_emulated_k6_bwd_past_one_warpgroup(emu, chan):
     _rendercore_bwd_check("K6", chan)
+
+
+
+@pytest.mark.parametrize("chan", ["sbar", "gbar", "cbar", "all"])
+def test_emulated_k1_bwd_frozen_matches_the_full_kernel(emu, chan):
+    """K1-bwd for frozen fields (weights that need no gradient) at d_hidden
+    160, through ``RenderCore``'s backward: None for every weight and bias,
+    x_bar and dirs_bar the full kernel's bit for bit and within 2x the plain
+    f32 version's error against f64, or 1e-5."""
+    scfg, ccfg = RENDER_CORE[160]
+    sdf, col = render_core_nets(160)
+    (x, d), cots = _rendercore_case("K1", chan)
+    groups = [*zip(*pack.effective_layers(sdf)), *zip(*pack.effective_layers(col))]
+    wb = [t.detach() for g in groups for t in g]
+    xs = [t.clone().requires_grad_(True) for t in (x, d)]
+    frozen = RC.RenderCore.apply(scfg, ccfg, *xs, *wb)[0].grad_fn.apply(*cots)
+    assert len(frozen) == 4 + len(wb)
+    assert frozen[:2] == (None, None) and all(g is None for g in frozen[4:])
+    full = _kernel_grads("K1", chan)
+    assert torch.equal(frozen[2], full[0]) and torch.equal(frozen[3], full[1])
+
+    def grads(nets, xs, cs):
+        xs = [t.clone().requires_grad_(True) for t in xs]
+        return torch.autograd.grad(RC.rendercore_fwd_plain(*nets, *xs), xs, cs)
+
+    sdf64, col64 = copy.deepcopy(sdf).double(), copy.deepcopy(col).double()
+    _within_plain(frozen[2:4], grads((sdf, col), (x, d), cots),
+                  grads((sdf64, col64), (x.double(), d.double()),
+                        [c.double() for c in cots]))
+
+
+def test_emulated_k1_bwd_one_trainable_color_layer_takes_the_full_kernel(emu):
+    """With one color layer trainable and every other weight frozen,
+    ``RenderCore`` takes the full K1-bwd: that layer's W and b bars, x_bar
+    and dirs_bar within 2x the plain f32 version's error against f64, or
+    1e-5."""
+    scfg, ccfg = RENDER_CORE[160]
+    nets = [copy.deepcopy(m) for m in render_core_nets(160)]
+    for p in nets[0].parameters():
+        p.requires_grad_(False)
+    for name, p in nets[1].named_parameters():
+        p.requires_grad_(name.startswith("layers.lin1."))
+    params = [p for p in nets[1].parameters() if p.requires_grad]
+    nets64 = [copy.deepcopy(m).double() for m in nets]
+    params64 = [p for p in nets64[1].parameters() if p.requires_grad]
+    (x, d), cots = _rendercore_case("K1", "all")
+
+    def kernel(*xs):
+        wb = [*zip(*pack.effective_layers(nets[0])), *zip(*pack.effective_layers(nets[1]))]
+        return RC.RenderCore.apply(scfg, ccfg, *xs, *[t for g in wb for t in g])
+
+    def grads(fn, ps, xs, cs):
+        xs = [t.clone().requires_grad_(True) for t in xs]
+        return torch.autograd.grad(fn(*xs), [*xs, *ps], cs)
+
+    got = grads(kernel, params, (x, d), cots)
+    ref = grads(lambda *a: RC.rendercore_fwd_plain(*nets, *a), params, (x, d), cots)
+    r64 = grads(lambda *a: RC.rendercore_fwd_plain(*nets64, *a), params64,
+                (x.double(), d.double()), [c.double() for c in cots])
+    assert len(params) == 3
+    _within_plain(got, ref, r64)

@@ -147,6 +147,28 @@ struct ColorGeom {
   int squeeze;   // sigmoid head
 };
 
+// A hook that does nothing: the default `pre` of the GEMM policy's `run`
+// and of the sweeps below.
+struct NoHook {
+  template <class... A>
+  __device__ __forceinline__ void operator()(A...) const {}
+};
+
+// The hook a sweep hands the GEMM of its layer l: `pre(l)`, or NoHook itself
+// for NoHook, so that a kernel which passes no hook compiles as though the
+// sweep took none.
+template <class Pre>
+struct LayerHook {
+  const Pre& pre;
+  int l;
+  __device__ __forceinline__ void operator()() const { pre(l); }
+};
+template <class Pre>
+__device__ __forceinline__ LayerHook<Pre> layer_hook(const Pre& pre, int l) {
+  return {pre, l};
+}
+__device__ __forceinline__ NoHook layer_hook(const NoHook&, int) { return {}; }
+
 // Per-row matrices the backward kernels stage in device memory for the
 // weight-gradient reduction (wgrad.cuh): entry l holds row gr of its matrix
 // at p[l] + gr * ld[l]. Only rows < n are written.
@@ -340,8 +362,12 @@ __device__ __forceinline__ void gemm(const float* in, int ld_in, int K,
 
 // The GEMM policy contract of the sweeps below (`G`, wgmma_tile.cuh's
 // WgGemmRing): `G::kLd`, the activation row stride; `G::kWsFloats`, the
-// shared floats of w_s; `G::run<KS>(in, ld_in, K, B, ldw, N, w_s, epi)`
-// with `gemm`'s contract, B where `G::w` and its kin say.
+// shared floats of w_s; `G::run<KS>(in, ld_in, K, B, ldw, N, w_s, epi[,
+// pre])` with `gemm`'s contract, B where `G::w` and its kin say, and every
+// thread calling `pre()` after the barrier that makes `in` visible and
+// before the epilogue (wg_gemm). Each sweep that takes a `pre(l)` calls it
+// so inside every GEMM it names: a backward copies the GEMM's input, a
+// staged matrix, to device memory there in whole rows.
 
 // Narrow head (N <= 4 columns): one warp reduction per row and column.
 // Needs a __syncthreads() before it if `in` was written by other warps'
@@ -392,12 +418,13 @@ __device__ __forceinline__ void load_and_encode(const float* __restrict__ x, lon
 // output rows are the rows it read, written after its last read).
 // `keep(l, r, c, sig)` sees every sigmoid(100 z); `put(l, r, c, v)` sees
 // every value v written as column c of layer l's input (l >= 1: the
-// previous layer's output and the skip layer's scaled PE part).
-template <int KS, class G, class Keep, class Put>
+// previous layer's output and the skip layer's scaled PE part); `pre(l)`
+// runs in layer l's GEMM, whose input is layer l's (e for l = 0, else h).
+template <int KS, class G, class Keep, class Put, class Pre = NoHook>
 __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
                                                    const Offsets& off, const SdfGeom& g,
                                                    const float* e, float* h, float* w_s,
-                                                   Keep keep, Put put) {
+                                                   Keep keep, Put put, Pre pre = {}) {
   constexpr int ld = G::kLd;
   for (int l = 0; l < g.n_lin - 1; ++l) {
     if (l == g.skip) {
@@ -422,7 +449,8 @@ __device__ __forceinline__ void sdf_hidden_forward(const float* __restrict__ P,
                const float v = pre_skip ? sp * kInvSqrt2 : sp;
                h[r * ld + c] = v;
                put(l + 1, r, c, v);
-             });
+             },
+             layer_hook(pre, l));
   }
 }
 
@@ -481,12 +509,13 @@ __device__ __forceinline__ float pe3_jac_t(const float* pb, const float* dirs, i
 // the PE part into e, and u_{l-1} = r_l * sig_{l-1}. `put_u(l, r, c, u)` sees
 // every u_l. With l_stop == 0 h ends holding ee = d(sdf)/d(PE) (d0 wide, the
 // skip's PE part added); with l_stop == 1 it ends at u_0, for a backward that
-// needs the u_l alone. Starts with a barrier.
-template <int KS, class G, class Sig, class PutU>
+// needs the u_l alone. `pre(l)` runs in the GEMM that reads u_l from h.
+// Starts with a barrier.
+template <int KS, class G, class Sig, class PutU, class Pre = NoHook>
 __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, const Offsets& off,
                                                const SdfGeom& g, float* h, float* e,
                                                float* w_s, int l_stop, Sig sig_at,
-                                               PutU put_u) {
+                                               PutU put_u, Pre pre = {}) {
   constexpr int ld = G::kLd;
   const int n_hidden = g.n_lin - 1;
   const int split = g.hidden - g.d0;
@@ -521,7 +550,7 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
       } else {
         h[r * ld + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
       }
-    });
+    }, layer_hook(pre, l));
   }
 }
 
@@ -532,13 +561,15 @@ __device__ __forceinline__ void sdf_grad_sweep(const float* __restrict__ P, cons
 // (written through `zb_at(l, r, c)`, u_l read through `u_at(l, r, c)`) and
 // p_{l+1} = q_l sig_l (/ sqrt(2) before the skip). `put_p(l, r, c, v)` sees
 // p_0 .. p_L+1, where p_{L+1} (L the last hidden layer) is the term of row 0
-// of the last layer's W (`wlast_col0_bar`). gb_s and xs must be visible to
+// of the last layer's W (`wlast_col0_bar`); `pre(l)` runs in the GEMM that
+// reads p_l (from e for l = 0, else from h). gb_s and xs must be visible to
 // every thread (a barrier before the call); h and e are overwritten.
-template <int KS, class G, class Sig, class GetU, class Zb, class PutP>
+template <int KS, class G, class Sig, class GetU, class Zb, class PutP, class Pre = NoHook>
 __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,
                                                  float* w_s, const float* gb_s, const float* xs,
-                                                 Sig sig_at, GetU u_at, Zb zb_at, PutP put_p) {
+                                                 Sig sig_at, GetU u_at, Zb zb_at, PutP put_p,
+                                                 Pre pre = {}) {
   constexpr int ld = G::kLd;
   const int n_hidden = g.n_lin - 1;
   const int split = g.hidden - g.d0;
@@ -568,7 +599,8 @@ __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, co
                if (pre_skip) v *= kInvSqrt2;
                h[r * ld + c] = v;
                put_p(l + 1, r, c, v);
-             });
+             },
+             layer_hook(pre, l));
   }
 }
 
@@ -580,13 +612,17 @@ __device__ __forceinline__ void sdf_channel_b_up(const float* __restrict__ P, co
 // the head's z_A as put_z(L + 1, ...)), channel A h = (h W_l^T) * sig_{l-1}
 // with the skip's PE part into e, channel B hb = (hb W_l^T) * sig_{l-1} +
 // zB_{l-1}, down to layer 1 (its x-dependence is severed). h ends holding
-// e_hat = d(out)/d(PE) along channel A. fb may be hb. Starts with a barrier.
-template <int KS, class G, class Sig, class Zb, class PutZ>
+// e_hat = d(out)/d(PE) along channel A. fb may be hb. `pre(l)` runs in the
+// GEMM that reads fb (l = L + 1; h still holds what the call found there)
+// and in each channel-A GEMM (l <= L; h and hb hold z_l's two channels).
+// Starts with a barrier.
+template <int KS, class G, class Sig, class Zb, class PutZ, class Pre = NoHook>
 __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, const Offsets& off,
                                                   const SdfGeom& g, int d_feat, float* h,
                                                   float* hb, float* e, float* w_s,
                                                   const float* sb, const float* fb, int ld_fb,
-                                                  Sig sig_at, Zb zb_at, PutZ put_z) {
+                                                  Sig sig_at, Zb zb_at, PutZ put_z,
+                                                  Pre pre = {}) {
   constexpr int ld = G::kLd;
   const int n_hidden = g.n_lin - 1;
   const int split = g.hidden - g.d0;
@@ -603,7 +639,8 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
                v = fmaf(sb[r], w0[c], v);
                h[r * ld + c] = v * sig_at(lh, r, c);
                hb[r * ld + c] = zb_at(lh, r, c);
-             });
+             },
+             layer_hook(pre, n_hidden));
   }
   for (int l = n_hidden - 1; l >= 0; --l) {
     const int K = sdf_out_dim(g, l);
@@ -626,7 +663,7 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
         h[r * ld + c] = v * sig_at(l - 1, r, c);
       else
         h[r * ld + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
-    });
+    }, layer_hook(pre, l));
     if (l == 0) break;  // channel B stops here: it never reaches x
     G::template run<KS>(hb, ld, K, G::wt(P, off, l), N, N, w_s, [&](int r, int c, float v) {
       if (at_skip) {
@@ -643,13 +680,14 @@ __device__ __forceinline__ void sdf_down_sweep_ab(const float* __restrict__ P, c
 // `_value_only_bwd`): h holds z_L, the last hidden layer's output cotangent.
 // Per hidden layer l from L down: `put_z(l, r, c, v)` sees z_l, then
 // h = (z_l W_l^T) * sig_{l-1}, split at the skip (h | e) / sqrt(2) with the
-// PE part into e. h ends holding e_hat = d(out)/d(PE) (d0 wide). Starts with
-// a barrier. Used by K3-bwd and K7-bwd (on WgGemm), K6-bwd and K1-bwd's
-// frozen-fields kernel.
-template <int KS, class G, class Sig, class PutZ>
+// PE part into e. h ends holding e_hat = d(out)/d(PE) (d0 wide); `pre(l)`
+// runs in the GEMM that reads z_l from h. Starts with a barrier. Used by
+// K3-bwd and K7-bwd (on WgGemm), K6-bwd and K1-bwd's frozen-fields kernel.
+template <int KS, class G, class Sig, class PutZ, class Pre = NoHook>
 __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, const Offsets& off,
                                                  const SdfGeom& g, float* h, float* e,
-                                                 float* w_s, Sig sig_at, PutZ put_z) {
+                                                 float* w_s, Sig sig_at, PutZ put_z,
+                                                 Pre pre = {}) {
   constexpr int ld = G::kLd;
   const int split = g.hidden - g.d0;
   for (int l = g.n_lin - 2; l >= 0; --l) {
@@ -673,7 +711,7 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
         h[r * ld + c] = v * sig_at(l - 1, r, c);
       else
         h[r * ld + c] = g.skip > 0 ? v + e[r * g.d0 + c] : v;
-    });
+    }, layer_hook(pre, l));
   }
 }
 
@@ -684,14 +722,16 @@ __device__ __forceinline__ void sdf_down_sweep_a(const float* __restrict__ P, co
 // visible to every thread (a barrier before the call). Hidden layers ReLU
 // into h, which may be cin (layer 0's epilogue runs after its last read of
 // cin); with kStaged, `put_ci(l, r, c, v)` sees every color layer's input
-// (layer 0's after a barrier). The head ends in `head(r, c, color)` for
-// c < 3, the sigmoid applied when cg.squeeze. The 3-wide head is a per-row
-// dot on the plain W (off.wc) with every policy.
-template <int KS, bool kStaged, class G, class PutCi, class Head>
+// (layer 0's after a barrier), and `pre(l)` runs in the GEMM that reads
+// layer l's input (cin for l = 0, else h). The head ends in `head(r, c,
+// color)` for c < 3, the sigmoid applied when cg.squeeze. The 3-wide head
+// is a per-row dot on the plain W (off.wc) with every policy.
+template <int KS, bool kStaged, class G, class PutCi, class Head, class Pre = NoHook>
 __device__ __forceinline__ void color_forward(const float* __restrict__ P, const Offsets& off,
                                               const ColorGeom& cg, float* cin, float* h,
                                               float* w_s, const float* xr, const float* dr,
-                                              const float* gs, PutCi put_ci, Head head) {
+                                              const float* gs, PutCi put_ci, Head head,
+                                              Pre pre = {}) {
   constexpr int ld = G::kLd;
   const int d_view = 3 * (1 + 2 * cg.multires);
   const int extra = cg.k0 - cg.d_feat;
@@ -720,7 +760,8 @@ __device__ __forceinline__ void color_forward(const float* __restrict__ P, const
                const float v = fmaxf(z + bc[c], 0.0f);
                h[r * ld + c] = v;
                put_ci(l + 1, r, c, v);
-             });
+             },
+             layer_hook(pre, l));
   }
   __syncthreads();
   const float* bl = P + off.bc[cg.n_lin - 1];
@@ -736,14 +777,16 @@ __device__ __forceinline__ void color_forward(const float* __restrict__ P, const
 // = cbar c (1 - c) (`cbar_at(r, j)`, 0 past the last row), which goes down
 // the ReLU layers: the layer-l cotangent of the input is masked by the sign
 // of color layer l's input (`in_at(l, r, c)`). `put_cz(l, r, c, v)` sees the
-// output cotangent of every color layer. h0_bar (k0 wide, the kernel's input
-// order) ends in cin after a GEMM epilogue. The head's product stays a
-// 3-term FFMA loop on the plain W^T (off.wct) with every policy.
-template <int KS, class G, class Cbar, class In, class PutCz>
+// output cotangent of every color layer, and `pre(l)` runs in the (first)
+// GEMM that reads layer l's from h (l < n_lin - 1). h0_bar (k0 wide, the
+// kernel's input order) ends in cin after a GEMM epilogue. The head's
+// product stays a 3-term FFMA loop on the plain W^T (off.wct) with every
+// policy.
+template <int KS, class G, class Cbar, class In, class PutCz, class Pre = NoHook>
 __device__ __forceinline__ void color_backward(const float* __restrict__ P, const Offsets& off,
                                                const ColorGeom& cg, float* cin, float* h,
                                                float* cs, float* w_s, Cbar cbar_at, In in_at,
-                                               PutCz put_cz) {
+                                               PutCz put_cz, Pre pre = {}) {
   constexpr int ld = G::kLd;
   for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
     const int r = i >> 2, j = i & 3;
@@ -775,12 +818,13 @@ __device__ __forceinline__ void color_backward(const float* __restrict__ P, cons
                v = in_at(l, r, c) > 0.0f ? v : 0.0f;
                h[r * ld + c] = v;
                put_cz(l - 1, r, c, v);
-             });
+             },
+             layer_hook(pre, l));
   }
   // h0_bar into cin, in passes of at most 256 columns.
   G::template run<KS>(h, ld, cg.hidden, G::wct(P, off, 0), cg.k0,
            cg.k0 < kSliceCols ? cg.k0 : kSliceCols, w_s,
-           [&](int r, int c, float v) { cin[r * cg.k0 + c] = v; });
+           [&](int r, int c, float v) { cin[r * cg.k0 + c] = v; }, layer_hook(pre, 0));
   if (cg.k0 > kSliceCols)
     G::template run<KS>(h, ld, cg.hidden, G::wct0_tail(P, off), cg.k0, cg.k0 - kSliceCols, w_s,
              [&](int r, int c, float v) { cin[r * cg.k0 + kSliceCols + c] = v; });

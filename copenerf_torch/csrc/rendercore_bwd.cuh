@@ -60,7 +60,22 @@
 // split-row GEMM (`wgrad_tc_launch`: 128 x 128 output tiles on `wgmma` in
 // 3xTF32, 32-row slices through two cp.async stages, the 1,024-row splits
 // summed in order); rows past n are never staged, so the ragged tail adds
-// nothing. The sweeps are mlp_tile.cuh's, shared with K4-bwd
+// nothing. Each staged matrix is the input of one of the tile's GEMMs (T_l,
+// u_l, p_l, the color layers' inputs and output cotangents) or is formed
+// from shared buffers (z_l = h + hb, the heads' rows), and leaves as whole
+// rows: all 256 threads copy it in float4s, a warp's store filling four
+// 128-byte lines (`stage_rows`), inside the GEMM that reads it, right after
+// its first barrier while its first weight slice is on its way (the `pre`
+// hooks of wg_gemm and of the sweeps); the rest (the last T, the color
+// head's input and zbar) after a barrier that is there anyway. Stored from
+// the GEMM epilogues instead, one 4-byte store a value with its own 64-bit
+// address and row check, in the accumulator's layout (8 half-used 32-byte
+// sectors a warp store, ~11,000 stores a row), the row kernel took 33.2 ms
+// against 28.3 at 131,072 rows on an H100 and spilled 124 / 1,280 bytes
+// against 16 / 16 (PERF.md §6). Bulk copies (cp.async.bulk, shared to global) were
+// not built: they need a proxy fence after every epilogue and a wait before
+// each GEMM's last barrier, and cannot form z_l = h + hb. The sweeps are
+// mlp_tile.cuh's, shared with K4-bwd
 // (sdf_outgrad_bwd.cu: all but the color parts) and K5-bwd (color_bwd.cu:
 // the color parts).
 //
@@ -73,7 +88,9 @@
 // zero feature columns), so the one reduction launch sums both row sets into
 // the same W/b bars: pair 0 of each SDF job spans 2n rows, every other pair
 // n (wgrad.cuh `rows`). ~2.75 MFLOP a row more (K3-bwd's) against 36 bytes,
-// and ~17 KB a row more of staged rows (~61 KB in all).
+// and ~17 KB a row more of staged rows (~61 KB in all), which leave in whole
+// rows as the x tile's do (the y tile's last T, which no GEMM reads, between
+// two barriers).
 //
 // K1-bwd for frozen fields (the `FrozenFields` overload of the kernel, K1
 // only; the test-time pose step, whose fields take no gradient): x_bar and
@@ -103,6 +120,25 @@ struct RcStages {
   StageSet cz;  // color layer output cotangents zbar_l
   StageSet rh;  // entry 0: p after the last hidden layer (row 0 of W_last)
 };
+
+// Rows [0, rows) of a tile's matrix to rows gr0 .. gr0 + rows - 1 of staged
+// matrix l, whole rows of s.ld[l] floats (a multiple of 4): `at(r, c)` gives
+// columns c .. c + 3 of row r from shared memory. Warp w copies rows w, w +
+// kWarps, ..., its lanes neighbouring float4s of a row, so a warp's store
+// fills four 128-byte lines.
+template <class At>
+__device__ __forceinline__ void stage_rows(const StageSet& s, int l, long long gr0, int rows,
+                                           At at) {
+  const int ld = s.ld[l];
+  float* dst = s.p[l] + gr0 * ld;
+  for (int r = threadIdx.x >> 5; r < rows; r += kWarps)
+    for (int c = 4 * (threadIdx.x & 31); c < ld; c += 128)
+      *reinterpret_cast<float4*>(dst + (long long)r * ld + c) = at(r, c);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 // The last parameter of K1-bwd's frozen-fields overload below. An overload,
 // not a template argument, so that the kernel's name on a device trace
@@ -149,9 +185,18 @@ __device__ __forceinline__ void rendercore_bwd_rows(
   const int o_g = o_d + 3 * (1 + 2 * cg.multires);
   auto sig_at = [&](int l, int r, int c) { return sig_s[l * layer_floats + r * 256 + c]; };
   auto zb_at = [&](int l, int r, int c) -> float& { return zb_s[l * layer_floats + r * 256 + c]; };
+  auto none = [](int, int, int, float) {};
+  // The staging hooks below are empty in the frozen kernel. They stay
+  // lambdas there: NoHook in their place changed its SASS (PERF.md §6).
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * kRows;
+    const int rows = (int)min((long long)kRows, n - row0);
+    // Staged matrix l of `s` from a shared buffer of row stride ld_src, to
+    // the rows from gr0 on (the weight gradients' rows of this tile).
+    auto stage = [&](const StageSet& s, int l, long long gr0, const float* src, int ld_src) {
+      stage_rows(s, l, gr0, rows, [&](int r, int c) { return ld4(src + r * ld_src + c); });
+    };
     __syncthreads();  // the previous tile's readers are done
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
@@ -162,30 +207,29 @@ __device__ __forceinline__ void rendercore_bwd_rows(
       if (j == 0) sb[r] = ok ? sbar[gr] / g.scale : 0.0f;
     }
     load_and_encode(x, n, row0, g, xs, e);
-    if constexpr (!kFrozen) {
-      for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {  // as e was written
-        const int r = i / g.d0;
-        stage_put(st.t, 0, row0 + r, n, i - r * g.d0, e[i]);
-      }
-    }
 
     // ---- SDF forward: inputs to the stage, sigmoids to the scratch ----
     sdf_hidden_forward<G::kSliceK, G>(
         P, off, g, e, h, w_s,
         [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
-        [&](int l, int r, int c, float v) {
-          if constexpr (!kFrozen) stage_put(st.t, l, row0 + r, n, c, v);
+        none, [&](int l) {
+          if constexpr (!kFrozen) stage(st.t, l, row0, l == 0 ? e : h, l == 0 ? g.d0 : kTcLd);
         });
     {
       const float* bf = P + off.b_feat;
-      G::run<G::kSliceK>(h, kTcLd, g.hidden, G::wf(P, off), cg.d_feat, cg.d_feat, w_s,
-                         [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; });
+      G::run<G::kSliceK>(
+          h, kTcLd, g.hidden, G::wf(P, off), cg.d_feat, cg.d_feat, w_s,
+          [&](int r, int c, float z) { cin[r * cg.k0 + c] = z + bf[c]; },
+          [&] {
+            if constexpr (!kFrozen) stage(st.t, n_hidden, row0, h, kTcLd);
+          });
     }
 
     // ---- input-gradient sweep: u_l = r_{l+1} * sig_l, staged ----
-    sdf_grad_sweep<G::kSliceK, G>(P, off, g, h, e, w_s, 0, sig_at, [&](int l, int r, int c, float u) {
-      if constexpr (!kFrozen) stage_put(st.u, l, row0 + r, n, c, u);
-    });
+    sdf_grad_sweep<G::kSliceK, G>(P, off, g, h, e, w_s, 0, sig_at, none,
+                                  [&](int l) {
+                                    if constexpr (!kFrozen) stage(st.u, l, row0, h, kTcLd);
+                                  });
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
@@ -194,16 +238,18 @@ __device__ __forceinline__ void rendercore_bwd_rows(
     __syncthreads();
 
     // ---- color forward on [feature, x, PE(dirs), grad, 0], inputs staged ----
-    color_forward<G::kSliceK, !kFrozen, G>(
+    color_forward<G::kSliceK, false, G>(
         P, off, cg, cin, h, w_s, xr, dr, gs,
         [&](int l, int r, int c, float v) {
           if constexpr (kFrozen) {
             if (l < cg.n_lin - 1) zb_at(l - 1, r, c) = v;
-          } else {
-            stage_put(st.ci, l, row0 + r, n, c, v);
           }
         },
-        [&](int r, int c, float v) { cs[r * 4 + c] = v; });
+        [&](int r, int c, float v) { cs[r * 4 + c] = v; },
+        [&](int l) {
+          if constexpr (!kFrozen) stage(st.ci, l, row0, l == 0 ? cin : h, l == 0 ? cg.k0 : kTcLd);
+        });
+    if constexpr (!kFrozen) stage(st.ci, cg.n_lin - 1, row0, h, kTcLd);  // the head's input
     __syncthreads();
 
     // ---- color backward: h0_bar into cin ----
@@ -219,9 +265,10 @@ __device__ __forceinline__ void rendercore_bwd_rows(
           else
             return stage_get(st.ci, l, row0 + r, n, c);
         },
-        [&](int l, int r, int c, float v) {
-          if constexpr (!kFrozen) stage_put(st.cz, l, row0 + r, n, c, v);
+        none, [&](int l) {
+          if constexpr (!kFrozen) stage(st.cz, l, row0, h, kTcLd);
         });
+    if constexpr (!kFrozen) stage(st.cz, cg.n_lin - 1, row0, cs, 4);  // the head's zbar, 0 at 3
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
@@ -251,17 +298,30 @@ __device__ __forceinline__ void rendercore_bwd_rows(
       sdf_channel_b_up<G::kSliceK, G>(
           P, off, g, h, e, w_s, gs, xs, sig_at,
           [&](int l, int r, int c) { return stage_get(st.u, l, row0 + r, n, c); }, zb_at,
-          [&](int l, int r, int c, float v) {
-            if (l == n_hidden)
-              stage_put(st.rh, 0, row0 + r, n, c, v);
-            else
-              stage_put(st.p, l, row0 + r, n, c, v);
-          });
+          none, [&](int l) { stage(st.p, l, row0, l == 0 ? e : h, l == 0 ? g.d0 : kTcLd); });
 
       // ---- z_A = [sbar / scale, feat_bar], z_B = 0, down channels A and B ----
       sdf_down_sweep_ab<G::kSliceK, G>(
-          P, off, g, cg.d_feat, h, hb, e, w_s, sb, cin, cg.k0, sig_at, zb_at,
-          [&](int l, int r, int c, float v) { stage_put(st.z, l, row0 + r, n, c, v); });
+          P, off, g, cg.d_feat, h, hb, e, w_s, sb, cin, cg.k0, sig_at, zb_at, none,
+          [&](int l) {
+            if (l == n_hidden) {
+              // the head's z [sbar / scale, feat_bar, 0 pad], and the up-sweep's
+              // last p, still in h
+              const int d_head = 1 + cg.d_feat;
+              stage_rows(st.z, l, row0, rows, [&](int r, int c) {
+                float v[4];
+                for (int j = 0; j < 4; ++j)
+                  v[j] = c + j == 0 ? sb[r] : c + j < d_head ? cin[r * cg.k0 + c + j - 1] : 0.0f;
+                return make_float4(v[0], v[1], v[2], v[3]);
+              });
+              stage(st.rh, 0, row0, h, kTcLd);
+            } else {
+              stage_rows(st.z, l, row0, rows, [&](int r, int c) {
+                const float4 a = ld4(h + r * kTcLd + c), b = ld4(hb + r * kTcLd + c);
+                return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+              });
+            }
+          });
     }
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
@@ -273,38 +333,32 @@ __device__ __forceinline__ void rendercore_bwd_rows(
 
     if constexpr (kCons) {
       // ---- the consistency query's backward at y (K3-bwd), staged at n + gr ----
-      const long long n2 = 2 * n;
       __syncthreads();  // the x tile's readers of h and xs are done
       for (int i = threadIdx.x; i < kRows; i += kThreads)
         sb[i] = row0 + i < n ? swbar[row0 + i] / g.scale : 0.0f;
       load_and_encode(y, n, row0, g, xs, e);
-      for (int i = threadIdx.x; i < kRows * g.d0; i += kThreads) {  // as e was written
-        const int r = i / g.d0;
-        stage_put(st.t, 0, n + row0 + r, n2, i - r * g.d0, e[i]);
-      }
       sdf_hidden_forward<G::kSliceK, G>(
           P, off, g, e, h, w_s,
           [&](int l, int r, int c, float sig) { sig_s[l * layer_floats + r * 256 + c] = sig; },
-          [&](int l, int r, int c, float v) { stage_put(st.t, l, n + row0 + r, n2, c, v); });
+          none, [&](int l) { stage(st.t, l, n + row0, l == 0 ? e : h, l == 0 ? g.d0 : kTcLd); });
       __syncthreads();
+      stage(st.t, n_hidden, n + row0, h, kTcLd);
       {
         // z_head = [swbar / scale, 0 ...]: the feature columns of the last
         // layer's z rows are zero, so its reduction adds column 0 alone.
         const float* w0 = P + off.w_last0;
         const int lh = n_hidden - 1;
-        const int d_head = 1 + cg.d_feat;
-        for (int i = threadIdx.x; i < kRows * d_head; i += kThreads) {
-          const int r = i / d_head, c = i - r * d_head;
-          stage_put(st.z, n_hidden, n + row0 + r, n2, c, c == 0 ? sb[r] : 0.0f);
-        }
+        stage_rows(st.z, n_hidden, n + row0, rows, [&](int r, int c) {
+          return make_float4(c == 0 ? sb[r] : 0.0f, 0.0f, 0.0f, 0.0f);
+        });
+        __syncthreads();  // the copies' reads of h are done
         for (int i = threadIdx.x; i < kRows * g.hidden; i += kThreads) {
           const int r = i / g.hidden, c = i - r * g.hidden;
           h[r * kTcLd + c] = sb[r] * w0[c] * sig_at(lh, r, c);
         }
       }
-      sdf_down_sweep_a<G::kSliceK, G>(P, off, g, h, e, w_s, sig_at, [&](int l, int r, int c, float v) {
-        stage_put(st.z, l, n + row0 + r, n2, c, v);
-      });
+      sdf_down_sweep_a<G::kSliceK, G>(P, off, g, h, e, w_s, sig_at, none,
+                                      [&](int l) { stage(st.z, l, n + row0, h, kTcLd); });
       __syncthreads();
       for (int i = threadIdx.x; i < kRows * 4; i += kThreads) {
         const int r = i >> 2, j = i & 3;

@@ -243,11 +243,14 @@ __device__ __forceinline__ void wg_slice(float (&acc)[64], float (&d)[64],
 // with B as packed by `wg_pack_b` at Bp: the contract of `gemm<KS>`
 // (mlp_tile.cuh): a __syncthreads() precedes the first load of `in`, and
 // the epilogue runs after the last barrier, so `out` may be `in`. w_s holds
-// wg_ws_floats(kStages) floats.
-template <TcVariant V, int kStages, class Epi>
+// wg_ws_floats(kStages) floats. Every thread calls `pre()` right after that
+// first barrier, while the first slice is on its way: what was written to
+// shared memory before the call is visible there, and nothing is
+// overwritten before the epilogue.
+template <TcVariant V, int kStages, class Epi, class Pre = NoHook>
 __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
                                         const float* __restrict__ Bp, int N,
-                                        float* __restrict__ w_s, Epi epi) {
+                                        float* __restrict__ w_s, Epi epi, Pre pre = {}) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, q = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
@@ -274,6 +277,7 @@ __device__ __forceinline__ void wg_gemm(const float* in, int ld_in, int K,
                &full[s]);
     }
   }
+  pre();
   float acc[64], d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.0f;
@@ -361,12 +365,12 @@ struct WgGemmRing {
   __device__ static __forceinline__ const float* wct0_tail(const float* P, const Offsets& off) {
     return P + off.wct0tp;
   }
-  template <int KS, class Epi>
+  template <int KS, class Epi, class Pre = NoHook>
   __device__ static __forceinline__ void run(const float* in, int ld_in, int K,
                                              const float* __restrict__ Bp, int, int N,
-                                             float* __restrict__ w_s, Epi epi) {
+                                             float* __restrict__ w_s, Epi epi, Pre pre = {}) {
     static_assert(KS == kWgSliceK, "WgGemm streams kWgSliceK-deep slices");
-    wg_gemm<kTcVariant, kStages>(in, ld_in, K, Bp, N, w_s, epi);
+    wg_gemm<kTcVariant, kStages>(in, ld_in, K, Bp, N, w_s, epi, pre);
   }
 };
 

@@ -55,7 +55,16 @@ WIDTHS = {
              TF.ColorConfig(d_feature=160, d_hidden=160, n_layers=3,
                             multires_view=2)),
 }
+# The whole-pipeline head-to-head's nets (``e2e_port.TINY``); apart from
+# WIDTHS, so the tests parametrized over WIDTHS keep their cases.
+E2E_WIDTHS = (TF.SDFConfig(d_out=33, d_hidden=64, n_layers=4, skip_in=(2,), bias=1.5),
+              TF.ColorConfig(d_feature=32, d_hidden=32, n_layers=2))
 KINK_MARGIN = 2e-5
+# The backward checks' (rows, width): every width at 1, 1,000 and 4,096 rows,
+# and K1-bwd's and K6-bwd's ragged last tile at the main path's 131,071 rows
+# and at the head-to-head's nets.
+BWD_CASES = ([(n, w) for w in sorted(WIDTHS) for n in (1, 1000, 4096)]
+             + [(131071, "full"), (1000, "e2e"), (131071, "e2e")])
 
 
 def _require_cuda():
@@ -64,7 +73,7 @@ def _require_cuda():
 
 
 def _nets(width, device):
-    scfg, ccfg = WIDTHS[width]
+    scfg, ccfg = E2E_WIDTHS if width == "e2e" else WIDTHS[width]
     nets = (TF.SDFNetwork(scfg, torch.Generator().manual_seed(0)),
             TF.ColorNetwork(ccfg, torch.Generator().manual_seed(1)))
     g = torch.Generator().manual_seed(2)
@@ -140,8 +149,7 @@ def _grads(fn, inputs, params, cots):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", sorted(WIDTHS))
-@pytest.mark.parametrize("n", [1, 1000, 4096])
+@pytest.mark.parametrize("n, width", BWD_CASES)
 def test_backward_kernels_match_plain_on_card(width, n):
     """K1-bwd and K3-bwd (through their autograd.Functions) against
     autograd of the plain versions on the same card: x_bar, dirs_bar and
@@ -449,6 +457,57 @@ def test_pose_steps_frozen_kernel_match_the_full_kernel_on_card(monkeypatch):
     assert r_frozen[1].abs().max() > 0 and torch.all(r_frozen[0] == 0)
 
 
+class _FilledEmpty:
+    """``torch`` as a kernel wrapper sees it, every ``empty`` filled with
+    ``value``."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *args, **kwargs):
+        return torch.empty(*args, **kwargs).fill_(self.value)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K1", "K6"])
+def test_full_bwd_reads_nothing_it_did_not_write_on_card(kernel, monkeypatch):
+    """Full K1-bwd and K6-bwd on 1,000 rows (a ragged last tile) with every
+    buffer their launcher makes by ``torch.empty`` (the staged rows, the
+    reduction's partial sums, the scratch, the outputs) filled with NaN,
+    then with zeros: every output finite and the two launches bitwise
+    alike, so no staged row past n, and no staged value left unwritten, is
+    read."""
+    from copenerf_torch.ops.kernels import pack
+
+    _require_cuda()
+    n = 1000
+    sdf_net, color_net = _nets("full", "cuda")
+    x, d = _rows(n, seed=n + 23)
+    y, _ = _rows(n, seed=n + 29)
+    g = torch.Generator(device="cuda").manual_seed(n + 3)
+    cots = [torch.randn(s, generator=g, device="cuda") for s in ((n, 1), (n, 4), (n, 3), (n,))]
+    if kernel == "K1":
+        module, launch, inputs, cots = RC, RC.rendercore_bwd_cuda, (x, d), cots[:3]
+    else:
+        module, launch, inputs = RCC, RCC.rendercore_cons_bwd_cuda, (x, d, y)
+    with torch.no_grad():
+        packed = pack.pack_rendercore(sdf_net, color_net)
+    outs = []
+    for value in (float("nan"), 0.0):
+        monkeypatch.setattr(module, "torch", _FilledEmpty(value))
+        out = launch(sdf_net.cfg, color_net.cfg, packed, *inputs, *cots)
+        torch.cuda.synchronize()
+        outs.append([t for t in out if torch.is_tensor(t)]
+                    + [t for group in out if not torch.is_tensor(group)
+                       for layer in group for t in layer])
+    assert len(outs[0]) >= 2 + 2 * (9 + 5)
+    for a, b in zip(*outs):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dev", DEVICES)
 @pytest.mark.parametrize("width", ["small", "full"])
 def test_color_index_gathers_match_list_indexing(dev, width):
@@ -747,8 +806,7 @@ def _fwd_close(got, ref, names):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", sorted(WIDTHS))
-@pytest.mark.parametrize("n", [1, 1000, 4096])
+@pytest.mark.parametrize("n, width", BWD_CASES)
 def test_fold_kernels_match_plain_on_card(width, n):
     """K6-fwd against ``rendercore_cons_plain`` (K1's and K3's plain
     versions), and K6-bwd (through ``RenderCoreCons``) against autograd of

@@ -6,6 +6,11 @@ shared library with a plain C interface, loaded with ``ctypes``. Nothing
 happens at import: the first call of ``load_library()`` builds into
 ``copenerf_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads.
+
+Beside the build, the host side every kernel wrapper shares: the library's
+entries and their argument types (``ENTRIES``), the call (``call``), the
+buffers of a launch (``outputs``, ``bwd_buffers``), the input checks, and
+the autograd plumbing (``cotangents``, ``weight_args``).
 """
 
 from __future__ import annotations
@@ -159,74 +164,79 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
+# The render-core entries after their row tensors and the parameter
+# buffer: the pack's offsets, then the geometry.
+_RC_GEOM = [_L] + [_I] * 5 + [_F] + [_I] * 7 + [_P]
+_RC_FWD = [_P] * 3 + [_L] * 4 + [_P] * 2 + [_L] + [_P] + _RC_GEOM
+_RC_BWD_OFFS = [_P] * 3 + [_L] * 5 + [_P] * 2 + [_L] + [_P] + [_L] * 2
+_RC_BWD = _RC_BWD_OFFS + [_P] * 3 + [_L] + [_P] * 5 + _RC_GEOM
+_RC_WORKSPACE = [_L] + [_I] * 11 + [_P]
+
+# Every entry of the library (``copenerf_<name>``) and its argument types;
+# each returns a CUDA error code, 0 for success.
+ENTRIES = {
+    "sdf_value": [_P] * 5 + [_L] * 3 + [_I] * 5 + [_F, _P],
+    "rendercore_fwd": [_P] * 6 + _RC_FWD,
+    "sdf_value_bwd_workspace": [_L] + [_I] * 6 + [_P],
+    "sdf_value_bwd": [_P] * 7 + [_L] * 2 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _P],
+    "rendercore_bwd_workspace": _RC_WORKSPACE,
+    "rendercore_bwd_frozen_workspace": [_I] * 3 + [_P],
+    "rendercore_bwd": [_P] * 8 + _RC_BWD,
+    "rendercore_bwd_frozen": [_P] * 7 + _RC_BWD_OFFS + [_P] + _RC_GEOM,
+    "sdf_outgrad_fwd": [_P] * 7 + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P],
+    "sdf_outgrad_bwd_workspace": [_L] + [_I] * 7 + [_P],
+    "sdf_outgrad_bwd": ([_P] * 8 + [_L] * 3 + [_P] * 3 + [_L] + [_P] * 3 + [_L]
+                        + [_I] * 5 + [_F, _I, _I, _P]),
+    "color_fwd": [_P] * 4 + [_L] + [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P],
+    "color_bwd_workspace": [_L] + [_I] * 5 + [_P],
+    "color_bwd": ([_P] * 4 + [_L] + [_P] * 9 + [_L] * 3 + [_P] * 5 + [_L]
+                  + [_I] * 6 + [_P]),
+    "rendercore_cons_fwd": [_P] * 8 + _RC_FWD,
+    "rendercore_cons_bwd_workspace": _RC_WORKSPACE,
+    "rendercore_cons_bwd": [_P] * 11 + _RC_BWD,
+    "sdf_out_fwd": [_P] * 5 + [_L] * 5 + [_I] * 5 + [_F, _I, _I, _P],
+    "sdf_out_bwd_workspace": [_L] + [_I] * 7 + [_P],
+    "sdf_out_bwd": [_P] * 7 + [_L] * 3 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _I, _P],
+    "tile_gemm_check": [_P] * 3 + [_L] + [_I] * 4 + [_P] * 2,
+    "wgrad_check": [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _L] + [_I] * 5 + [_P],
+}
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
-    lib.copenerf_sdf_value.argtypes = [_P] * 5 + [_L] * 3 + [_I] * 5 + [_F, _P]
-    # The render-core entries after their row tensors and the parameter
-    # buffer: the pack's offsets, then the geometry.
-    rc_geom = [_L] + [_I] * 5 + [_F] + [_I] * 7 + [_P]
-    rc_fwd = [_P] * 3 + [_L] * 4 + [_P] * 2 + [_L] + [_P] + rc_geom
-    lib.copenerf_rendercore_fwd.argtypes = [_P] * 6 + rc_fwd
-    lib.copenerf_sdf_value_bwd_workspace.argtypes = [
-        _L, _I, _I, _I, _I, _I, _I, _P]
-    lib.copenerf_sdf_value_bwd.argtypes = (
-        [_P] * 7 + [_L] * 2 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _P])
-    lib.copenerf_rendercore_bwd_workspace.argtypes = [
-        _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-    lib.copenerf_rendercore_bwd_frozen_workspace.argtypes = [_I, _I, _I, _P]
-    rc_bwd_offs = [_P] * 3 + [_L] * 5 + [_P] * 2 + [_L] + [_P] + [_L] * 2
-    rc_bwd = rc_bwd_offs + [_P] * 3 + [_L] + [_P] * 5 + rc_geom
-    lib.copenerf_rendercore_bwd.argtypes = [_P] * 8 + rc_bwd
-    lib.copenerf_rendercore_bwd_frozen.argtypes = (
-        [_P] * 7 + rc_bwd_offs + [_P] + rc_geom)
-    lib.copenerf_sdf_outgrad_fwd.argtypes = (
-        [_P] * 7 + [_L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P])
-    lib.copenerf_sdf_outgrad_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
-    lib.copenerf_sdf_outgrad_bwd.argtypes = (
-        [_P] * 8 + [_L] * 3 + [_P] * 3 + [_L] + [_P] * 3 + [_L] + [_I] * 5
-        + [_F, _I, _I, _P])
-    lib.copenerf_color_fwd.argtypes = (
-        [_P] * 4 + [_L] + [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P])
-    lib.copenerf_color_bwd_workspace.argtypes = [_L] + [_I] * 5 + [_P]
-    lib.copenerf_color_bwd.argtypes = (
-        [_P] * 4 + [_L] + [_P] * 9 + [_L] * 3 + [_P] * 5 + [_L] + [_I] * 6 + [_P])
-    lib.copenerf_rendercore_cons_fwd.argtypes = [_P] * 8 + rc_fwd
-    lib.copenerf_rendercore_cons_bwd_workspace.argtypes = (
-        lib.copenerf_rendercore_bwd_workspace.argtypes)
-    lib.copenerf_rendercore_cons_bwd.argtypes = [_P] * 11 + rc_bwd
-    lib.copenerf_sdf_out_fwd.argtypes = (
-        [_P] * 5 + [_L] * 5 + [_I] * 5 + [_F, _I, _I, _P])
-    lib.copenerf_sdf_out_bwd_workspace.argtypes = [_L] + [_I] * 7 + [_P]
-    lib.copenerf_sdf_out_bwd.argtypes = (
-        [_P] * 7 + [_L] * 3 + [_P] * 6 + [_L] + [_I] * 5 + [_F, _I, _I, _P])
-    lib.copenerf_tile_gemm_check.argtypes = [_P] * 3 + [_L] + [_I] * 4 + [_P] * 2
-    lib.copenerf_wgrad_check.argtypes = (
-        [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _L] + [_I] * 5 + [_P])
-    for fn in (lib.copenerf_sdf_value, lib.copenerf_rendercore_fwd,
-               lib.copenerf_sdf_value_bwd_workspace, lib.copenerf_sdf_value_bwd,
-               lib.copenerf_rendercore_bwd_workspace,
-               lib.copenerf_rendercore_bwd_frozen_workspace,
-               lib.copenerf_rendercore_bwd, lib.copenerf_rendercore_bwd_frozen,
-               lib.copenerf_sdf_outgrad_fwd,
-               lib.copenerf_sdf_outgrad_bwd_workspace,
-               lib.copenerf_sdf_outgrad_bwd, lib.copenerf_color_fwd,
-               lib.copenerf_color_bwd_workspace, lib.copenerf_color_bwd,
-               lib.copenerf_rendercore_cons_fwd,
-               lib.copenerf_rendercore_cons_bwd_workspace,
-               lib.copenerf_rendercore_cons_bwd, lib.copenerf_sdf_out_fwd,
-               lib.copenerf_sdf_out_bwd_workspace, lib.copenerf_sdf_out_bwd,
-               lib.copenerf_tile_gemm_check, lib.copenerf_wgrad_check):
-        fn.restype = _I
+    for name, argtypes in ENTRIES.items():
+        fn = getattr(lib, "copenerf_" + name)
+        fn.argtypes, fn.restype = argtypes, _I
     return lib
 
 
-def workspace(fn, *args) -> list:
-    """The three float counts a backward's ``*_workspace`` entry reports:
-    staged rows, partial sums, per-block scratch."""
-    out = (_L * 3)()
-    check(fn(*args, out), fn.__name__)
-    return list(out)
+def call(entry: str, *args) -> None:
+    """Call the library's ``copenerf_<entry>`` on ``args``; raise if it
+    reports a CUDA error."""
+    check(getattr(load_library(), "copenerf_" + entry)(*args), entry)
+
+
+def bwd_buffers(entry: str, args, gsize, device):
+    """(stage, partial sums, scratch, weight gradients) of one backward
+    launch, f32 on ``device``: the first three uninitialized, sized by the
+    library's ``copenerf_<entry>_workspace`` on ``args``; the gradients
+    ``gsize`` zeros, which the kernel adds into. With ``gsize`` None (a
+    backward without weight gradients) the scratch alone."""
+    sizes = (_L * 3)()
+    call(entry + "_workspace", *args, sizes)
+    f32 = dict(dtype=torch.float32, device=device)
+    if gsize is None:
+        return torch.empty(sizes[2], **f32)
+    return (*(torch.empty(s, **f32) for s in sizes), torch.zeros(gsize, **f32))
+
+
+def outputs(x, *widths) -> list:
+    """Uninitialized f32 outputs for the rows of ``x`` on its device:
+    (n, w) for each width w, (n,) for None."""
+    n = x.shape[0]
+    return [torch.empty((n,) if w is None else (n, w), dtype=torch.float32,
+                        device=x.device) for w in widths]
 
 
 def stream(t) -> int:
@@ -291,3 +301,37 @@ def check_no_grad(tensors, what: str) -> None:
             f"{what}: a CUDA input or weight requires grad while grad "
             "mode is on; this launcher is forward-only (run under "
             "torch.no_grad(), or call the differentiable entry point)")
+
+
+def check_rows(x, *tensors) -> None:
+    """Each (tensor, name, width) as ``check_input`` wants it, with the rows
+    of x."""
+    for t, name, w in tensors:
+        check_input(t, name, w)
+        if t.shape[0] != x.shape[0]:
+            raise ValueError(f"{name}: {t.shape[0]} rows, x has {x.shape[0]}")
+
+
+def check_pack(params, x) -> None:
+    """A pack's weights must lie on the device of the rows they meet."""
+    if params.device != x.device:
+        raise ValueError(f"weights on {params.device}, x on {x.device}")
+
+
+def cotangents(x, cots, widths) -> list:
+    """Each cotangent contiguous for a backward launch; one that arrives as
+    None (an output autograd did not reach) as zeros of x's rows, (n, w)
+    for width w, (n,) for None."""
+    n = x.shape[0]
+    return [torch.zeros((n,) if w is None else (n, w), dtype=x.dtype, device=x.device)
+            if c is None else c.contiguous() for c, w in zip(cots, widths)]
+
+
+def weight_args(*nets_layers) -> tuple:
+    """[(W, b)] per layer of each net -> every W, then every b, of the first
+    net, then of the next: an autograd.Function's weight inputs, and their
+    gradients' place in what its backward returns."""
+    out = []
+    for layers in nets_layers:
+        out += [w for w, _ in layers] + [b for _, b in layers]
+    return tuple(out)

@@ -23,9 +23,8 @@ from torch.autograd.function import once_differentiable
 
 from ...models.embedder import positional_encoding
 from . import build
-from .pack import (check_color_mlp_geometry, color_geometry, color_grad_layout,
-                   effective_layers, pack_color, pack_color_layers,
-                   unpack_color_grads)
+from .pack import (apply_with_cached_pack, check_color_mlp_geometry, color_geometry,
+                   color_grad_layout, pack_color, unpack_color_grads)
 
 FWD_COUNTER = build.KernelCounter("color_fwd")
 BWD_COUNTER = build.KernelCounter("color_bwd")
@@ -81,17 +80,13 @@ def launch_color_fwd(ccfg, packed, x, dirs, grad, feat) -> torch.Tensor:
     """K5-fwd with a color pack -> color (n, 3)."""
     _check_rows(ccfg, x, dirs, grad, feat)
     params, offs = packed
-    if params.device != x.device:
-        raise ValueError(f"weights on {params.device}, x on {x.device}")
-    n = x.shape[0]
+    build.check_pack(params, x)
     with FWD_COUNTER.launch():
-        color = torch.empty((n, 3), dtype=torch.float32, device=x.device)
-        code = build.load_library().copenerf_color_fwd(
-            x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
-            feat.stride(0), color.data_ptr(), params.data_ptr(),
-            build.offsets(offs["wcp"]), build.offsets(offs["bc"]), offs["wc_last"], n,
-            *color_geometry(ccfg), int(ccfg.squeeze_out), build.stream(x))
-        build.check(code, "color_fwd")
+        color, = build.outputs(x, 3)
+        build.call("color_fwd", x.data_ptr(), dirs.data_ptr(), grad.data_ptr(),
+                   feat.data_ptr(), feat.stride(0), color.data_ptr(), params.data_ptr(),
+                   *offs.c("wcp", "bc", "wc_last"), x.shape[0], *color_geometry(ccfg),
+                   int(ccfg.squeeze_out), build.stream(x))
     return color
 
 
@@ -107,48 +102,33 @@ def color_bwd_cuda(ccfg, packed, x, dirs, grad, feat, cbar):
     (n, 3), grad_bar (n, 4), feat_bar (n, d_feature), [(W_bar (out, in),
     b_bar)] per color layer)."""
     _check_rows(ccfg, x, dirs, grad, feat)
-    build.check_input(cbar, "cbar", 3)
-    if cbar.shape[0] != x.shape[0]:
-        raise ValueError(f"cbar: {cbar.shape[0]} rows, x has {x.shape[0]}")
+    build.check_rows(x, (cbar, "cbar", 3))
     params, offs = packed
     goffs, gsize = color_grad_layout(ccfg)
-    n, dev = x.shape[0], x.device
-    geom = color_geometry(ccfg)
+    n, geom = x.shape[0], color_geometry(ccfg)
     with BWD_COUNTER.launch():
-        lib = build.load_library()
-        n_stage, n_part, _ = build.workspace(lib.copenerf_color_bwd_workspace, n,
-                                             *geom)
-        f32 = dict(dtype=torch.float32, device=dev)
-        stage = torch.empty(n_stage, **f32)
-        partial = torch.empty(n_part, **f32)
-        grads = torch.zeros(gsize, **f32)
-        x_bar = torch.empty((n, 4), **f32)
-        d_bar = torch.empty((n, 3), **f32)
-        g_bar = torch.empty((n, 4), **f32)
-        f_bar = torch.empty((n, ccfg.d_feature), **f32)
-        O = build.offsets
-        code = lib.copenerf_color_bwd(
-            x.data_ptr(), dirs.data_ptr(), grad.data_ptr(), feat.data_ptr(),
-            feat.stride(0), cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(),
-            g_bar.data_ptr(), f_bar.data_ptr(), params.data_ptr(), O(offs["wcp"]),
-            O(offs["wctp"]), O(offs["bc"]), offs.get("wct0tp", 0), offs["wc_last"],
-            offs["wct_last"], grads.data_ptr(), O(goffs["gwc"]), O(goffs["gbc"]),
-            stage.data_ptr(), partial.data_ptr(), n, *geom, int(ccfg.squeeze_out),
-            build.stream(x))
-        build.check(code, "color_bwd")
+        stage, partial, _, grads = build.bwd_buffers("color_bwd", (n, *geom), gsize,
+                                                     x.device)
+        x_bar, d_bar, g_bar, f_bar = build.outputs(x, 4, 3, 4, ccfg.d_feature)
+        build.call("color_bwd", x.data_ptr(), dirs.data_ptr(), grad.data_ptr(),
+                   feat.data_ptr(), feat.stride(0), cbar.data_ptr(), x_bar.data_ptr(),
+                   d_bar.data_ptr(), g_bar.data_ptr(), f_bar.data_ptr(),
+                   params.data_ptr(),
+                   *offs.c("wcp", "wctp", "bc", "wct0tp", "wc_last", "wct_last"),
+                   grads.data_ptr(), *goffs.c("gwc", "gbc"), stage.data_ptr(),
+                   partial.data_ptr(), n, *geom, int(ccfg.squeeze_out), build.stream(x))
         bars = unpack_color_grads(grads, goffs, ccfg)
     return x_bar, d_bar, g_bar, f_bar, bars
 
 
 class ColorMLP(torch.autograd.Function):
     """color (n, 3) of x (n, 4), dirs (n, 3), grad (n, 4), feat
-    (n, d_feature); inputs after feat: the effective W (out, in) of every
-    color layer, then every b."""
+    (n, d_feature); ``packed`` is the color pack (``pack.pack_color``) of
+    the inputs after feat: the effective W (out, in) of every color layer,
+    then every b, which carry the gradients."""
 
     @staticmethod
-    def forward(ctx, ccfg, x, dirs, grad, feat, *wb):
-        n_lin = len(wb) // 2
-        packed = pack_color_layers(list(zip(wb[:n_lin], wb[n_lin:])), ccfg)
+    def forward(ctx, ccfg, packed, x, dirs, grad, feat, *wb):
         ctx.ccfg, ctx.packed = ccfg, packed
         ctx.save_for_backward(x, dirs, grad, feat)
         return launch_color_fwd(ccfg, packed, x, dirs, grad, feat)
@@ -156,10 +136,11 @@ class ColorMLP(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, cbar):
+        x = ctx.saved_tensors[0]
+        cbar, = build.cotangents(x, (cbar,), (3,))
         x_bar, d_bar, g_bar, f_bar, bars = color_bwd_cuda(
-            ctx.ccfg, ctx.packed, *ctx.saved_tensors, cbar.contiguous())
-        return (None, x_bar, d_bar, g_bar, f_bar, *[w for w, _ in bars],
-                *[b for _, b in bars])
+            ctx.ccfg, ctx.packed, *ctx.saved_tensors, cbar)
+        return (None, None, x_bar, d_bar, g_bar, f_bar, *build.weight_args(bars))
 
 
 def _rows(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -178,9 +159,8 @@ def color_mlp(net, x, dirs, grad, feat) -> torch.Tensor:
     lead = x.shape[:-1]
     rows = (x.reshape(-1, 4).contiguous(), dirs.reshape(-1, 3).contiguous(),
             grad.reshape(-1, 4).contiguous(), _rows(feat, ccfg.d_feature))
-    if build.needs_grad([x, dirs, grad, feat, *net.parameters()]):
-        ws, bs = zip(*effective_layers(net))
-        color = ColorMLP.apply(ccfg, *rows, *ws, *bs)
+    if build.needs_grad([*rows, *net.parameters()]):
+        color = apply_with_cached_pack(ColorMLP, (net,), pack_color, *rows)
     else:
         color = color_fwd_cuda(net, *rows)
     return color.reshape(lead + (3,))

@@ -532,8 +532,7 @@ def check(width: str = "small", negative_ray: bool = False,
 
     def eff(net):
         """Every effective W of ``net``, then every b: a Function's inputs."""
-        ws, bs = zip(*pack.effective_layers(net))
-        return (*ws, *bs)
+        return build.weight_args(pack.effective_layers(net))
 
     with torch.no_grad():
         fwd("K2", SV.launch_value(scfg, pack.pack_sdf_value(sdf), x, SV.COUNTER),
@@ -561,18 +560,21 @@ def check(width: str = "small", negative_ray: bool = False,
         ``frozen``: K1 on weights that need no gradient."""
         if not negative_ray:
             wb = [t.detach() if frozen else t for t in (*eff(sdf), *eff(col))]
-            return RC.RenderCore.apply(scfg, ccfg, xx, dd, *wb)
-        o, gr = OG.SdfOutGrad.apply(scfg, xx, *eff(sdf))
-        return (o[:, :1], gr,
-                CK.ColorMLP.apply(ccfg, xx, -dd, -gr, o[:, 1:], *eff(col)))
+            return RC.RenderCore.apply(scfg, ccfg, pack.pack_rendercore(sdf, col), xx,
+                                       dd, *wb)
+        o, gr = OG.SdfOutGrad.apply(scfg, pack.pack_outgrad(sdf), xx, *eff(sdf))
+        return (o[:, :1], gr, CK.ColorMLP.apply(ccfg, pack.pack_color(col), xx, -dd,
+                                                -gr, o[:, 1:], *eff(col)))
 
     def kernel_color(xx, dd, gg, ff):
         head = torch.cat([torch.zeros(n, 1), ff], 1)    # the feature as a slice
-        return CK.ColorMLP.apply(ccfg, xx, dd, gg, head[:, 1:], *eff(col))
+        return CK.ColorMLP.apply(ccfg, pack.pack_color(col), xx, dd, gg, head[:, 1:],
+                                 *eff(col))
 
     obar, gbar = torch.randn(n, scfg.d_out), torch.randn(n, 4)
     for chan, (mo, mg) in (("obar", (1, 0)), ("gbar", (0, 1)), ("both", (1, 1))):
-        bwd(f"K4-bwd {chan}", lambda xx: OG.SdfOutGrad.apply(scfg, xx, *eff(sdf)),
+        bwd(f"K4-bwd {chan}",
+            lambda xx: OG.SdfOutGrad.apply(scfg, pack.pack_outgrad(sdf), xx, *eff(sdf)),
             lambda mods, xx: F.sdf_output_and_gradient_plain(mods[0], xx), [x],
             [sdf], [obar * mo, gbar * mg])
     bwd("K5-bwd", kernel_color, lambda mods, *a: CK.color_plain(mods[0], *a),
@@ -598,7 +600,7 @@ def check(width: str = "small", negative_ray: bool = False,
             for nm, a, b in zip(("sdf", "grad", "color", "sdf_w"), got,
                                 RCC.rendercore_cons_plain(sdf, col, x, d, y)):
                 fwd(f"K6-fwd {nm}", a, b, scaled=nm == "grad")
-    bwd("K7-bwd", lambda xx: SO.SdfOut.apply(scfg, xx, *eff(sdf)),
+    bwd("K7-bwd", lambda xx: SO.SdfOut.apply(scfg, pack.pack_outgrad(sdf), xx, *eff(sdf)),
         lambda mods, xx: SO.sdf_out_plain(mods[0], xx), [x], [sdf],
         [torch.randn(n, scfg.d_out)])
     bwd("K3-bwd", lambda xx: SVD.SdfValueDiff.apply(scfg, pack.pack_sdf_value(sdf), xx,
@@ -607,8 +609,9 @@ def check(width: str = "small", negative_ray: bool = False,
         [torch.randn(n)])
     if not negative_ray:
         bwd("K6-bwd",
-            lambda xx, dd, yy: RCC.RenderCoreCons.apply(scfg, ccfg, xx, dd, yy,
-                                                        *eff(sdf), *eff(col)),
+            lambda xx, dd, yy: RCC.RenderCoreCons.apply(
+                scfg, ccfg, pack.pack_rendercore(sdf, col), xx, dd, yy, *eff(sdf),
+                *eff(col)),
             lambda mods, *a: RCC.rendercore_cons_plain(*mods, *a), [x, d, y],
             [sdf, col], [torch.randn(n, 1), torch.randn(n, 4), torch.randn(n, 3),
                          torch.randn(n)])

@@ -16,7 +16,8 @@ through ``SdfOutGrad`` (an ``autograd.Function`` whose forward launches
 K4-fwd and whose backward launches K4-bwd); a CPU tensor takes
 ``sdf_outgrad_plain``. The Function's inputs are x and the SDF net's
 effective weights and biases, so autograd carries the kernel's W-bars
-through weight norm.
+through weight norm, and their outgrad pack, the one cached on the net
+that K4-fwd's no-grad launches read.
 """
 
 from __future__ import annotations
@@ -26,9 +27,8 @@ from torch.autograd.function import once_differentiable
 
 from ...models.fields import sdf_output_and_gradient_plain
 from . import build
-from .pack import (check_outgrad_geometry, effective_layers, outgrad_grad_layout,
-                   pack_outgrad, pack_outgrad_layers, sdf_geometry,
-                   unpack_outgrad_grads)
+from .pack import (apply_with_cached_pack, check_outgrad_geometry,
+                   outgrad_grad_layout, pack_outgrad, sdf_geometry, unpack_outgrad_grads)
 
 FWD_COUNTER = build.KernelCounter("sdf_outgrad_fwd")
 BWD_COUNTER = build.KernelCounter("sdf_outgrad_bwd")
@@ -46,24 +46,18 @@ def launch_outgrad_fwd(cfg, packed, x: torch.Tensor):
     check_outgrad_geometry(cfg)
     build.check_input(x, "x", 4)
     params, offs = packed
-    if params.device != x.device:
-        raise ValueError(f"weights on {params.device}, x on {x.device}")
-    n, dev = x.shape[0], x.device
+    build.check_pack(params, x)
+    n, geom = x.shape[0], sdf_geometry(cfg)
     with FWD_COUNTER.launch():
-        f32 = dict(dtype=torch.float32, device=dev)
-        out = torch.empty((n, cfg.d_out), **f32)
-        grad = torch.empty((n, 4), **f32)
-        blocks = build.n_blocks(dev)
-        geom = sdf_geometry(cfg)
-        scratch = torch.empty(blocks * (geom[0] - 1) * 64 * 256, **f32)
-        O = build.offsets
-        code = build.load_library().copenerf_sdf_outgrad_fwd(
-            x.data_ptr(), out.data_ptr(), grad.data_ptr(), params.data_ptr(),
-            O(offs["b"]), O(offs["wp"]), O(offs["wtp"]),
-            offs["w_last0"], offs["b_last0"], offs["wfp"], offs["b_feat"],
-            scratch.data_ptr(), n,
-            *geom, float(cfg.scale), cfg.d_out, blocks, build.stream(x))
-        build.check(code, "sdf_outgrad_fwd")
+        out, grad = build.outputs(x, cfg.d_out, 4)
+        blocks = build.n_blocks(x.device)
+        scratch = torch.empty(blocks * (geom[0] - 1) * 64 * 256, dtype=torch.float32,
+                              device=x.device)
+        build.call("sdf_outgrad_fwd", x.data_ptr(), out.data_ptr(), grad.data_ptr(),
+                   params.data_ptr(),
+                   *offs.c("b", "wp", "wtp", "w_last0", "b_last0", "wfp", "b_feat"),
+                   scratch.data_ptr(), n, *geom, float(cfg.scale), cfg.d_out, blocks,
+                   build.stream(x))
     return out, grad
 
 
@@ -79,48 +73,33 @@ def outgrad_bwd_cuda(cfg, packed, x, obar, gbar):
     """K4-bwd for the cotangents obar (n, d_out) and gbar (n, 4) ->
     (x_bar (n, 4), [(W_bar (out, in), b_bar)] per SDF layer)."""
     check_outgrad_geometry(cfg)
-    for t, name, w in ((x, "x", 4), (obar, "obar", cfg.d_out), (gbar, "gbar", 4)):
-        build.check_input(t, name, w)
-        if t.shape[0] != x.shape[0]:
-            raise ValueError(f"{name}: {t.shape[0]} rows, x has {x.shape[0]}")
+    build.check_rows(x, (x, "x", 4), (obar, "obar", cfg.d_out), (gbar, "gbar", 4))
     params, offs = packed
     goffs, gsize = outgrad_grad_layout(cfg)
-    n, dev = x.shape[0], x.device
-    blocks = build.n_blocks(dev)
-    geom = sdf_geometry(cfg)
+    n, geom = x.shape[0], sdf_geometry(cfg)
+    blocks = build.n_blocks(x.device)
     with BWD_COUNTER.launch():
-        lib = build.load_library()
-        n_stage, n_part, n_scratch = build.workspace(
-            lib.copenerf_sdf_outgrad_bwd_workspace, n, *geom, cfg.d_out, blocks)
-        f32 = dict(dtype=torch.float32, device=dev)
-        stage = torch.empty(n_stage, **f32)
-        partial = torch.empty(n_part, **f32)
-        scratch = torch.empty(n_scratch, **f32)
-        grads = torch.zeros(gsize, **f32)
-        x_bar = torch.empty((n, 4), **f32)
-        O = build.offsets
-        code = lib.copenerf_sdf_outgrad_bwd(
-            x.data_ptr(), obar.data_ptr(), gbar.data_ptr(), x_bar.data_ptr(),
-            params.data_ptr(), O(offs["b"]), O(offs["wp"]),
-            O(offs["wtp"]), offs["w_last0"], offs["b_last0"], offs["wftp"],
-            grads.data_ptr(),
-            O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], stage.data_ptr(),
-            partial.data_ptr(), scratch.data_ptr(), n, *geom, float(cfg.scale),
-            cfg.d_out, blocks, build.stream(x))
-        build.check(code, "sdf_outgrad_bwd")
+        stage, partial, scratch, grads = build.bwd_buffers(
+            "sdf_outgrad_bwd", (n, *geom, cfg.d_out, blocks), gsize, x.device)
+        x_bar, = build.outputs(x, 4)
+        build.call("sdf_outgrad_bwd", x.data_ptr(), obar.data_ptr(), gbar.data_ptr(),
+                   x_bar.data_ptr(), params.data_ptr(),
+                   *offs.c("b", "wp", "wtp", "w_last0", "b_last0", "wftp"),
+                   grads.data_ptr(), *goffs.c("gw", "gb", "gw_last0"),
+                   stage.data_ptr(), partial.data_ptr(), scratch.data_ptr(), n, *geom,
+                   float(cfg.scale), cfg.d_out, blocks, build.stream(x))
         bars = unpack_outgrad_grads(grads, goffs, cfg)
     return x_bar, bars
 
 
 class SdfOutGrad(torch.autograd.Function):
-    """(out (n, d_out), grad (n, 4)) of x (n, 4); inputs after x: the
-    effective W (out, in) of every SDF layer, then every b. Cotangents that
-    arrive as None count as zeros."""
+    """(out (n, d_out), grad (n, 4)) of x (n, 4); ``packed`` is the outgrad
+    pack (``pack.pack_outgrad``) of the inputs after x: the effective W
+    (out, in) of every SDF layer, then every b, which carry the gradients.
+    Cotangents that arrive as None count as zeros."""
 
     @staticmethod
-    def forward(ctx, cfg, x, *wb):
-        n_lin = len(wb) // 2
-        packed = pack_outgrad_layers(list(zip(wb[:n_lin], wb[n_lin:])))
+    def forward(ctx, cfg, packed, x, *wb):
         ctx.cfg, ctx.packed = cfg, packed
         ctx.save_for_backward(x)
         return launch_outgrad_fwd(cfg, packed, x)
@@ -129,12 +108,9 @@ class SdfOutGrad(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, obar, gbar):
         x, = ctx.saved_tensors
-        cfg = ctx.cfg
-        obar, gbar = [torch.zeros((x.shape[0], w), dtype=x.dtype, device=x.device)
-                      if c is None else c.contiguous()
-                      for c, w in ((obar, cfg.d_out), (gbar, 4))]
-        x_bar, bars = outgrad_bwd_cuda(cfg, ctx.packed, x, obar, gbar)
-        return (None, x_bar, *[w for w, _ in bars], *[b for _, b in bars])
+        obar, gbar = build.cotangents(x, (obar, gbar), (ctx.cfg.d_out, 4))
+        x_bar, bars = outgrad_bwd_cuda(ctx.cfg, ctx.packed, x, obar, gbar)
+        return (None, None, x_bar, *build.weight_args(bars))
 
 
 def sdf_outgrad(net, x: torch.Tensor):
@@ -144,9 +120,8 @@ def sdf_outgrad(net, x: torch.Tensor):
         return sdf_outgrad_plain(net, x)
     lead = x.shape[:-1]
     xf = x.reshape(-1, 4).contiguous()
-    if build.needs_grad([x, *net.parameters()]):
-        ws, bs = zip(*effective_layers(net))
-        out, grad = SdfOutGrad.apply(net.cfg, xf, *ws, *bs)
+    if build.needs_grad([xf, *net.parameters()]):
+        out, grad = apply_with_cached_pack(SdfOutGrad, (net,), pack_outgrad, xf)
     else:
         out, grad = sdf_outgrad_cuda(net, xf)
     return out.reshape(lead + (net.cfg.d_out,)), grad.reshape(lead + (4,))

@@ -35,18 +35,23 @@ the gradient of the effective W in the kernel's (out, in) layout (the color
 layer 0 with the permuted, padded inputs of ``wctp[0]``) and of b.
 ``unpack_*_grads`` map it back to each layer's effective (W (out, in), b).
 
-A pack is cached on the network it belongs to (the SDF network for a pack
-of both), keyed by the storage and version of every parameter it reads, so
-a render call packs once and an in-place update (an optimizer step) or a
-move to another device repacks.
+A pack is (params, ``Offsets``) and is cached on the network it belongs to
+(the SDF network for a pack of both), keyed by the storage and version of
+every parameter it reads, so a render call packs once and an in-place
+update (an optimizer step) or a move to another device repacks. The
+no-grad launches and the autograd.Functions read the same cached pack
+(``apply_with_cached_pack``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ...models.embedder import embed_dim
 from ...utils.profiling import spanned
+from . import build
 
 MAX_SDF_HIDDEN_LAYERS = 16   # mlp_tile.cuh kMaxSdfHidden
 MAX_COLOR_LAYERS = 6         # mlp_tile.cuh kMaxColorLayers
@@ -59,6 +64,7 @@ def sdf_skip(cfg) -> int:
     return cfg.skip_in[0] if cfg.skip_in else -1
 
 
+@functools.lru_cache
 def sdf_geometry(cfg) -> tuple:
     """The C entry points' SDF geometry arguments: n_lin, d_in, multires,
     hidden, skip."""
@@ -100,6 +106,7 @@ def color_k0(ccfg) -> int:
     return k + (-k) % 4
 
 
+@functools.lru_cache
 def color_geometry(ccfg) -> tuple:
     """The C entry points' color geometry arguments: d_feat, n_lin, hidden,
     multires, k0."""
@@ -157,6 +164,21 @@ def check_color_geometry(sdf_cfg, ccfg) -> None:
                          "kernels: " + "; ".join(problems))
 
 
+class Offsets(dict):
+    """Float offsets by name (a list per layer for a per-layer name), each
+    also made once as the C entry points take it: ``c(*names)``."""
+
+    def __init__(self, offs):
+        super().__init__(offs)
+        self.c_args = {k: build.offsets(v) if isinstance(v, list) else v
+                       for k, v in offs.items()}
+
+    def c(self, *names) -> tuple:
+        """The C arguments of ``names``: a per-layer list as a ``long long``
+        array, 0 for a name the layout lacks."""
+        return tuple(self.c_args.get(k, 0) for k in names)
+
+
 class _Packer:
     def __init__(self):
         self.parts = []
@@ -178,7 +200,7 @@ class _Packer:
         self.size += flat.numel()
 
     def done(self):
-        return torch.cat(self.parts).contiguous(), self.offs
+        return torch.cat(self.parts).contiguous(), Offsets(self.offs)
 
 
 _PER_LAYER = ("b", "wp", "wtp", "bc", "wcp", "wctp")
@@ -299,18 +321,31 @@ def _add_sdf(pk: _Packer, layers, with_feature: bool) -> None:
         pk.add("b_feat", b[1:])
 
 
-def _cached(owner, name: str, nets, make):
-    """``make()``, kept on ``owner`` and reused while no parameter of
-    ``nets`` was replaced or modified in place since the last call."""
+def _cached(name: str, nets, layers, make):
+    """``make(*layers)``, kept on ``nets[0]`` and reused while no parameter
+    of ``nets`` was replaced or modified in place since the last call.
+    ``layers``: the effective layers of each net the caller already holds,
+    or None to compute them on a miss."""
     key = tuple((p.data_ptr(), p._version) for net in nets
                 for p in net.parameters())
-    hit = owner.__dict__.get(name)
+    hit = nets[0].__dict__.get(name)
     if hit is not None and hit[0] == key:
         return hit[1]
     with torch.no_grad():
-        packed = make()
-    owner.__dict__[name] = (key, packed)
+        packed = make(*(layers or [effective_layers(net) for net in nets]))
+    nets[0].__dict__[name] = (key, packed)
     return packed
+
+
+def apply_with_cached_pack(function, nets, cached, *rows):
+    """``function.apply(*cfgs, pack, *rows, *weights)`` for the kernels of
+    ``nets``: the weights every effective W, then every b, of each net, so
+    autograd carries the kernel's W-bars through weight norm; the pack
+    ``cached(*nets, layers=...)``, the one the no-grad launches read,
+    built on a miss from those same effective layers."""
+    layers = [effective_layers(net) for net in nets]
+    return function.apply(*(net.cfg for net in nets), cached(*nets, layers=layers),
+                          *rows, *build.weight_args(*layers))
 
 
 @spanned("copenerf.pack")
@@ -323,11 +358,10 @@ def pack_sdf_value_layers(layers):
     return pk.done()
 
 
-def pack_sdf_value(sdf_net):
+def pack_sdf_value(sdf_net, layers=None):
     """``pack_sdf_value_layers`` of ``sdf_net``, cached on the net: a train
     step's K2 launches and its K3 share one pack."""
-    return _cached(sdf_net, "_pack_sdf_value", (sdf_net,),
-                   lambda: pack_sdf_value_layers(effective_layers(sdf_net)))
+    return _cached("_pack_sdf_value", (sdf_net,), layers, pack_sdf_value_layers)
 
 
 def color_input_permutation(ccfg) -> list:
@@ -400,12 +434,10 @@ def pack_rendercore_layers(sdf_layers, color_layers, ccfg):
     return pk.done()
 
 
-def pack_rendercore(sdf_net, color_net):
+def pack_rendercore(sdf_net, color_net, layers=None):
     """``pack_rendercore_layers`` of both nets, cached on the SDF net."""
-    return _cached(sdf_net, "_pack_rendercore", (sdf_net, color_net),
-                   lambda: pack_rendercore_layers(
-                       effective_layers(sdf_net), effective_layers(color_net),
-                       color_net.cfg))
+    return _cached("_pack_rendercore", (sdf_net, color_net), layers,
+                   lambda s, c: pack_rendercore_layers(s, c, color_net.cfg))
 
 
 @spanned("copenerf.pack")
@@ -419,10 +451,9 @@ def pack_outgrad_layers(sdf_layers):
     return pk.done()
 
 
-def pack_outgrad(sdf_net):
+def pack_outgrad(sdf_net, layers=None):
     """``pack_outgrad_layers`` of ``sdf_net``, cached on the net."""
-    return _cached(sdf_net, "_pack_outgrad", (sdf_net,),
-                   lambda: pack_outgrad_layers(effective_layers(sdf_net)))
+    return _cached("_pack_outgrad", (sdf_net,), layers, pack_outgrad_layers)
 
 
 @spanned("copenerf.pack")
@@ -436,11 +467,10 @@ def pack_color_layers(color_layers, ccfg):
     return pk.done()
 
 
-def pack_color(color_net):
+def pack_color(color_net, layers=None):
     """``pack_color_layers`` of ``color_net``, cached on the net."""
-    return _cached(color_net, "_pack_color", (color_net,),
-                   lambda: pack_color_layers(effective_layers(color_net),
-                                             color_net.cfg))
+    return _cached("_pack_color", (color_net,), layers,
+                   lambda c: pack_color_layers(c, color_net.cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -478,13 +508,14 @@ def _put_sdf(lay: _GradLayout, scfg, head_rows: int) -> None:
         lay.put("gb", o)
 
 
+@functools.lru_cache
 def sdf_value_grad_layout(scfg, head_rows: int = 1):
     """(offsets by name, size) of K3-bwd's gradient buffer: ``gw[l]``,
     ``gb[l]`` per SDF layer; the last layer holds its first ``head_rows``
     rows: row 0 for K3, all d_out for K7-bwd (``sdf_out``)."""
     lay = _GradLayout()
     _put_sdf(lay, scfg, head_rows)
-    return lay.offs, lay.size
+    return Offsets(lay.offs), lay.size
 
 
 def _put_sdf_full(lay: _GradLayout, scfg) -> None:
@@ -498,31 +529,34 @@ def _put_color(lay: _GradLayout, ccfg) -> None:
         lay.put("gbc", o)
 
 
+@functools.lru_cache
 def outgrad_grad_layout(scfg):
     """(offsets by name, size) of K4-bwd's gradient buffer: ``gw[l]``,
     ``gb[l]`` per SDF layer and ``gw_last0`` (hidden,), added to the last
     layer's row 0."""
     lay = _GradLayout()
     _put_sdf_full(lay, scfg)
-    return lay.offs, lay.size
+    return Offsets(lay.offs), lay.size
 
 
+@functools.lru_cache
 def color_grad_layout(ccfg):
     """(offsets by name, size) of K5-bwd's gradient buffer: ``gwc[l]``,
     ``gbc[l]`` per color layer (layer 0 as (out, k0) in the kernel's input
     order)."""
     lay = _GradLayout()
     _put_color(lay, ccfg)
-    return lay.offs, lay.size
+    return Offsets(lay.offs), lay.size
 
 
+@functools.lru_cache
 def rendercore_grad_layout(scfg, ccfg):
     """(offsets by name, size) of K1-bwd's gradient buffer: K4-bwd's SDF
     part, then K5-bwd's color part."""
     lay = _GradLayout()
     _put_sdf_full(lay, scfg)
     _put_color(lay, ccfg)
-    return lay.offs, lay.size
+    return Offsets(lay.offs), lay.size
 
 
 def _take(buf, off, shape):

@@ -12,7 +12,9 @@ K1-fwd and whose backward launches K1-bwd, or its frozen-fields kernel
 when no weight needs a gradient); a CPU tensor takes
 ``rendercore_fwd_plain``, under autograd when grad mode is on. The
 Function's inputs are x, dirs and both nets' effective weights and biases,
-so autograd carries the kernel's W-bars through weight norm.
+so autograd carries the kernel's W-bars through weight norm, and their
+render-core pack, the one cached on the SDF net that K1-fwd's no-grad
+launches read.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ from ...models.fields import (color_apply_plain,
                               sdf_output_and_gradient_plain)
 from . import build
 from .color import color_relu_margin as _color_margin
-from .pack import (check_color_geometry, check_sdf_geometry, color_geometry,
-                   effective_layers, pack_rendercore, pack_rendercore_layers,
-                   rendercore_grad_layout, sdf_geometry, unpack_rendercore_grads)
+from .pack import (apply_with_cached_pack, check_color_geometry, check_sdf_geometry,
+                   color_geometry, pack_rendercore, rendercore_grad_layout,
+                   sdf_geometry, unpack_rendercore_grads)
 
 COUNTER = build.KernelCounter("rendercore_fwd")
 BWD_COUNTER = build.KernelCounter("rendercore_bwd")
@@ -69,36 +71,19 @@ def _check_rows(scfg, ccfg, x, dirs) -> None:
         raise ValueError("x and dirs must have the same rows and device")
 
 
-def _check_cots(x, *cots) -> None:
-    """Each (tensor, name, width) cotangent as ``build.check_input`` wants
-    it, with x's rows."""
-    for t, name, w in cots:
-        build.check_input(t, name, w)
-        if t.shape[0] != x.shape[0]:
-            raise ValueError(f"{name}: {t.shape[0]} rows, x has {x.shape[0]}")
-
-
-def fwd_offsets(offs) -> tuple:
-    """The forward entries' pack offsets (K1-fwd, K6-fwd): per SDF hidden
-    layer b, W and W^T as wgmma B; the head's column 0, its bias, its
-    feature columns as wgmma B and their bias; per hidden color layer W as
-    wgmma B; every color b; the color head (hidden, 3)."""
-    O = build.offsets
-    return (O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
-            offs["b_last0"], offs["wfp"], offs["b_feat"], O(offs["wcp"]),
-            O(offs["bc"]), offs["wc_last"])
-
-
-def bwd_offsets(offs) -> tuple:
-    """The backward entries' pack offsets (K1-bwd, K6-bwd): the forward's
-    with the feature columns' transpose as wgmma B, each hidden color
-    layer's W^T as wgmma B (layer 0's columns < 256, then the rest: 0 when
-    k0 <= 256) and the color head (3, hidden)."""
-    O = build.offsets
-    return (O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
-            offs["b_last0"], offs["wfp"], offs["wftp"], offs["b_feat"],
-            O(offs["wcp"]), O(offs["wctp"]), offs.get("wct0tp", 0),
-            O(offs["bc"]), offs["wc_last"], offs["wct_last"])
+# The pack offsets of the forward entries (K1-fwd, K6-fwd): per SDF hidden
+# layer b, W and W^T as wgmma B; the head's column 0, its bias, its feature
+# columns as wgmma B and their bias; per hidden color layer W as wgmma B;
+# every color b; the color head (hidden, 3).
+FWD_OFFSETS = ("b", "wp", "wtp", "w_last0", "b_last0", "wfp", "b_feat", "wcp",
+               "bc", "wc_last")
+# The backward entries' (K1-bwd, K6-bwd): the forward's with the feature
+# columns' transpose as wgmma B, each hidden color layer's W^T as wgmma B
+# (layer 0's columns < 256, then the rest: 0 when k0 <= 256) and the color
+# head (3, hidden).
+BWD_OFFSETS = ("b", "wp", "wtp", "w_last0", "b_last0", "wfp", "wftp", "b_feat",
+               "wcp", "wctp", "wct0tp", "bc", "wc_last", "wct_last")
+GRAD_OFFSETS = ("gw", "gb", "gw_last0", "gwc", "gbc")
 
 
 def launch_fwd(scfg, ccfg, packed, x: torch.Tensor, dirs: torch.Tensor):
@@ -106,25 +91,19 @@ def launch_fwd(scfg, ccfg, packed, x: torch.Tensor, dirs: torch.Tensor):
     render-core pack -> (sdf (n, 1), grad (n, 4), color (n, 3))."""
     _check_rows(scfg, ccfg, x, dirs)
     params, offs = packed
-    if params.device != x.device:
-        raise ValueError(f"weights on {params.device}, x on {x.device}")
-    n, dev = x.shape[0], x.device
+    build.check_pack(params, x)
+    n, (sgeom, cgeom) = x.shape[0], _geometry(scfg, ccfg)
     with COUNTER.launch():
-        f32 = dict(dtype=torch.float32, device=dev)
-        sdf = torch.empty((n, 1), **f32)
-        grad = torch.empty((n, 4), **f32)
-        color = torch.empty((n, 3), **f32)
-        blocks = build.n_blocks(dev)
-        sgeom, (d_feat, c_n_lin, c_hidden, c_multires, k0) = _geometry(scfg, ccfg)
+        sdf, grad, color = build.outputs(x, 1, 4, 3)
+        blocks = build.n_blocks(x.device)
         # per block: each hidden layer's sigmoids and the feature, 64 x 256 each
-        scratch = torch.empty(blocks * sgeom[0] * 64 * 256, **f32)
-        code = build.load_library().copenerf_rendercore_fwd(
-            x.data_ptr(), dirs.data_ptr(), sdf.data_ptr(), grad.data_ptr(),
-            color.data_ptr(), params.data_ptr(), *fwd_offsets(offs),
-            scratch.data_ptr(), n, *sgeom, float(scfg.scale), d_feat, c_n_lin,
-            c_hidden, c_multires, k0, int(ccfg.squeeze_out), blocks,
-            build.stream(x))
-        build.check(code, "rendercore_fwd")
+        scratch = torch.empty(blocks * sgeom[0] * 64 * 256, dtype=torch.float32,
+                              device=x.device)
+        build.call("rendercore_fwd", x.data_ptr(), dirs.data_ptr(), sdf.data_ptr(),
+                   grad.data_ptr(), color.data_ptr(), params.data_ptr(),
+                   *offs.c(*FWD_OFFSETS), scratch.data_ptr(), n, *sgeom,
+                   float(scfg.scale), *cgeom, int(ccfg.squeeze_out), blocks,
+                   build.stream(x))
     return sdf, grad, color
 
 
@@ -144,35 +123,22 @@ def rendercore_bwd_cuda(scfg, ccfg, packed, x, dirs, sbar, gbar, cbar):
     (x_bar (n, 4), dirs_bar (n, 3), [(W_bar, b_bar)] per SDF layer,
     [(W_bar, b_bar)] per color layer), W_bar (out, in)."""
     _check_rows(scfg, ccfg, x, dirs)
-    _check_cots(x, (sbar, "sbar", 1), (gbar, "gbar", 4), (cbar, "cbar", 3))
+    build.check_rows(x, (sbar, "sbar", 1), (gbar, "gbar", 4), (cbar, "cbar", 3))
     params, offs = packed
     goffs, gsize = rendercore_grad_layout(scfg, ccfg)
-    n, dev = x.shape[0], x.device
-    blocks = build.n_blocks(dev)
-    sgeom, cgeom = _geometry(scfg, ccfg)
+    n, (sgeom, cgeom) = x.shape[0], _geometry(scfg, ccfg)
+    blocks = build.n_blocks(x.device)
     with BWD_COUNTER.launch():
-        lib = build.load_library()
-        n_stage, n_part, n_scratch = build.workspace(
-            lib.copenerf_rendercore_bwd_workspace, n, *sgeom, *cgeom, blocks)
-        f32 = dict(dtype=torch.float32, device=dev)
-        stage = torch.empty(n_stage, **f32)
-        partial = torch.empty(n_part, **f32)
-        scratch = torch.empty(n_scratch, **f32)
-        grads = torch.zeros(gsize, **f32)
-        x_bar = torch.empty((n, 4), **f32)
-        d_bar = torch.empty((n, 3), **f32)
-        O = build.offsets
-        code = lib.copenerf_rendercore_bwd(
-            x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(), gbar.data_ptr(),
-            cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(), params.data_ptr(),
-            *bwd_offsets(offs), grads.data_ptr(),
-            O(goffs["gw"]), O(goffs["gb"]), goffs["gw_last0"], O(goffs["gwc"]),
-            O(goffs["gbc"]), stage.data_ptr(), partial.data_ptr(),
-            scratch.data_ptr(), n, *sgeom, float(scfg.scale), *cgeom,
-            int(ccfg.squeeze_out), blocks, build.stream(x))
-        build.check(code, "rendercore_bwd")
-        sdf_bars, color_bars = unpack_rendercore_grads(grads, goffs, scfg,
-                                                       ccfg)
+        stage, partial, scratch, grads = build.bwd_buffers(
+            "rendercore_bwd", (n, *sgeom, *cgeom, blocks), gsize, x.device)
+        x_bar, d_bar = build.outputs(x, 4, 3)
+        build.call("rendercore_bwd", x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(),
+                   gbar.data_ptr(), cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(),
+                   params.data_ptr(), *offs.c(*BWD_OFFSETS), grads.data_ptr(),
+                   *goffs.c(*GRAD_OFFSETS), stage.data_ptr(), partial.data_ptr(),
+                   scratch.data_ptr(), n, *sgeom, float(scfg.scale), *cgeom,
+                   int(ccfg.squeeze_out), blocks, build.stream(x))
+        sdf_bars, color_bars = unpack_rendercore_grads(grads, goffs, scfg, ccfg)
     return x_bar, d_bar, sdf_bars, color_bars
 
 
@@ -182,42 +148,33 @@ def rendercore_bwd_frozen_cuda(scfg, ccfg, packed, x, dirs, sbar, cbar):
     (gbar's reaches neither): one row kernel, no weight gradient, no
     reduction."""
     _check_rows(scfg, ccfg, x, dirs)
-    _check_cots(x, (sbar, "sbar", 1), (cbar, "cbar", 3))
+    build.check_rows(x, (sbar, "sbar", 1), (cbar, "cbar", 3))
     params, offs = packed
-    n, dev = x.shape[0], x.device
-    blocks = build.n_blocks(dev)
-    sgeom, cgeom = _geometry(scfg, ccfg)
+    n, (sgeom, cgeom) = x.shape[0], _geometry(scfg, ccfg)
+    blocks = build.n_blocks(x.device)
     with FROZEN_BWD_COUNTER.launch():
-        lib = build.load_library()
-        _, _, n_scratch = build.workspace(
-            lib.copenerf_rendercore_bwd_frozen_workspace, sgeom[0], cgeom[1], blocks)
-        f32 = dict(dtype=torch.float32, device=dev)
-        scratch = torch.empty(n_scratch, **f32)
-        x_bar = torch.empty((n, 4), **f32)
-        d_bar = torch.empty((n, 3), **f32)
-        code = lib.copenerf_rendercore_bwd_frozen(
-            x.data_ptr(), dirs.data_ptr(), sbar.data_ptr(), cbar.data_ptr(),
-            x_bar.data_ptr(), d_bar.data_ptr(), params.data_ptr(),
-            *bwd_offsets(offs), scratch.data_ptr(), n, *sgeom, float(scfg.scale),
-            *cgeom, int(ccfg.squeeze_out), blocks, build.stream(x))
-        build.check(code, "rendercore_bwd_frozen")
+        scratch = build.bwd_buffers("rendercore_bwd_frozen", (sgeom[0], cgeom[1], blocks),
+                                    None, x.device)
+        x_bar, d_bar = build.outputs(x, 4, 3)
+        build.call("rendercore_bwd_frozen", x.data_ptr(), dirs.data_ptr(),
+                   sbar.data_ptr(), cbar.data_ptr(), x_bar.data_ptr(), d_bar.data_ptr(),
+                   params.data_ptr(), *offs.c(*BWD_OFFSETS), scratch.data_ptr(), n,
+                   *sgeom, float(scfg.scale), *cgeom, int(ccfg.squeeze_out), blocks,
+                   build.stream(x))
     return x_bar, d_bar
 
 
 class RenderCore(torch.autograd.Function):
     """(sdf (n, 1), grad (n, 4), color (n, 3)) of x (n, 4), dirs (n, 3);
+    ``packed`` is the render-core pack (``pack.pack_rendercore``) of the
     inputs after dirs: the effective W (out, in) of every SDF layer, every
-    SDF b, every color W, every color b. Cotangents that arrive as None
-    count as zeros. When no weight or bias needs a gradient (frozen
-    fields), the backward launches K1-bwd's frozen-fields kernel and
-    returns None for each."""
+    SDF b, every color W, every color b, which carry the gradients.
+    Cotangents that arrive as None count as zeros. When no weight or bias
+    needs a gradient (frozen fields), the backward launches K1-bwd's
+    frozen-fields kernel and returns None for each."""
 
     @staticmethod
-    def forward(ctx, scfg, ccfg, x, dirs, *wb):
-        ns, nc = len(scfg.dims) - 1, len(ccfg.dims) - 1
-        sdf_layers = list(zip(wb[:ns], wb[ns:2 * ns]))
-        color_layers = list(zip(wb[2 * ns:2 * ns + nc], wb[2 * ns + nc:]))
-        packed = pack_rendercore_layers(sdf_layers, color_layers, ccfg)
+    def forward(ctx, scfg, ccfg, packed, x, dirs, *wb):
         ctx.cfgs, ctx.packed = (scfg, ccfg), packed
         ctx.save_for_backward(x, dirs)
         return launch_fwd(scfg, ccfg, packed, x, dirs)
@@ -226,21 +183,15 @@ class RenderCore(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, sbar, gbar, cbar):
         x, dirs = ctx.saved_tensors
-
-        def cot(c, w):
-            return (torch.zeros((x.shape[0], w), dtype=x.dtype, device=x.device)
-                    if c is None else c.contiguous())
-
-        if not any(ctx.needs_input_grad[4:]):
+        if not any(ctx.needs_input_grad[5:]):
             x_bar, d_bar = rendercore_bwd_frozen_cuda(
-                *ctx.cfgs, ctx.packed, x, dirs, cot(sbar, 1), cot(cbar, 3))
-            return (None, None, x_bar, d_bar,
-                    *[None] * (len(ctx.needs_input_grad) - 4))
+                *ctx.cfgs, ctx.packed, x, dirs, *build.cotangents(x, (sbar, cbar), (1, 3)))
+            return (None, None, None, x_bar, d_bar,
+                    *[None] * (len(ctx.needs_input_grad) - 5))
         x_bar, d_bar, sdf_bars, color_bars = rendercore_bwd_cuda(
-            *ctx.cfgs, ctx.packed, x, dirs, cot(sbar, 1), cot(gbar, 4), cot(cbar, 3))
-        return (None, None, x_bar, d_bar,
-                *[w for w, _ in sdf_bars], *[b for _, b in sdf_bars],
-                *[w for w, _ in color_bars], *[b for _, b in color_bars])
+            *ctx.cfgs, ctx.packed, x, dirs,
+            *build.cotangents(x, (sbar, gbar, cbar), (1, 4, 3)))
+        return (None, None, None, x_bar, d_bar, *build.weight_args(sdf_bars, color_bars))
 
 
 def rendercore_fwd(sdf_net, color_net, x: torch.Tensor, dirs: torch.Tensor):
@@ -249,15 +200,10 @@ def rendercore_fwd(sdf_net, color_net, x: torch.Tensor, dirs: torch.Tensor):
     if x.device.type == "cpu":
         return rendercore_fwd_plain(sdf_net, color_net, x, dirs)
     lead = x.shape[:-1]
-    xf = x.reshape(-1, 4).contiguous()
-    df = dirs.reshape(-1, 3).contiguous()
-    if build.needs_grad([x, dirs, *sdf_net.parameters(),
-                         *color_net.parameters()]):
-        ws_s, bs_s = zip(*effective_layers(sdf_net))
-        ws_c, bs_c = zip(*effective_layers(color_net))
-        sdf, grad, color = RenderCore.apply(sdf_net.cfg, color_net.cfg, xf, df,
-                                            *ws_s, *bs_s, *ws_c, *bs_c)
+    rows = (x.reshape(-1, 4).contiguous(), dirs.reshape(-1, 3).contiguous())
+    if build.needs_grad([*rows, *sdf_net.parameters(), *color_net.parameters()]):
+        out = apply_with_cached_pack(RenderCore, (sdf_net, color_net), pack_rendercore,
+                                     *rows)
     else:
-        sdf, grad, color = rendercore_fwd_cuda(sdf_net, color_net, xf, df)
-    return (sdf.reshape(lead + (1,)), grad.reshape(lead + (4,)),
-            color.reshape(lead + (3,)))
+        out = rendercore_fwd_cuda(sdf_net, color_net, *rows)
+    return tuple(t.reshape(lead + t.shape[1:]) for t in out)

@@ -12,9 +12,9 @@ through ``RenderCoreCons`` (an ``autograd.Function`` whose forward launches
 K6-fwd and whose backward launches K6-bwd, or raises), a CPU tensor takes
 ``rendercore_cons_plain``. The Function's inputs are x, dirs, y and both
 nets' effective weights and biases, so autograd carries the kernel's W-bars
-through weight norm. The pack and the gradient layout are K1's
-(``pack_rendercore_layers``, ``rendercore_grad_layout``): K6's y query
-reads the SDF weights K1 packs, and its W/b bars go to the same slots.
+through weight norm. The pack and the gradient layout are K1's (the cached
+``pack_rendercore``, ``rendercore_grad_layout``): K6's y query reads the
+SDF weights K1 packs, and its W/b bars go to the same slots.
 """
 
 from __future__ import annotations
@@ -23,10 +23,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import build
-from .pack import (effective_layers, pack_rendercore_layers,
-                   rendercore_grad_layout, unpack_rendercore_grads)
-from .rendercore import (_check_rows, _geometry, bwd_offsets, fwd_offsets,
-                         rendercore_fwd_plain)
+from .pack import (apply_with_cached_pack, pack_rendercore, rendercore_grad_layout,
+                   unpack_rendercore_grads)
+from .rendercore import (BWD_OFFSETS, FWD_OFFSETS, GRAD_OFFSETS, _check_rows,
+                         _geometry, rendercore_fwd_plain)
 from .sdf_value_diff import sdf_value_diff_plain
 
 FWD_COUNTER = build.KernelCounter("rendercore_cons_fwd")
@@ -54,25 +54,19 @@ def launch_cons_fwd(scfg, ccfg, packed, x, dirs, y):
     grad (n, 4), color (n, 3), sdf_w (n,))."""
     _check_cons(scfg, ccfg, x, dirs, y)
     params, offs = packed
-    if params.device != x.device:
-        raise ValueError(f"weights on {params.device}, x on {x.device}")
-    n, dev = x.shape[0], x.device
+    build.check_pack(params, x)
+    n, (sgeom, cgeom) = x.shape[0], _geometry(scfg, ccfg)
     with FWD_COUNTER.launch():
-        f32 = dict(dtype=torch.float32, device=dev)
-        sdf = torch.empty((n, 1), **f32)
-        grad = torch.empty((n, 4), **f32)
-        color = torch.empty((n, 3), **f32)
-        sdf_w = torch.empty((n,), **f32)
-        blocks = build.n_blocks(dev)
-        sgeom, cgeom = _geometry(scfg, ccfg)
+        sdf, grad, color, sdf_w = build.outputs(x, 1, 4, 3, None)
+        blocks = build.n_blocks(x.device)
         # per block: each hidden layer's sigmoids and the feature, 64 x 256 each
-        scratch = torch.empty(blocks * sgeom[0] * 64 * 256, **f32)
-        code = build.load_library().copenerf_rendercore_cons_fwd(
-            x.data_ptr(), dirs.data_ptr(), y.data_ptr(), sdf.data_ptr(),
-            grad.data_ptr(), color.data_ptr(), sdf_w.data_ptr(), params.data_ptr(),
-            *fwd_offsets(offs), scratch.data_ptr(), n, *sgeom, float(scfg.scale),
-            *cgeom, int(ccfg.squeeze_out), blocks, build.stream(x))
-        build.check(code, "rendercore_cons_fwd")
+        scratch = torch.empty(blocks * sgeom[0] * 64 * 256, dtype=torch.float32,
+                              device=x.device)
+        build.call("rendercore_cons_fwd", x.data_ptr(), dirs.data_ptr(), y.data_ptr(),
+                   sdf.data_ptr(), grad.data_ptr(), color.data_ptr(), sdf_w.data_ptr(),
+                   params.data_ptr(), *offs.c(*FWD_OFFSETS), scratch.data_ptr(), n,
+                   *sgeom, float(scfg.scale), *cgeom, int(ccfg.squeeze_out), blocks,
+                   build.stream(x))
     return sdf, grad, color, sdf_w
 
 
@@ -83,56 +77,37 @@ def rendercore_cons_bwd_cuda(scfg, ccfg, packed, x, dirs, y, sbar, gbar, cbar,
     [(W_bar, b_bar)] per SDF layer, [(W_bar, b_bar)] per color layer),
     W_bar (out, in)."""
     _check_cons(scfg, ccfg, x, dirs, y)
-    for t, name, w in ((sbar, "sbar", 1), (gbar, "gbar", 4), (cbar, "cbar", 3),
-                       (swbar.reshape(-1, 1), "swbar", 1)):
-        build.check_input(t, name, w)
-        if t.shape[0] != x.shape[0]:
-            raise ValueError(f"{name}: {t.shape[0]} rows, x has {x.shape[0]}")
+    build.check_rows(x, (sbar, "sbar", 1), (gbar, "gbar", 4), (cbar, "cbar", 3),
+                     (swbar.reshape(-1, 1), "swbar", 1))
     params, offs = packed
     goffs, gsize = rendercore_grad_layout(scfg, ccfg)
-    n, dev = x.shape[0], x.device
-    blocks = build.n_blocks(dev)
-    sgeom, cgeom = _geometry(scfg, ccfg)
+    n, (sgeom, cgeom) = x.shape[0], _geometry(scfg, ccfg)
+    blocks = build.n_blocks(x.device)
     with BWD_COUNTER.launch():
-        lib = build.load_library()
-        n_stage, n_part, n_scratch = build.workspace(
-            lib.copenerf_rendercore_cons_bwd_workspace, n, *sgeom, *cgeom, blocks)
-        f32 = dict(dtype=torch.float32, device=dev)
-        stage = torch.empty(n_stage, **f32)
-        partial = torch.empty(n_part, **f32)
-        scratch = torch.empty(n_scratch, **f32)
-        grads = torch.zeros(gsize, **f32)
-        x_bar = torch.empty((n, 4), **f32)
-        d_bar = torch.empty((n, 3), **f32)
-        y_bar = torch.empty((n, 4), **f32)
-        O = build.offsets
-        code = lib.copenerf_rendercore_cons_bwd(
-            x.data_ptr(), dirs.data_ptr(), y.data_ptr(), sbar.data_ptr(),
-            gbar.data_ptr(), cbar.data_ptr(), swbar.data_ptr(), x_bar.data_ptr(),
-            d_bar.data_ptr(), y_bar.data_ptr(), params.data_ptr(),
-            *bwd_offsets(offs), grads.data_ptr(), O(goffs["gw"]),
-            O(goffs["gb"]), goffs["gw_last0"], O(goffs["gwc"]), O(goffs["gbc"]),
-            stage.data_ptr(), partial.data_ptr(), scratch.data_ptr(), n, *sgeom,
-            float(scfg.scale), *cgeom, int(ccfg.squeeze_out), blocks,
-            build.stream(x))
-        build.check(code, "rendercore_cons_bwd")
-        sdf_bars, color_bars = unpack_rendercore_grads(grads, goffs, scfg,
-                                                       ccfg)
+        stage, partial, scratch, grads = build.bwd_buffers(
+            "rendercore_cons_bwd", (n, *sgeom, *cgeom, blocks), gsize, x.device)
+        x_bar, d_bar, y_bar = build.outputs(x, 4, 3, 4)
+        build.call("rendercore_cons_bwd", x.data_ptr(), dirs.data_ptr(), y.data_ptr(),
+                   sbar.data_ptr(), gbar.data_ptr(), cbar.data_ptr(), swbar.data_ptr(),
+                   x_bar.data_ptr(), d_bar.data_ptr(), y_bar.data_ptr(),
+                   params.data_ptr(), *offs.c(*BWD_OFFSETS), grads.data_ptr(),
+                   *goffs.c(*GRAD_OFFSETS), stage.data_ptr(), partial.data_ptr(),
+                   scratch.data_ptr(), n, *sgeom, float(scfg.scale), *cgeom,
+                   int(ccfg.squeeze_out), blocks, build.stream(x))
+        sdf_bars, color_bars = unpack_rendercore_grads(grads, goffs, scfg, ccfg)
     return x_bar, d_bar, y_bar, sdf_bars, color_bars
 
 
 class RenderCoreCons(torch.autograd.Function):
     """(sdf (n, 1), grad (n, 4), color (n, 3), sdf_w (n,)) of x (n, 4),
-    dirs (n, 3), y (n, 4); inputs after y: the effective W (out, in) of
-    every SDF layer, every SDF b, every color W, every color b. Cotangents
-    that arrive as None count as zeros."""
+    dirs (n, 3), y (n, 4); ``packed`` is the render-core pack
+    (``pack.pack_rendercore``) of the inputs after y: the effective W
+    (out, in) of every SDF layer, every SDF b, every color W, every color
+    b, which carry the gradients. Cotangents that arrive as None count as
+    zeros."""
 
     @staticmethod
-    def forward(ctx, scfg, ccfg, x, dirs, y, *wb):
-        ns, nc = len(scfg.dims) - 1, len(ccfg.dims) - 1
-        sdf_layers = list(zip(wb[:ns], wb[ns:2 * ns]))
-        color_layers = list(zip(wb[2 * ns:2 * ns + nc], wb[2 * ns + nc:]))
-        packed = pack_rendercore_layers(sdf_layers, color_layers, ccfg)
+    def forward(ctx, scfg, ccfg, packed, x, dirs, y, *wb):
         ctx.cfgs, ctx.packed = (scfg, ccfg), packed
         ctx.save_for_backward(x, dirs, y)
         return launch_cons_fwd(scfg, ccfg, packed, x, dirs, y)
@@ -141,16 +116,11 @@ class RenderCoreCons(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, sbar, gbar, cbar, swbar):
         x, dirs, y = ctx.saved_tensors
-        n = x.shape[0]
-        cots = [torch.zeros(shape, dtype=x.dtype, device=x.device)
-                if c is None else c.contiguous()
-                for c, shape in ((sbar, (n, 1)), (gbar, (n, 4)), (cbar, (n, 3)),
-                                 (swbar, (n,)))]
+        cots = build.cotangents(x, (sbar, gbar, cbar, swbar), (1, 4, 3, None))
         x_bar, d_bar, y_bar, sdf_bars, color_bars = rendercore_cons_bwd_cuda(
             *ctx.cfgs, ctx.packed, x, dirs, y, *cots)
-        return (None, None, x_bar, d_bar, y_bar,
-                *[w for w, _ in sdf_bars], *[b for _, b in sdf_bars],
-                *[w for w, _ in color_bars], *[b for _, b in color_bars])
+        return (None, None, None, x_bar, d_bar, y_bar,
+                *build.weight_args(sdf_bars, color_bars))
 
 
 def rendercore_cons(sdf_net, color_net, x: torch.Tensor, dirs: torch.Tensor,
@@ -161,11 +131,8 @@ def rendercore_cons(sdf_net, color_net, x: torch.Tensor, dirs: torch.Tensor,
     if x.device.type == "cpu":
         return rendercore_cons_plain(sdf_net, color_net, x, dirs, y)
     lead = x.shape[:-1]
-    ws_s, bs_s = zip(*effective_layers(sdf_net))
-    ws_c, bs_c = zip(*effective_layers(color_net))
-    sdf, grad, color, sdf_w = RenderCoreCons.apply(
-        sdf_net.cfg, color_net.cfg, x.reshape(-1, 4).contiguous(),
-        dirs.reshape(-1, 3).contiguous(), y.reshape(-1, 4).contiguous(),
-        *ws_s, *bs_s, *ws_c, *bs_c)
-    return (sdf.reshape(lead + (1,)), grad.reshape(lead + (4,)),
-            color.reshape(lead + (3,)), sdf_w.reshape(lead))
+    out = apply_with_cached_pack(
+        RenderCoreCons, (sdf_net, color_net), pack_rendercore,
+        x.reshape(-1, 4).contiguous(), dirs.reshape(-1, 3).contiguous(),
+        y.reshape(-1, 4).contiguous())
+    return tuple(t.reshape(lead + t.shape[1:]) for t in out)

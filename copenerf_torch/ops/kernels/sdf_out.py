@@ -13,7 +13,8 @@ routes on the tensor's device: a CUDA tensor goes through ``SdfOut`` (an
 ``autograd.Function`` whose forward launches K7-fwd and whose backward
 launches K7-bwd, or raises), a CPU tensor takes ``sdf_out_plain``. The
 Function's inputs are x and the SDF net's effective weights and biases, so
-autograd carries the kernel's W-bars through weight norm.
+autograd carries the kernel's W-bars through weight norm, and their
+outgrad pack, the one cached on the net.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import build
-from .pack import (check_outgrad_geometry, effective_layers, pack_outgrad_layers,
+from .pack import (apply_with_cached_pack, check_outgrad_geometry, pack_outgrad,
                    sdf_geometry, sdf_value_grad_layout, unpack_sdf_value_grads)
 
 FWD_COUNTER = build.KernelCounter("sdf_out_fwd")
@@ -37,25 +38,20 @@ def sdf_out_plain(net, x: torch.Tensor) -> torch.Tensor:
 def _check(cfg, packed, x):
     check_outgrad_geometry(cfg)
     build.check_input(x, "x", 4)
-    if packed[0].device != x.device:
-        raise ValueError(f"weights on {packed[0].device}, x on {x.device}")
+    build.check_pack(packed[0], x)
 
 
 def launch_out_fwd(cfg, packed, x: torch.Tensor) -> torch.Tensor:
     """K7-fwd on (n, 4) contiguous f32 CUDA rows with an outgrad pack
-    (``pack.pack_outgrad_layers``) -> out (n, d_out)."""
+    (``pack.pack_outgrad``) -> out (n, d_out)."""
     _check(cfg, packed, x)
     params, offs = packed
-    n = x.shape[0]
     with FWD_COUNTER.launch():
-        out = torch.empty((n, cfg.d_out), dtype=torch.float32, device=x.device)
-        code = build.load_library().copenerf_sdf_out_fwd(
-            x.data_ptr(), out.data_ptr(), params.data_ptr(),
-            build.offsets(offs["b"]), build.offsets(offs["wp"]),
-            offs["w_last0"], offs["b_last0"],
-            offs["wfp"], offs["b_feat"], n, *sdf_geometry(cfg),
-            float(cfg.scale), cfg.d_out, build.n_blocks(x.device), build.stream(x))
-        build.check(code, "sdf_out_fwd")
+        out, = build.outputs(x, cfg.d_out)
+        build.call("sdf_out_fwd", x.data_ptr(), out.data_ptr(), params.data_ptr(),
+                   *offs.c("b", "wp", "w_last0", "b_last0", "wfp", "b_feat"),
+                   x.shape[0], *sdf_geometry(cfg), float(cfg.scale), cfg.d_out,
+                   build.n_blocks(x.device), build.stream(x))
     return out
 
 
@@ -63,45 +59,33 @@ def sdf_out_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     """K7-bwd for the head's cotangent obar (n, d_out) -> (x_bar (n, 4),
     [(W_bar (out, in), b_bar)] per SDF layer)."""
     _check(cfg, packed, x)
-    build.check_input(obar, "obar", cfg.d_out)
-    if obar.shape[0] != x.shape[0]:
-        raise ValueError(f"obar: {obar.shape[0]} rows, x has {x.shape[0]}")
+    build.check_rows(x, (obar, "obar", cfg.d_out))
     params, offs = packed
     goffs, gsize = sdf_value_grad_layout(cfg, cfg.d_out)
-    n, dev = x.shape[0], x.device
-    geom = sdf_geometry(cfg)
-    blocks = build.n_blocks(dev)
+    n, geom = x.shape[0], sdf_geometry(cfg)
+    blocks = build.n_blocks(x.device)
     with BWD_COUNTER.launch():
-        lib = build.load_library()
-        n_stage, n_part, n_scratch = build.workspace(
-            lib.copenerf_sdf_out_bwd_workspace, n, *geom, cfg.d_out, blocks)
-        f32 = dict(dtype=torch.float32, device=dev)
-        stage = torch.empty(n_stage, **f32)
-        partial = torch.empty(n_part, **f32)
-        scratch = torch.empty(n_scratch, **f32)
-        grads = torch.zeros(gsize, **f32)
-        x_bar = torch.empty((n, 4), **f32)
-        O = build.offsets
-        code = lib.copenerf_sdf_out_bwd(
-            x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
-            O(offs["b"]), O(offs["wp"]), O(offs["wtp"]), offs["w_last0"],
-            offs["b_last0"], offs["wftp"], grads.data_ptr(), O(goffs["gw"]),
-            O(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
-            scratch.data_ptr(), n, *geom, float(cfg.scale), cfg.d_out, blocks,
-            build.stream(x))
-        build.check(code, "sdf_out_bwd")
+        stage, partial, scratch, grads = build.bwd_buffers(
+            "sdf_out_bwd", (n, *geom, cfg.d_out, blocks), gsize, x.device)
+        x_bar, = build.outputs(x, 4)
+        build.call("sdf_out_bwd", x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(),
+                   params.data_ptr(),
+                   *offs.c("b", "wp", "wtp", "w_last0", "b_last0", "wftp"),
+                   grads.data_ptr(), *goffs.c("gw", "gb"), stage.data_ptr(),
+                   partial.data_ptr(), scratch.data_ptr(), n, *geom, float(cfg.scale),
+                   cfg.d_out, blocks, build.stream(x))
         bars = unpack_sdf_value_grads(grads, goffs, cfg, cfg.d_out)
     return x_bar, bars
 
 
 class SdfOut(torch.autograd.Function):
-    """out (n, d_out) of x (n, 4); inputs after x: the effective W
-    (out, in) of every SDF layer, then every b."""
+    """out (n, d_out) of x (n, 4); ``packed`` is the outgrad pack
+    (``pack.pack_outgrad``) of the inputs after x: the effective W
+    (out, in) of every SDF layer, then every b, which carry the
+    gradients."""
 
     @staticmethod
-    def forward(ctx, cfg, x, *wb):
-        n_lin = len(wb) // 2
-        packed = pack_outgrad_layers(list(zip(wb[:n_lin], wb[n_lin:])))
+    def forward(ctx, cfg, packed, x, *wb):
         ctx.cfg, ctx.packed = cfg, packed
         ctx.save_for_backward(x)
         return launch_out_fwd(cfg, packed, x)
@@ -110,8 +94,9 @@ class SdfOut(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, obar):
         x, = ctx.saved_tensors
-        x_bar, bars = sdf_out_bwd_cuda(ctx.cfg, ctx.packed, x, obar.contiguous())
-        return (None, x_bar, *[w for w, _ in bars], *[b for _, b in bars])
+        obar, = build.cotangents(x, (obar,), (ctx.cfg.d_out,))
+        x_bar, bars = sdf_out_bwd_cuda(ctx.cfg, ctx.packed, x, obar)
+        return (None, None, x_bar, *build.weight_args(bars))
 
 
 def sdf_out(net, x: torch.Tensor) -> torch.Tensor:
@@ -119,7 +104,6 @@ def sdf_out(net, x: torch.Tensor) -> torch.Tensor:
     first order."""
     if x.device.type == "cpu":
         return sdf_out_plain(net, x)
-    lead = x.shape[:-1]
-    ws, bs = zip(*effective_layers(net))
-    out = SdfOut.apply(net.cfg, x.reshape(-1, 4).contiguous(), *ws, *bs)
-    return out.reshape(lead + (net.cfg.d_out,))
+    out = apply_with_cached_pack(SdfOut, (net,), pack_outgrad,
+                                 x.reshape(-1, 4).contiguous())
+    return out.reshape(x.shape[:-1] + (net.cfg.d_out,))

@@ -31,16 +31,12 @@ def launch_value(cfg, packed, x: torch.Tensor,
     check_sdf_geometry(cfg)
     build.check_input(x, "x", cfg.d_in)
     params, offs = packed
-    if params.device != x.device:
-        raise ValueError(f"weights on {params.device}, x on {x.device}")
+    build.check_pack(params, x)
     with counter.launch():
-        out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-        code = build.load_library().copenerf_sdf_value(
-            x.data_ptr(), out.data_ptr(), params.data_ptr(),
-            build.offsets(offs["b"]), build.offsets(offs["wp"]), offs["w_last0"],
-            offs["b_last0"], x.shape[0], *sdf_geometry(cfg), float(cfg.scale),
-            build.stream(x))
-        build.check(code, "sdf_value")
+        out, = build.outputs(x, None)
+        build.call("sdf_value", x.data_ptr(), out.data_ptr(), params.data_ptr(),
+                   *offs.c("b", "wp", "w_last0", "b_last0"), x.shape[0],
+                   *sdf_geometry(cfg), float(cfg.scale), build.stream(x))
     return out
 
 

@@ -10,7 +10,8 @@ device: a CUDA tensor goes through ``SdfValueDiff`` (an
 launches K3-bwd, or raises), a CPU tensor takes ``sdf_value_diff_plain``.
 The Function's inputs are x and the SDF net's effective weights and
 biases, so autograd carries the kernel's W-bars through weight norm, and
-their pack, the one the net's K2 launches use (built once a train step).
+their pack, the one cached on the net that its K2 launches read (built
+once a train step).
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import build
-from .pack import (check_sdf_geometry, effective_layers, pack_sdf_value, sdf_geometry,
-                   sdf_value_grad_layout, unpack_sdf_value_grads)
+from .pack import (apply_with_cached_pack, check_sdf_geometry, pack_sdf_value,
+                   sdf_geometry, sdf_value_grad_layout, unpack_sdf_value_grads)
 from .sdf_value import launch_value
 
 FWD_COUNTER = build.KernelCounter("sdf_value_diff_fwd")
@@ -40,28 +41,17 @@ def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
     build.check_input(obar.reshape(-1, 1), "obar", 1)
     params, offs = packed
     goffs, gsize = sdf_value_grad_layout(cfg)
-    n, dev = x.shape[0], x.device
-    geom = sdf_geometry(cfg)
-    blocks = build.n_blocks(dev)
+    n, geom = x.shape[0], sdf_geometry(cfg)
+    blocks = build.n_blocks(x.device)
     with BWD_COUNTER.launch():
-        lib = build.load_library()
-        n_stage, n_part, n_scratch = build.workspace(
-            lib.copenerf_sdf_value_bwd_workspace, n, *geom, blocks)
-        f32 = dict(dtype=torch.float32, device=dev)
-        stage = torch.empty(n_stage, **f32)
-        partial = torch.empty(n_part, **f32)
-        scratch = torch.empty(n_scratch, **f32)
-        grads = torch.zeros(gsize, **f32)
-        x_bar = torch.empty((n, 4), **f32)
-        code = lib.copenerf_sdf_value_bwd(
-            x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(), params.data_ptr(),
-            build.offsets(offs["b"]), build.offsets(offs["wp"]),
-            build.offsets(offs["wtp"]), offs["w_last0"], offs["b_last0"],
-            grads.data_ptr(), build.offsets(goffs["gw"]),
-            build.offsets(goffs["gb"]), stage.data_ptr(), partial.data_ptr(),
-            scratch.data_ptr(), n, *geom, float(cfg.scale), blocks,
-            build.stream(x))
-        build.check(code, "sdf_value_bwd")
+        stage, partial, scratch, grads = build.bwd_buffers(
+            "sdf_value_bwd", (n, *geom, blocks), gsize, x.device)
+        x_bar, = build.outputs(x, 4)
+        build.call("sdf_value_bwd", x.data_ptr(), obar.data_ptr(), x_bar.data_ptr(),
+                   params.data_ptr(), *offs.c("b", "wp", "wtp", "w_last0", "b_last0"),
+                   grads.data_ptr(), *goffs.c("gw", "gb"), stage.data_ptr(),
+                   partial.data_ptr(), scratch.data_ptr(), n, *geom, float(cfg.scale),
+                   blocks, build.stream(x))
         bars = unpack_sdf_value_grads(grads, goffs, cfg)
     return x_bar, bars
 
@@ -69,9 +59,8 @@ def sdf_value_bwd_cuda(cfg, packed, x: torch.Tensor, obar: torch.Tensor):
 class SdfValueDiff(torch.autograd.Function):
     """sdf (n,) of x (n, 4); inputs after x: the effective W (out, in) of
     every SDF layer, then every b. ``packed`` is their value pack
-    (``pack.pack_sdf_value_layers``, or ``pack.pack_sdf_value`` of the net
-    they come from); the kernels read it, and the W and b carry the
-    gradients."""
+    (``pack.pack_sdf_value`` of the net they come from); the kernels read
+    it, and the W and b carry the gradients."""
 
     @staticmethod
     def forward(ctx, cfg, packed, x, *wb):
@@ -83,17 +72,14 @@ class SdfValueDiff(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, obar):
         x, = ctx.saved_tensors
-        x_bar, bars = sdf_value_bwd_cuda(ctx.cfg, ctx.packed, x,
-                                         obar.contiguous())
-        return (None, None, x_bar, *[w for w, _ in bars], *[b for _, b in bars])
+        obar, = build.cotangents(x, (obar,), (None,))
+        x_bar, bars = sdf_value_bwd_cuda(ctx.cfg, ctx.packed, x, obar)
+        return (None, None, x_bar, *build.weight_args(bars))
 
 
 def sdf_value_diff(net, x: torch.Tensor) -> torch.Tensor:
     """Differentiable SDF value of (..., 4) points -> (...,)."""
     if x.device.type == "cpu":
         return sdf_value_diff_plain(net, x)
-    lead = x.shape[:-1]
-    ws, bs = zip(*effective_layers(net))
-    out = SdfValueDiff.apply(net.cfg, pack_sdf_value(net), x.reshape(-1, 4).contiguous(),
-                             *ws, *bs)
-    return out.reshape(lead)
+    return apply_with_cached_pack(SdfValueDiff, (net,), pack_sdf_value,
+                                  x.reshape(-1, 4).contiguous()).reshape(x.shape[:-1])

@@ -29,8 +29,8 @@ the reduction; K1-bwd's frozen-fields overload as
 pipeline,
 ``value_step_16384``: a K2 and a K3-fwd launch on 16,384 rows each after a
 weight update, so with the weight packing a train step does for them, and
-``color_pack``: the color pack ``ColorMLP`` builds on every call (its
-events' time is the host's, its profiler split the device's).
+``color_pack``: the color pack ``pack.pack_color`` builds on a cache miss
+(its events' time is the host's, its profiler split the device's).
 ``--root`` imports ``copenerf_torch`` (and builds its kernels) from
 another checkout, e.g. a parent commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists, so two versions compare on one card in

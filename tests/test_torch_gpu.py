@@ -396,7 +396,7 @@ def test_k1_bwd_frozen_matches_the_full_kernel_at_full_width_on_card():
                                    *zip(*pack.effective_layers(color_net)))
           for t in group]
     xs = [t.clone().requires_grad_(True) for t in (x, d)]
-    out = RC.RenderCore.apply(scfg, ccfg, *xs, *wb)
+    out = RC.RenderCore.apply(scfg, ccfg, packed, *xs, *wb)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got = torch.autograd.grad(out, xs, (sbar, gbar, cbar))
@@ -425,7 +425,7 @@ def test_pose_steps_frozen_kernel_match_the_full_kernel_on_card(monkeypatch):
         cots = [torch.zeros((x.shape[0], w), device=x.device) if c is None
                 else c.contiguous() for c, w in ((sbar, 1), (gbar, 4), (cbar, 3))]
         x_bar, d_bar, _, _ = RC.rendercore_bwd_cuda(*ctx.cfgs, ctx.packed, x, dirs, *cots)
-        return (None, None, x_bar, d_bar, *[None] * (len(ctx.needs_input_grad) - 4))
+        return (None, None, None, x_bar, d_bar, *[None] * (len(ctx.needs_input_grad) - 5))
 
     def three_steps(want):
         fields, batch, _ = _small_step(False, "cuda")
@@ -476,11 +476,12 @@ class _FilledEmpty:
 def test_full_bwd_reads_nothing_it_did_not_write_on_card(kernel, monkeypatch):
     """Full K1-bwd and K6-bwd on 1,000 rows (a ragged last tile) with every
     buffer their launcher makes by ``torch.empty`` (the staged rows, the
-    reduction's partial sums, the scratch, the outputs) filled with NaN,
+    reduction's partial sums, the scratch, the outputs; ``build.bwd_buffers``
+    and ``build.outputs`` make them for every launcher) filled with NaN,
     then with zeros: every output finite and the two launches bitwise
     alike, so no staged row past n, and no staged value left unwritten, is
     read."""
-    from copenerf_torch.ops.kernels import pack
+    from copenerf_torch.ops.kernels import build, pack
 
     _require_cuda()
     n = 1000
@@ -497,7 +498,8 @@ def test_full_bwd_reads_nothing_it_did_not_write_on_card(kernel, monkeypatch):
         packed = pack.pack_rendercore(sdf_net, color_net)
     outs = []
     for value in (float("nan"), 0.0):
-        monkeypatch.setattr(module, "torch", _FilledEmpty(value))
+        for mod in (module, build):
+            monkeypatch.setattr(mod, "torch", _FilledEmpty(value))
         out = launch(sdf_net.cfg, color_net.cfg, packed, *inputs, *cots)
         torch.cuda.synchronize()
         outs.append([t for t in out if torch.is_tensor(t)]

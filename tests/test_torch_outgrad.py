@@ -30,8 +30,13 @@ from copenerf_tpu.ops.pallas.sdf_kernels import get_fused_ops
 from copenerf_torch.models import exchange as X
 from copenerf_torch.models import fields as TF
 from copenerf_torch.models.mlp import perturb_
+from copenerf_torch.ops.kernels import build, emulate
+from copenerf_torch.ops.kernels import color as CK
 from copenerf_torch.ops.kernels import outgrad as OG
 from copenerf_torch.ops.kernels import pack
+from copenerf_torch.ops.kernels import rendercore as RC
+from copenerf_torch.ops.kernels import sdf_value as SV
+from copenerf_torch.ops.kernels import sdf_value_diff as SVD
 from test_torch_train_kernels import assert_tree_close, grads_as_jax, rows
 
 SDF = JF.SDFConfig(d_in=4, d_out=33, d_hidden=64, n_layers=4, skip_in=(2,),
@@ -159,7 +164,6 @@ def test_outgrad_pack_layout(nets):
                                    w[0], rtol=0, atol=0)
         torch.testing.assert_close(P[offs["b_feat"]:offs["b_feat"] + feat.shape[0]],
                                    b[1:], rtol=0, atol=0)
-    assert pack.pack_outgrad(tp["sdf"])[0] is P      # cached while unchanged
 
 
 def test_outgrad_geometry_check():
@@ -180,3 +184,75 @@ def test_outgrad_cuda_entries_refuse_cpu_tensors(nets):
     with pytest.raises(ValueError, match="CUDA tensor"):
         OG.outgrad_bwd_cuda(cfg, packed, x, torch.zeros(8, cfg.d_out),
                             torch.zeros(8, 4))
+
+
+class _Seen(Exception):
+    """Raised by a spied forward launcher once it has recorded its pack."""
+
+
+# Per cached pack: its nets (0 the SDF net, 1 the color net), the no-grad
+# entry, the autograd.Function, the modules whose forward launcher both
+# call, that launcher's name, the pack's place among its arguments, and the
+# pack built from scratch out of each net's effective layers.
+CACHED_PACKS = {
+    "sdf_value": (pack.pack_sdf_value, (0,), SV.sdf_value_cuda, SVD.SdfValueDiff,
+                  (SV, SVD), "launch_value", 1, pack.pack_sdf_value_layers),
+    "outgrad": (pack.pack_outgrad, (0,), OG.sdf_outgrad_cuda, OG.SdfOutGrad, (OG,),
+                "launch_outgrad_fwd", 1, pack.pack_outgrad_layers),
+    "color": (pack.pack_color, (1,), CK.color_fwd_cuda, CK.ColorMLP, (CK,),
+              "launch_color_fwd", 1, lambda c: pack.pack_color_layers(c, CK_CFG)),
+    "rendercore": (pack.pack_rendercore, (0, 1), RC.rendercore_fwd_cuda, RC.RenderCore,
+                   (RC,), "launch_fwd", 2,
+                   lambda s, c: pack.pack_rendercore_layers(s, c, CK_CFG)),
+}
+CK_CFG = emulate.nets("small")[1].cfg
+
+
+@pytest.mark.parametrize("kind", sorted(CACHED_PACKS))
+def test_cached_pack_is_the_one_every_path_reads(kind, monkeypatch):
+    """The pack cached on its net is the same object while the weights are
+    unchanged, and a new one, bitwise the pack built from scratch, after an
+    Adam step updates them in place. The autograd.Function gets the very
+    object the no-grad launch reads (both call one forward launcher, spied
+    here, on CPU rows past the emulation's input check), before the step
+    and after it, when the Function's call misses and packs the effective
+    layers it computed for its weight inputs."""
+    cached, which, no_grad, function, modules, launcher, at, build_pack = \
+        CACHED_PACKS[kind]
+    nets = tuple(emulate.nets("small")[i] for i in which)
+    g = torch.Generator().manual_seed(3)
+    x, d, grad = (torch.randn((8, w), generator=g) for w in (4, 3, 4))
+    rows = {"sdf_value": (x,), "outgrad": (x,), "rendercore": (x, d),
+            "color": (x, d, grad, torch.randn((8, CK_CFG.d_feature), generator=g))}[kind]
+    seen = []
+
+    def spy(*args):
+        seen.append(args[at])
+        raise _Seen
+
+    for module in modules:
+        monkeypatch.setattr(module, launcher, spy)
+    monkeypatch.setattr(build, "check_input", emulate._check_host_input)
+
+    def both_paths():
+        seen.clear()
+        with pytest.raises(_Seen):
+            pack.apply_with_cached_pack(function, nets, cached, *rows)
+        with torch.no_grad(), pytest.raises(_Seen):
+            no_grad(*nets, *rows)
+        return seen
+
+    first = cached(*nets)
+    assert cached(*nets) is first
+    assert [p is first for p in both_paths()] == [True, True]
+    params = [p for net in nets for p in net.parameters()]
+    opt = torch.optim.Adam(params, lr=1e-2)
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    after = both_paths()
+    assert after[0] is after[1] is cached(*nets) and after[0] is not first
+    with torch.no_grad():
+        fresh = build_pack(*(pack.effective_layers(net) for net in nets))
+    assert torch.equal(after[0][0], fresh[0]) and not torch.equal(first[0], fresh[0])
+    assert after[0][1] == fresh[1]

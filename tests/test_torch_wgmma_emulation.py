@@ -325,7 +325,8 @@ def test_emulated_k4_bwd_past_one_warpgroup(emu, hidden, chan):
         xx = xx.clone().requires_grad_(True)
         return torch.autograd.grad(fn(xx), [xx, *m.parameters()], cots, allow_unused=True)
 
-    got = grads(lambda xx: OG.SdfOutGrad.apply(cfg, xx, *ws, *bs), net, x, [obar, gbar])
+    got = grads(lambda xx: OG.SdfOutGrad.apply(cfg, pack.pack_outgrad(net), xx, *ws, *bs),
+                net, x, [obar, gbar])
     plain = grads(lambda xx: OG.sdf_outgrad_plain(net, xx), net, x, [obar, gbar])
     r64 = grads(lambda xx: OG.sdf_outgrad_plain(net64, xx), net64, x.double(),
                 [obar.double(), gbar.double()])
@@ -355,7 +356,8 @@ def test_emulated_k7_bwd_past_one_warpgroup(emu, hidden, chan):
         xx = xx.clone().requires_grad_(True)
         return torch.autograd.grad(fn(xx), [xx, *m.parameters()], cot)
 
-    got = grads(lambda xx: SO.SdfOut.apply(cfg, xx, *ws, *bs), net, x, obar)
+    got = grads(lambda xx: SO.SdfOut.apply(cfg, pack.pack_outgrad(net), xx, *ws, *bs),
+                net, x, obar)
     plain = grads(lambda xx: SO.sdf_out_plain(net, xx), net, x, obar)
     r64 = grads(lambda xx: SO.sdf_out_plain(net64, xx), net64, x.double(), obar.double())
     _within_plain(got, plain, r64)
@@ -534,7 +536,8 @@ def test_emulated_k5_bwd_past_one_warpgroup(emu, name):
         xs = [t.clone().requires_grad_(True) for t in xs]
         return torch.autograd.grad(fn(*xs), [*xs, *m.parameters()], cot)
 
-    got = grads(lambda *a: CK.ColorMLP.apply(cfg, *a, *ws, *bs), net, ins, cbar)
+    got = grads(lambda *a: CK.ColorMLP.apply(cfg, pack.pack_color(net), *a, *ws, *bs),
+                net, ins, cbar)
     plain = grads(lambda *a: CK.color_plain(net, *a), net, ins, cbar)
     r64 = grads(lambda *a: CK.color_plain(net64, *a), net64, [t.double() for t in ins],
                 cbar.double())
@@ -661,8 +664,9 @@ def _kernel_grads(kernel, chan):
     ws, bs = zip(*pack.effective_layers(sdf))
     wc, bc = zip(*pack.effective_layers(col))
     fn = RC.RenderCore if kernel == "K1" else RCC.RenderCoreCons
-    return _rc_grads(lambda *a: fn.apply(scfg, ccfg, *a, *ws, *bs, *wc, *bc), (sdf, col),
-                     ins, cots)
+    packed = pack.pack_rendercore(sdf, col)
+    return _rc_grads(lambda *a: fn.apply(scfg, ccfg, packed, *a, *ws, *bs, *wc, *bc),
+                     (sdf, col), ins, cots)
 
 
 def _rendercore_bwd_check(kernel, chan):
@@ -705,18 +709,19 @@ def test_emulated_k1_bwd_frozen_matches_the_full_kernel(emu, chan):
     groups = [*zip(*pack.effective_layers(sdf)), *zip(*pack.effective_layers(col))]
     wb = [t.detach() for g in groups for t in g]
     xs = [t.clone().requires_grad_(True) for t in (x, d)]
-    frozen = RC.RenderCore.apply(scfg, ccfg, *xs, *wb)[0].grad_fn.apply(*cots)
-    assert len(frozen) == 4 + len(wb)
-    assert frozen[:2] == (None, None) and all(g is None for g in frozen[4:])
+    frozen = RC.RenderCore.apply(scfg, ccfg, pack.pack_rendercore(sdf, col), *xs,
+                                 *wb)[0].grad_fn.apply(*cots)
+    assert len(frozen) == 5 + len(wb)
+    assert frozen[:3] == (None, None, None) and all(g is None for g in frozen[5:])
     full = _kernel_grads("K1", chan)
-    assert torch.equal(frozen[2], full[0]) and torch.equal(frozen[3], full[1])
+    assert torch.equal(frozen[3], full[0]) and torch.equal(frozen[4], full[1])
 
     def grads(nets, xs, cs):
         xs = [t.clone().requires_grad_(True) for t in xs]
         return torch.autograd.grad(RC.rendercore_fwd_plain(*nets, *xs), xs, cs)
 
     sdf64, col64 = copy.deepcopy(sdf).double(), copy.deepcopy(col).double()
-    _within_plain(frozen[2:4], grads((sdf, col), (x, d), cots),
+    _within_plain(frozen[3:5], grads((sdf, col), (x, d), cots),
                   grads((sdf64, col64), (x.double(), d.double()),
                         [c.double() for c in cots]))
 
@@ -739,7 +744,8 @@ def test_emulated_k1_bwd_one_trainable_color_layer_takes_the_full_kernel(emu):
 
     def kernel(*xs):
         wb = [*zip(*pack.effective_layers(nets[0])), *zip(*pack.effective_layers(nets[1]))]
-        return RC.RenderCore.apply(scfg, ccfg, *xs, *[t for g in wb for t in g])
+        return RC.RenderCore.apply(scfg, ccfg, pack.pack_rendercore(*nets), *xs,
+                                   *[t for g in wb for t in g])
 
     def grads(fn, ps, xs, cs):
         xs = [t.clone().requires_grad_(True) for t in xs]
